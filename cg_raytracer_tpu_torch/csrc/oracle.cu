@@ -57,25 +57,10 @@ __global__ void __launch_bounds__(kThreads)
   int slot = -1;
   if (tm >= 0.0f) closest_sweep(s_tri, num_tris, r, t_best, slot, u, v);
   if (M == Mode::kBounce) {
-    int bits = 0;
-    if (slot >= 0) {
-      // pointInShadow per light (main.cpp:104-135), from the hit point.
-      const float px = r.ox + r.dx * t_best;
-      const float py = r.oy + r.dy * t_best;
-      const float pz = r.oz + r.dz * t_best;
-      for (int l = 0; l < num_lights; ++l) {
-        const float tx = s_light[3 * l] - px;
-        const float ty = s_light[3 * l + 1] - py;
-        const float tz = s_light[3 * l + 2] - pz;
-        const float dist = sqrtf(tx * tx + ty * ty + tz * tz);
-        const float inv = 1.0f / fmaxf(dist, kNormEps);
-        const float sdx = tx * inv, sdy = ty * inv, sdz = tz * inv;
-        const Ray s{px + kShadowEps * sdx, py + kShadowEps * sdy, pz + kShadowEps * sdz,
-                    sdx, sdy, sdz};
-        if (any_hit_sweep(s_tri, num_tris, s, dist - kShadowEps)) bits |= 1 << l;
-      }
-    }
-    bits_out[i] = bits;
+    bits_out[i] = slot >= 0 ? shadow_bits(s_tri, num_tris, s_light, num_lights,
+                                          r.ox + r.dx * t_best, r.oy + r.dy * t_best,
+                                          r.oz + r.dz * t_best)
+                            : 0;
   }
   t_out[i] = slot >= 0 ? t_best : CUDART_INF_F;
   slot_out[i] = slot;

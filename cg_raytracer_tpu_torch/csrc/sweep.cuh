@@ -1,8 +1,11 @@
-// Shared device code of the brute-force sweep kernels (oracle.cu, trace.cu).
+// Shared device code of the brute-force sweep kernels (oracle.cu, trace.cu,
+// record.cu, shade.cu).
 //
 // Counterpart of the helpers in cg_raytracer_tpu/ops/pallas_kernels.py:
-// _mt_tile (Moller-Trumbore with the same epsilons and the det_safe form) and
-// _sphere_tile (the ray-sphere quadratic).  One thread owns one ray and walks
+// _mt_tile (Moller-Trumbore with the same epsilons and the det_safe form),
+// _sphere_tile (the ray-sphere quadratic), the per-light shadow sweeps, and
+// the attribute fetch, facing normal, reflection and continue-test that
+// _trace_kernel and _bounce_refl_tile share.  One thread owns one ray and walks
 // the triangle table, which every block stages in shared memory: all threads
 // of a warp read the same triangle at the same step, so each read is a
 // shared-memory broadcast.  The loop over triangles runs at run time, so one
@@ -102,6 +105,94 @@ __device__ __forceinline__ bool any_hit_sweep(const float* s_tri, int num_tris,
     if (mt(s_tri + 9 * k, r, t, u, v) && t < t_max) return true;
   }
   return false;
+}
+
+// Shadow bits from a hit point: bit l set where light l (s_light [L, 3]
+// positions) is occluded (pointInShadow, main.cpp:104-135).
+__device__ __forceinline__ int shadow_bits(const float* s_tri, int num_tris,
+                                           const float* s_light, int num_lights, float px,
+                                           float py, float pz) {
+  int bits = 0;
+  for (int l = 0; l < num_lights; ++l) {
+    const float tx = s_light[3 * l] - px;
+    const float ty = s_light[3 * l + 1] - py;
+    const float tz = s_light[3 * l + 2] - pz;
+    const float dist = sqrtf(tx * tx + ty * ty + tz * tz);
+    const float inv = 1.0f / fmaxf(dist, kNormEps);
+    const float sdx = tx * inv, sdy = ty * inv, sdz = tz * inv;
+    const Ray s{px + kShadowEps * sdx, py + kShadowEps * sdy, pz + kShadowEps * sdz,
+                sdx, sdy, sdz};
+    if (any_hit_sweep(s_tri, num_tris, s, dist - kShadowEps)) bits |= 1 << l;
+  }
+  return bits;
+}
+
+// What the shading and the next bounce read at a hit.
+struct SurfaceAt {
+  float px, py, pz, nx, ny, nz, kdx, kdy, kdz, ksx, ksy, ksz, shin;
+};
+
+// Surface at a hit (slot >= 0) at distance t: a triangle's interpolated
+// normal flipped toward the viewer and its attributes (row of s_aux [T, 19]:
+// n0 n1 n2, face normal, kd, ks, shininess), or a sphere's geometric normal
+// and inline material (row slot - T of s_sph [S, 11]; no facing flip,
+// ray_tracing.cpp:156).
+__device__ __forceinline__ SurfaceAt hit_surface(const Ray& r, float t, int slot, float u,
+                                                 float v, const float* s_aux, int num_tris,
+                                                 const float* s_sph) {
+  SurfaceAt s;
+  s.px = r.ox + r.dx * t;
+  s.py = r.oy + r.dy * t;
+  s.pz = r.oz + r.dz * t;
+  if (slot < num_tris) {
+    const float* a = s_aux + 19 * slot;
+    const float w0 = 1.0f - u - v;
+    float nx = w0 * a[0] + u * a[3] + v * a[6];
+    float ny = w0 * a[1] + u * a[4] + v * a[7];
+    float nz = w0 * a[2] + u * a[5] + v * a[8];
+    const float ninv = 1.0f / fmaxf(sqrtf(nx * nx + ny * ny + nz * nz), kNormEps);
+    nx = nx * ninv;
+    ny = ny * ninv;
+    nz = nz * ninv;
+    const float flip = (a[9] * r.dx + a[10] * r.dy + a[11] * r.dz) < 0.0f ? 1.0f : -1.0f;
+    s.nx = nx * flip;
+    s.ny = ny * flip;
+    s.nz = nz * flip;
+    s.kdx = a[12], s.kdy = a[13], s.kdz = a[14];
+    s.ksx = a[15], s.ksy = a[16], s.ksz = a[17];
+    s.shin = a[18];
+  } else {
+    const float* row = s_sph + 11 * (slot - num_tris);
+    const float snx = s.px - row[0], sny = s.py - row[1], snz = s.pz - row[2];
+    const float sinv = 1.0f / fmaxf(sqrtf(snx * snx + sny * sny + snz * snz), kNormEps);
+    s.nx = snx * sinv;
+    s.ny = sny * sinv;
+    s.nz = snz * sinv;
+    s.kdx = row[4], s.kdy = row[5], s.kdz = row[6];
+    s.ksx = row[7], s.ksy = row[8], s.ksz = row[9];
+    s.shin = row[10];
+  }
+  return s;
+}
+
+// Unit reflection of the ray's direction about the normal n (glm::reflect,
+// then normalised): the specular lobe and the next bounce's direction.
+__device__ __forceinline__ void reflect_unit(const Ray& r, float nx, float ny, float nz,
+                                             float& rx, float& ry, float& rz) {
+  const float ddn = r.dx * nx + r.dy * ny + r.dz * nz;
+  rx = r.dx - 2.0f * ddn * nx;
+  ry = r.dy - 2.0f * ddn * ny;
+  rz = r.dz - 2.0f * ddn * nz;
+  const float rinv = 1.0f / fmaxf(sqrtf(rx * rx + ry * ry + rz * rz), kNormEps);
+  rx = rx * rinv;
+  ry = ry * rinv;
+  rz = rz * rinv;
+}
+
+// The reflection continue-test: any ks > 0.01, or ks.z alone under the
+// reference's comma-operator quirk (main.cpp:246).
+__device__ __forceinline__ bool continues(const SurfaceAt& s, int quirk_ks_z) {
+  return quirk_ks_z ? s.ksz > 0.01f : (s.ksx > 0.01f || s.ksy > 0.01f || s.ksz > 0.01f);
 }
 
 // Ray-sphere quadratic (intersect_spheres_one parity); a2 = dot(d, d).

@@ -67,51 +67,13 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     if (slot < 0) break;  // miss: black from here on
-    const float px = r.ox + r.dx * t_best;
-    const float py = r.oy + r.dy * t_best;
-    const float pz = r.oz + r.dz * t_best;
-
-    float nx, ny, nz, kdx, kdy, kdz, ksx, ksy, ksz, shin;
-    if (slot < num_tris) {
-      const float* a = s_aux + 19 * slot;
-      // Interpolated shading normal, flipped toward the viewer.
-      const float w0 = 1.0f - u - v;
-      nx = w0 * a[0] + u * a[3] + v * a[6];
-      ny = w0 * a[1] + u * a[4] + v * a[7];
-      nz = w0 * a[2] + u * a[5] + v * a[8];
-      const float ninv = 1.0f / fmaxf(sqrtf(nx * nx + ny * ny + nz * nz), kNormEps);
-      nx = nx * ninv;
-      ny = ny * ninv;
-      nz = nz * ninv;
-      const float flip = (a[9] * r.dx + a[10] * r.dy + a[11] * r.dz) < 0.0f ? 1.0f : -1.0f;
-      nx = nx * flip;
-      ny = ny * flip;
-      nz = nz * flip;
-      kdx = a[12], kdy = a[13], kdz = a[14];
-      ksx = a[15], ksy = a[16], ksz = a[17];
-      shin = a[18];
-    } else {
-      // Sphere: geometric normal, no facing flip (ray_tracing.cpp:156).
-      const float* row = s_sph + 11 * (slot - num_tris);
-      const float snx = px - row[0], sny = py - row[1], snz = pz - row[2];
-      const float sinv = 1.0f / fmaxf(sqrtf(snx * snx + sny * sny + snz * snz), kNormEps);
-      nx = snx * sinv;
-      ny = sny * sinv;
-      nz = snz * sinv;
-      kdx = row[4], kdy = row[5], kdz = row[6];
-      ksx = row[7], ksy = row[8], ksz = row[9];
-      shin = row[10];
-    }
-
+    const SurfaceAt sf = hit_surface(r, t_best, slot, u, v, s_aux, num_tris, s_sph);
+    const float px = sf.px, py = sf.py, pz = sf.pz, nx = sf.nx, ny = sf.ny, nz = sf.nz;
+    const float kdx = sf.kdx, kdy = sf.kdy, kdz = sf.kdz, ksx = sf.ksx, ksy = sf.ksy,
+                ksz = sf.ksz, shin = sf.shin;
     // Reflection of the view ray: the specular lobe and the next bounce.
-    const float ddn = r.dx * nx + r.dy * ny + r.dz * nz;
-    float rx = r.dx - 2.0f * ddn * nx;
-    float ry = r.dy - 2.0f * ddn * ny;
-    float rz = r.dz - 2.0f * ddn * nz;
-    const float rinv = 1.0f / fmaxf(sqrtf(rx * rx + ry * ry + rz * rz), kNormEps);
-    rx = rx * rinv;
-    ry = ry * rinv;
-    rz = rz * rinv;
+    float rx, ry, rz;
+    reflect_unit(r, nx, ny, nz, rx, ry, rz);
 
     for (int l = 0; l < num_lights; ++l) {
       const float* lrow = s_light + 6 * l;
@@ -138,10 +100,7 @@ __global__ void __launch_bounds__(kThreads)
       cb = cb + tpb * lrow[5] * (kdz * dcos + ksz * spec);
     }
 
-    if (level + 1 >= max_depth) break;
-    const bool reflective =
-        quirk_ks_z ? ksz > 0.01f : (ksx > 0.01f || ksy > 0.01f || ksz > 0.01f);
-    if (!reflective) break;
+    if (level + 1 >= max_depth || !continues(sf, quirk_ks_z)) break;
     tpr = tpr * ksx;
     tpg = tpg * ksy;
     tpb = tpb * ksz;

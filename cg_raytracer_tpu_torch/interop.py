@@ -1,4 +1,4 @@
-"""Carry the JAX package's scene and camera across as numpy arrays.
+"""Carry the JAX package's scene, camera and parameter dicts across as numpy arrays.
 
 The JAX ``Scene`` and ``Camera`` are pytrees; ``jax.tree_util.tree_leaves``
 lists their arrays in field order.  These functions take exactly those leaves,
@@ -49,3 +49,11 @@ def scene_from_numpy(fields, device="cpu") -> Scene:
 def camera_from_numpy(fields, device="cpu") -> Camera:
     """``fields``: the JAX Camera's leaves as numpy arrays, in ``CAMERA_LEAVES`` order."""
     return Camera(*_tensors(fields, CAMERA_LEAVES, device))
+
+
+def params_from_numpy(params, device="cpu") -> dict:
+    """A parameter dict of the JAX package (``material_params``,
+    ``vertex_params``), its values as numpy arrays, as the port's dict of
+    float32 tensors on ``device`` under the same keys."""
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, copy=True, order="C")).to(device)
+            for k, v in params.items()}

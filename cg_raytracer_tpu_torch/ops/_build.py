@@ -25,7 +25,7 @@ import subprocess
 import threading
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = ("oracle.cu", "trace.cu")
+SOURCES = ("oracle.cu", "trace.cu", "record.cu", "shade.cu")
 HEADERS = ("sweep.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -78,6 +78,10 @@ def _declare(lib) -> None:
         "cgrt_anyhit": [p, p, p, i, p, i, p, p],
         "cgrt_bounce": [p, p, p, i, p, i, p, i, p, p, p, p, p, p],
         "cgrt_trace": [p, p, i, p, i, p, p, i, p, i, i, i, p, p],
+        "cgrt_record_trace": [p, p, i, p, i, p, p, i, i, i] + [p] * 8 + [p],
+        "cgrt_bounce_refl": [p, p, p, i, p, i, p, p, i, i] + [p] * 8 + [p],
+        "cgrt_shade_fwd": [p, p, p, p, i, p, p, i, i, p, i, p, i] + [p] * 4 + [p],
+        "cgrt_shade_bwd": [p, p, p, p, i, p, p, i, i, p, i, p, i] + [p] * 10 + [p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

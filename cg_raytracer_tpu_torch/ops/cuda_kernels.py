@@ -1,16 +1,21 @@
 """Hand-written CUDA kernels for small scenes: the counterpart of
 ``cg_raytracer_tpu/ops/pallas_kernels.py``.
 
-Four kernels (``csrc/oracle.cu``, ``csrc/trace.cu``) replace four Pallas kernels:
+Six kernels (``csrc/oracle.cu``, ``csrc/trace.cu``, ``csrc/record.cu``)
+replace six Pallas kernels:
 
-====================  ======================================  ==============
-wrapper               Pallas kernel replaced                  plain twin
-====================  ======================================  ==============
-``intersect_cuda``    ``_closest_kernel_entry`` (closest hit) ``intersect_plain``
-``occluded_cuda``     ``_anyhit_kernel`` (shadow any-hit)     ``occluded_plain``
-``bounce_cuda``       ``_bounce_kernel`` (hit + shadow bits)  ``bounce_plain``
-``trace_cuda``        ``_trace_kernel`` (whole forward trace) ``trace_plain``
-====================  ======================================  ==============
+=====================  ==========================================  ======================
+wrapper                Pallas kernel replaced                      plain twin
+=====================  ==========================================  ======================
+``intersect_cuda``     ``_closest_kernel_entry`` (closest hit)     ``intersect_plain``
+``occluded_cuda``      ``_anyhit_kernel`` (shadow any-hit)         ``occluded_plain``
+``bounce_cuda``        ``_bounce_kernel`` (hit + shadow bits)      ``bounce_plain``
+``trace_cuda``         ``_trace_kernel`` (whole forward trace)     ``trace_plain``
+``bounce_refl_cuda``   ``_bounce_refl_kernel`` (one record level)  ``bounce_refl_plain``
+``record_trace_cuda``  ``_record_trace_kernel`` (all levels)       ``record_trace_plain``
+=====================  ==========================================  ======================
+
+The shade kernels of the two-phase structure are in ``shade.py``.
 
 Each wrapper takes the plain PyTorch twin only because its rays lie on the
 CPU; for CUDA tensors it launches its kernel or raises, and adds one to its
@@ -111,12 +116,12 @@ def _ptr(x):
     return ctypes.c_void_p(x.data_ptr() if x is not None else 0)
 
 
-def _check(name, *tensors, device):
+def _check(name, *tensors, device, dtype=torch.float32):
     for x in tensors:
         if x is None:
             continue
-        if x.device != device or x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError(f"{name}: expected contiguous float32 tensors on {device}, "
+        if x.device != device or x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous {dtype} tensors on {device}, "
                              f"got {x.dtype} on {x.device} (contiguous={x.is_contiguous()})")
 
 
@@ -199,6 +204,39 @@ def _trace_kernel(tri, aux, sph, lights, o, d, max_depth, quirk_ks_z):
             int(max_depth), int(bool(quirk_ks_z)), _ptr(rgb))
     trace_cuda.launches += 1
     return rgb
+
+
+def _bounce_refl_kernel(tri, aux, lights, o, d, tm, quirk_ks_z):
+    n = o.shape[0]
+    _check("cgrt_bounce_refl", o, d, tm, tri, aux, lights, device=o.device)
+    f32 = dict(dtype=torch.float32, device=o.device)
+    t, u, v = (torch.empty((n,), **f32) for _ in range(3))
+    slot, bits = (torch.empty((n,), dtype=torch.int32, device=o.device) for _ in range(2))
+    pos, refl = torch.empty((n, 3), **f32), torch.empty((n, 3), **f32)
+    reflective = torch.empty((n,), dtype=torch.uint8, device=o.device)
+    _launch("cgrt_bounce_refl", o.device, _ptr(o), _ptr(d), _ptr(tm), n, _ptr(tri),
+            tri.shape[0], _ptr(aux), _ptr(lights), lights.shape[0], int(bool(quirk_ks_z)),
+            _ptr(t), _ptr(slot), _ptr(u), _ptr(v), _ptr(bits), _ptr(pos), _ptr(refl),
+            _ptr(reflective))
+    bounce_refl_cuda.launches += 1
+    return Hit(t, slot, u, v), bits, pos, refl, reflective.bool()
+
+
+def _record_kernel(tri, aux, lights, o, d, max_depth, quirk_ks_z):
+    n = o.shape[0]
+    _check("cgrt_record_trace", o, d, tri, aux, lights, device=o.device)
+    f32 = dict(dtype=torch.float32, device=o.device)
+    t, u, v = (torch.empty((max_depth, n), **f32) for _ in range(3))
+    slot, bits = (torch.empty((max_depth, n), dtype=torch.int32, device=o.device)
+                  for _ in range(2))
+    o_next, d_next = (torch.empty((max_depth - 1, n, 3), **f32) for _ in range(2))
+    active = torch.empty((max_depth - 1, n), dtype=torch.uint8, device=o.device)
+    _launch("cgrt_record_trace", o.device, _ptr(o), _ptr(d), n, _ptr(tri), tri.shape[0],
+            _ptr(aux), _ptr(lights), lights.shape[0], int(max_depth), int(bool(quirk_ks_z)),
+            _ptr(t), _ptr(slot), _ptr(u), _ptr(v), _ptr(bits), _ptr(o_next), _ptr(d_next),
+            _ptr(active))
+    record_trace_cuda.launches += 1
+    return t, slot, u, v, bits, o_next, d_next, active.bool()
 
 
 # --------------------------------------------------------------------------
@@ -307,6 +345,50 @@ def _trace_plain(tri, aux, sph, lights, o, d, max_depth, quirk_ks_z):
     return color
 
 
+def _bounce_refl_plain(tri, aux, lights, o, d, tm, quirk_ks_z):
+    hit, bits = _bounce_plain(tri, lights, o, d, tm)
+    hit_mask = hit.prim_id >= 0
+    p = o + d * torch.where(hit_mask, hit.t, 0.0)[:, None]
+    # The hit row's attributes; zero on a miss, whose normal is then zero and
+    # whose reflection is the unit direction.
+    attr = torch.where(hit_mask[:, None],
+                       aux[torch.clamp(hit.prim_id, 0, tri.shape[0] - 1).long()], 0.0)
+    w0 = 1.0 - hit.u - hit.v
+    nrm = _unit(w0[:, None] * attr[:, 0:3] + hit.u[:, None] * attr[:, 3:6]
+                + hit.v[:, None] * attr[:, 6:9])
+    nrm = nrm * torch.where(dot(attr[:, 9:12], d) < 0.0, 1.0, -1.0)[:, None]
+    refl = _unit(d - 2.0 * dot(d, nrm)[:, None] * nrm)
+    ks = attr[:, 15:18]
+    reflective = hit_mask & (ks[:, 2] > 0.01 if quirk_ks_z else (ks > 0.01).any(dim=1))
+    if tm is not None:  # the dead record
+        live = (tm >= 0.0)[:, None]
+        p, refl = torch.where(live, p, 0.0), torch.where(live, refl, 0.0)
+    return hit, bits, p, refl, reflective
+
+
+def _record_plain(tri, aux, lights, o, d, max_depth, quirk_ks_z):
+    levels, rays = [], []
+    tm = None
+    for level in range(max_depth):
+        hit, bits, p, refl, reflective = _bounce_refl_plain(tri, aux, lights, o, d, tm,
+                                                            quirk_ks_z)
+        levels.append((hit.t, hit.prim_id, hit.u, hit.v, bits))
+        if level + 1 >= max_depth:
+            break
+        o = p + REFLECT_EPS * refl
+        d = torch.where(reflective[:, None], refl, d)
+        tm = torch.where(reflective, INF, -1.0)
+        rays.append((o, d, reflective))
+    t, slot, u, v, bits = (torch.stack(x) for x in zip(*levels))
+    if rays:
+        o_next, d_next, active = (torch.stack(x) for x in zip(*rays))
+    else:
+        n = o.shape[0]
+        o_next = d_next = torch.zeros((0, n, 3), dtype=torch.float32, device=o.device)
+        active = torch.zeros((0, n), dtype=torch.bool, device=o.device)
+    return t, slot, u, v, bits, o_next, d_next, active
+
+
 # --------------------------------------------------------------------------
 # Public wrappers and their twins.
 # --------------------------------------------------------------------------
@@ -378,6 +460,67 @@ def bounce_plain(scene: Scene, origins, dirs, live=None):
     return _bounce(scene, origins, dirs, live, on_card=False)
 
 
+def _record_tables(scene, what):
+    if not supports_fused_bounce(scene):
+        raise ValueError(f"{what} kernel: the scene needs 1..256 triangles, no spheres and "
+                         f"at most 30 point lights (supports_fused_bounce)")
+    return _tri_table(scene), _aux_table(scene), scene.point_lights.position.contiguous()
+
+
+@torch.no_grad()
+def _bounce_refl(scene, origins, dirs, live, quirk_ks_z, on_card):
+    tables = _record_tables(scene, "bounce_refl")
+    o, d = _rays(origins, dirs)
+    tm = None
+    if live is not None:
+        tm = torch.where(live.to(o.device), INF, -1.0).to(torch.float32).contiguous()
+    run = _bounce_refl_kernel if on_card else _bounce_refl_plain
+    hit, bits, pos, refl, reflective = run(*tables, o, d, tm, quirk_ks_z)
+    return Hit(torch.where(hit.prim_id >= 0, hit.t, INF), *hit[1:]), bits, pos, refl, reflective
+
+
+def bounce_refl_cuda(scene: Scene, origins, dirs, live=None, quirk_ks_z: bool = False):
+    """One level of records: the bounce kernel's (Hit, bits) plus the hit
+    position [N, 3], the unit reflected direction [N, 3] and whether the hit
+    passes the reflection continue-test ([N] bool).  ``live`` ([N] bool):
+    rays marked dead skip every sweep and give the dead record (a miss,
+    zero position and reflection, not reflective)."""
+    return _bounce_refl(scene, origins, dirs, live, quirk_ks_z, on_card=origins.is_cuda)
+
+
+def bounce_refl_plain(scene: Scene, origins, dirs, live=None, quirk_ks_z: bool = False):
+    return _bounce_refl(scene, origins, dirs, live, quirk_ks_z, on_card=False)
+
+
+@torch.no_grad()
+def _record_trace(scene, origins, dirs, max_depth, quirk_ks_z, on_card):
+    tables = _record_tables(scene, "record_trace")
+    if max_depth < 1:
+        raise ValueError(f"max_depth must be >= 1, got {max_depth}")
+    o, d = _rays(origins, dirs)
+    run = _record_kernel if on_card else _record_plain
+    t, slot, u, v, bits, o_next, d_next, active = run(*tables, o, d, max_depth, quirk_ks_z)
+    records = [(o, d, Hit(t[0], slot[0], u[0], v[0]), bits[0],
+                torch.ones((o.shape[0],), dtype=torch.bool, device=o.device))]
+    for level in range(1, max_depth):
+        records.append((o_next[level - 1], d_next[level - 1],
+                        Hit(t[level], slot[level], u[level], v[level]), bits[level],
+                        active[level - 1]))
+    return records
+
+
+def record_trace_cuda(scene: Scene, origins, dirs, max_depth: int, quirk_ks_z: bool = False):
+    """Every level's records in one kernel launch: a list of per-level
+    (o [N, 3], d [N, 3], Hit, bits [N] i32, active [N] bool), level 0 being
+    the given rays, all active.  The format of the JAX package's
+    ``record_trace_pallas``, with the real u/v in each Hit."""
+    return _record_trace(scene, origins, dirs, max_depth, quirk_ks_z, on_card=origins.is_cuda)
+
+
+def record_trace_plain(scene: Scene, origins, dirs, max_depth: int, quirk_ks_z: bool = False):
+    return _record_trace(scene, origins, dirs, max_depth, quirk_ks_z, on_card=False)
+
+
 class _ForwardOnlyGuard(torch.autograd.Function):
     """Identity whose backward raises: differentiating a forward-only render
     fails loudly instead of returning zero gradients through the kernel."""
@@ -431,7 +574,8 @@ def trace_plain(scene: Scene, origins, dirs, max_depth: int, quirk_ks_z: bool = 
     return _trace(scene, origins, dirs, max_depth, quirk_ks_z, on_card=False)
 
 
-KERNEL_WRAPPERS = (intersect_cuda, occluded_cuda, bounce_cuda, trace_cuda)
+KERNEL_WRAPPERS = (intersect_cuda, occluded_cuda, bounce_cuda, trace_cuda, bounce_refl_cuda,
+                   record_trace_cuda)
 for _wrapper in KERNEL_WRAPPERS:
     _wrapper.launches = 0
 

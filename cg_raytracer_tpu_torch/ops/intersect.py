@@ -194,11 +194,21 @@ def reconstruct_hit(scene: Scene, origins, dirs, hit: Hit) -> Surface:
 
     The per-triangle row (3 vertices, 3 normals, kd, ks, shininess: [T, 25])
     is fetched with an exact index gather.
+
+    Grad-safe on every lane: a lane that is not a triangle hit (a miss falls
+    through to row 0, a sphere hit to its clipped row) runs the triangle math
+    on gated inputs, as the sphere branch gates its discriminant, so its
+    derivatives are finite and it adds exactly 0 to every table gradient.
+    (Ungated, a miss ray far outside row 0's triangle gives barycentrics of
+    ~1e7 whose interpolated normal can cancel to exactly zero, and the norm's
+    derivative there turns the zero cotangent into NaN.)
     """
     num_tris = scene.num_triangles
     prim = hit.prim_id.detach().long()
     valid = prim >= 0
     is_sphere = valid & (prim >= num_tris)
+    is_tri = valid & (prim < num_tris)
+    unit_x = torch.tensor([1.0, 0.0, 0.0], dtype=origins.dtype, device=origins.device)
 
     if num_tris > 0:
         tris = scene.triangles.long()
@@ -213,10 +223,18 @@ def reconstruct_hit(scene: Scene, origins, dirs, hit: Hit) -> Surface:
         v0, v1, v2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
         n0, n1, n2 = row[:, 9:12], row[:, 12:15], row[:, 15:18]
         kd_tri, ks_tri, shin_tri = row[:, 18:21], row[:, 21:24], row[:, 24]
-        t_tri, u, v, _ = moller_trumbore(origins, dirs, v0, v1, v2)
-        w0 = 1.0 - u - v
-        n_interp = safe_normalize(w0[:, None] * n0 + u[:, None] * n1 + v[:, None] * n2)
         face_n = safe_normalize(cross(v1 - v0, v2 - v0))
+        # Gated inputs: other lanes recompute on the ray that meets their
+        # row's triangle head-on at its centroid (detached), so det is the
+        # triangle's area term, and normalise a unit vector.
+        tri3 = is_tri[:, None]
+        fn_c = face_n.detach()
+        centroid = ((v0 + v1 + v2) / 3.0).detach()
+        t_tri, u, v, _ = moller_trumbore(torch.where(tri3, origins, centroid + fn_c),
+                                         torch.where(tri3, dirs, -fn_c), v0, v1, v2)
+        w0 = 1.0 - u - v
+        n_raw = w0[:, None] * n0 + u[:, None] * n1 + v[:, None] * n2
+        n_interp = safe_normalize(torch.where(tri3, n_raw, unit_x))
         facing = dot(face_n, -dirs) > 0.0
         n_tri = torch.where(facing[:, None], n_interp, -n_interp)
     else:
@@ -242,7 +260,8 @@ def reconstruct_hit(scene: Scene, origins, dirs, hit: Hit) -> Surface:
         t_big = (-qb + sq) / (2.0 * qa)
         t_sp = torch.where(t_small >= 0.0, t_small, t_big)
         t_sp = torch.where(disc_ok & (t_sp >= 0.0), t_sp, 0.0)
-        n_sp = safe_normalize(origins + dirs * t_sp[:, None] - center)
+        n_sp = safe_normalize(torch.where(is_sphere[:, None],
+                                          origins + dirs * t_sp[:, None] - center, unit_x))
         kd_sp, ks_sp = scene.spheres.kd[sp], scene.spheres.ks[sp]
         shin_sp = scene.spheres.shininess[sp]
     else:
@@ -261,4 +280,60 @@ def reconstruct_hit(scene: Scene, origins, dirs, hit: Hit) -> Surface:
         kd=torch.where(valid3, torch.where(sph3, kd_sp, kd_tri), zero3),
         ks=torch.where(valid3, torch.where(sph3, ks_sp, ks_tri), zero3),
         shininess=torch.where(valid, torch.where(is_sphere, shin_sp, shin_tri), 1.0),
+    )
+
+
+def record_surface(scene: Scene, origins, dirs, hit: Hit) -> Surface:
+    """Phase-1 surface straight from a record's (t, u, v, prim), with no
+    Moller-Trumbore recompute (``record_surface`` of the JAX package).
+
+    The two-phase record loop (``models/whitted.py::_two_phase_records``)
+    needs only position, normal, ks and valid to build the next bounce's
+    rays, and runs on a detached scene, so the recorded barycentrics are
+    exact there.  kd and shininess are not needed and return as 0 and 1.
+    Sphere hits take the geometric normal at the recorded t.
+    """
+    num_tris = scene.num_triangles
+    prim = hit.prim_id.detach().long()
+    t_rec, u, v = hit.t.detach(), hit.u.detach(), hit.v.detach()
+    valid = prim >= 0
+    is_sphere = valid & (prim >= num_tris)
+    t = torch.where(valid & torch.isfinite(t_rec), t_rec, 0.0)
+    position = origins + dirs * t[:, None]
+
+    if num_tris > 0:
+        tris = scene.triangles.long()
+        mat = scene.tri_material.long()
+        v0, v1, v2 = (scene.vertices[tris[:, k]] for k in range(3))
+        packed = torch.cat([
+            scene.normals[tris[:, 0]], scene.normals[tris[:, 1]], scene.normals[tris[:, 2]],
+            safe_normalize(cross(v1 - v0, v2 - v0)), scene.materials.ks[mat],
+        ], dim=1)  # [T, 15]
+        row = packed[torch.clamp(prim, 0, num_tris - 1)]
+        w0 = 1.0 - u - v
+        n_interp = safe_normalize(w0[:, None] * row[:, 0:3] + u[:, None] * row[:, 3:6]
+                                  + v[:, None] * row[:, 6:9])
+        facing = dot(row[:, 9:12], -dirs) > 0.0
+        n_tri = torch.where(facing[:, None], n_interp, -n_interp)
+        ks_tri = row[:, 12:15]
+    else:
+        n_tri = ks_tri = torch.zeros_like(origins)
+
+    num_spheres = scene.spheres.radius.shape[0]
+    if num_spheres > 0:
+        sp = torch.clamp(prim - num_tris, 0, num_spheres - 1)
+        n_sp = safe_normalize(position - scene.spheres.center[sp])
+        ks_sp = scene.spheres.ks[sp]
+    else:
+        n_sp = ks_sp = torch.zeros_like(origins)
+
+    valid3, sph3 = valid[:, None], is_sphere[:, None]
+    zero3 = torch.zeros_like(position)
+    return Surface(
+        valid=valid,
+        position=torch.where(valid3, position, zero3),
+        normal=torch.where(valid3, torch.where(sph3, n_sp, n_tri), zero3),
+        kd=zero3,
+        ks=torch.where(valid3, torch.where(sph3, ks_sp, ks_tri), zero3),
+        shininess=torch.ones_like(t),
     )

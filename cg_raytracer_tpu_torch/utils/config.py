@@ -1,11 +1,12 @@
 """Render configuration: the fields of ``cg_raytracer_tpu/utils/config.py::
-RenderConfig`` that the forward render reads, under the same names and defaults.
+RenderConfig`` that the render and its gradients read, under the same names,
+defaults and errors.
 
-The TPU auto-tuning knobs (tile rows, interleave, leaf widths, ray order, ...)
-are not carried over: each was a measurement on a TPU.  ``anti_aliasing``,
-``bloom``, ``motion_blur`` and ``grad_two_phase='on'`` exist so that a request
-for them fails loudly (their ports are ROADMAP A9 and B1) instead of being
-dropped.
+The TPU auto-tuning knobs (tile rows, interleave, leaf widths, ray order,
+``remat_shade``, ``bounce_resort``, ``shade_gather``, ...) are not carried
+over: each was a measurement on a TPU.  ``anti_aliasing``, ``bloom`` and
+``motion_blur`` exist so that a request for them fails loudly (their port is
+ROADMAP A9) instead of being dropped.
 """
 from __future__ import annotations
 
@@ -29,7 +30,19 @@ class RenderConfig:
     # whole forward trace in one kernel (ops/cuda_kernels.py::trace_cuda), and
     # differentiating the render raises.
     forward_only: bool = False
-    grad_two_phase: str = "auto"  # 'auto' = 'off'; 'on' is ROADMAP B1
+    # Two-phase gradient structure: phase 1 records every level's hits,
+    # shadow bits and next rays with the scene detached; phase 2 runs the
+    # differentiable shade over the records.  'auto' | 'on' | 'off';
+    # 'auto' = 'off', as in the JAX package.
+    grad_two_phase: str = "auto"
+    # Phase-2 rays: 'exact' recomputes each bounce ray from the previous
+    # level's differentiable surface (the reflected-origin vertex term
+    # flows); 'recorded' takes phase 1's detached rays (that term is then
+    # dropped; exact when no vertex is differentiated).  'auto' = 'exact'.
+    two_phase_rays: str = "auto"
+    # Fused shade kernel (ops/shade.py) in phase 2: 'auto' = on for a scene
+    # on a CUDA device, off on the CPU; 'on' on the CPU runs its plain twin.
+    shade_kernel: str = "auto"
     ray_chunk: int = 0  # >0: trace rays in chunks of this size
     tri_chunk: int = 2048  # triangle tile per brute-force sweep step
     reference_quirks: bool = False  # reproduce documented reference bugs
@@ -58,3 +71,28 @@ class RenderConfig:
                 f"{self.brute_force_max_tris}; the BVH backend is not ported yet "
                 f"(ROADMAP A6). Pass backend='brute' to sweep every triangle.")
         return kind
+
+    def resolve_grad_two_phase(self) -> bool:
+        if self.grad_two_phase not in ("auto", "on", "off"):
+            raise ValueError(
+                f"grad_two_phase must be 'auto' | 'on' | 'off', got "
+                f"{self.grad_two_phase!r}")
+        return self.grad_two_phase == "on"
+
+    def resolve_two_phase_rays(self) -> str:
+        if self.two_phase_rays not in ("auto", "exact", "recorded"):
+            raise ValueError(
+                f"two_phase_rays must be 'auto' | 'exact' | 'recorded', got "
+                f"{self.two_phase_rays!r}")
+        return "exact" if self.two_phase_rays == "auto" else self.two_phase_rays
+
+    def resolve_shade_kernel(self, device: torch.device) -> bool:
+        """'auto' = on for a scene on a CUDA device (the JAX package's
+        'on for the TPU platform'), off on the CPU."""
+        if self.shade_kernel not in ("auto", "on", "off"):
+            raise ValueError(
+                f"shade_kernel must be 'auto' | 'on' | 'off', got "
+                f"{self.shade_kernel!r}")
+        if self.shade_kernel != "auto":
+            return self.shade_kernel == "on"
+        return torch.device(device).type == "cuda"

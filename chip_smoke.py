@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""On-card check of the PyTorch + CUDA port's forward render path.
+"""On-card check of the PyTorch + CUDA port: the forward render path and the
+training path.
 
 Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
@@ -19,7 +20,20 @@ Phases, each printing its own lines:
  6. every kernel's launch count from phases 4-5 is > 0, and every image
     agrees with the plain path on the card and is not trivial;
  7. each kernel's median time against its twin at 1024x1024 (CUDA events),
-    and the main path's end-to-end rays/s.
+    and the main path's end-to-end rays/s;
+ 8. the training kernels (record-trace, bounce-refl, shade forward and
+    backward) against their plain twins on the card at 1024x1024 primary
+    rays: the records on the stand-in box, the shade on the triangles +
+    spheres scene and the box, and at 256x256 on a scene at the shade
+    kernel's caps (256 triangles, 8 spheres, 16 lights);
+ 9. the training main path: ``run_bench(include_bwd=True)`` on the stand-in
+    box at 1024x1024 under the full-gradient and the materials-only
+    contract, and one step whose records come from the bounce-refl kernel;
+    the record-trace, bounce-refl and shade kernels' launch counts from it
+    are > 0, and one step's gradients agree with the same step through the
+    plain path and are finite and non-zero;
+10. each training kernel's time against its twin, and per contract ms/step,
+    rays/s, the device-busy share and the plain path's ms/step.
 
 Then one JSON line with the kernels' results and, last, ``{"ok": true,
 "device": ...}``.  Any failure raises and exits non-zero; so does a machine
@@ -27,6 +41,7 @@ without CUDA.  Images and a results file go to ``--out`` (default
 ``chip_smoke_out/`` beside this script).
 """
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -34,7 +49,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-KERNELS = {  # wrapper -> (name, source, Pallas kernel replaced)
+KERNELS = {  # wrapper -> (name, source, Pallas kernel replaced), forward path first
     "intersect_cuda": ("closest", "cg_raytracer_tpu_torch/csrc/oracle.cu",
                        "cg_raytracer_tpu/ops/pallas_kernels.py:88"),
     "occluded_cuda": ("anyhit", "cg_raytracer_tpu_torch/csrc/oracle.cu",
@@ -43,10 +58,23 @@ KERNELS = {  # wrapper -> (name, source, Pallas kernel replaced)
                     "cg_raytracer_tpu/ops/pallas_kernels.py:176"),
     "trace_cuda": ("trace", "cg_raytracer_tpu_torch/csrc/trace.cu",
                    "cg_raytracer_tpu/ops/pallas_kernels.py:877"),
+    "record_trace_cuda": ("record_trace", "cg_raytracer_tpu_torch/csrc/record.cu",
+                          "cg_raytracer_tpu/ops/pallas_kernels.py:378"),
+    "bounce_refl_cuda": ("bounce_refl", "cg_raytracer_tpu_torch/csrc/record.cu",
+                         "cg_raytracer_tpu/ops/pallas_kernels.py:357"),
+    "shade_fwd_cuda": ("shade_fwd", "cg_raytracer_tpu_torch/csrc/shade.cu",
+                       "cg_raytracer_tpu/ops/pallas_shade.py:323"),
+    "shade_bwd_cuda": ("shade_bwd", "cg_raytracer_tpu_torch/csrc/shade.cu",
+                       "cg_raytracer_tpu/ops/pallas_shade.py:510"),
 }
+FORWARD_KERNELS = ("intersect_cuda", "occluded_cuda", "bounce_cuda", "trace_cuda")
+TRAIN_KERNELS = ("record_trace_cuda", "bounce_refl_cuda", "shade_fwd_cuda", "shade_bwd_cuda")
 TOL = 1e-5  # t/u/v where prim ids match
 MIN_MATCH = 0.995  # prim ids, shadow bits, booleans
 IMG_ATOL, IMG_MAX_BAD = 1e-4, 0.005  # assert_images_close
+SHADE_FWD = dict(rtol=1e-5, atol=1e-6)
+RAY_GRAD = dict(rtol=1e-4, atol=1e-6)  # d_o, d_d
+TABLE_GRAD = dict(rtol=2e-4, atol=1e-5)  # tables and parameters: summation order differs
 
 
 def images_close(a, b, what):
@@ -55,6 +83,53 @@ def images_close(a, b, what):
     print(f"  {what}: {bad:.5%} of pixels off by > {IMG_ATOL}, max abs diff {err:.3g}")
     assert bad <= IMG_MAX_BAD, f"{what}: {bad:.4%} of pixels differ"
     return bad, err
+
+
+def grads_close(kernel, twin, exact, rtol, atol):
+    """A kernel gradient against its twin's (float32 autograd) within
+    rtol/atol, except where float32 cannot resolve the value to that: where
+    the twin is off its float64 evaluation ``exact`` by more than the
+    tolerance, the kernel may be no further from it than twice the twin.
+    Returns (share of elements off the twin's tolerance, max |kernel - twin|)."""
+    import torch
+
+    tol = atol + rtol * exact.abs()
+    off = (kernel - twin).abs() > atol + rtol * twin.abs()
+    twin_err, kernel_err = (twin - exact).abs(), (kernel - exact).abs()
+    ok = ~off | ((twin_err > tol) & (kernel_err <= 2 * twin_err + atol))
+    assert bool(torch.isfinite(kernel).all()), "non-finite gradient"
+    assert bool(ok.all()), f"{int((~ok).sum())} of {ok.numel()} gradient elements differ"
+    if not kernel.numel():
+        return 0.0, 0.0
+    return off.float().mean().item(), (kernel - twin).abs().max().item()
+
+
+def cap_scene(device):
+    """The shade kernel's caps: 256 triangles, 8 spheres and 16 point lights
+    (its backward then needs 2 x 29.4 KB of shared memory, past the 48 KB
+    default), from a fixed seed."""
+    import numpy as np
+    import torch
+
+    from cg_raytracer_tpu_torch.scene.types import PointLights, Spheres, make_scene
+
+    rng = np.random.default_rng(256)
+    centers = rng.uniform(-1.0, 1.0, (256, 1, 3))
+    v = (centers + rng.uniform(-0.15, 0.15, (256, 3, 3))).reshape(-1, 3).astype(np.float32)
+    nrm = rng.normal(size=v.shape).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    meshes = [{"vertices": v[96 * k:96 * (k + 1)], "normals": nrm[96 * k:96 * (k + 1)],
+               "triangles": np.arange(96).reshape(32, 3),
+               "material": {"kd": tuple(rng.uniform(0.1, 0.9, 3)),
+                            "ks": tuple(rng.uniform(0.0, 0.5, 3)),
+                            "shininess": float(rng.uniform(1.0, 50.0))}} for k in range(8)]
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))  # noqa: E731
+    spheres = Spheres(center=f32(rng.uniform(-1, 1, (8, 3))), radius=f32(rng.uniform(0.05, 0.2, 8)),
+                      kd=f32(rng.uniform(0.1, 0.9, (8, 3))), ks=f32(rng.uniform(0, 0.5, (8, 3))),
+                      shininess=f32(rng.uniform(1, 50, 8)))
+    lights = PointLights.of(*((tuple(rng.uniform(-2, 2, 3)), tuple(rng.uniform(0.1, 0.3, 3)))
+                              for _ in range(16)))
+    return make_scene(meshes, spheres=spheres, point_lights=lights, device=device)
 
 
 def main(argv=None) -> int:
@@ -71,13 +146,16 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     from cg_raytracer_tpu_torch import cli
     from cg_raytracer_tpu_torch.models.whitted import make_backend, render, render_image
+    from cg_raytracer_tpu_torch.models import whitted
     from cg_raytracer_tpu_torch.ops import _build
     from cg_raytracer_tpu_torch.ops import cuda_kernels as ck
+    from cg_raytracer_tpu_torch.ops import shade
     from cg_raytracer_tpu_torch.ops.camera import generate_rays
     from cg_raytracer_tpu_torch.ops.intersect import reconstruct_hit
     from cg_raytracer_tpu_torch.ops.linalg import norm, reflect, safe_normalize
     from cg_raytracer_tpu_torch.scene import standins
     from cg_raytracer_tpu_torch.scene.types import Camera, PointLights, Spheres, make_scene
+    from cg_raytracer_tpu_torch.utils import bench
     from cg_raytracer_tpu_torch.utils.bench import median, run_bench, time_frames
     from cg_raytracer_tpu_torch.utils.config import RenderConfig
     from cg_raytracer_tpu_torch.utils.image import read_image, write_png
@@ -189,7 +267,7 @@ def main(argv=None) -> int:
     assert cli.main(["render", "--scene", "spheres", "--device", "cuda", "--width", "800",
                      "--height", "800", "-o", cli_png]) == 0
     torch.cuda.synchronize()
-    counts = ck.launch_counts()
+    counts = {k: ck.launch_counts()[k] for k in FORWARD_KERNELS}
 
     print(f"phase 6: launch counts of the main path {counts}")
     for wrapper, n in counts.items():
@@ -279,6 +357,180 @@ def main(argv=None) -> int:
                   f"{plain_ms:.3f} ms; profiled wall {prof['wall_ms']:.4f} ms, device busy {busy}")
             for kname, kms, n in prof["kernels"][:6]:
                 print(f"    {kms:.5f} ms x{n:g}  {kname[:90]}")
+
+    print("phase 8: training kernels against their plain twins, 1024^2 primary rays")
+    rec_tables = ck._record_tables(box, "record")
+    for quirks in (False, True):
+        got, want = ck.record_trace_cuda(box, o1, d1, 2, quirks), ck.record_trace_plain(
+            box, o1, d1, 2, quirks)
+        for level, ((go, gd, gh, gb, ga), (wo, wd, wh, wb, wa)) in enumerate(zip(got, want)):
+            match, err = hit_diff(gh, wh)
+            same_bits = (gb == wb).float().mean().item()
+            same_active = (ga == wa).float().mean().item()
+            both = ga & wa & (gh.prim_id == wh.prim_id)
+            for a, b in ((go, wo), (gd, wd)):
+                torch.testing.assert_close(a[both], b[both], rtol=TOL, atol=TOL)
+                err = max(err, (a[both] - b[both]).abs().max().item() if both.any() else 0.0)
+            assert min(same_bits, same_active) >= MIN_MATCH
+            print(f"  record_trace level {level} quirks={quirks}: prim ids agree on "
+                  f"{match:.5%}, bits {same_bits:.5%}, active {same_active:.5%} "
+                  f"({ga.float().mean().item():.2%} active), max |d t,u,v,o,d| {err:.3g}")
+            note("record_trace_cuda", 1 - min(match, same_bits, same_active), err)
+    live = torch.arange(o1.shape[0], device=device) % 5 != 0
+    got, want = ck.bounce_refl_cuda(box, o1, d1, live), ck.bounce_refl_plain(box, o1, d1, live)
+    match, err = hit_diff(got[0], want[0])
+    same = got[0].prim_id == want[0].prim_id
+    for a, b in ((got[2], want[2]), (got[3], want[3])):
+        torch.testing.assert_close(a[same], b[same], rtol=TOL, atol=TOL)
+        err = max(err, (a[same] - b[same]).abs().max().item())
+    agree = min((got[1] == want[1]).float().mean().item(),
+                (got[4] == want[4]).float().mean().item())
+    assert agree >= MIN_MATCH
+    print(f"  bounce_refl box: prim ids agree on {match:.5%}, bits and reflective flags on "
+          f"{agree:.5%}, max |d t,u,v,position,reflection| {err:.3g}")
+    note("bounce_refl_cuda", 1 - min(match, agree), err)
+    gen = torch.Generator(device).manual_seed(8)
+    o_cap, d_cap = generate_rays(Camera.default(dist=4.0, device=device), 256, 256)
+    for label, scene, so, sd in (("mixed", mixed, o1, d1), ("box", box, o1, d1),
+                                 ("256-triangle cap scene at 256^2", cap_scene(device), o_cap,
+                                  d_cap)):
+        hit = ck.intersect_plain(scene, so, sd)
+        prim = hit.prim_id.contiguous()
+        bits = torch.randint(0, 1 << scene.point_lights.position.shape[0], prim.shape,
+                             device=device, dtype=torch.int32, generator=gen)
+        tri, aux, lights, spheres, num_tris = shade._shade_tables(scene)
+        tables = (tri.detach(), aux.detach(), lights.detach(), spheres.detach())
+        got = shade.shade_fwd_cuda(*tables, so, sd, prim, bits, num_tris)
+        want = shade.shade_plain(*tables, so, sd, prim, bits, num_tris=num_tris)
+        err = 0.0
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, **SHADE_FWD)
+            err = max(err, (a - b).abs().max().item())
+        print(f"  shade_fwd {label}: max |d direct,ks,normal,position| {err:.3g} "
+              f"({(prim >= 0).float().mean().item():.2%} of rays hit)")
+        note("shade_fwd_cuda", 0.0, err)
+        # Scaled by 1/sqrt(N), so that the table gradients (sums over ~1e5 rays)
+        # are O(1) and atol means what it says.
+        cts = [torch.randn(so.shape, device=device, generator=gen) / so.shape[0] ** 0.5
+               for _ in range(4)]
+        got = shade.shade_bwd_cuda(*tables, so, sd, prim, bits, num_tris, cts)
+        twins = []
+        for dtype in (torch.float32, torch.float64):
+            leaves = [x.detach().to(dtype).requires_grad_(True) for x in (*tables, so, sd)]
+            outs = shade.shade_plain(*leaves, prim, bits, num_tris=num_tris)
+            grads = torch.autograd.grad(outs, leaves, [c.to(dtype) for c in cts],
+                                        allow_unused=True)
+            twins.append([torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)])
+        for name, a, b, c in zip(("d_tri", "d_aux", "d_lights", "d_spheres", "d_o", "d_d"),
+                                 got, *twins):
+            frac, err = grads_close(a, b, c.float(), **(RAY_GRAD if name in ("d_o", "d_d")
+                                                       else TABLE_GRAD))
+            scale = b.abs().max().item() if b.numel() else 0.0
+            print(f"  shade_bwd {label} {name}: max |kernel - twin| {err:.3g} (max |twin| "
+                  f"{scale:.3g}); {frac:.5%} of elements off rtol/atol against the float32 "
+                  f"twin, all within twice the twin's own float64 error there")
+            note("shade_bwd_cuda", frac, err)
+    torch.cuda.synchronize()
+
+    print("phase 9: training main path, run_bench(include_bwd=True) on the stand-in box 1024^2")
+    contracts = {"full": True, "materials": False}
+    ck.reset_launch_counts()
+    shade.reset_launch_counts()
+    train = {c: run_bench(box, width=1024, height=1024, include_bwd=True, iters=10,
+                          include_vertex_params=v, scene_name="stand-in mirror box")
+             for c, v in contracts.items()}
+    # One step whose records come level by level from the bounce-refl kernel.
+    cfg_full = bench.training_config(RenderConfig(width=1024, height=1024), True)
+    scn = dataclasses.replace(box, vertices=box.vertices.detach().requires_grad_(True))
+    by_level = whitted.make_backend(scn, cfg_full)._replace(record_trace=None)
+    render_image(scn, cam, cfg_full, backend=by_level).mean().backward()
+    torch.cuda.synchronize()
+    train_counts = {**ck.launch_counts(), **shade.launch_counts()}
+    print(f"  launch counts of the training path {train_counts}")
+    for wrapper in TRAIN_KERNELS:
+        assert train_counts[wrapper] > 0, f"{wrapper} never launched its kernel on the main path"
+    for c, r in train.items():
+        print(f"  {r['metric']}: {r['seconds_per_frame'] * 1e3:.5f} ms/step, "
+              f"{r['value']:.6g} rays/s ({r['vs_baseline']:.4g}x the reference CPU's forward)")
+    jitter = bench.camera_jitter(torch.Generator(device).manual_seed(9), device)
+    steps = {}
+    for c, v in contracts.items():
+        cfg = bench.training_config(RenderConfig(width=1024, height=1024), v)
+        params = bench.training_params(box, v)
+        (lk, gk), (lp, gp) = (bench.fwd_bwd_step(box, cam, cfg, params, jitter, plain=plain)
+                              for plain in (False, True))
+        steps[c] = (cfg, params)
+        print(f"  {c} contract, one step: loss {lk.item():.8g} (plain path {lp.item():.8g})")
+        torch.testing.assert_close(lk, lp, rtol=1e-5, atol=1e-7)
+        for k in gk:
+            tol = dict(TABLE_GRAD, atol=2e-5) if k == "vertices" else TABLE_GRAD
+            assert bool(torch.isfinite(gk[k]).all()), k
+            torch.testing.assert_close(gk[k], gp[k], **tol, msg=f"{c} d/d{k}")
+            print(f"    d/d{k}: max |kernel - plain| {(gk[k] - gp[k]).abs().max().item():.3g}, "
+                  f"max |grad| {gp[k].abs().max().item():.3g}")
+        for k in ("kd", "ks", "light_color", "light_position") + (("vertices",) if v else ()):
+            assert gk[k].abs().sum().item() > 0, f"{c}: d/d{k} is zero"
+
+    print("phase 10: training kernel times at 1024^2 on the stand-in box")
+    recs = ck.record_trace_cuda(box, o1, d1, 2)
+    ro, rd, rhit, rbits, _ = recs[0]
+    s_tables = tuple(x.detach() for x in shade._shade_tables(box)[:4])
+    num_t = box.num_triangles
+    cts = [torch.full_like(o1, 1.0 / o1.numel()) for _ in range(4)]
+
+    def shade_bwd_plain():
+        leaves = [x.detach().requires_grad_(True) for x in (*s_tables, ro, rd)]
+        outs = shade.shade_plain(*leaves, rhit.prim_id, rbits, num_tris=num_t)
+        return torch.autograd.grad(outs, leaves, cts, allow_unused=True)
+
+    train_calls = {
+        "record_trace_cuda": (lambda: ck._record_kernel(*rec_tables, o1, d1, 2, False),
+                              lambda: ck._record_plain(*rec_tables, o1, d1, 2, False)),
+        "bounce_refl_cuda": (lambda: ck._bounce_refl_kernel(*rec_tables, o1, d1, None, False),
+                             lambda: ck._bounce_refl_plain(*rec_tables, o1, d1, None, False)),
+        "shade_fwd_cuda": (lambda: shade.shade_fwd_cuda(*s_tables, ro, rd, rhit.prim_id, rbits,
+                                                        num_t),
+                           lambda: shade.shade_plain(*s_tables, ro, rd, rhit.prim_id, rbits,
+                                                     num_tris=num_t)),
+        "shade_bwd_cuda": (lambda: shade.shade_bwd_cuda(*s_tables, ro, rd, rhit.prim_id, rbits,
+                                                        num_t, cts),
+                           shade_bwd_plain),
+    }
+    print("  ms = kernel time on the device (profiler); launch_ms = one bare launch between "
+          "CUDA events; plain_ms = the plain twin (events; for shade_bwd the twin's forward "
+          "and autograd backward)")
+    for wrapper, (kernel_fn, plain_fn) in train_calls.items():
+        launch_ms = median(time_frames(kernel_fn, iters=20))
+        device_ms = device_breakdown(kernel_fn, iters=20)["device_ms"]
+        plain_ms = median(time_frames(plain_fn, iters=5, warmup=1))
+        ms = device_ms if device_ms is not None else launch_ms
+        name, source, replaces = KERNELS[wrapper]
+        print(f"  {name}: ms {ms:.5f}, launch_ms {launch_ms:.5f}, plain_ms {plain_ms:.4f} "
+              f"(x{plain_ms / ms:.1f}); device time "
+              f"{'measured' if device_ms is not None else 'not measured'}")
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": train_counts[wrapper],
+                        "max_abs_err": check[wrapper]["err"],
+                        "mismatch_frac": check[wrapper]["mismatch"], "ms": ms,
+                        "plain_ms": plain_ms, "launch_ms": launch_ms})
+    for c, (cfg, params) in steps.items():
+        step = lambda: bench.fwd_bwd_step(box, cam, cfg, params, jitter)  # noqa: E731
+        prof = device_breakdown(step, iters=5)
+        plain_ms = median(time_frames(lambda: bench.fwd_bwd_step(box, cam, cfg, params, jitter,
+                                                                 plain=True),
+                                      iters=2, warmup=1))
+        r = train[c]
+        busy = f"{prof['busy']:.3f}" if prof["busy"] is not None else "not measured"
+        e2e[f"box_1024_train_{c}"] = {"ms": r["seconds_per_frame"] * 1e3,
+                                      "rays_per_s": r["value"], "plain_ms": plain_ms,
+                                      "profile": prof}
+        print(f"  train {c} contract 1024^2: {r['seconds_per_frame'] * 1e3:.5f} ms/step (CUDA "
+              f"events), {r['value']:.6g} primary rays/s fwd+bwd; plain path {plain_ms:.3f} "
+              f"ms/step; profiled wall {prof['wall_ms']:.4f} ms, device busy {busy}")
+        for kname, kms, n in prof["kernels"][:8]:
+            print(f"    {kms:.5f} ms x{n:g}  {kname[:90]}")
+    counts.update({k: train_counts[k] for k in TRAIN_KERNELS})
+
     results.update(card=smi, counts=counts, kernels=kernels, end_to_end=e2e)
     with open(os.path.join(out, "results.json"), "w") as f:
         json.dump(results, f, indent=1)

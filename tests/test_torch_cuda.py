@@ -6,12 +6,16 @@ This file imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances: prim ids and booleans equal on >= 99.5% of rays; where ids match,
-t/u/v within atol 1e-5, rtol 1e-5; colors on <= 0.5% of rays off by > 1e-4.
+t/u/v (and the records' next rays, where active) within atol 1e-5, rtol
+1e-5; colors on <= 0.5% of rays off by > 1e-4; shade outputs rtol 1e-5,
+atol 1e-6; shade gradients as ``chip_smoke.grads_close``.
 """
 import pytest
 import torch
 
+from chip_smoke import cap_scene, grads_close
 from cg_raytracer_tpu_torch.ops import cuda_kernels as ck
+from cg_raytracer_tpu_torch.ops import shade
 from cg_raytracer_tpu_torch.ops.camera import generate_rays
 from cg_raytracer_tpu_torch.scene import standins
 from cg_raytracer_tpu_torch.scene.types import Camera, PointLights, Spheres, make_scene
@@ -79,3 +83,72 @@ def test_kernel_matches_plain_on_card(kernel, cuda_device):
     name = {"closest": "intersect_cuda", "anyhit": "occluded_cuda", "bounce": "bounce_cuda",
             "trace": "trace_cuda"}[kernel]
     assert ck.launch_counts()[name] > before[name]
+
+
+def shade_inputs(scene, o, d, gen):
+    hit = ck.intersect_plain(scene, o, d)
+    bits = torch.randint(0, 1 << scene.point_lights.position.shape[0], (o.shape[0],),
+                         device=o.device, dtype=torch.int32, generator=gen)
+    tri, aux, lights, spheres, num_tris = shade._shade_tables(scene)
+    return (tri, aux, lights, spheres), hit.prim_id.contiguous(), bits, num_tris
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["record_trace", "bounce_refl", "shade_fwd", "shade_bwd"])
+def test_training_kernel_matches_plain_on_card(kernel, cuda_device):
+    box, mixed, o, d, gen = card_inputs(cuda_device)
+    before = {**ck.launch_counts(), **shade.launch_counts()}
+    if kernel == "record_trace":
+        for quirks in (False, True):
+            got = ck.record_trace_cuda(box, o, d, 2, quirks)
+            want = ck.record_trace_plain(box, o, d, 2, quirks)
+            for (go, gd, gh, gb, ga), (wo, wd, wh, wb, wa) in zip(got, want):
+                assert (gh.prim_id == wh.prim_id).float().mean().item() >= 0.995
+                assert (gb == wb).float().mean().item() >= 0.995
+                assert (ga == wa).float().mean().item() >= 0.995
+                same = (gh.prim_id == wh.prim_id) & torch.isfinite(wh.t)
+                for a, b in ((gh.t, wh.t), (gh.u, wh.u), (gh.v, wh.v)):
+                    torch.testing.assert_close(a[same], b[same], rtol=1e-5, atol=1e-5)
+                both = ga & wa
+                for a, b in ((go, wo), (gd, wd)):
+                    torch.testing.assert_close(a[both], b[both], rtol=1e-5, atol=1e-5)
+            assert bool(got[1][4].any())
+    elif kernel == "bounce_refl":
+        live = torch.arange(o.shape[0], device=cuda_device) % 5 != 0
+        got, want = ck.bounce_refl_cuda(box, o, d, live), ck.bounce_refl_plain(box, o, d, live)
+        same = got[0].prim_id == want[0].prim_id
+        assert same.float().mean().item() >= 0.995
+        assert (got[1] == want[1]).float().mean().item() >= 0.995
+        assert (got[4] == want[4]).float().mean().item() >= 0.995
+        for a, b in ((got[2], want[2]), (got[3], want[3])):
+            torch.testing.assert_close(a[same], b[same], rtol=1e-5, atol=1e-5)
+        assert bool((got[0].prim_id[~live] == -1).all()) and not bool(got[4][~live].any())
+    else:
+        o_cap, d_cap = generate_rays(Camera.default(dist=4.0, device=cuda_device), 128, 128)
+        for scene, o, d in ((box, o, d), (mixed, o, d), (cap_scene(cuda_device), o_cap, d_cap)):
+            tables, prim, bits, num_tris = shade_inputs(scene, o, d, gen)
+            if kernel == "shade_fwd":
+                got = shade.shade_fwd_cuda(*tables, o, d, prim, bits, num_tris)
+                want = shade.shade_plain(*tables, o, d, prim, bits, num_tris=num_tris)
+                for a, b in zip(got, want):
+                    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+                continue
+            cts = [torch.randn(o.shape, device=cuda_device, generator=gen) / o.shape[0] ** 0.5
+                   for _ in range(4)]  # table gradients O(1): atol means what it says
+            got = shade.shade_bwd_cuda(*tables, o, d, prim, bits, num_tris, cts)
+            want = []
+            for dtype in (torch.float32, torch.float64):
+                leaves = [x.detach().to(dtype).requires_grad_(True)
+                          for x in (*tables, o, d)]
+                outs = shade.shade_plain(*leaves, prim, bits, num_tris=num_tris)
+                grads = torch.autograd.grad(outs, leaves, [c.to(dtype) for c in cts],
+                                            allow_unused=True)
+                want.append([torch.zeros_like(x) if g is None else g
+                             for x, g in zip(leaves, grads)])
+            for k, (a, b, c) in enumerate(zip(got, *want)):
+                tol = dict(rtol=1e-4, atol=1e-6) if k >= 4 else dict(rtol=2e-4, atol=1e-5)
+                grads_close(a, b, c.float(), **tol)
+    torch.cuda.synchronize()
+    name = {"record_trace": "record_trace_cuda", "bounce_refl": "bounce_refl_cuda",
+            "shade_fwd": "shade_fwd_cuda", "shade_bwd": "shade_bwd_cuda"}[kernel]
+    assert {**ck.launch_counts(), **shade.launch_counts()}[name] > before[name]

@@ -1,16 +1,19 @@
 """PyTorch port: Moller-Trumbore, the brute-force oracles and reconstruct_hit
-against the JAX package.
+against the JAX package, and reconstruct_hit's grad-safety on miss lanes.
 
 Tolerances (the backend contract): prim ids equal on >= 99.5% of rays
 (coincident-edge tie-breaks); where they match, t/u/v within atol 1e-5,
 rtol 1e-5.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import cg_raytracer_tpu as jrt
+import cg_raytracer_tpu_torch as trt
 from cg_raytracer_tpu.ops import intersect as jint
 from cg_raytracer_tpu_torch.ops import intersect as tint
 from tests.test_torch_scene import scene_pair
@@ -108,3 +111,45 @@ def test_reconstruct_hit_matches_jax(name):
         np.testing.assert_allclose(getattr(ts, field).numpy(), np.asarray(getattr(js, field)),
                                    rtol=1e-5, atol=1e-5, err_msg=field)
     assert ts.valid.numpy().mean() > 0.05
+
+
+
+def _level_vertex_grad(t_scene, o, d, hit, w):
+    """Vertex gradient of one level's reconstruct + Phong, weighted per ray
+    by ``w`` [N] and summed over every output."""
+    from cg_raytracer_tpu_torch.ops import shading
+
+    verts = t_scene.vertices.detach().clone().requires_grad_(True)
+    scene = dataclasses.replace(t_scene, vertices=verts)
+    surf = tint.reconstruct_hit(scene, o, d, hit)
+    direct = shading.direct_point_lights(scene, d, surf, None,
+                                         shadow_bits=torch.zeros_like(hit.prim_id))
+    loss = ((direct + surf.position + surf.normal + surf.ks) * w[:, None]).sum()
+    return torch.autograd.grad(loss, verts)[0]
+
+
+def test_reconstruct_hit_vertex_grads_are_finite_and_miss_lanes_add_zero():
+    # Miss rays fall through to triangle 0, where their barycentrics reach
+    # ~1e7 and the interpolated normal can cancel to zero: before the inputs
+    # were gated, its norm's derivative turned their zero cotangent into NaN
+    # on triangle 0's vertices.
+    _, t_scene = scene_pair("mirror_box")
+    o, d = (torch.from_numpy(np.array(x)) for x in jrt.generate_rays(jrt.Camera.default(), 24, 24))
+    hit = tint.intersect_brute(t_scene, o, d)
+    w = torch.linspace(0.5, 1.5, o.shape[0])
+    g_all = _level_vertex_grad(t_scene, o, d, hit, w)
+    hits = hit.prim_id >= 0
+    assert (~hits).sum() > 100 and (hit.prim_id == 0).any()
+    assert bool(torch.isfinite(g_all).all()) and g_all[:3].abs().sum() > 0
+    g_hits = _level_vertex_grad(t_scene, o[hits], d[hits], tint.Hit(*(x[hits] for x in hit)),
+                                w[hits])
+    torch.testing.assert_close(g_all, g_hits, rtol=1e-6, atol=1e-7)
+
+
+def test_render_vertex_grads_are_finite_on_the_stand_in_box():
+    _, t_scene = scene_pair("mirror_box")
+    verts = t_scene.vertices.detach().clone().requires_grad_(True)
+    scene = dataclasses.replace(t_scene, vertices=verts)
+    img = trt.render(scene, trt.Camera.default(), trt.RenderConfig(width=24, height=24))
+    img.mean().backward()
+    assert bool(torch.isfinite(verts.grad).all()) and verts.grad.abs().sum() > 0

@@ -96,7 +96,8 @@ def test_wrappers_take_the_plain_twin_on_cpu_without_counting():
     assert torch.equal(b1, b2) and all(torch.equal(a, b) for a, b in zip(h1, h2))
     assert torch.equal(ck.trace_cuda(t, o, d, 2), ck.trace_plain(t, o, d, 2))
     assert ck.launch_counts() == {"intersect_cuda": 0, "occluded_cuda": 0, "bounce_cuda": 0,
-                                  "trace_cuda": 0}
+                                  "trace_cuda": 0, "bounce_refl_cuda": 0,
+                                  "record_trace_cuda": 0}
 
 
 def test_kernel_eligibility_is_enforced():

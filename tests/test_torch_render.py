@@ -136,12 +136,14 @@ def test_unported_features_raise():
     for flag in ("anti_aliasing", "bloom", "motion_blur"):
         with pytest.raises(NotImplementedError, match="A9"):
             trt.render(t, tc, trt.RenderConfig(**small, **{flag: True}))
-    with pytest.raises(NotImplementedError, match="B1"):
-        trt.render(t, tc, trt.RenderConfig(**small, grad_two_phase="on"))
+    # The two-phase structure is ported (it renders the one-phase image).
+    torch.testing.assert_close(trt.render(t, tc, trt.RenderConfig(**small, grad_two_phase="on")),
+                               trt.render(t, tc, trt.RenderConfig(**small)))
     sph = dataclasses.replace(t, spherical_lights=trt.SphericalLights.of(((0, 0.4, 0), 0.1,
                                                                          (1, 1, 1))))
-    with pytest.raises(NotImplementedError, match="A8"):
-        trt.render(sph, tc, trt.RenderConfig(**small))
+    for two_phase in ("off", "on"):
+        with pytest.raises(NotImplementedError, match="A8"):
+            trt.render(sph, tc, trt.RenderConfig(**small, grad_two_phase=two_phase))
     teacup = trt.load_scene("teacup")
     with pytest.raises(NotImplementedError, match="B5"):
         tw.make_backend(teacup, trt.RenderConfig(backend="cuda"))
