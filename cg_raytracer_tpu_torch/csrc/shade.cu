@@ -35,8 +35,9 @@
 // d_aux, d_lights, d_spheres in device memory with atomicAdd (the wrapper
 // zeroes them).  The grid is one wave of blocks that stride over the rays,
 // so each block flushes once.  fp32 atomics sum in an order that changes from
-// run to run: the table gradients are not bitwise reproducible, and are held
-// to their twin with a tolerance for summation order.
+// run to run: the table gradients are not bitwise reproducible (they vary in
+// the last bits), and the on-card checks compare them to their twin with a
+// tolerance that covers float32 summation (utils/checks.py).
 //
 // What bounds it on an H100: the forward is ~100 FLOPs per ray and light
 // against 56 bytes of ray I/O in and 48 out, so neither roof at these sizes:

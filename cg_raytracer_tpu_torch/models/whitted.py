@@ -42,11 +42,13 @@ class Backend(NamedTuple):
     in one kernel), ``bounce_refl`` and ``record_trace`` (the two-phase
     records, one level or all of them in one kernel) and ``trace`` (the whole
     forward trace in one kernel) are fast paths that exist only where the
-    scene and config allow them.  ``shade`` is the phase-2 shade (None: the
-    kernel wrapper ``shade_fused_cuda``)."""
+    scene and config allow them.  ``shade`` is the phase-2 shade: the kernel
+    wrapper ``shade_fused_cuda`` or its plain twin."""
 
     closest: Callable  # (origins, dirs) -> Hit
     occluded: Callable  # (origins, dirs, t_max) -> bool [N]
+    # (scene, o, d, hit, bits) -> (direct, valid, ks, normal, position)
+    shade: Callable
     bounce: Optional[Callable] = None  # (origins, dirs, live=None) -> (Hit, bits [N] i32)
     # (origins, dirs, live=None) -> (Hit, bits, position [N,3], refl_dir [N,3],
     # reflective [N] bool)
@@ -54,8 +56,6 @@ class Backend(NamedTuple):
     # (origins, dirs) -> per-level list of (o, d, Hit, bits, active)
     record_trace: Optional[Callable] = None
     trace: Optional[Callable] = None  # (origins, dirs) -> color [N, 3]
-    # (scene, o, d, hit, bits) -> (direct, valid, ks, normal, position)
-    shade: Optional[Callable] = None
 
 
 def make_backend(scene: Scene, cfg: RenderConfig, plain: bool = False) -> Backend:
@@ -67,6 +67,7 @@ def make_backend(scene: Scene, cfg: RenderConfig, plain: bool = False) -> Backen
         return Backend(
             closest=lambda o, d: intersect_brute(scene, o, d, tri_chunk=cfg.tri_chunk),
             occluded=lambda o, d, tm: occluded_brute(scene, o, d, tm, tri_chunk=cfg.tri_chunk),
+            shade=shade_ops.shade_fused_plain if plain else shade_ops.shade_fused_cuda,
         )
     if scene.num_triangles > cfg.pallas_brute_max_tris:
         raise NotImplementedError(
@@ -94,7 +95,7 @@ def make_backend(scene: Scene, cfg: RenderConfig, plain: bool = False) -> Backen
                       if fused else None),
         trace=((lambda o, d: trace(scene, o, d, cfg.max_depth, quirk_ks_z=quirk))
                if cfg.forward_only and ck.supports_trace_kernel(scene) else None),
-        shade=shade_ops.shade_fused_plain if plain else None,
+        shade=shade_ops.shade_fused_plain if plain else shade_ops.shade_fused_cuda,
     )
 
 
@@ -233,7 +234,6 @@ def _trace_two_phase(scene: Scene, origins, dirs, cfg: RenderConfig, backend: Ba
         backend = backend._replace(bounce=_synth_bounce(scene, backend))
     use_shade_kernel = (cfg.resolve_shade_kernel(scene.device)
                         and shade_ops.supports_shade_kernel(scene))
-    shade = backend.shade or shade_ops.shade_fused_cuda
 
     if backend.record_trace is not None:
         records = backend.record_trace(origins, dirs)
@@ -248,7 +248,7 @@ def _trace_two_phase(scene: Scene, origins, dirs, cfg: RenderConfig, backend: Ba
         if not exact_rays and level > 0:
             o_l, d_l = o_rec, d_rec
         if use_shade_kernel:
-            direct, valid, ks, normal, position = shade(scene, o_l, d_l, hit_l, bits_l)
+            direct, valid, ks, normal, position = backend.shade(scene, o_l, d_l, hit_l, bits_l)
         else:
             surf = reconstruct_hit(scene, o_l, d_l, hit_l)
             direct = shading.direct_light(scene, d_l, surf, backend.occluded, generator,

@@ -28,10 +28,11 @@ Phases, each printing its own lines:
     kernel's caps (256 triangles, 8 spheres, 16 lights);
  9. the training main path: ``run_bench(include_bwd=True)`` on the stand-in
     box at 1024x1024 under the full-gradient and the materials-only
-    contract, and one step whose records come from the bounce-refl kernel;
-    the record-trace, bounce-refl and shade kernels' launch counts from it
-    are > 0, and one step's gradients agree with the same step through the
-    plain path and are finite and non-zero;
+    contract, whose record-trace and shade launch counts are > 0; then, with
+    the counts set to 0 again, one step whose records come level by level
+    from the bounce-refl kernel, whose count is > 0; and one step's gradients
+    agree with the same step through the plain path and are finite and
+    non-zero;
 10. each training kernel's time against its twin, and per contract ms/step,
     rays/s, the device-busy share and the plain path's ms/step.
 
@@ -73,8 +74,6 @@ TOL = 1e-5  # t/u/v where prim ids match
 MIN_MATCH = 0.995  # prim ids, shadow bits, booleans
 IMG_ATOL, IMG_MAX_BAD = 1e-4, 0.005  # assert_images_close
 SHADE_FWD = dict(rtol=1e-5, atol=1e-6)
-RAY_GRAD = dict(rtol=1e-4, atol=1e-6)  # d_o, d_d
-TABLE_GRAD = dict(rtol=2e-4, atol=1e-5)  # tables and parameters: summation order differs
 
 
 def images_close(a, b, what):
@@ -83,53 +82,6 @@ def images_close(a, b, what):
     print(f"  {what}: {bad:.5%} of pixels off by > {IMG_ATOL}, max abs diff {err:.3g}")
     assert bad <= IMG_MAX_BAD, f"{what}: {bad:.4%} of pixels differ"
     return bad, err
-
-
-def grads_close(kernel, twin, exact, rtol, atol):
-    """A kernel gradient against its twin's (float32 autograd) within
-    rtol/atol, except where float32 cannot resolve the value to that: where
-    the twin is off its float64 evaluation ``exact`` by more than the
-    tolerance, the kernel may be no further from it than twice the twin.
-    Returns (share of elements off the twin's tolerance, max |kernel - twin|)."""
-    import torch
-
-    tol = atol + rtol * exact.abs()
-    off = (kernel - twin).abs() > atol + rtol * twin.abs()
-    twin_err, kernel_err = (twin - exact).abs(), (kernel - exact).abs()
-    ok = ~off | ((twin_err > tol) & (kernel_err <= 2 * twin_err + atol))
-    assert bool(torch.isfinite(kernel).all()), "non-finite gradient"
-    assert bool(ok.all()), f"{int((~ok).sum())} of {ok.numel()} gradient elements differ"
-    if not kernel.numel():
-        return 0.0, 0.0
-    return off.float().mean().item(), (kernel - twin).abs().max().item()
-
-
-def cap_scene(device):
-    """The shade kernel's caps: 256 triangles, 8 spheres and 16 point lights
-    (its backward then needs 2 x 29.4 KB of shared memory, past the 48 KB
-    default), from a fixed seed."""
-    import numpy as np
-    import torch
-
-    from cg_raytracer_tpu_torch.scene.types import PointLights, Spheres, make_scene
-
-    rng = np.random.default_rng(256)
-    centers = rng.uniform(-1.0, 1.0, (256, 1, 3))
-    v = (centers + rng.uniform(-0.15, 0.15, (256, 3, 3))).reshape(-1, 3).astype(np.float32)
-    nrm = rng.normal(size=v.shape).astype(np.float32)
-    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
-    meshes = [{"vertices": v[96 * k:96 * (k + 1)], "normals": nrm[96 * k:96 * (k + 1)],
-               "triangles": np.arange(96).reshape(32, 3),
-               "material": {"kd": tuple(rng.uniform(0.1, 0.9, 3)),
-                            "ks": tuple(rng.uniform(0.0, 0.5, 3)),
-                            "shininess": float(rng.uniform(1.0, 50.0))}} for k in range(8)]
-    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))  # noqa: E731
-    spheres = Spheres(center=f32(rng.uniform(-1, 1, (8, 3))), radius=f32(rng.uniform(0.05, 0.2, 8)),
-                      kd=f32(rng.uniform(0.1, 0.9, (8, 3))), ks=f32(rng.uniform(0, 0.5, (8, 3))),
-                      shininess=f32(rng.uniform(1, 50, 8)))
-    lights = PointLights.of(*((tuple(rng.uniform(-2, 2, 3)), tuple(rng.uniform(0.1, 0.3, 3)))
-                              for _ in range(16)))
-    return make_scene(meshes, spheres=spheres, point_lights=lights, device=device)
 
 
 def main(argv=None) -> int:
@@ -155,7 +107,7 @@ def main(argv=None) -> int:
     from cg_raytracer_tpu_torch.ops.linalg import norm, reflect, safe_normalize
     from cg_raytracer_tpu_torch.scene import standins
     from cg_raytracer_tpu_torch.scene.types import Camera, PointLights, Spheres, make_scene
-    from cg_raytracer_tpu_torch.utils import bench
+    from cg_raytracer_tpu_torch.utils import bench, checks
     from cg_raytracer_tpu_torch.utils.bench import median, run_bench, time_frames
     from cg_raytracer_tpu_torch.utils.config import RenderConfig
     from cg_raytracer_tpu_torch.utils.image import read_image, write_png
@@ -391,9 +343,9 @@ def main(argv=None) -> int:
     note("bounce_refl_cuda", 1 - min(match, agree), err)
     gen = torch.Generator(device).manual_seed(8)
     o_cap, d_cap = generate_rays(Camera.default(dist=4.0, device=device), 256, 256)
+    cap = checks.cap_scene(device)
     for label, scene, so, sd in (("mixed", mixed, o1, d1), ("box", box, o1, d1),
-                                 ("256-triangle cap scene at 256^2", cap_scene(device), o_cap,
-                                  d_cap)):
+                                 ("256-triangle cap scene at 256^2", cap, o_cap, d_cap)):
         hit = ck.intersect_plain(scene, so, sd)
         prim = hit.prim_id.contiguous()
         bits = torch.randint(0, 1 << scene.point_lights.position.shape[0], prim.shape,
@@ -409,27 +361,18 @@ def main(argv=None) -> int:
         print(f"  shade_fwd {label}: max |d direct,ks,normal,position| {err:.3g} "
               f"({(prim >= 0).float().mean().item():.2%} of rays hit)")
         note("shade_fwd_cuda", 0.0, err)
-        # Scaled by 1/sqrt(N), so that the table gradients (sums over ~1e5 rays)
-        # are O(1) and atol means what it says.
-        cts = [torch.randn(so.shape, device=device, generator=gen) / so.shape[0] ** 0.5
-               for _ in range(4)]
+        cts = [torch.randn(so.shape, device=device, generator=gen) for _ in range(4)]
         got = shade.shade_bwd_cuda(*tables, so, sd, prim, bits, num_tris, cts)
-        twins = []
-        for dtype in (torch.float32, torch.float64):
-            leaves = [x.detach().to(dtype).requires_grad_(True) for x in (*tables, so, sd)]
-            outs = shade.shade_plain(*leaves, prim, bits, num_tris=num_tris)
-            grads = torch.autograd.grad(outs, leaves, [c.to(dtype) for c in cts],
-                                        allow_unused=True)
-            twins.append([torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)])
-        for name, a, b, c in zip(("d_tri", "d_aux", "d_lights", "d_spheres", "d_o", "d_d"),
-                                 got, *twins):
-            frac, err = grads_close(a, b, c.float(), **(RAY_GRAD if name in ("d_o", "d_d")
-                                                       else TABLE_GRAD))
+        twin, exact = checks.twin_grads(tables, so, sd, prim, bits, num_tris, cts)
+        report = checks.shade_grads_close(got, twin, exact, so.shape[0])
+        for name, a, b in zip(checks.GRAD_NAMES, got, twin):
+            err = (a - b).abs().max().item() if b.numel() else 0.0
             scale = b.abs().max().item() if b.numel() else 0.0
+            ratio, past = report[name]
             print(f"  shade_bwd {label} {name}: max |kernel - twin| {err:.3g} (max |twin| "
-                  f"{scale:.3g}); {frac:.5%} of elements off rtol/atol against the float32 "
-                  f"twin, all within twice the twin's own float64 error there")
-            note("shade_bwd_cuda", frac, err)
+                  f"{scale:.3g}), at most {ratio:.3g} of the (widened) tolerance; {past:.5%} of "
+                  f"elements past the tolerance before the float32 widening")
+            note("shade_bwd_cuda", past, err)
     torch.cuda.synchronize()
 
     print("phase 9: training main path, run_bench(include_bwd=True) on the stand-in box 1024^2")
@@ -439,16 +382,24 @@ def main(argv=None) -> int:
     train = {c: run_bench(box, width=1024, height=1024, include_bwd=True, iters=10,
                           include_vertex_params=v, scene_name="stand-in mirror box")
              for c, v in contracts.items()}
-    # One step whose records come level by level from the bounce-refl kernel.
+    torch.cuda.synchronize()
+    train_counts = {**ck.launch_counts(), **shade.launch_counts()}
+    print(f"  launch counts of run_bench(include_bwd=True) {train_counts}")
+    for wrapper in ("record_trace_cuda", "shade_fwd_cuda", "shade_bwd_cuda"):
+        assert train_counts[wrapper] > 0, f"{wrapper} never launched its kernel on the main path"
+    # The by-level record path: one step whose records come level by level
+    # from the bounce-refl kernel (a backend without record_trace).
     cfg_full = bench.training_config(RenderConfig(width=1024, height=1024), True)
     scn = dataclasses.replace(box, vertices=box.vertices.detach().requires_grad_(True))
     by_level = whitted.make_backend(scn, cfg_full)._replace(record_trace=None)
+    ck.reset_launch_counts()
+    shade.reset_launch_counts()
     render_image(scn, cam, cfg_full, backend=by_level).mean().backward()
     torch.cuda.synchronize()
-    train_counts = {**ck.launch_counts(), **shade.launch_counts()}
-    print(f"  launch counts of the training path {train_counts}")
-    for wrapper in TRAIN_KERNELS:
-        assert train_counts[wrapper] > 0, f"{wrapper} never launched its kernel on the main path"
+    level_counts = {**ck.launch_counts(), **shade.launch_counts()}
+    print(f"  launch counts of one step through the by-level records {level_counts}")
+    assert level_counts["bounce_refl_cuda"] > 0, "bounce_refl_cuda never launched its kernel"
+    train_counts["bounce_refl_cuda"] = level_counts["bounce_refl_cuda"]
     for c, r in train.items():
         print(f"  {r['metric']}: {r['seconds_per_frame'] * 1e3:.5f} ms/step, "
               f"{r['value']:.6g} rays/s ({r['vs_baseline']:.4g}x the reference CPU's forward)")
@@ -463,7 +414,7 @@ def main(argv=None) -> int:
         print(f"  {c} contract, one step: loss {lk.item():.8g} (plain path {lp.item():.8g})")
         torch.testing.assert_close(lk, lp, rtol=1e-5, atol=1e-7)
         for k in gk:
-            tol = dict(TABLE_GRAD, atol=2e-5) if k == "vertices" else TABLE_GRAD
+            tol = dict(checks.TABLE_GRAD, atol=2e-5) if k == "vertices" else checks.TABLE_GRAD
             assert bool(torch.isfinite(gk[k]).all()), k
             torch.testing.assert_close(gk[k], gp[k], **tol, msg=f"{c} d/d{k}")
             print(f"    d/d{k}: max |kernel - plain| {(gk[k] - gp[k]).abs().max().item():.3g}, "

@@ -8,17 +8,17 @@ This file imports no JAX, so it runs on a machine without it:
 Tolerances: prim ids and booleans equal on >= 99.5% of rays; where ids match,
 t/u/v (and the records' next rays, where active) within atol 1e-5, rtol
 1e-5; colors on <= 0.5% of rays off by > 1e-4; shade outputs rtol 1e-5,
-atol 1e-6; shade gradients as ``chip_smoke.grads_close``.
+atol 1e-6; shade gradients as ``utils.checks.shade_grads_close``.
 """
 import pytest
 import torch
 
-from chip_smoke import cap_scene, grads_close
 from cg_raytracer_tpu_torch.ops import cuda_kernels as ck
 from cg_raytracer_tpu_torch.ops import shade
 from cg_raytracer_tpu_torch.ops.camera import generate_rays
 from cg_raytracer_tpu_torch.scene import standins
 from cg_raytracer_tpu_torch.scene.types import Camera, PointLights, Spheres, make_scene
+from cg_raytracer_tpu_torch.utils import checks
 
 
 @pytest.fixture
@@ -125,7 +125,8 @@ def test_training_kernel_matches_plain_on_card(kernel, cuda_device):
         assert bool((got[0].prim_id[~live] == -1).all()) and not bool(got[4][~live].any())
     else:
         o_cap, d_cap = generate_rays(Camera.default(dist=4.0, device=cuda_device), 128, 128)
-        for scene, o, d in ((box, o, d), (mixed, o, d), (cap_scene(cuda_device), o_cap, d_cap)):
+        cap = checks.cap_scene(cuda_device)
+        for scene, o, d in ((box, o, d), (mixed, o, d), (cap, o_cap, d_cap)):
             tables, prim, bits, num_tris = shade_inputs(scene, o, d, gen)
             if kernel == "shade_fwd":
                 got = shade.shade_fwd_cuda(*tables, o, d, prim, bits, num_tris)
@@ -133,21 +134,10 @@ def test_training_kernel_matches_plain_on_card(kernel, cuda_device):
                 for a, b in zip(got, want):
                     torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
                 continue
-            cts = [torch.randn(o.shape, device=cuda_device, generator=gen) / o.shape[0] ** 0.5
-                   for _ in range(4)]  # table gradients O(1): atol means what it says
+            cts = [torch.randn(o.shape, device=cuda_device, generator=gen) for _ in range(4)]
             got = shade.shade_bwd_cuda(*tables, o, d, prim, bits, num_tris, cts)
-            want = []
-            for dtype in (torch.float32, torch.float64):
-                leaves = [x.detach().to(dtype).requires_grad_(True)
-                          for x in (*tables, o, d)]
-                outs = shade.shade_plain(*leaves, prim, bits, num_tris=num_tris)
-                grads = torch.autograd.grad(outs, leaves, [c.to(dtype) for c in cts],
-                                            allow_unused=True)
-                want.append([torch.zeros_like(x) if g is None else g
-                             for x, g in zip(leaves, grads)])
-            for k, (a, b, c) in enumerate(zip(got, *want)):
-                tol = dict(rtol=1e-4, atol=1e-6) if k >= 4 else dict(rtol=2e-4, atol=1e-5)
-                grads_close(a, b, c.float(), **tol)
+            twin, exact = checks.twin_grads(tables, o, d, prim, bits, num_tris, cts)
+            checks.shade_grads_close(got, twin, exact, o.shape[0])
     torch.cuda.synchronize()
     name = {"record_trace": "record_trace_cuda", "bounce_refl": "bounce_refl_cuda",
             "shade_fwd": "shade_fwd_cuda", "shade_bwd": "shade_bwd_cuda"}[kernel]

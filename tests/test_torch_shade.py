@@ -246,3 +246,27 @@ def test_shade_plain_miss_lanes_add_exactly_zero():
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
     for x in grads(miss):
         assert not x.any()
+
+
+def test_shade_grads_close_rejects_a_wrong_gradient():
+    """The on-card rule for the shade backward (``utils.checks``), on the CPU
+    twin: the twin's gradients pass against themselves, and a table or a ray
+    gradient off by 1% at one element fails."""
+    from cg_raytracer_tpu_torch.utils import checks
+
+    _, t = scene_pair("mixed")
+    o, d = (torch.from_numpy(np.array(x)) for x in jrt.generate_rays(jrt.Camera.default(), 16, 16))
+    prim = tint.intersect_brute(t, o, d).prim_id
+    tri, aux, lights, spheres, num_tris = tshade._shade_tables(t)
+    tables = tuple(x.detach() for x in (tri, aux, lights, spheres))
+    gen = torch.Generator().manual_seed(0)
+    cts = [torch.randn(o.shape, generator=gen) for _ in range(4)]
+    twin, exact = checks.twin_grads(tables, o, d, prim, torch.ones_like(prim), num_tris, cts)
+    report = checks.shade_grads_close(twin, twin, exact, o.shape[0])
+    assert set(report) == set(checks.GRAD_NAMES)
+    assert all(ratio == 0.0 and past == 0.0 for ratio, past in report.values())
+    for i in (checks.GRAD_NAMES.index("d_tri"), checks.GRAD_NAMES.index("d_d")):
+        wrong = [g.clone() for g in twin]
+        wrong[i].view(-1)[wrong[i].abs().argmax()] *= 1.01
+        with pytest.raises(AssertionError, match=checks.GRAD_NAMES[i]):
+            checks.shade_grads_close(wrong, twin, exact, o.shape[0])

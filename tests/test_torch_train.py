@@ -122,7 +122,11 @@ def test_training_step_routes_through_records_and_the_shade_twin():
     assert tbench.training_config(trt.RenderConfig(), True).two_phase_rays == "auto"
     backend = tw.make_backend(t, cfg)
     assert backend.record_trace is not None and backend.bounce_refl is not None
-    assert backend.shade is None and tw.make_backend(t, cfg, plain=True).shade is not None
+    assert backend.shade is shade.shade_fused_cuda
+    assert tw.make_backend(t, cfg, plain=True).shade is shade.shade_fused_plain
+    brute_cfg = dataclasses.replace(cfg, backend="brute")
+    assert tw.make_backend(t, brute_cfg).shade is shade.shade_fused_cuda
+    assert tw.make_backend(t, brute_cfg, plain=True).shade is shade.shade_fused_plain
     _, mixed = scene_pair("mixed")  # spheres: no fused bounce, records are synthesised
     assert tw.make_backend(mixed, cfg).record_trace is None
     calls = []
