@@ -4,8 +4,8 @@
 ``render`` writes the image and prints the wall-clock time like the
 reference's "Time to render image: ... milliseconds" (main.cpp:796), after a
 warm-up render (kernel build and first launches excluded, like the
-reference's BVH build).  ``--device`` defaults to ``cuda``; there is no
-fallback to the CPU.
+reference's BVH build; a mesh scene's tree is built once, in the warm-up).
+``--device`` defaults to ``cuda``; there is no fallback to the CPU.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--width", type=int, default=800)
     p.add_argument("--height", type=int, default=800)
     p.add_argument("--max-bounces", type=int, default=2)
-    p.add_argument("--backend", default="auto", choices=["auto", "brute", "cuda"])
+    p.add_argument("--backend", default="auto", choices=["auto", "brute", "bvh", "cuda"])
     p.add_argument("--spp", type=int, default=200,
                    help="soft-shadow samples per spherical-light shading (spherical "
                         "lights are not ported yet: ROADMAP A8)")

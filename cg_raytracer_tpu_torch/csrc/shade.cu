@@ -2,19 +2,30 @@
 // hits, forward and backward.  Phase 2 of the two-phase gradient structure
 // (models/whitted.py::trace_rays), behind ops/shade.py::_ShadeFn.
 //
-// Replaces two Pallas kernels of cg_raytracer_tpu/ops/pallas_shade.py:
-//   cgrt_shade_fwd <- _shade_fwd_kernel (#23, the select-gather forward),
-//   cgrt_shade_bwd <- _shade_bwd_kernel (#25, its VJP).
-// The math is _shade_math (pallas_shade.py:128-261) op for op, and its
-// plain PyTorch twin is ops/shade.py::shade_plain.  Where the Pallas kernels
-// selected the hit's row with one masked select per triangle (so T <= 64
-// there, and a pregathered [N, 19] payload beyond), a thread here indexes
-// the row in shared memory: one kernel covers T <= 256.
+// Replaces four Pallas kernels of cg_raytracer_tpu/ops/pallas_shade.py:
+//   cgrt_shade_fwd     <- _shade_fwd_kernel     (#23, the select-gather forward),
+//   cgrt_shade_bwd     <- _shade_bwd_kernel     (#25, its VJP),
+//   cgrt_shade_pre_fwd <- _shade_fwd_kernel_pre (#24, the pregathered forward),
+//   cgrt_shade_pre_bwd <- _shade_bwd_kernel_pre (#26, its VJP).
+// The math is _shade_math (pallas_shade.py:128-261) and _shade_math19
+// (:289) op for op; the plain PyTorch twins are ops/shade.py::shade_plain and
+// shade_plain_pre.  One templated body serves both table layouts:
+// - select (kPre = false, T <= 256): where the Pallas kernel selected the
+//   hit's row with one masked select per triangle (so T <= 64 there), a
+//   thread indexes the row of tri [T, 9] and aux [T, 19] in shared memory;
+// - pregathered (kPre = true, any T): where XLA gathered a [N, 19] payload
+//   before the Pallas kernel and scatter-added its cotangents after, a
+//   thread reads the hit's row of payload [T, 19] (v0 v1 v2, n0 n1 n2,
+//   material id) from device memory and the backward adds the row's
+//   cotangents into d_payload with global atomics (the id column gets none).
+//   The face normal is recomputed from the vertices (it only picks the
+//   facing flip) and kd, ks, shininess come from mats [M, 7] in shared memory.
 //
 // Inputs: rays o, d [N, 3]; the recorded prim id and shadow bits [N] (int32,
-// discrete); tables tri [T, 9] (v0 v1 v2), aux [T, 19] (n0 n1 n2, face
-// normal, kd, ks, shininess), lights [L, 6] (position, color), spheres
-// [S, 11] (center, radius, kd, ks, shininess).  A ray is live where
+// discrete); tables tri [T, 9] (v0 v1 v2) and aux [T, 19] (n0 n1 n2, face
+// normal, kd, ks, shininess), or payload [T, 19] and mats [M, 7]; lights
+// [L, 6] (position, color), spheres [S, 11] (center, radius, kd, ks,
+// shininess).  A ray is live where
 // 0 <= prim < T + S: prim < T is a triangle, T + s sphere s; any other prim
 // is a miss, whose outputs and cotangents are exactly 0 (the Pallas kernel
 // let misses fall through to row 0 and gated them; here they do no work).
@@ -25,16 +36,19 @@
 // sphere quadratic recompute and geometric normal; the unit reflection of
 // d; then per light not blocked by its bit, diffuse max(ld.n, 0) and
 // specular pow(max(r.ld, 1e-30), shininess) where r.ld > 0.  Outputs
-// direct, ks, normal, position, each [N, 3].
+// direct, ks, normal, position, each [N, 3].  The pregathered forward stages
+// only mats, lights and spheres (<= 1.0 KB at M = L = 16, S = 8).
 //
 // Backward: the same forward recomputed in registers, then the reverse pass
 // written out by hand (the Pallas kernel traced jax.vjp inside its body).
 // The derivation is csrc/SHADE_BWD.md.  Per-ray cotangents d_o, d_d [N, 3]
 // are stored; table cotangents are summed per block into a shared-memory
 // copy of the tables with atomicAdd, then added once per block to d_tri,
-// d_aux, d_lights, d_spheres in device memory with atomicAdd (the wrapper
-// zeroes them).  The grid is one wave of blocks that stride over the rays,
-// so each block flushes once.  fp32 atomics sum in an order that changes from
+// d_aux (or d_mats), d_lights, d_spheres in device memory with atomicAdd
+// (the wrapper zeroes them); the pregathered backward adds the payload
+// row's cotangents straight into d_payload [T, 19] in device memory.  The
+// grid is one wave of blocks that stride over the rays, so each block
+// flushes once.  fp32 atomics sum in an order that changes from
 // run to run: the table gradients are not bitwise reproducible (they vary in
 // the last bits), and the on-card checks compare them to their twin with a
 // tolerance that covers float32 summation (utils/checks.py).
@@ -58,32 +72,118 @@ __device__ __forceinline__ float max_weight(float a, float b) {
   return a > b ? 1.0f : (a == b ? 0.5f : 0.0f);
 }
 
-struct Tables {
-  const float* tri;    // [rows, 9]
-  const float* aux;    // [rows, 19]
-  const float* light;  // [L, 6]
-  const float* sph;    // [S, 11]
-  int num_tris, num_lights, num_spheres;
+// The launch's inputs; the select path reads tris/aux, the pregathered path
+// payload/mats.
+struct ShadeArgs {
+  const float* o;
+  const float* d;
+  const int* prim;
+  const int* bits;
+  int n;
+  const float* tris;     // select: [rows, 9]
+  const float* aux;      // select: [rows, 19]
+  int rows;              // select: table rows (num_tris, or 1 in an all-sphere scene)
+  const float* payload;  // pregathered: [num_tris, 19]
+  const float* mats;     // pregathered: [num_mats, 7]
+  int num_mats;
+  int num_tris;
+  const float* lights;  // [L, 6]
+  int num_lights;
+  const float* spheres;  // [S, 11]
+  int num_spheres;
 };
 
-__device__ __forceinline__ Tables stage_shade_tables(const float* tris, const float* aux,
-                                                     int rows, const float* lights,
-                                                     int num_lights, const float* spheres,
-                                                     int num_spheres, int num_tris,
-                                                     float* smem) {
-  Tables tb{smem, smem + 9 * rows, smem + 28 * rows, smem + 28 * rows + 6 * num_lights,
-            num_tris, num_lights, num_spheres};
-  stage_rows(tris, 9 * rows, smem);
-  stage_rows(aux, 19 * rows, smem + 9 * rows);
-  stage_rows(lights, 6 * num_lights, smem + 28 * rows);
-  stage_rows(spheres, 11 * num_spheres, smem + 28 * rows + 6 * num_lights);
+// Cotangents in and out of the backward.
+struct ShadeGrads {
+  const float* g_direct;
+  const float* g_ks;
+  const float* g_normal;
+  const float* g_position;
+  float* d_o;
+  float* d_d;
+  float* d_tri;      // select
+  float* d_aux;      // select
+  float* d_payload;  // pregathered
+  float* d_mats;     // pregathered
+  float* d_lights;
+  float* d_spheres;
+};
+
+// Shared-memory floats before the lights: tri + aux, or mats.
+template <bool kPre>
+__host__ __device__ __forceinline__ int head_floats(const ShadeArgs& a) {
+  return kPre ? 7 * a.num_mats : 28 * a.rows;
+}
+
+template <bool kPre>
+__host__ __device__ __forceinline__ int table_floats(const ShadeArgs& a) {
+  return head_floats<kPre>(a) + 6 * a.num_lights + 11 * a.num_spheres;
+}
+
+struct Tables {
+  const float* tri;      // select: shared [rows, 9]
+  const float* aux;      // select: shared [rows, 19]
+  const float* payload;  // pregathered: device [num_tris, 19]
+  const float* mats;     // pregathered: shared [num_mats, 7]
+  const float* light;    // shared [L, 6]
+  const float* sph;      // shared [S, 11]
+  int num_tris, num_mats, num_lights, num_spheres;
+};
+
+template <bool kPre>
+__device__ __forceinline__ Tables stage_shade_tables(const ShadeArgs& a, float* smem) {
+  const int head = head_floats<kPre>(a);
+  Tables tb{smem, smem + 9 * a.rows, a.payload, smem, smem + head,
+            smem + head + 6 * a.num_lights, a.num_tris, a.num_mats, a.num_lights,
+            a.num_spheres};
+  if (kPre) {
+    stage_rows(a.mats, 7 * a.num_mats, smem);
+  } else {
+    stage_rows(a.tris, 9 * a.rows, smem);
+    stage_rows(a.aux, 19 * a.rows, smem + 9 * a.rows);
+  }
+  stage_rows(a.lights, 6 * a.num_lights, smem + head);
+  stage_rows(a.spheres, 11 * a.num_spheres, smem + head + 6 * a.num_lights);
   return tb;
+}
+
+// The hit triangle's attributes: vertices, vertex normals, the face normal
+// (which only picks the facing flip) and kd (3), ks (3), shininess.
+struct TriAttr {
+  const float* v;  // v0 v1 v2
+  const float* n;  // n0 n1 n2
+  float fx, fy, fz;
+  const float* mat;
+  int mat_row;  // pregathered: the row of mats
+};
+
+template <bool kPre>
+__device__ __forceinline__ TriAttr tri_attr(const Tables& tb, int slot) {
+  if (!kPre) {
+    const float* a = tb.aux + 19 * slot;
+    return TriAttr{tb.tri + 9 * slot, a, a[9], a[10], a[11], a + 12, 0};
+  }
+  // _shade_math19: the face normal from the vertices, normalised as the
+  // other unit vectors are; the material selected by its id (rows other
+  // than 1..M-1 take material 0, as the Pallas select does).
+  const float* p = tb.payload + 19 * slot;
+  const float e1x = p[3] - p[0], e1y = p[4] - p[1], e1z = p[5] - p[2];
+  const float e2x = p[6] - p[0], e2y = p[7] - p[1], e2z = p[8] - p[2];
+  float fx = e1y * e2z - e1z * e2y;
+  float fy = e1z * e2x - e1x * e2z;
+  float fz = e1x * e2y - e1y * e2x;
+  const float finv = 1.0f / fmaxf(sqrtf(fx * fx + fy * fy + fz * fz), kNormEps);
+  fx = fx * finv, fy = fy * finv, fz = fz * finv;
+  int m = static_cast<int>(p[18]);
+  if (m < 0 || m >= tb.num_mats || static_cast<float>(m) != p[18]) m = 0;
+  return TriAttr{p, p + 9, fx, fy, fz, tb.mats + 7 * m, m};
 }
 
 // Forward of one live ray, with what the reverse pass reads.
 struct Fwd {
   bool sphere;
   int row;
+  TriAttr ta;  // triangle hits
   // Moller-Trumbore on the hit triangle.
   float e1x, e1y, e1z, e2x, e2y, e2z, pvx, pvy, pvz, tvx, tvy, tvz, qvx, qvy, qvz;
   float inv_det, U, V, Tn, t, u, v, w0;
@@ -99,13 +199,15 @@ struct Fwd {
   float ddn, rtx, rty, rtz, rs, rinv, rx, ry, rz;
 };
 
+template <bool kPre>
 __device__ __forceinline__ void shade_surface(const Tables& tb, const Ray& r, int slot,
                                               Fwd& f) {
   f.sphere = slot >= tb.num_tris;
   if (!f.sphere) {
     f.row = slot;
-    const float* tri = tb.tri + 9 * slot;
-    const float* a = tb.aux + 19 * slot;
+    f.ta = tri_attr<kPre>(tb, slot);
+    const float* tri = f.ta.v;
+    const float* a = f.ta.n;
     const float v0x = tri[0], v0y = tri[1], v0z = tri[2];
     f.e1x = tri[3] - v0x, f.e1y = tri[4] - v0y, f.e1z = tri[5] - v0z;
     f.e2x = tri[6] - v0x, f.e2y = tri[7] - v0y, f.e2z = tri[8] - v0z;
@@ -134,13 +236,14 @@ __device__ __forceinline__ void shade_surface(const Tables& tb, const Ray& r, in
     f.ntz = f.w0 * a[2] + f.u * a[5] + f.v * a[8];
     f.ns = sqrtf(f.ntx * f.ntx + f.nty * f.nty + f.ntz * f.ntz);
     f.ninv = 1.0f / fmaxf(f.ns, kNormEps);
-    f.flip = (a[9] * r.dx + a[10] * r.dy + a[11] * r.dz) < 0.0f ? 1.0f : -1.0f;
+    f.flip = (f.ta.fx * r.dx + f.ta.fy * r.dy + f.ta.fz * r.dz) < 0.0f ? 1.0f : -1.0f;
     f.nx = f.ntx * f.ninv * f.flip;
     f.ny = f.nty * f.ninv * f.flip;
     f.nz = f.ntz * f.ninv * f.flip;
-    f.kdx = a[12], f.kdy = a[13], f.kdz = a[14];
-    f.ksx = a[15], f.ksy = a[16], f.ksz = a[17];
-    f.shin = a[18];
+    const float* mat = f.ta.mat;
+    f.kdx = mat[0], f.kdy = mat[1], f.kdz = mat[2];
+    f.ksx = mat[3], f.ksy = mat[4], f.ksz = mat[5];
+    f.shin = mat[6];
   } else {
     f.row = slot - tb.num_tris;
     const float* s = tb.sph + 11 * f.row;
@@ -201,27 +304,22 @@ __device__ __forceinline__ bool live_slot(int slot, const Tables& tb) {
   return slot >= 0 && slot < tb.num_tris + tb.num_spheres;
 }
 
+template <bool kPre>
 __global__ void __launch_bounds__(kThreads)
-    shade_fwd_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                     const int* __restrict__ prim, const int* __restrict__ bits_in, int n,
-                     const float* __restrict__ tris, const float* __restrict__ aux, int rows,
-                     int num_tris, const float* __restrict__ lights, int num_lights,
-                     const float* __restrict__ spheres, int num_spheres,
-                     float* __restrict__ direct, float* __restrict__ ks_out,
+    shade_fwd_kernel(ShadeArgs a, float* __restrict__ direct, float* __restrict__ ks_out,
                      float* __restrict__ normal, float* __restrict__ position) {
   extern __shared__ float smem[];
-  const Tables tb = stage_shade_tables(tris, aux, rows, lights, num_lights, spheres,
-                                       num_spheres, num_tris, smem);
+  const Tables tb = stage_shade_tables<kPre>(a, smem);
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int slot = prim[i];
+  if (i >= a.n) return;
+  const int slot = a.prim[i];
   float out[12] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   if (live_slot(slot, tb)) {
-    const Ray r = load_ray(o, d, i);
+    const Ray r = load_ray(a.o, a.d, i);
     Fwd f;
-    shade_surface(tb, r, slot, f);
-    const int bits = bits_in[i];
+    shade_surface<kPre>(tb, r, slot, f);
+    const int bits = a.bits[i];
     for (int l = 0; l < tb.num_lights; ++l) {
       if ((bits >> l) & 1) continue;
       const float* lrow = tb.light + 6 * l;
@@ -259,45 +357,37 @@ __device__ __forceinline__ void normalize_bwd(float x0, float x1, float x2, floa
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    shade_bwd_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                     const int* __restrict__ prim, const int* __restrict__ bits_in, int n,
-                     const float* __restrict__ tris, const float* __restrict__ aux, int rows,
-                     int num_tris, const float* __restrict__ lights, int num_lights,
-                     const float* __restrict__ spheres, int num_spheres,
-                     const float* __restrict__ g_direct, const float* __restrict__ g_ks,
-                     const float* __restrict__ g_normal, const float* __restrict__ g_position,
-                     float* __restrict__ d_o, float* __restrict__ d_d,
-                     float* __restrict__ d_tri, float* __restrict__ d_aux,
-                     float* __restrict__ d_lights, float* __restrict__ d_spheres) {
+template <bool kPre>
+__global__ void __launch_bounds__(kThreads) shade_bwd_kernel(ShadeArgs a, ShadeGrads g) {
   extern __shared__ float smem[];
-  const int table_floats = 28 * rows + 6 * num_lights + 11 * num_spheres;
-  const Tables tb = stage_shade_tables(tris, aux, rows, lights, num_lights, spheres,
-                                       num_spheres, num_tris, smem);
+  const int floats = table_floats<kPre>(a), head = head_floats<kPre>(a);
+  const Tables tb = stage_shade_tables<kPre>(a, smem);
   // Gradient accumulators: the same layout, right after the tables.
-  float* acc = smem + table_floats;
-  float* a_tri = acc;
-  float* a_aux = acc + 9 * rows;
-  float* a_light = acc + 28 * rows;
-  float* a_sph = acc + 28 * rows + 6 * num_lights;
-  for (int k = threadIdx.x; k < table_floats; k += blockDim.x) acc[k] = 0.0f;
+  float* acc = smem + floats;
+  float* a_tri = acc;                // select
+  float* a_aux = acc + 9 * a.rows;   // select
+  float* a_mat = acc;                // pregathered
+  float* a_light = acc + head;
+  float* a_sph = acc + head + 6 * a.num_lights;
+  for (int k = threadIdx.x; k < floats; k += blockDim.x) acc[k] = 0.0f;
   __syncthreads();
 
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
-    const int slot = prim[i];
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.n; i += gridDim.x * blockDim.x) {
+    const int slot = a.prim[i];
     float go[3] = {0.0f, 0.0f, 0.0f}, gd[3] = {0.0f, 0.0f, 0.0f};
     if (live_slot(slot, tb)) {
-      const Ray r = load_ray(o, d, i);
+      const Ray r = load_ray(a.o, a.d, i);
       Fwd f;
-      shade_surface(tb, r, slot, f);
-      const int bits = bits_in[i];
-      const float gD[3] = {g_direct[3 * i], g_direct[3 * i + 1], g_direct[3 * i + 2]};
+      shade_surface<kPre>(tb, r, slot, f);
+      const int bits = a.bits[i];
+      const float gD[3] = {g.g_direct[3 * i], g.g_direct[3 * i + 1], g.g_direct[3 * i + 2]};
       // Cotangents of the surface: position and normal, kd, ks, shininess,
       // and of the unit reflection.
-      float gpx = g_position[3 * i], gpy = g_position[3 * i + 1], gpz = g_position[3 * i + 2];
-      float gnx = g_normal[3 * i], gny = g_normal[3 * i + 1], gnz = g_normal[3 * i + 2];
+      float gpx = g.g_position[3 * i], gpy = g.g_position[3 * i + 1];
+      float gpz = g.g_position[3 * i + 2];
+      float gnx = g.g_normal[3 * i], gny = g.g_normal[3 * i + 1], gnz = g.g_normal[3 * i + 2];
       float gkd[3] = {0.0f, 0.0f, 0.0f};
-      float gks[3] = {g_ks[3 * i], g_ks[3 * i + 1], g_ks[3 * i + 2]};
+      float gks[3] = {g.g_ks[3 * i], g.g_ks[3 * i + 1], g.g_ks[3 * i + 2]};
       float gshin = 0.0f, grx = 0.0f, gry = 0.0f, grz = 0.0f;
 
       // Lights (SHADE_BWD.md, "Lights").
@@ -394,30 +484,33 @@ __global__ void __launch_bounds__(kThreads)
         }
         atomicAdd(&as[10], gshin);
       } else {
-        // Triangle (SHADE_BWD.md, "Normal" and "Moller-Trumbore").
-        float* at = a_tri + 9 * f.row;
-        float* aa = a_aux + 19 * f.row;
-        const float* a = tb.aux + 19 * f.row;
+        // Triangle (SHADE_BWD.md, "Normal" and "Moller-Trumbore").  Vertex
+        // and normal cotangents go to the shared tri/aux copies, or straight
+        // to the device payload; material ones to aux columns 12-18 or mats.
+        float* at = kPre ? g.d_payload + 19 * f.row : a_tri + 9 * f.row;
+        float* an = kPre ? g.d_payload + 19 * f.row + 9 : a_aux + 19 * f.row;
+        float* am = kPre ? a_mat + 7 * f.ta.mat_row : a_aux + 19 * f.row + 12;
+        const float* nv = f.ta.n;
         float gntx = 0.0f, gnty = 0.0f, gntz = 0.0f;
         normalize_bwd(f.ntx, f.nty, f.ntz, f.ns, f.ninv, gnx * f.flip, gny * f.flip,
                       gnz * f.flip, gntx, gnty, gntz);
-        const float g_w0 = gntx * a[0] + gnty * a[1] + gntz * a[2];
-        const float g_u = gntx * a[3] + gnty * a[4] + gntz * a[5] - g_w0;
-        const float g_v = gntx * a[6] + gnty * a[7] + gntz * a[8] - g_w0;
-        atomicAdd(&aa[0], f.w0 * gntx);
-        atomicAdd(&aa[1], f.w0 * gnty);
-        atomicAdd(&aa[2], f.w0 * gntz);
-        atomicAdd(&aa[3], f.u * gntx);
-        atomicAdd(&aa[4], f.u * gnty);
-        atomicAdd(&aa[5], f.u * gntz);
-        atomicAdd(&aa[6], f.v * gntx);
-        atomicAdd(&aa[7], f.v * gnty);
-        atomicAdd(&aa[8], f.v * gntz);
+        const float g_w0 = gntx * nv[0] + gnty * nv[1] + gntz * nv[2];
+        const float g_u = gntx * nv[3] + gnty * nv[4] + gntz * nv[5] - g_w0;
+        const float g_v = gntx * nv[6] + gnty * nv[7] + gntz * nv[8] - g_w0;
+        atomicAdd(&an[0], f.w0 * gntx);
+        atomicAdd(&an[1], f.w0 * gnty);
+        atomicAdd(&an[2], f.w0 * gntz);
+        atomicAdd(&an[3], f.u * gntx);
+        atomicAdd(&an[4], f.u * gnty);
+        atomicAdd(&an[5], f.u * gntz);
+        atomicAdd(&an[6], f.v * gntx);
+        atomicAdd(&an[7], f.v * gnty);
+        atomicAdd(&an[8], f.v * gntz);
         for (int c = 0; c < 3; ++c) {
-          atomicAdd(&aa[12 + c], gkd[c]);
-          atomicAdd(&aa[15 + c], gks[c]);
+          atomicAdd(&am[c], gkd[c]);
+          atomicAdd(&am[3 + c], gks[c]);
         }
-        atomicAdd(&aa[18], gshin);
+        atomicAdd(&am[6], gshin);
         // p = o + d t
         go[0] += gpx, go[1] += gpy, go[2] += gpz;
         gd[0] += gpx * f.t, gd[1] += gpy * f.t, gd[2] += gpz * f.t;
@@ -466,29 +559,63 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     for (int c = 0; c < 3; ++c) {
-      d_o[3 * i + c] = go[c];
-      d_d[3 * i + c] = gd[c];
+      g.d_o[3 * i + c] = go[c];
+      g.d_d[3 * i + c] = gd[c];
     }
   }
 
   __syncthreads();
-  for (int k = threadIdx.x; k < table_floats; k += blockDim.x) {
-    const float g = acc[k];
-    if (g == 0.0f) continue;
-    if (k < 9 * rows) {
-      atomicAdd(&d_tri[k], g);
-    } else if (k < 28 * rows) {
-      atomicAdd(&d_aux[k - 9 * rows], g);
-    } else if (k < 28 * rows + 6 * num_lights) {
-      atomicAdd(&d_lights[k - 28 * rows], g);
+  for (int k = threadIdx.x; k < floats; k += blockDim.x) {
+    const float v = acc[k];
+    if (v == 0.0f) continue;
+    if (k < head) {
+      if (kPre) {
+        atomicAdd(&g.d_mats[k], v);
+      } else if (k < 9 * a.rows) {
+        atomicAdd(&g.d_tri[k], v);
+      } else {
+        atomicAdd(&g.d_aux[k - 9 * a.rows], v);
+      }
+    } else if (k < head + 6 * a.num_lights) {
+      atomicAdd(&g.d_lights[k - head], v);
     } else {
-      atomicAdd(&d_spheres[k - 28 * rows - 6 * num_lights], g);
+      atomicAdd(&g.d_spheres[k - head - 6 * a.num_lights], v);
     }
   }
 }
 
-size_t shade_table_bytes(int rows, int num_lights, int num_spheres) {
-  return sizeof(float) * (28 * rows + 6 * num_lights + 11 * num_spheres);
+template <bool kPre>
+int launch_fwd(const ShadeArgs& a, float* direct, float* ks, float* normal, float* position,
+               cudaStream_t stream) {
+  if (a.n > 0) {
+    shade_fwd_kernel<kPre><<<num_blocks(a.n), kThreads, sizeof(float) * table_floats<kPre>(a),
+                             stream>>>(a, direct, ks, normal, position);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One wave of blocks striding over the rays, so each block flushes its
+// accumulators once.
+template <bool kPre>
+int launch_bwd(const ShadeArgs& a, const ShadeGrads& g, cudaStream_t stream) {
+  if (a.n <= 0) return static_cast<int>(cudaGetLastError());
+  const size_t smem = 2 * sizeof(float) * table_floats<kPre>(a);
+  cudaError_t err = cudaFuncSetAttribute(shade_bwd_kernel<kPre>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+      cudaSuccess)
+    return static_cast<int>(err);
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, shade_bwd_kernel<kPre>,
+                                                           kThreads, smem)) != cudaSuccess)
+    return static_cast<int>(err);
+  const int wave = sms * (per_sm > 0 ? per_sm : 1);
+  const int blocks = num_blocks(a.n) < wave ? num_blocks(a.n) : wave;
+  shade_bwd_kernel<kPre><<<blocks, kThreads, smem, stream>>>(a, g);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace cgrt
@@ -500,13 +627,9 @@ int cgrt_shade_fwd(const float* o, const float* d, const int* prim, const int* b
                    const float* lights, int num_lights, const float* spheres, int num_spheres,
                    float* direct, float* ks, float* normal, float* position,
                    cudaStream_t stream) {
-  if (n > 0) {
-    cgrt::shade_fwd_kernel<<<cgrt::num_blocks(n), cgrt::kThreads,
-                             cgrt::shade_table_bytes(rows, num_lights, num_spheres), stream>>>(
-        o, d, prim, bits, n, tris, aux, rows, num_tris, lights, num_lights, spheres,
-        num_spheres, direct, ks, normal, position);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cgrt::ShadeArgs a{o, d, prim, bits, n, tris, aux, rows, nullptr, nullptr, 0,
+                          num_tris, lights, num_lights, spheres, num_spheres};
+  return cgrt::launch_fwd<false>(a, direct, ks, normal, position, stream);
 }
 
 // The table cotangents d_tri, d_aux, d_lights, d_spheres are added to (the
@@ -517,27 +640,37 @@ int cgrt_shade_bwd(const float* o, const float* d, const int* prim, const int* b
                    const float* g_direct, const float* g_ks, const float* g_normal,
                    const float* g_position, float* d_o, float* d_d, float* d_tri,
                    float* d_aux, float* d_lights, float* d_spheres, cudaStream_t stream) {
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = 2 * cgrt::shade_table_bytes(rows, num_lights, num_spheres);
-  cudaError_t err = cudaFuncSetAttribute(cgrt::shade_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return static_cast<int>(err);
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
-      cudaSuccess)
-    return static_cast<int>(err);
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cgrt::shade_bwd_kernel,
-                                                           cgrt::kThreads, smem)) !=
-      cudaSuccess)
-    return static_cast<int>(err);
-  const int wave = sms * (per_sm > 0 ? per_sm : 1);
-  const int blocks = cgrt::num_blocks(n) < wave ? cgrt::num_blocks(n) : wave;
-  cgrt::shade_bwd_kernel<<<blocks, cgrt::kThreads, smem, stream>>>(
-      o, d, prim, bits, n, tris, aux, rows, num_tris, lights, num_lights, spheres, num_spheres,
-      g_direct, g_ks, g_normal, g_position, d_o, d_d, d_tri, d_aux, d_lights, d_spheres);
-  return static_cast<int>(cudaGetLastError());
+  const cgrt::ShadeArgs a{o, d, prim, bits, n, tris, aux, rows, nullptr, nullptr, 0,
+                          num_tris, lights, num_lights, spheres, num_spheres};
+  const cgrt::ShadeGrads g{g_direct, g_ks, g_normal, g_position, d_o, d_d, d_tri, d_aux,
+                           nullptr, nullptr, d_lights, d_spheres};
+  return cgrt::launch_bwd<false>(a, g, stream);
+}
+
+int cgrt_shade_pre_fwd(const float* o, const float* d, const int* prim, const int* bits, int n,
+                       const float* payload, int num_tris, const float* mats, int num_mats,
+                       const float* lights, int num_lights, const float* spheres,
+                       int num_spheres, float* direct, float* ks, float* normal,
+                       float* position, cudaStream_t stream) {
+  const cgrt::ShadeArgs a{o, d, prim, bits, n, nullptr, nullptr, 0, payload, mats, num_mats,
+                          num_tris, lights, num_lights, spheres, num_spheres};
+  return cgrt::launch_fwd<true>(a, direct, ks, normal, position, stream);
+}
+
+// d_payload, d_mats, d_lights, d_spheres are added to (the caller zeroes
+// them); d_o and d_d are written.
+int cgrt_shade_pre_bwd(const float* o, const float* d, const int* prim, const int* bits, int n,
+                       const float* payload, int num_tris, const float* mats, int num_mats,
+                       const float* lights, int num_lights, const float* spheres,
+                       int num_spheres, const float* g_direct, const float* g_ks,
+                       const float* g_normal, const float* g_position, float* d_o, float* d_d,
+                       float* d_payload, float* d_mats, float* d_lights, float* d_spheres,
+                       cudaStream_t stream) {
+  const cgrt::ShadeArgs a{o, d, prim, bits, n, nullptr, nullptr, 0, payload, mats, num_mats,
+                          num_tris, lights, num_lights, spheres, num_spheres};
+  const cgrt::ShadeGrads g{g_direct, g_ks, g_normal, g_position, d_o, d_d, nullptr, nullptr,
+                           d_payload, d_mats, d_lights, d_spheres};
+  return cgrt::launch_bwd<true>(a, g, stream);
 }
 
 }  // extern "C"

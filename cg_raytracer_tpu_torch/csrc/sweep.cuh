@@ -1,5 +1,6 @@
 // Shared device code of the brute-force sweep kernels (oracle.cu, trace.cu,
-// record.cu, shade.cu).
+// record.cu, shade.cu) and of the 4-wide BVH kernels (bvh4.cu: the
+// Moller-Trumbore test and the shadow ray).
 //
 // Counterpart of the helpers in cg_raytracer_tpu/ops/pallas_kernels.py:
 // _mt_tile (Moller-Trumbore with the same epsilons and the det_safe form),
@@ -107,22 +108,32 @@ __device__ __forceinline__ bool any_hit_sweep(const float* s_tri, int num_tris,
   return false;
 }
 
+// Shadow ray from a hit point toward a light at lpos (pointInShadow,
+// main.cpp:104-135): origin p + SHADOW_EPS * ldir, the unit direction ldir
+// (scaled by a reciprocal), and t_max = dist - SHADOW_EPS.
+__device__ __forceinline__ Ray light_ray(const float* lpos, float px, float py, float pz,
+                                         float& t_max) {
+  const float tx = lpos[0] - px;
+  const float ty = lpos[1] - py;
+  const float tz = lpos[2] - pz;
+  const float dist = sqrtf(tx * tx + ty * ty + tz * tz);
+  const float inv = 1.0f / fmaxf(dist, kNormEps);
+  const float sdx = tx * inv, sdy = ty * inv, sdz = tz * inv;
+  t_max = dist - kShadowEps;
+  return Ray{px + kShadowEps * sdx, py + kShadowEps * sdy, pz + kShadowEps * sdz,
+             sdx, sdy, sdz};
+}
+
 // Shadow bits from a hit point: bit l set where light l (s_light [L, 3]
-// positions) is occluded (pointInShadow, main.cpp:104-135).
+// positions) is occluded.
 __device__ __forceinline__ int shadow_bits(const float* s_tri, int num_tris,
                                            const float* s_light, int num_lights, float px,
                                            float py, float pz) {
   int bits = 0;
   for (int l = 0; l < num_lights; ++l) {
-    const float tx = s_light[3 * l] - px;
-    const float ty = s_light[3 * l + 1] - py;
-    const float tz = s_light[3 * l + 2] - pz;
-    const float dist = sqrtf(tx * tx + ty * ty + tz * tz);
-    const float inv = 1.0f / fmaxf(dist, kNormEps);
-    const float sdx = tx * inv, sdy = ty * inv, sdz = tz * inv;
-    const Ray s{px + kShadowEps * sdx, py + kShadowEps * sdy, pz + kShadowEps * sdz,
-                sdx, sdy, sdz};
-    if (any_hit_sweep(s_tri, num_tris, s, dist - kShadowEps)) bits |= 1 << l;
+    float t_max;
+    const Ray s = light_ray(s_light + 3 * l, px, py, pz, t_max);
+    if (any_hit_sweep(s_tri, num_tris, s, t_max)) bits |= 1 << l;
   }
   return bits;
 }

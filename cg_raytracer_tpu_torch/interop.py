@@ -1,4 +1,5 @@
-"""Carry the JAX package's scene, camera and parameter dicts across as numpy arrays.
+"""Carry the JAX package's scene, camera, parameter dicts and BVH across as
+numpy arrays.
 
 The JAX ``Scene`` and ``Camera`` are pytrees; ``jax.tree_util.tree_leaves``
 lists their arrays in field order.  These functions take exactly those leaves,
@@ -10,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops.bvh import BVH
 from .scene.types import (Camera, Materials, PointLights, Scene, SphericalLights,
                           Spheres)
 
@@ -22,6 +24,9 @@ SCENE_LEAVES = (
     "spherical_lights.position", "spherical_lights.radius", "spherical_lights.color",
 )
 CAMERA_LEAVES = ("look_at", "euler", "dist", "fovy", "aspect")
+# Leaf order of the JAX BVH pytree (its max_leaf is static, not a leaf).
+BVH_LEAVES = ("node_lo", "node_hi", "left", "right", "first", "count", "tri_order",
+              "tv0", "tv1", "tv2")
 
 
 def _tensors(fields, names, device):
@@ -57,3 +62,12 @@ def params_from_numpy(params, device="cpu") -> dict:
     float32 tensors on ``device`` under the same keys."""
     return {k: torch.from_numpy(np.array(v, dtype=np.float32, copy=True, order="C")).to(device)
             for k, v in params.items()}
+
+
+def bvh_from_numpy(fields, max_leaf: int, device="cpu") -> BVH:
+    """``fields``: a JAX-built ``BVH``'s arrays as numpy, in ``BVH_LEAVES``
+    order, and its ``max_leaf``: the same tree as the port's ``BVH``, so
+    that the port's 4-wide collapse and traversals run on the JAX tree."""
+    arrays = _tensors(fields, BVH_LEAVES, device)
+    return BVH(*(a.to(torch.int32) if a.dtype != torch.float32 else a for a in arrays),
+               max_leaf=int(max_leaf))

@@ -8,8 +8,12 @@ with a per-ray throughput and active mask:
     active     &= hit && any(ks > 0.01)                  (main.cpp:246, fixed form)
 
 Intersection backends sit behind one oracle contract (``ops/intersect.py``):
-``brute`` sweeps in PyTorch on the CPU; ``cuda`` runs the kernels of
-``ops/cuda_kernels.py`` on the card (and their plain twins for CPU tensors).
+``brute`` sweeps in PyTorch on the CPU and ``bvh`` traverses a BVH there
+(``ops/bvh.py``); ``cuda`` runs the kernels on the card (and their plain
+twins for CPU tensors): the brute-force kernels of ``ops/cuda_kernels.py`` up
+to ``pallas_brute_max_tris`` triangles, the 4-wide BVH kernels of
+``ops/bvh4.py`` beyond.  The acceleration structure is built on the host
+once per scene (``build_accel``) and passed in as ``accel``.
 
 Under ``grad_two_phase='on'`` the trace splits in two (``_trace_two_phase``):
 phase 1 records every level's hits, shadow bits and next rays on the
@@ -24,10 +28,12 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..ops import bvh4 as b4
 from ..ops import camera as cam_ops
 from ..ops import cuda_kernels as ck
 from ..ops import shade as shade_ops
 from ..ops import shading
+from ..ops.bvh import BVH, build_bvh, intersect_bvh, occluded_bvh
 from ..ops.intersect import (intersect_brute, occluded_brute, reconstruct_hit,
                              record_surface)
 from ..ops.linalg import norm, reflect, safe_normalize
@@ -39,11 +45,12 @@ REFLECT_EPS = 1e-3
 
 class Backend(NamedTuple):
     """Intersection oracles.  ``bounce`` (closest hit + per-light shadow bits
-    in one kernel), ``bounce_refl`` and ``record_trace`` (the two-phase
-    records, one level or all of them in one kernel) and ``trace`` (the whole
-    forward trace in one kernel) are fast paths that exist only where the
-    scene and config allow them.  ``shade`` is the phase-2 shade: the kernel
-    wrapper ``shade_fused_cuda`` or its plain twin."""
+    in one kernel, over the triangle table or the 4-wide tree),
+    ``bounce_refl`` and ``record_trace`` (the two-phase records, one level or
+    all of them in one kernel; small scenes only) and ``trace`` (the whole
+    forward trace in one kernel; small scenes only) are fast paths that
+    exist only where the scene and config allow them.  ``shade`` is the
+    phase-2 shade: the kernel wrapper ``shade_fused_cuda`` or its plain twin."""
 
     closest: Callable  # (origins, dirs) -> Hit
     occluded: Callable  # (origins, dirs, t_max) -> bool [N]
@@ -58,22 +65,82 @@ class Backend(NamedTuple):
     trace: Optional[Callable] = None  # (origins, dirs) -> color [N, 3]
 
 
-def make_backend(scene: Scene, cfg: RenderConfig, plain: bool = False) -> Backend:
+def needs_bvh(cfg: RenderConfig, num_tris: int, device) -> bool:
+    """Whether the resolved backend traverses a prebuilt tree (built on the host)."""
+    kind = cfg.resolve_backend(num_tris, device)
+    return kind == "bvh" or (kind == "cuda" and num_tris > cfg.pallas_brute_max_tris)
+
+
+def _check_bvh4_cap(num_tris: int) -> None:
+    if num_tris > b4.VMEM_MAX_TRIS:
+        raise NotImplementedError(
+            f"{num_tris} triangles exceed the 4-wide BVH kernels' cap ({b4.VMEM_MAX_TRIS}); "
+            f"the kernels for larger scenes are not ported yet (ROADMAP B8)")
+
+
+def build_accel(scene: Scene, cfg: RenderConfig):
+    """The resolved backend's acceleration structure: a ``BVH`` for the CPU
+    traversal, a ``BVH4`` on the scene's device for the card's kernels, or
+    None.  Memoized on the identity of the scene's triangle and vertex
+    tensors (``_cached_accel``); a caller whose vertex tensors change every
+    step (a training step makes fresh leaves) builds once and passes
+    ``accel=`` instead."""
+    num_tris, device = scene.num_triangles, scene.device
+    kind = cfg.resolve_backend(num_tris, device)
+    builder = cfg.resolve_bvh_builder(num_tris, device)
+    if kind == "bvh":
+        return _cached_accel(scene, ("bvh", builder), lambda: build_bvh(scene, builder=builder))
+    if kind == "cuda" and num_tris > cfg.pallas_brute_max_tris:
+        _check_bvh4_cap(num_tris)
+        leaf = cfg.resolve_bvh_max_leaf()
+        return _cached_accel(scene, ("bvh4", leaf, builder),
+                             lambda: b4.build_bvh4(scene, max_leaf=leaf, builder=builder)[1])
+    return None
+
+
+_ACCEL_CACHE: dict = {}
+
+
+def _cached_accel(scene: Scene, tag: tuple, builder):
+    """Accel memo keyed on the triangle and vertex tensors' identities
+    (geometry only: materials and lights do not shape the tree).  An entry
+    goes when either tensor is freed, so a stale id() is never reused."""
+    import weakref
+
+    tris, verts = scene.triangles, scene.vertices
+    key = (id(tris), id(verts), scene.num_triangles, str(scene.device)) + tag
+    hit = _ACCEL_CACHE.get(key)
+    if hit is not None:
+        return hit
+    accel = _ACCEL_CACHE[key] = builder()
+    for buf in (tris, verts):
+        weakref.finalize(buf, _ACCEL_CACHE.pop, key, None)
+    return accel
+
+
+def make_backend(scene: Scene, cfg: RenderConfig, plain: bool = False, accel=None) -> Backend:
     """Oracles for ``scene`` on its device.  ``plain=True`` routes the cuda
     backend, and the phase-2 shade, through the kernels' plain PyTorch twins
-    on any device: the reference a kernel render is checked against."""
+    on any device: the reference a kernel render is checked against.
+    ``accel``: the tree ``build_accel`` gives for this scene and config
+    (built here when None)."""
     kind = cfg.resolve_backend(scene.num_triangles, scene.device)
+    shade = shade_ops.shade_fused_plain if plain else shade_ops.shade_fused_cuda
     if kind == "brute":
         return Backend(
             closest=lambda o, d: intersect_brute(scene, o, d, tri_chunk=cfg.tri_chunk),
             occluded=lambda o, d, tm: occluded_brute(scene, o, d, tm, tri_chunk=cfg.tri_chunk),
-            shade=shade_ops.shade_fused_plain if plain else shade_ops.shade_fused_cuda,
+            shade=shade,
         )
+    if kind == "bvh":
+        tree = accel if accel is not None else build_accel(scene, cfg)
+        if not isinstance(tree, BVH):
+            raise TypeError(f"backend='bvh' traverses a BVH (ops/bvh.py), got {type(tree)}")
+        return Backend(closest=lambda o, d: intersect_bvh(scene, tree, o, d),
+                       occluded=lambda o, d, tm: occluded_bvh(scene, tree, o, d, tm),
+                       shade=shade)
     if scene.num_triangles > cfg.pallas_brute_max_tris:
-        raise NotImplementedError(
-            f"{scene.num_triangles} triangles exceed the brute-force kernels' cap "
-            f"({cfg.pallas_brute_max_tris}); the BVH kernels are not ported yet "
-            f"(ROADMAP B5)")
+        return _bvh4_backend(scene, cfg, plain, accel, shade)
     if plain:
         closest, occluded = ck.intersect_plain, ck.occluded_plain
         bounce, trace = ck.bounce_plain, ck.trace_plain
@@ -95,7 +162,34 @@ def make_backend(scene: Scene, cfg: RenderConfig, plain: bool = False) -> Backen
                       if fused else None),
         trace=((lambda o, d: trace(scene, o, d, cfg.max_depth, quirk_ks_z=quirk))
                if cfg.forward_only and ck.supports_trace_kernel(scene) else None),
-        shade=shade_ops.shade_fused_plain if plain else shade_ops.shade_fused_cuda,
+        shade=shade,
+    )
+
+
+def _bvh4_backend(scene: Scene, cfg: RenderConfig, plain: bool, accel, shade) -> Backend:
+    """The 4-wide BVH kernels (the JAX package's ``bvh_wide`` auto = '4'
+    branch, whitted.py:243-316): closest hit and any hit, and the fused
+    bounce where the scene has no sphere primitives.  There is no record or
+    trace kernel over the tree: phase 1 runs level by level on the bounce."""
+    _check_bvh4_cap(scene.num_triangles)
+    tree = accel if accel is not None else build_accel(scene, cfg)
+    if not isinstance(tree, b4.BVH4):
+        raise TypeError(f"the 4-wide BVH kernels traverse a BVH4 (ops/bvh4.py), got {type(tree)}")
+    if tree.device != scene.device or tree.num_tris != scene.num_triangles:
+        raise ValueError(f"accel: a tree of {tree.num_tris} triangles on {tree.device} for a "
+                         f"scene of {scene.num_triangles} on {scene.device}")
+    if plain:
+        closest, occluded, bounce = (b4.intersect_bvh4_plain, b4.occluded_bvh4_plain,
+                                     b4.bounce_bvh4_plain)
+    else:
+        closest, occluded, bounce = (b4.intersect_bvh4_cuda, b4.occluded_bvh4_cuda,
+                                     b4.bounce_bvh4_cuda)
+    fused = b4.supports_fused_bounce_bvh4(scene)
+    return Backend(
+        closest=lambda o, d: closest(scene, tree, o, d),
+        occluded=lambda o, d, tm: occluded(scene, tree, o, d, tm),
+        bounce=(lambda o, d, live=None: bounce(scene, tree, o, d, live=live)) if fused else None,
+        shade=shade,
     )
 
 
@@ -111,7 +205,10 @@ def trace_rays(scene: Scene, origins, dirs, cfg: RenderConfig, backend: Backend,
     """
     if backend.trace is not None:
         return backend.trace(origins, dirs)
-    if cfg.resolve_grad_two_phase():
+    # forward_only renders past the trace kernel's cap take the two-phase
+    # structure where resolve_fwd_shade_kernel turned it on (whitted.py:575-583).
+    fwd_only_kernel = cfg.forward_only and cfg.fwd_shade_kernel == "on"
+    if cfg.resolve_grad_two_phase() or fwd_only_kernel:
         return _trace_two_phase(scene, origins, dirs, cfg, backend, generator)
 
     n = origins.shape[0]
@@ -179,7 +276,13 @@ def _synth_bounce(scene: Scene, backend: Backend):
 def _two_phase_records(sg_scene: Scene, origins, dirs, cfg: RenderConfig, backend: Backend):
     """Phase 1 by levels: per level (o, d, hit, bits, active), from the
     bounce-refl kernel where the backend has it, else from a bounce and the
-    recorded surface (``record_surface``) on the detached scene."""
+    recorded surface (``record_surface``) on the detached scene.
+
+    The JAX package's ``_resorted_query`` ('park', 'pos', 'posdir') is not
+    ported: it regrouped dead and live rays into separate tiles for the
+    tile-synchronous TPU kernels and left every result the same.  The
+    kernels here walk one ray per thread, and a dead ray (``live`` False,
+    t_max < 0) exits at once."""
     records = []
     o, d = origins, dirs
     active = torch.ones((origins.shape[0],), dtype=torch.bool, device=origins.device)
@@ -280,7 +383,8 @@ def _render_flat(scene: Scene, camera: Camera, cfg: RenderConfig, backend: Backe
 def render_image(scene: Scene, camera: Camera, cfg: RenderConfig,
                  backend: Optional[Backend] = None, generator=None):
     """[H, W, 3] float32 on the scene's device, image-row order (row 0 = top),
-    linear values (clamp/quantize happens at write time)."""
+    linear values (clamp/quantize happens at write time).  Without a
+    ``backend``, ``make_backend`` builds one (and its tree, memoized)."""
     if cfg.anti_aliasing or cfg.bloom or cfg.motion_blur:
         raise NotImplementedError(
             "anti-aliasing, bloom and motion blur are not ported yet (ROADMAP A9)")
@@ -303,14 +407,39 @@ def effective_max_depth(scene: Scene, cfg: RenderConfig) -> int:
     return cfg.max_depth if reflective else min(cfg.max_depth, 1)
 
 
+def resolve_fwd_shade_kernel(scene: Scene, cfg: RenderConfig) -> RenderConfig:
+    """Resolve ``fwd_shade_kernel='auto'`` (whitted.py:913-939 of the JAX
+    package): 'on' for a forward-only render at depth >= 2 with the shade
+    kernel on, point lights only, a scene the shade kernel covers and more
+    than 5% of its triangles reflective; else 'off'."""
+    if cfg.fwd_shade_kernel not in ("auto", "on", "off"):
+        raise ValueError(f"fwd_shade_kernel must be 'auto' | 'on' | 'off', got "
+                         f"{cfg.fwd_shade_kernel!r}")
+    if not cfg.forward_only or cfg.fwd_shade_kernel != "auto":
+        return cfg
+    on = False
+    if (cfg.max_depth >= 2 and cfg.resolve_shade_kernel(scene.device)
+            and scene.spherical_lights.position.shape[0] == 0
+            and shade_ops.supports_shade_kernel(scene) and scene.num_triangles > 0):
+        ks = scene.materials.ks.detach()[scene.tri_material.long()]
+        on = (ks > 0.01).any(dim=1).float().mean().item() > 0.05
+    return dataclasses.replace(cfg, fwd_shade_kernel="on" if on else "off")
+
+
 def render(scene: Scene, camera: Camera, cfg: RenderConfig,
-           generator: Optional[torch.Generator] = None):
+           generator: Optional[torch.Generator] = None, accel=None):
     """User-facing render entry point -> [H, W, 3] float32 on the scene's device.
 
     ``generator`` takes the place of the JAX package's PRNG key; point lights
-    draw no samples, so it is unused on this path.
+    draw no samples, so it is unused on this path.  ``accel``: the scene's
+    tree from ``build_accel`` (the JAX package's ``bvh=``); built and
+    memoized here when None.
     """
     depth = effective_max_depth(scene, cfg)
     if depth != cfg.max_depth:
         cfg = dataclasses.replace(cfg, max_depth=depth)
-    return render_image(scene, camera, cfg, generator=generator)
+    cfg = resolve_fwd_shade_kernel(scene, cfg)
+    if accel is None and needs_bvh(cfg, scene.num_triangles, scene.device):
+        accel = build_accel(scene, cfg)
+    return render_image(scene, camera, cfg, backend=make_backend(scene, cfg, accel=accel),
+                        generator=generator)

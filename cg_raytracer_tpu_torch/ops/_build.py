@@ -3,11 +3,13 @@
 
 The sources compile with ``nvcc`` into one shared library with a plain C
 interface, loaded with ``ctypes``: a build takes seconds, where one that
-includes PyTorch's headers takes minutes.  The library is built at first use
-into ``_build/`` beside this package's sources (``$CGRT_TORCH_BUILD_DIR``
-overrides it), under a name keyed by a hash of the sources and flags, so an
-edited source rebuilds and a fresh checkout builds everything itself.  A
-failed build raises; nothing falls back.
+includes PyTorch's headers takes minutes.  Each source compiles to an object
+in its own ``nvcc`` process, all started together, and one more ``nvcc``
+links them.  The library is built at first use into ``_build/`` beside this
+package's sources (``$CGRT_TORCH_BUILD_DIR`` overrides it), under a name
+keyed by a hash of the sources and flags, so an edited source rebuilds and a
+fresh checkout builds everything itself.  A failed build raises; nothing
+falls back.
 
 Flags: ``sm_90a`` (Hopper); no ``--use_fast_math``, which would change sqrt,
 division and pow; ``-fmad=false``, so each multiply and add rounds as the
@@ -25,10 +27,10 @@ import subprocess
 import threading
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = ("oracle.cu", "trace.cu", "record.cu", "shade.cu")
+SOURCES = ("oracle.cu", "trace.cu", "record.cu", "shade.cu", "bvh4.cu")
 HEADERS = ("sweep.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -58,16 +60,39 @@ def library_path() -> str:
     return os.path.join(build_dir(), f"libcgrt_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run(procs) -> str:
+    """Wait for every (cmd, Popen); raise on the first failure; the output."""
+    out = []
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            for _, other in procs:
+                other.kill()
+            raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
+                               f"{' '.join(cmd)}\n{stdout}{stderr}")
+        out.append(stdout + stderr)
+    return "".join(out)
+
+
 def _compile(path: str) -> None:
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    objs = [f"{tmp}.{name}.o" for name in SOURCES]
+    nvcc = _nvcc()
+    try:
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC_DIR, name)]
+                    for name, obj in zip(SOURCES, objs)]
+        log = _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                           text=True)) for cmd in compiles])
+        link = [nvcc, "-shared", "-o", tmp, *objs]
+        log += _run([(link, subprocess.Popen(link, stdout=subprocess.PIPE,
+                                             stderr=subprocess.PIPE, text=True))])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     with open(path[:-3] + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
+        f.write(log)
     os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
 
 
@@ -82,6 +107,11 @@ def _declare(lib) -> None:
         "cgrt_bounce_refl": [p, p, p, i, p, i, p, p, i, i] + [p] * 8 + [p],
         "cgrt_shade_fwd": [p, p, p, p, i, p, p, i, i, p, i, p, i] + [p] * 4 + [p],
         "cgrt_shade_bwd": [p, p, p, p, i, p, p, i, i, p, i, p, i] + [p] * 10 + [p],
+        "cgrt_shade_pre_fwd": [p, p, p, p, i, p, i, p, i, p, i, p, i] + [p] * 4 + [p],
+        "cgrt_shade_pre_bwd": [p, p, p, p, i, p, i, p, i, p, i, p, i] + [p] * 10 + [p],
+        "cgrt_bvh4_closest": [p, p, p, i] + [p] * 5 + [p] * 4 + [p],
+        "cgrt_bvh4_anyhit": [p, p, p, i] + [p] * 5 + [p] + [p],
+        "cgrt_bvh4_bounce": [p, p, p, i] + [p] * 5 + [p, i] + [p] * 5 + [p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -1,0 +1,423 @@
+"""The 4-wide BVH on the card: its node layout, kernels B5 and B6 and their
+plain twins.  Counterpart of ``cg_raytracer_tpu/ops/pallas_bvh4.py``
+(``collapse_bvhw`` at width 4, ``build_packed_bvh4``, ``_bvh4_kernel`` and
+``_bvh4_bounce_kernel``) and of the layout parts of ``pallas_bvh.py``.
+
+=======================  ========================================  ========================
+wrapper                  Pallas kernel replaced                    plain twin
+=======================  ========================================  ========================
+``intersect_bvh4_cuda``  ``_bvh4_kernel`` / ``_xn``, closest hit   ``intersect_bvh4_plain``
+``occluded_bvh4_cuda``   ``_bvh4_kernel`` / ``_xn``, any hit       ``occluded_bvh4_plain``
+``bounce_bvh4_cuda``     ``_bvh4_bounce_kernel`` / ``_xn``         ``bounce_bvh4_plain``
+=======================  ========================================  ========================
+
+The first two share one kernel (``csrc/bvh4.cu``, a template on any-hit).
+
+Layout (``BVH4``), built on the host by collapsing the binary tree of
+``ops/bvh.py`` two levels per node, as ``collapse_bvhw`` does:
+
+- ``boxes`` [Nw, 24] f32: the four child boxes of a node as lo.x of children
+  0..3, then lo.y, lo.z, hi.x, hi.y, hi.z (six aligned 16-byte groups);
+- ``meta`` [Nw, 8] i32: ``meta[c]`` is child c's node id when
+  ``meta[4 + c] == 0``, else child c is a leaf of ``meta[4 + c]`` triangles
+  from ``meta[c]`` on;
+- ``nchild`` [Nw] i32: children sit in slots 0..nchild-1 and no other slot
+  is read.  (The Pallas table filled empty slots with NaN boxes and relied on
+  every comparison being false; CUDA's ``fminf`` drops a NaN, so the count
+  replaces them.)
+- ``tris`` [T, 9] f32: v0, e1 = v1 - v0, e2 = v2 - v0 of each triangle in
+  leaf order, and ``slot_to_prim`` [T] i32 maps a row to its triangle id.
+  The Pallas rows of 14 triangles with padding were a VMEM artefact.
+
+Traversal, one ray at a time (the kernels run one thread per ray; the twins
+step every ray at once, one stack entry per ray per step, with the same
+child order and tie rule, so each kernel is held to its twin exactly): a
+stack of entries (node id >= 0, or ``~(4 * node + c)`` for leaf child c)
+and their entry t.  A popped entry whose entry t exceeds the padded current
+best is skipped.  A node's four child boxes get the padded slab test
+(``_slab4``: pad 1e-5 (1 + |t_out|), NaN-propagating min/max) and are pruned
+past the padded best; the hit children are sorted by entry t with
+``_slab4``'s compare-exchange network (descending) and pushed, so the
+nearest pops first.  A leaf runs Moller-Trumbore on its rows with
+``closer = ok & (t < t_best)``; any-hit stops at the first hit.  A ray with
+``t_max < 0`` (dead) does no work.
+
+The Pallas kernels' interleave, batched pop and tile rows hid TPU latency for
+a tile that walked the tree in lockstep; a thread per ray needs none of them.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..scene.types import Scene
+from . import cuda_kernels as ck
+from .bvh import _SLAB_EPS, BVH, build_bvh
+from .intersect import (INF, MISS, Hit, merge_spheres_closest, moller_trumbore_edges,
+                        spheres_occluded)
+
+VMEM_MAX_TRIS = 200_000  # the JAX package's cap of these kernels; past it ROADMAP B8
+MAX_STACK = 64  # per-ray stack entries (csrc/bvh4.cu kStack)
+_BIG = 3.4e38  # entry t of a child that is not pushed
+_SORT4 = ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2))  # descending compare-exchange network
+
+
+class BVH4(NamedTuple):
+    """The 4-wide tree in the kernels' layout (see the module docstring)."""
+
+    boxes: torch.Tensor  # [Nw, 24] f32
+    meta: torch.Tensor  # [Nw, 8] i32
+    nchild: torch.Tensor  # [Nw] i32
+    tris: torch.Tensor  # [T, 9] f32, leaf order
+    slot_to_prim: torch.Tensor  # [T] i32
+    depth: int  # levels of 4-wide nodes
+
+    @property
+    def num_nodes(self) -> int:
+        return self.boxes.shape[0]
+
+    @property
+    def num_tris(self) -> int:
+        return self.tris.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.boxes.device
+
+    def to(self, device) -> "BVH4":
+        return BVH4(*(x.to(device) for x in self[:-1]), depth=self.depth)
+
+
+def collapse_bvh4(bvh: BVH) -> BVH4:
+    """Collapse the binary tree into 4-wide nodes: each node's children are
+    its binary grandchildren (a leaf child stays one child), in the order
+    left-left, left-right, right-left, right-right.  A leaf root becomes a
+    node with one leaf child.  Raises if the deepest root-to-leaf descent can
+    hold more than ``MAX_STACK`` stack entries."""
+    left, right = bvh.left.cpu().numpy(), bvh.right.cpu().numpy()
+    first, count = bvh.first.cpu().numpy(), bvh.count.cpu().numpy()
+    lo, hi = bvh.node_lo.cpu().numpy(), bvh.node_hi.cpu().numpy()
+    is_leaf = count > 0
+
+    def children(b):
+        out = []
+        for c in (left[b], right[b]):
+            out.extend([c] if is_leaf[c] else [left[c], right[c]])
+        return out
+
+    rows = [[0] if is_leaf[0] else children(0)]
+    wide_of, depth = {}, [0]
+    i = 0
+    while i < len(rows):
+        for b in rows[i]:
+            if not is_leaf[b]:
+                wide_of[b] = len(rows)
+                rows.append(children(b))
+                depth.append(depth[i] + 1)
+        i += 1
+    max_depth = max(depth)
+    need = 3 * (max_depth + 1) + 1  # each internal pop: one entry off, four on
+    if need > MAX_STACK:
+        raise ValueError(f"the 4-wide tree is {max_depth + 1} levels deep and needs a "
+                         f"{need}-entry traversal stack > MAX_STACK={MAX_STACK}; rebuild "
+                         f"with wider leaves")
+
+    ws = np.repeat(np.arange(len(rows)), [len(r) for r in rows])
+    cs = np.concatenate([np.arange(len(r)) for r in rows])
+    bs = np.concatenate([np.asarray(r, np.int64) for r in rows])
+    boxes = np.zeros((len(rows), 24), np.float32)
+    for k in range(3):
+        boxes[ws, 4 * k + cs] = lo[bs, k]
+        boxes[ws, 12 + 4 * k + cs] = hi[bs, k]
+    meta = np.zeros((len(rows), 8), np.int32)
+    leaf = is_leaf[bs]
+    meta[ws, cs] = np.where(leaf, first[bs], [wide_of.get(int(b), 0) for b in bs])
+    meta[ws, 4 + cs] = np.where(leaf, count[bs], 0)
+    tv0, tv1, tv2 = (x.cpu().numpy() for x in (bvh.tv0, bvh.tv1, bvh.tv2))
+    tris = np.concatenate([tv0, tv1 - tv0, tv2 - tv0], axis=1).astype(np.float32)
+    t = torch.from_numpy
+    return BVH4(boxes=t(boxes), meta=t(meta),
+                nchild=t(np.asarray([len(r) for r in rows], np.int32)),
+                tris=t(np.ascontiguousarray(tris)), slot_to_prim=bvh.tri_order.cpu().clone(),
+                depth=max_depth + 1)
+
+
+def build_bvh4(scene: Scene, max_leaf: int, builder: str = "median"):
+    """Host build: binary BVH -> 4-wide collapse -> (BVH, BVH4 on the scene's device)."""
+    bvh = build_bvh(scene, max_leaf=max_leaf, builder=builder)
+    return bvh, collapse_bvh4(bvh).to(scene.device)
+
+
+def supports_bvh4(scene: Scene) -> bool:
+    """``supports_pallas_bvh``: the kernels' triangle range."""
+    return 0 < scene.num_triangles <= VMEM_MAX_TRIS
+
+
+def supports_fused_bounce_bvh4(scene: Scene) -> bool:
+    """The bounce kernel traverses triangles only: no sphere primitives, and
+    the shadow bits of at most 30 point lights fit one int32."""
+    num_pl = scene.point_lights.position.shape[0]
+    num_sph = scene.spherical_lights.position.shape[0]
+    return (supports_bvh4(scene) and scene.spheres.radius.shape[0] == 0
+            and num_pl <= ck.MAX_FUSED_LIGHTS and 0 < num_pl + num_sph)
+
+
+# --------------------------------------------------------------------------
+# The kernels.
+# --------------------------------------------------------------------------
+
+def _tree_args(name, tree: BVH4, device):
+    if tree.num_tris > VMEM_MAX_TRIS:
+        raise NotImplementedError(
+            f"{tree.num_tris} triangles exceed the 4-wide kernels' cap of {VMEM_MAX_TRIS}; "
+            f"the kernels for larger scenes are not ported yet (ROADMAP B8)")
+    ck._check(name, tree.boxes, tree.tris, device=device)
+    ck._check(name, tree.meta, tree.nchild, tree.slot_to_prim, device=device, dtype=torch.int32)
+    return (ck._ptr(tree.boxes), ck._ptr(tree.meta), ck._ptr(tree.nchild), ck._ptr(tree.tris),
+            ck._ptr(tree.slot_to_prim))
+
+
+def _closest_kernel(tree, o, d, tm):
+    n = o.shape[0]
+    ck._check("cgrt_bvh4_closest", o, d, tm, device=o.device)
+    t, u, v = (torch.empty((n,), dtype=torch.float32, device=o.device) for _ in range(3))
+    prim = torch.empty((n,), dtype=torch.int32, device=o.device)
+    ck._launch("cgrt_bvh4_closest", o.device, ck._ptr(o), ck._ptr(d), ck._ptr(tm), n,
+               *_tree_args("cgrt_bvh4_closest", tree, o.device), ck._ptr(t), ck._ptr(prim),
+               ck._ptr(u), ck._ptr(v))
+    intersect_bvh4_cuda.launches += 1
+    return Hit(t, prim, u, v)
+
+
+def _anyhit_kernel(tree, o, d, tm):
+    n = o.shape[0]
+    ck._check("cgrt_bvh4_anyhit", o, d, tm, device=o.device)
+    hit = torch.empty((n,), dtype=torch.uint8, device=o.device)
+    ck._launch("cgrt_bvh4_anyhit", o.device, ck._ptr(o), ck._ptr(d), ck._ptr(tm), n,
+               *_tree_args("cgrt_bvh4_anyhit", tree, o.device), ck._ptr(hit))
+    occluded_bvh4_cuda.launches += 1
+    return hit.bool()
+
+
+def _bounce_kernel(tree, lights, o, d, tm):
+    n = o.shape[0]
+    ck._check("cgrt_bvh4_bounce", o, d, tm, lights, device=o.device)
+    t, u, v = (torch.empty((n,), dtype=torch.float32, device=o.device) for _ in range(3))
+    prim, bits = (torch.empty((n,), dtype=torch.int32, device=o.device) for _ in range(2))
+    ck._launch("cgrt_bvh4_bounce", o.device, ck._ptr(o), ck._ptr(d), ck._ptr(tm), n,
+               *_tree_args("cgrt_bvh4_bounce", tree, o.device), ck._ptr(lights),
+               lights.shape[0], ck._ptr(t), ck._ptr(prim), ck._ptr(u), ck._ptr(v), ck._ptr(bits))
+    bounce_bvh4_cuda.launches += 1
+    return Hit(t, prim, u, v), bits
+
+
+# --------------------------------------------------------------------------
+# Plain PyTorch twins: the kernels' per-ray traversal, every ray stepped at once.
+# --------------------------------------------------------------------------
+
+def _slab4(ox, oy, oz, ix, iy, iz, boxes):
+    """Padded slab test of a node's four child boxes ([k, 24]) against k rays
+    ([k] components, reciprocal directions) -> (t_in, hit), each [k, 4]."""
+    col = lambda a: a[:, None]  # noqa: E731
+    t0x = (boxes[:, 0:4] - col(ox)) * col(ix)
+    t0y = (boxes[:, 4:8] - col(oy)) * col(iy)
+    t0z = (boxes[:, 8:12] - col(oz)) * col(iz)
+    t1x = (boxes[:, 12:16] - col(ox)) * col(ix)
+    t1y = (boxes[:, 16:20] - col(oy)) * col(iy)
+    t1z = (boxes[:, 20:24] - col(oz)) * col(iz)
+    mn, mx = torch.minimum, torch.maximum
+    tin = mx(mx(mn(t0x, t1x), mn(t0y, t1y)), mn(t0z, t1z))
+    tout = mn(mn(mx(t0x, t1x), mx(t0y, t1y)), mx(t0z, t1z))
+    pad = _SLAB_EPS * (1.0 + torch.abs(tout))
+    return tin, (tin <= tout + pad) & (tout >= -pad)
+
+
+def _padded(t):
+    return t + _SLAB_EPS * (1.0 + torch.abs(t))
+
+
+@torch.no_grad()
+def _traverse_plain(tree: BVH4, o, d, tm, any_hit: bool):
+    """-> (t, slot in leaf order, u, v); t = t_max and slot = -1 where nothing
+    nearer was hit.  ``tm`` None means no bound."""
+    n, dev = o.shape[0], o.device
+    t_best = (torch.full((n,), INF, dtype=torch.float32, device=dev) if tm is None
+              else tm.clone())
+    slot = torch.full((n,), MISS, dtype=torch.long, device=dev)
+    u = torch.zeros((n,), dtype=torch.float32, device=dev)
+    v = torch.zeros_like(u)
+    stack = torch.zeros((n, MAX_STACK), dtype=torch.long, device=dev)
+    tstack = torch.zeros((n, MAX_STACK), dtype=torch.float32, device=dev)
+    tstack[:, 0] = -_BIG
+    # Dead rays do no work (an any-hit ray with t_max <= 0 cannot hit).
+    sp = ((t_best > 0.0) if any_hit else (t_best >= 0.0)).long()
+    inv = 1.0 / d
+    meta, nchild = tree.meta.long(), tree.nchild.long()
+    lanes = torch.arange(4, device=dev)
+    top = MAX_STACK - 1
+
+    while True:
+        idx = torch.nonzero(sp > 0).squeeze(1)
+        if idx.numel() == 0:
+            break
+        rows = torch.arange(idx.numel(), device=dev)
+        ox, oy, oz = o[idx, 0], o[idx, 1], o[idx, 2]
+        ix, iy, iz = inv[idx, 0], inv[idx, 1], inv[idx, 2]
+        t_i, slot_i, u_i, v_i = t_best[idx], slot[idx], u[idx], v[idx]
+        st, ts = stack[idx], tstack[idx]
+        sp_i = sp[idx] - 1
+        ref, tin_pushed = st[rows, sp_i], ts[rows, sp_i]
+        bound = _padded(t_i)
+        fresh = ~(tin_pushed > bound)
+        internal = fresh & (ref >= 0)
+        leaf = fresh & (ref < 0)
+
+        # Internal node: test, sort and push its children.
+        node = torch.where(internal, ref, 0)
+        tin, hit = _slab4(ox, oy, oz, ix, iy, iz, tree.boxes[node])
+        hit = hit & (lanes < nchild[node][:, None]) & (tin <= bound[:, None]) & internal[:, None]
+        m = meta[node]
+        tv = list(torch.where(hit, tin, _BIG).unbind(1))
+        ev = list(torch.where(m[:, 4:8] > 0, ~(4 * node[:, None] + lanes), m[:, 0:4]).unbind(1))
+        for a, b in _SORT4:
+            sw = tv[a] < tv[b]
+            tv[a], tv[b] = torch.where(sw, tv[b], tv[a]), torch.where(sw, tv[a], tv[b])
+            ev[a], ev[b] = torch.where(sw, ev[b], ev[a]), torch.where(sw, ev[a], ev[b])
+        for tc, ec in zip(tv, ev):
+            push = tc < _BIG
+            at = sp_i.clamp(max=top)
+            st[rows, at] = torch.where(push, ec, st[rows, at])
+            ts[rows, at] = torch.where(push, tc, ts[rows, at])
+            sp_i = sp_i + push.long()
+
+        # Leaf child: sweep its triangles.
+        s = torch.where(leaf, ~ref, 0)
+        lnode, lc = s >> 2, s & 3
+        first = meta[lnode, lc]
+        cnt = torch.where(leaf, meta[lnode, 4 + lc], 0)
+        oi, di = o[idx], d[idx]
+        for k in range(int(cnt.max().item()) if cnt.numel() else 0):
+            in_range = k < cnt
+            tri = torch.where(in_range, first + k, 0)
+            row = tree.tris[tri]
+            t, uu, vv, ok = moller_trumbore_edges(oi, di, row[:, 0:3], row[:, 3:6], row[:, 6:9])
+            closer = in_range & ok & (t < t_i)
+            t_i = torch.where(closer, t, t_i)
+            slot_i = torch.where(closer, tri, slot_i)
+            u_i = torch.where(closer, uu, u_i)
+            v_i = torch.where(closer, vv, v_i)
+        if any_hit:
+            sp_i = torch.where(slot_i >= 0, 0, sp_i)  # stop at the first hit
+
+        stack[idx], tstack[idx], sp[idx] = st, ts, sp_i
+        t_best[idx], slot[idx], u[idx], v[idx] = t_i, slot_i, u_i, v_i
+    return t_best, slot, u, v
+
+
+def _prims(tree, t, slot, u, v):
+    hit = slot >= 0
+    prim = torch.where(hit, tree.slot_to_prim.long()[slot.clamp_min(0)], MISS)
+    return Hit(torch.where(hit, t, INF), prim.to(torch.int32), u, v)
+
+
+def _closest_plain(tree, o, d, tm):
+    return _prims(tree, *_traverse_plain(tree, o, d, tm, any_hit=False))
+
+
+def _anyhit_plain(tree, o, d, tm):
+    return _traverse_plain(tree, o, d, tm, any_hit=True)[1] >= 0
+
+
+def _bounce_plain(tree, lights, o, d, tm):
+    hit = _closest_plain(tree, o, d, tm)
+    hit_mask = hit.prim_id >= 0
+    p = o + d * torch.where(hit_mask, hit.t, 0.0)[:, None]
+    bits = torch.zeros((o.shape[0],), dtype=torch.int32, device=o.device)
+    for li in range(lights.shape[0]):
+        so, sd, dist = ck._shadow_rays(p, lights[li, 0:3])
+        t_l = torch.where(hit_mask, dist - ck.SHADOW_EPS, -1.0)
+        bits = bits | (_anyhit_plain(tree, so, sd, t_l).to(torch.int32) << li)
+    return hit, bits
+
+
+# --------------------------------------------------------------------------
+# Public wrappers and their twins.
+# --------------------------------------------------------------------------
+
+def _live_t_max(live, o):
+    if live is None:
+        return None
+    return torch.where(live.to(o.device), INF, -1.0).to(torch.float32).contiguous()
+
+
+@torch.no_grad()
+def _intersect(scene, tree, origins, dirs, t_max, on_card):
+    o, d = ck._rays(origins, dirs)
+    tm = ck._t_max(t_max, o.shape[0], o.device)
+    hit = (_closest_kernel if on_card else _closest_plain)(tree, o, d, tm)
+    return merge_spheres_closest(scene, o, d, hit)
+
+
+def intersect_bvh4_cuda(scene: Scene, tree: BVH4, origins, dirs, t_max=None) -> Hit:
+    """Closest hit over the tree's triangles (kernel) and the scene's spheres
+    (PyTorch, after the kernel, as ``_sphere_merge`` does)."""
+    return _intersect(scene, tree, origins, dirs, t_max, on_card=origins.is_cuda)
+
+
+def intersect_bvh4_plain(scene: Scene, tree: BVH4, origins, dirs, t_max=None) -> Hit:
+    return _intersect(scene, tree, origins, dirs, t_max, on_card=False)
+
+
+@torch.no_grad()
+def _occluded(scene, tree, origins, dirs, t_max, on_card):
+    o, d = ck._rays(origins, dirs)
+    tm = ck._t_max(t_max, o.shape[0], o.device)
+    blocked = (_anyhit_kernel if on_card else _anyhit_plain)(tree, o, d, tm)
+    return blocked | spheres_occluded(scene, o, d, tm)
+
+
+def occluded_bvh4_cuda(scene: Scene, tree: BVH4, origins, dirs, t_max):
+    """Any-hit (shadow) query: True where a primitive lies at t in [0, t_max)."""
+    return _occluded(scene, tree, origins, dirs, t_max, on_card=origins.is_cuda)
+
+
+def occluded_bvh4_plain(scene: Scene, tree: BVH4, origins, dirs, t_max):
+    return _occluded(scene, tree, origins, dirs, t_max, on_card=False)
+
+
+@torch.no_grad()
+def _bounce(scene, tree, origins, dirs, live, on_card):
+    if not supports_fused_bounce_bvh4(scene):
+        raise ValueError("4-wide bounce kernel: the scene needs 1..200000 triangles, no "
+                         "spheres and at most 30 point lights (supports_fused_bounce_bvh4)")
+    o, d = ck._rays(origins, dirs)
+    lights = scene.point_lights.position.detach().contiguous()
+    run = _bounce_kernel if on_card else _bounce_plain
+    return run(tree, lights, o, d, _live_t_max(live, o))
+
+
+def bounce_bvh4_cuda(scene: Scene, tree: BVH4, origins, dirs, live=None):
+    """Closest hit plus per-point-light shadow bits (bit l = light l occluded
+    from the hit point; 0 where the ray missed) -> (Hit, bits [N] i32).
+    ``live`` ([N] bool): rays marked dead do no work and report a miss."""
+    return _bounce(scene, tree, origins, dirs, live, on_card=origins.is_cuda)
+
+
+def bounce_bvh4_plain(scene: Scene, tree: BVH4, origins, dirs, live=None):
+    return _bounce(scene, tree, origins, dirs, live, on_card=False)
+
+
+KERNEL_WRAPPERS = (intersect_bvh4_cuda, occluded_bvh4_cuda, bounce_bvh4_cuda)
+for _wrapper in KERNEL_WRAPPERS:
+    _wrapper.launches = 0
+
+
+def launch_counts() -> dict:
+    return {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+
+
+def reset_launch_counts() -> None:
+    for w in KERNEL_WRAPPERS:
+        w.launches = 0

@@ -47,8 +47,12 @@ def moller_trumbore(origins, dirs, v0, v1, v2, eps: float = 1e-9):
     edge-inclusive by BARY_EPS so rays grazing a shared edge hit consistently
     across backends.  ``det_safe`` keeps the masked 1/det branch finite.
     """
-    e1 = v1 - v0
-    e2 = v2 - v0
+    return moller_trumbore_edges(origins, dirs, v0, v1 - v0, v2 - v0, eps)
+
+
+def moller_trumbore_edges(origins, dirs, v0, e1, e2, eps: float = 1e-9):
+    """``moller_trumbore`` on a triangle given as v0 and its edges
+    e1 = v1 - v0, e2 = v2 - v0 (the layout of the BVH kernels' table)."""
     pvec = cross(dirs, e2)
     det = dot(e1, pvec)
     ok_det = torch.abs(det) > eps

@@ -4,33 +4,47 @@ hits in one kernel each way, the counterpart of
 
 Phase 2 of the two-phase gradient structure (``models/whitted.py``) calls
 ``shade_fused_cuda`` once per bounce level on the phase-1 records (rays,
-prim ids, shadow bits).  Two kernels (``csrc/shade.cu``) replace two Pallas
-kernels:
+prim ids, shadow bits).  Four kernels (``csrc/shade.cu``) replace four
+Pallas kernels:
 
-==================  ============================================  =================
-wrapper             Pallas kernel replaced                        plain twin
-==================  ============================================  =================
-``shade_fwd_cuda``  ``_shade_fwd_kernel`` (direct, ks, normal,    ``shade_plain``
-                    position)
-``shade_bwd_cuda``  ``_shade_bwd_kernel`` (its VJP)               autograd of
-                                                                  ``shade_plain``
-==================  ============================================  =================
+======================  ===============================================  =================
+wrapper                 Pallas kernel replaced                           plain twin
+======================  ===============================================  =================
+``shade_fwd_cuda``      ``_shade_fwd_kernel`` (direct, ks, normal,       ``shade_plain``
+                        position)
+``shade_bwd_cuda``      ``_shade_bwd_kernel`` (its VJP)                  autograd of
+                                                                         ``shade_plain``
+``shade_pre_fwd_cuda``  ``_shade_fwd_kernel_pre`` (the same outputs      ``shade_plain_pre``
+                        from a [T, 19] payload and [M, 7] materials)
+``shade_pre_bwd_cuda``  ``_shade_bwd_kernel_pre`` (its VJP)              autograd of
+                                                                         ``shade_plain_pre``
+======================  ===============================================  =================
 
-``_ShadeFn`` (a ``torch.autograd.Function``) runs the forward kernel and, in
-its backward, the backward kernel, whose reverse pass is derived by hand
-(``csrc/SHADE_BWD.md``).  It returns cotangents for the tables ``tri
-[T, 9]``, ``aux [T, 19]``, ``lights [L, 6]``, ``spheres [S, 11]`` and for
-the rays; autograd carries the tables' on through the differentiable table
-builders of ``cuda_kernels.py`` to vertices, normals, materials, spheres and
-point lights.  The prim ids, the shadow bits, the facing flip and the hit
-mask are discrete, as in the JAX package.
+Up to ``SHADE_MAX_TRIS`` triangles the select kernels read the tables ``tri
+[T, 9]`` and ``aux [T, 19]`` from shared memory.  Past it the pregathered
+kernels read the hit's row of ``payload [T, 19]`` (v0 v1 v2, n0 n1 n2,
+material id) from device memory, recompute the face normal from the
+vertices and take kd, ks, shininess from ``mats [M, 7]``, as
+``_shade_math19`` does; their backward adds the payload cotangents into a
+[T, 19] table itself, where the JAX package left the gather and its
+scatter-add to XLA.
 
-``shade_fused_cuda`` runs the twin for CPU tensors and the kernels for CUDA
-tensors.  The twin is ``_shade_math`` (``pallas_shade.py:128-261``) op for op;
-where a lane's branch is discarded (a miss, or the triangle branch of a
-sphere hit) its inputs are gated, so every derivative is finite and the lane
-adds exactly 0 to every gradient, as the Pallas backward's dead-lane gating
-(``_bwd_dead``) and the kernel here (which skips such lanes) do.
+``_ShadeFn`` and ``_ShadePreFn`` (``torch.autograd.Function``) run a forward
+kernel and, in their backward, the backward kernel, whose reverse pass is
+derived by hand (``csrc/SHADE_BWD.md``).  They return cotangents for the
+tables, the lights ``[L, 6]``, the spheres ``[S, 11]`` and the rays;
+autograd carries the tables' on through the differentiable table builders
+to vertices, normals, materials, spheres and point lights.  The prim ids,
+the shadow bits, the facing flip, the material id and the hit mask are
+discrete, as in the JAX package.
+
+``shade_fused_cuda`` runs a twin for CPU tensors and the kernels for CUDA
+tensors.  The twins are ``_shade_math`` (``pallas_shade.py:128-261``) and
+``_shade_math19`` (:289) op for op; where a lane's branch is discarded (a
+miss, or the triangle branch of a sphere hit) its inputs are gated, so every
+derivative is finite and the lane adds exactly 0 to every gradient, as the
+Pallas backward's dead-lane gating (``_bwd_dead``) and the kernels here
+(which skip such lanes) do.
 """
 from __future__ import annotations
 
@@ -39,19 +53,21 @@ import torch
 from ..scene.types import Scene
 from . import cuda_kernels as ck
 from .intersect import moller_trumbore
-from .linalg import dot
+from .linalg import cross, dot
 
 SHADE_MAX_LIGHTS = 16  # the Pallas backward's per-light cotangent packing
 SHADE_MAX_SPHERES = 8  # the Pallas backward's per-sphere cotangent packing
-SHADE_MAX_TRIS = ck.UNROLL_MAX_TRIS  # shared-memory tables; past it the pregathered path (B7)
+SHADE_MAX_MATS = 16  # the Pallas pregathered backward's per-material cotangent packing
+SHADE_MAX_TRIS = ck.UNROLL_MAX_TRIS  # shared-memory tables; past it the pregathered path
 _NORM_EPS = 1e-20
 _SPEC_EPS = 1e-30
 
 
 def supports_shade_kernel(scene: Scene) -> bool:
-    """The JAX package's gate (pallas_shade.py:78-104) with this kernel's cap:
-    1..16 point lights, <= 8 spheres, T <= 256 (the kernel indexes the
-    triangle row in shared memory, so there is no material cap)."""
+    """The JAX package's gate (pallas_shade.py:78-104): 1..16 point lights,
+    <= 8 spheres, and T <= 64 or at most 16 materials; here the select
+    kernel indexes its triangle row in shared memory, so T <= 256 needs no
+    material cap, and past 256 the pregathered kernels keep the cap of 16."""
     num_pl = scene.point_lights.position.shape[0]
     num_sph = scene.spherical_lights.position.shape[0]
     num_spheres = scene.spheres.radius.shape[0]
@@ -60,7 +76,8 @@ def supports_shade_kernel(scene: Scene) -> bool:
             and 0 < num_pl + num_sph
             and num_pl <= SHADE_MAX_LIGHTS
             and num_sph <= SHADE_MAX_LIGHTS
-            and scene.num_triangles <= SHADE_MAX_TRIS)
+            and (scene.num_triangles <= SHADE_MAX_TRIS
+                 or scene.materials.kd.shape[0] <= SHADE_MAX_MATS))
 
 
 def _shade_tables(scene: Scene):
@@ -87,12 +104,10 @@ def _unit(x):
     return x * (1.0 / _max(torch.sqrt(dot(x, x)), _NORM_EPS))[:, None]
 
 
-def shade_plain(tri, aux, lights, spheres, o, d, prim, bits, num_tris=None):
-    """Plain PyTorch twin of the shade kernels -> (direct, ks, normal,
-    position), each [N, 3]; differentiable by autograd in every float input,
-    in any float dtype.  ``num_tris`` (default: the rows of ``tri``) is where
-    sphere ids start."""
-    num_tris = tri.shape[0] if num_tris is None else num_tris
+def _shade_rows(v0, v1, v2, nrm, face, mat, lights, spheres, o, d, prim, bits, num_tris):
+    """The shade of ``_shade_math`` on per-ray rows: the hit triangle's
+    vertices, normals n0 n1 n2 (``nrm`` [N, 9]), face normal and kd, ks,
+    shininess (``mat`` [N, 7]); misses fall through to row 0."""
     num_spheres = spheres.shape[0]
     prim = prim.long()
     live = (prim >= 0) & (prim < num_tris + num_spheres)
@@ -102,25 +117,19 @@ def shade_plain(tri, aux, lights, spheres, o, d, prim, bits, num_tris=None):
     tri3, sph3 = is_tri[:, None], is_sph[:, None]
     unit_x = o.new_tensor([1.0, 0.0, 0.0])
 
-    # Triangle: Moller-Trumbore recompute on the hit row (misses fall through
-    # to row 0), on the ray that meets it head-on where the lane is not a
-    # triangle hit.
-    row = torch.clamp(prim, 0, tri.shape[0] - 1)
-    trow, arow = tri[row], aux[row]
-    v0, v1, v2 = trow[:, 0:3], trow[:, 3:6], trow[:, 6:9]
-    face = arow[:, 9:12]
+    # Triangle: Moller-Trumbore recompute on the hit row, on the ray that
+    # meets it head-on where the lane is not a triangle hit.
     centroid = ((v0 + v1 + v2) / 3.0).detach()
     t, u, v, _ = moller_trumbore(torch.where(tri3, o, centroid + face.detach()),
                                  torch.where(tri3, d, -face.detach()), v0, v1, v2)
     t = torch.where(is_tri, t, 0.0)
     p = o + d * t[:, None]
     w0 = 1.0 - u - v
-    n = (w0[:, None] * arow[:, 0:3] + u[:, None] * arow[:, 3:6]
-         + v[:, None] * arow[:, 6:9])
+    n = w0[:, None] * nrm[:, 0:3] + u[:, None] * nrm[:, 3:6] + v[:, None] * nrm[:, 6:9]
     n = _unit(torch.where(tri3, n, unit_x))
     n = n * torch.where(dot(face, d) < 0.0, 1.0, -1.0)[:, None]
-    kd, ks = arow[:, 12:15], arow[:, 15:18]
-    shin = torch.where(live, arow[:, 18], 1.0)
+    kd, ks = mat[:, 0:3], mat[:, 3:6]
+    shin = torch.where(live, mat[:, 6], 1.0)
 
     if num_spheres:
         # Sphere: the quadratic recompute with the sqrt gated at its input,
@@ -163,6 +172,34 @@ def shade_plain(tri, aux, lights, spheres, o, d, prim, bits, num_tris=None):
     # Miss semantics: zero position, normal and ks (direct is gated by w).
     hit3 = hit_f[:, None]
     return direct, ks * hit3, n * hit3, p * hit3
+
+
+def shade_plain(tri, aux, lights, spheres, o, d, prim, bits, num_tris=None):
+    """Plain PyTorch twin of the select shade kernels -> (direct, ks, normal,
+    position), each [N, 3]; differentiable by autograd in every float input,
+    in any float dtype.  ``num_tris`` (default: the rows of ``tri``) is where
+    sphere ids start."""
+    num_tris = tri.shape[0] if num_tris is None else num_tris
+    row = torch.clamp(prim.long(), 0, tri.shape[0] - 1)
+    trow, arow = tri[row], aux[row]
+    return _shade_rows(trow[:, 0:3], trow[:, 3:6], trow[:, 6:9], arow[:, 0:9], arow[:, 9:12],
+                       arow[:, 12:19], lights, spheres, o, d, prim, bits, num_tris)
+
+
+def shade_plain_pre(payload, mats, lights, spheres, o, d, prim, bits, num_tris=None):
+    """Plain PyTorch twin of the pregathered shade kernels (``_shade_math19``):
+    the hit's row of ``payload`` [T, 19] (v0 v1 v2, n0 n1 n2, material id),
+    the face normal recomputed from its vertices, kd, ks and shininess from
+    row ``id`` of ``mats`` [M, 7] (an id outside 0..M-1 takes row 0, as the
+    Pallas select does).  Same outputs and contract as ``shade_plain``."""
+    num_tris = payload.shape[0] if num_tris is None else num_tris
+    prow = payload[torch.clamp(prim.long(), 0, payload.shape[0] - 1)]
+    v0, v1, v2 = prow[:, 0:3], prow[:, 3:6], prow[:, 6:9]
+    mid = prow[:, 18].detach()
+    m = mid.long()
+    m = torch.where((m >= 0) & (m < mats.shape[0]) & (m.to(mid.dtype) == mid), m, 0)
+    return _shade_rows(v0, v1, v2, prow[:, 9:18], _unit(cross(v1 - v0, v2 - v0)), mats[m],
+                       lights, spheres, o, d, prim, bits, num_tris)
 
 
 # --------------------------------------------------------------------------
@@ -223,24 +260,93 @@ class _ShadeFn(torch.autograd.Function):
                                 cotangents), None, None, None)
 
 
+def _pre_tables(scene: Scene):
+    """(payload [T, 19], mats [M, 7], lights [L, 6], spheres [S, 11],
+    num_tris) of the pregathered kernels, differentiable in vertices,
+    normals, materials, point lights and spheres (pallas_shade.py:1087-1096)."""
+    tris = scene.triangles.long()
+    payload = torch.cat([ck._tri_table(scene)]
+                        + [scene.normals[tris[:, k]] for k in range(3)]
+                        + [scene.tri_material.to(torch.float32)[:, None]], dim=1).contiguous()
+    m = scene.materials
+    mats = torch.cat([m.kd, m.ks, m.shininess[:, None]], dim=1).contiguous()
+    return payload, mats, ck._light_table(scene), ck._sphere_table(scene), scene.num_triangles
+
+
+def _pre_inputs(name, payload, mats, lights, spheres, o, d, prim, bits):
+    ck._check(name, o, d, payload, mats, lights, spheres, device=o.device)
+    ck._check(name, prim, bits, device=o.device, dtype=torch.int32)
+    if o.shape != d.shape or o.ndim != 2 or o.shape[1] != 3 or prim.shape != o.shape[:1]:
+        raise ValueError(f"{name}: rays must be [N, 3] pairs with [N] prim ids and bits")
+    return (ck._ptr(o), ck._ptr(d), ck._ptr(prim), ck._ptr(bits), o.shape[0], ck._ptr(payload),
+            payload.shape[0], ck._ptr(mats), mats.shape[0], ck._ptr(lights), lights.shape[0],
+            ck._ptr(spheres), spheres.shape[0])
+
+
+def shade_pre_fwd_cuda(payload, mats, lights, spheres, o, d, prim, bits):
+    """The pregathered forward kernel -> (direct, ks, normal, position), each [N, 3]."""
+    args = _pre_inputs("cgrt_shade_pre_fwd", payload, mats, lights, spheres, o, d, prim, bits)
+    outs = [torch.empty_like(o) for _ in range(4)]
+    ck._launch("cgrt_shade_pre_fwd", o.device, *args, *(ck._ptr(x) for x in outs))
+    shade_pre_fwd_cuda.launches += 1
+    return tuple(outs)
+
+
+def shade_pre_bwd_cuda(payload, mats, lights, spheres, o, d, prim, bits, cotangents):
+    """The pregathered backward kernel: the four outputs' cotangents ([N, 3]
+    each) -> (d_payload, d_mats, d_lights, d_spheres, d_o, d_d); the
+    material-id column of d_payload is 0."""
+    args = _pre_inputs("cgrt_shade_pre_bwd", payload, mats, lights, spheres, o, d, prim, bits)
+    ck._check("cgrt_shade_pre_bwd", *cotangents, device=o.device)
+    d_tables = [torch.zeros_like(x) for x in (payload, mats, lights, spheres)]
+    d_o, d_d = torch.empty_like(o), torch.empty_like(d)
+    ck._launch("cgrt_shade_pre_bwd", o.device, *args, *(ck._ptr(g) for g in cotangents),
+               ck._ptr(d_o), ck._ptr(d_d), *(ck._ptr(x) for x in d_tables))
+    shade_pre_bwd_cuda.launches += 1
+    return (*d_tables, d_o, d_d)
+
+
+class _ShadePreFn(torch.autograd.Function):
+    """The pregathered forward and backward kernels around one differentiable op."""
+
+    @staticmethod
+    def forward(ctx, payload, mats, lights, spheres, o, d, prim, bits):
+        inputs = [x.contiguous() for x in (payload, mats, lights, spheres, o, d)]
+        ctx.save_for_backward(*inputs, prim, bits)
+        return shade_pre_fwd_cuda(*inputs, prim, bits)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        cotangents = [torch.zeros_like(ctx.saved_tensors[4]) if g is None
+                      else g.to(torch.float32).contiguous() for g in grads]
+        return (*shade_pre_bwd_cuda(*ctx.saved_tensors, cotangents), None, None)
+
+
 def _shade_fused(scene: Scene, origins, dirs, hit, bits, on_card):
     if scene.spherical_lights.position.shape[0] > 0:
         raise NotImplementedError(
             "the shade kernel's spherical-light fractions (shading.spherical_fracs) are "
             "not ported yet (ROADMAP A8)")
     if not supports_shade_kernel(scene):
-        raise ValueError("shade kernel: the scene needs <= 256 triangles, <= 8 spheres and "
-                         "1..16 point lights (supports_shade_kernel)")
-    tri, aux, lights, spheres, num_tris = _shade_tables(scene)
+        raise ValueError("shade kernel: the scene needs <= 8 spheres, 1..16 point lights, and "
+                         "<= 256 triangles or <= 16 materials (supports_shade_kernel)")
     prim = hit.prim_id.detach().to(torch.int32).contiguous()
     bits = (torch.zeros_like(prim) if bits is None
             else bits.detach().to(torch.int32).contiguous())
-    if on_card:
-        direct, ks, normal, position = _ShadeFn.apply(tri, aux, lights, spheres, origins,
-                                                      dirs, prim, bits, num_tris)
+    if scene.num_triangles <= SHADE_MAX_TRIS:
+        tri, aux, lights, spheres, num_tris = _shade_tables(scene)
+        if on_card:
+            outs = _ShadeFn.apply(tri, aux, lights, spheres, origins, dirs, prim, bits, num_tris)
+        else:
+            outs = shade_plain(tri, aux, lights, spheres, origins, dirs, prim, bits,
+                               num_tris=num_tris)
     else:
-        direct, ks, normal, position = shade_plain(tri, aux, lights, spheres, origins, dirs,
-                                                   prim, bits, num_tris=num_tris)
+        payload, mats, lights, spheres, num_tris = _pre_tables(scene)
+        if on_card:
+            outs = _ShadePreFn.apply(payload, mats, lights, spheres, origins, dirs, prim, bits)
+        else:
+            outs = shade_plain_pre(payload, mats, lights, spheres, origins, dirs, prim, bits)
+    direct, ks, normal, position = outs
     valid = (prim >= 0) & (prim < num_tris + scene.spheres.radius.shape[0])
     return direct, valid, ks, normal, position
 
@@ -259,7 +365,7 @@ def shade_fused_plain(scene: Scene, origins, dirs, hit, bits):
     return _shade_fused(scene, origins, dirs, hit, bits, on_card=False)
 
 
-KERNEL_WRAPPERS = (shade_fwd_cuda, shade_bwd_cuda)
+KERNEL_WRAPPERS = (shade_fwd_cuda, shade_bwd_cuda, shade_pre_fwd_cuda, shade_pre_bwd_cuda)
 for _wrapper in KERNEL_WRAPPERS:
     _wrapper.launches = 0
 

@@ -68,11 +68,14 @@ def camera_jitter(generator: torch.Generator, device) -> torch.Tensor:
     return torch.rand((3,), generator=generator, device=device) * 2e-4 - 1e-4
 
 
-def fwd_bwd_step(scene, camera, cfg, params: dict, jitter, plain: bool = False):
+def fwd_bwd_step(scene, camera, cfg, params: dict, jitter, plain: bool = False, accel=None):
     """One training step: fresh leaves of ``params`` -> scene -> render with
     the camera's look_at moved by ``jitter`` -> mean -> backward.  Returns
     (loss, {name: gradient}).  ``plain=True`` routes the kernels through
-    their plain twins (the reference the kernel step is checked against)."""
+    their plain twins (the reference the kernel step is checked against).
+    ``accel``: the scene's tree, built once by the caller (the step's fresh
+    vertex leaves would defeat ``build_accel``'s memo and rebuild it every
+    step)."""
     from ..models.whitted import make_backend, render_image
     from ..optim.inverse import apply_material_params, apply_vertex_params
 
@@ -81,7 +84,8 @@ def fwd_bwd_step(scene, camera, cfg, params: dict, jitter, plain: bool = False):
     if "vertices" in leaves:
         scn = apply_vertex_params(scn, leaves)
     cam = dataclasses.replace(camera, look_at=camera.look_at + jitter)
-    loss = render_image(scn, cam, cfg, backend=make_backend(scn, cfg, plain=plain)).mean()
+    loss = render_image(scn, cam, cfg, backend=make_backend(scn, cfg, plain=plain,
+                                                           accel=accel)).mean()
     loss.backward()
     return loss.detach(), {k: v.grad for k, v in leaves.items()}
 
@@ -96,8 +100,14 @@ def run_bench(scene: Union[str, "Scene"] = "cornell_box", width: int = 1024,
     ``include_bwd`` training steps (materials + lights, plus vertices with
     ``include_vertex_params``; the camera jittered per step from a
     generator seeded with ``seed``).  ``scene`` is a preset name or a Scene
-    (moved to ``device``, and named in the metric by ``scene_name``)."""
-    from ..models.whitted import effective_max_depth, make_backend, render_image
+    (moved to ``device``, and named in the metric by ``scene_name``).  A
+    mesh scene's tree is built once on the host (``accel_build_s``, not
+    timed in the frames) and serves every frame and step, as the JAX
+    package's run_bench does."""
+    import time
+
+    from ..models.whitted import (build_accel, effective_max_depth, make_backend, needs_bvh,
+                                  render_image, resolve_fwd_shade_kernel)
     from ..scene.presets import load_scene
     from ..scene.types import Camera
     from .config import RenderConfig
@@ -114,18 +124,23 @@ def run_bench(scene: Union[str, "Scene"] = "cornell_box", width: int = 1024,
                        forward_only=not include_bwd)
     cfg = dataclasses.replace(cfg, **(cfg_overrides or {}))
     cfg = dataclasses.replace(cfg, max_depth=effective_max_depth(scn, cfg))
+    cfg = resolve_fwd_shade_kernel(scn, cfg)
     camera = Camera.default(aspect=width / height, device=device)
+    t0 = time.perf_counter()
+    accel = build_accel(scn, cfg) if needs_bvh(cfg, scn.num_triangles, device) else None
+    accel_build_s = time.perf_counter() - t0
     if include_bwd:
         cfg = training_config(cfg, include_vertex_params)
         params = training_params(scn, include_vertex_params)
         gen = torch.Generator(device=device).manual_seed(seed)
         jitters = iter([camera_jitter(gen, device) for _ in range(iters + 2)])
-        ms = median(time_frames(lambda: fwd_bwd_step(scn, camera, cfg, params, next(jitters)),
+        ms = median(time_frames(lambda: fwd_bwd_step(scn, camera, cfg, params, next(jitters),
+                                                     accel=accel),
                                 iters=iters, warmup=2))
         what = ("fwd+bwd", "materials + lights + vertices" if include_vertex_params
                 else "materials + lights")
     else:
-        backend_ = make_backend(scn, cfg)
+        backend_ = make_backend(scn, cfg, accel=accel)
         ms = median(time_frames(lambda: render_image(scn, camera, cfg, backend=backend_),
                                 iters=iters))
         what = ("fwd", f"forward_only={cfg.forward_only}")
@@ -137,5 +152,6 @@ def run_bench(scene: Union[str, "Scene"] = "cornell_box", width: int = 1024,
         "unit": "rays/s",
         "vs_baseline": rays_per_s / BASELINE_RAYS_PER_S,
         "seconds_per_frame": ms / 1e3,
+        "accel_build_s": accel_build_s,
         "device": torch.cuda.get_device_name(device),
     }

@@ -12,7 +12,10 @@ from ..scene.types import PointLights, Scene, Spheres, make_scene
 RAY_GRAD = dict(rtol=1e-4, atol=1e-6)  # d_o, d_d: one value per ray
 TABLE_GRAD = dict(rtol=2e-4, atol=1e-5)  # d_tri, d_aux, d_lights, d_spheres: sums over rays
 GRAD_NAMES = ("d_tri", "d_aux", "d_lights", "d_spheres", "d_o", "d_d")
+PRE_GRAD_NAMES = ("d_payload", "d_mats", "d_lights", "d_spheres", "d_o", "d_d")
 MAX_WIDENED = 1e-3  # share of a ray gradient's elements that may need the float32 widening
+MAX_OUTLIERS = 1e-5  # pregathered kernel: share of elements past even the widened tolerance
+OUTLIER_RTOL = 1e-3  # ... whose error against float64 stays under this share of their row's scale
 
 
 def cap_scene(device) -> Scene:
@@ -38,22 +41,24 @@ def cap_scene(device) -> Scene:
     return make_scene(meshes, spheres=spheres, point_lights=lights, device=device)
 
 
-def twin_grads(tables, o, d, prim, bits, num_tris, cotangents):
-    """Autograd of ``shade_plain`` for ``cotangents`` on its four outputs, in
-    float32 and in float64: two lists in ``GRAD_NAMES`` order."""
+def twin_grads(tables, o, d, prim, bits, num_tris, cotangents, plain=shade.shade_plain):
+    """Autograd of the twin ``plain`` (``shade_plain``, or ``shade_plain_pre``
+    on the pregathered tables) for ``cotangents`` on its four outputs, in
+    float32 and in float64: two lists, the tables' then the rays' gradients."""
     out = []
     for dtype in (torch.float32, torch.float64):
         leaves = [x.detach().to(dtype).requires_grad_(True) for x in (*tables, o, d)]
-        outs = shade.shade_plain(*leaves, prim, bits, num_tris=num_tris)
+        outs = plain(*leaves, prim, bits, num_tris=num_tris)
         grads = torch.autograd.grad(outs, leaves, [c.to(dtype) for c in cotangents],
                                     allow_unused=True)
         out.append([torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)])
     return out
 
 
-def shade_grads_close(got, twin, exact, n_rays: int) -> dict:
-    """Hold the shade backward kernel's six cotangents ``got`` (``GRAD_NAMES``
-    order, for a cotangent of unit variance per output element) to autograd
+def shade_grads_close(got, twin, exact, n_rays: int, names=GRAD_NAMES) -> dict:
+    """Hold a shade backward kernel's six cotangents ``got`` (``names``:
+    ``GRAD_NAMES``, or ``PRE_GRAD_NAMES`` for the pregathered kernel; for a
+    cotangent of unit variance per output element) to autograd
     of the twin in float32 (``twin``) and float64 (``exact``).  Raises on a
     mismatch or a non-finite value.
 
@@ -71,27 +76,67 @@ def shade_grads_close(got, twin, exact, n_rays: int) -> dict:
       twice the twin's error on its ray, max over the ray's three components
       of |twin - exact|, which is ~0 where float32 resolves the ray, and at
       most ``MAX_WIDENED`` of the elements may need the widening.
+    - The pregathered kernel (``PRE_GRAD_NAMES``) shades meshes of small
+      triangles, whose Moller-Trumbore terms (1/det) are large and cancel:
+      float32 then resolves a ray's gradient to about eps times its largest
+      component, both in the kernel and in the twin (on the teacup at 1024^2
+      the two miss the float64 value by the same median, 7.6e-6, and the
+      kernel's error exceeds twice the twin's on 9-13% of the rays, the twin's
+      being small by chance).  So there a ray's three components, and a
+      ``d_payload`` row (a sum over the few rays that hit the triangle), are
+      held at the scale of their largest element: the rtol term uses the
+      row's max |twin|, and the widening the row's max |twin - exact|.
+      Where the largest element is itself the sum of larger cancelling terms,
+      the twin can still be accurate by chance where the kernel is not: so
+      at most ``MAX_OUTLIERS`` of the elements may pass the widened
+      tolerance, each within ``OUTLIER_RTOL`` of its row's scale from the
+      float64 value (a wrong derivative is off by O(1) of it), and the
+      kernel's median and 99.9th-percentile errors against float64 must be
+      within twice the twin's: the two are equally accurate overall.
 
     Returns {name: (max of |got - twin| over its widened tolerance, share of
     elements past the tolerance before the widening)}.
     """
     report = {}
-    for name, k, t, x in zip(GRAD_NAMES, got, twin, exact):
+    for name, k, t, x in zip(names, got, twin, exact):
         assert bool(torch.isfinite(k).all()), f"{name}: non-finite gradient"
         if not k.numel():
             report[name] = (0.0, 0.0)
             continue
         x = x.float()
+        by_row = tuple(names) == PRE_GRAD_NAMES and name in ("d_o", "d_d", "d_payload")
+        scale = t.abs().amax(dim=1, keepdim=True) if by_row else t.abs()
         if name in ("d_o", "d_d"):
-            tol = RAY_GRAD["atol"] + RAY_GRAD["rtol"] * t.abs()
+            tol = RAY_GRAD["atol"] + RAY_GRAD["rtol"] * scale
             widened = tol + 2.0 * (t - x).abs().amax(dim=1, keepdim=True)
         else:
-            k, t = k / n_rays ** 0.5, t / n_rays ** 0.5
-            tol = widened = TABLE_GRAD["atol"] + TABLE_GRAD["rtol"] * t.abs()
+            k, t, x = (y / n_rays ** 0.5 for y in (k, t, x))
+            tol = widened = TABLE_GRAD["atol"] + TABLE_GRAD["rtol"] * scale / n_rays ** 0.5
+            if by_row:
+                widened = tol + 2.0 * (t - x).abs().amax(dim=1, keepdim=True)
+        tol, widened = tol.expand_as(t), widened.expand_as(t)
         err = (k - t).abs()
         past = (err > tol).float().mean().item()
-        bad = int((err > widened).sum())
-        assert not bad, f"{name}: {bad} of {k.numel()} elements differ from the twin"
+        over = err > widened
+        bad = int(over.sum())
+        if by_row:
+            k_err, t_err = (k - x).abs(), (t - x).abs()
+            q = torch.tensor([0.5, 0.999], dtype=torch.float64, device=k.device)
+            k_q, t_q = (torch.quantile(e.flatten()[:1 << 24].double(), q)
+                        for e in (k_err, t_err))
+            assert bool((k_q <= 2.0 * t_q + 1e-12).all()), (
+                f"{name}: kernel errors against float64 (median, 99.9%) {k_q.tolist()} past "
+                f"twice the twin's {t_q.tolist()}")
+            near = k_err[over] <= OUTLIER_RTOL * scale.expand_as(t)[over] + tol[over]
+            if bad <= MAX_OUTLIERS * k.numel() and bool(near.all()):
+                bad = 0
+        if bad:
+            i = int(torch.argmax(err / widened))
+            raise AssertionError(
+                f"{name}: {bad} of {k.numel()} elements differ from the twin; the worst, flat "
+                f"index {i}: kernel {k.flatten()[i].item():.9g}, float32 twin "
+                f"{t.flatten()[i].item():.9g}, float64 twin {x.flatten()[i].item():.9g}, "
+                f"tolerance {widened.flatten()[i].item():.3g}")
         assert past <= MAX_WIDENED, f"{name}: {past:.4%} of elements need the float32 widening"
         report[name] = ((err / widened).max().item(), past)
     return report

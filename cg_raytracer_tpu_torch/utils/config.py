@@ -2,9 +2,10 @@
 RenderConfig`` that the render and its gradients read, under the same names,
 defaults and errors.
 
-The TPU auto-tuning knobs (tile rows, interleave, leaf widths, ray order,
+The TPU auto-tuning knobs (tile rows, interleave, pop mode, ray order,
 ``remat_shade``, ``bounce_resort``, ``shade_gather``, ...) are not carried
-over: each was a measurement on a TPU.  ``anti_aliasing``, ``bloom`` and
+over: each was a measurement on a TPU.  The BVH leaf size is this port's own
+knob (``bvh_max_leaf``), for the same reason.  ``anti_aliasing``, ``bloom`` and
 ``motion_blur`` exist so that a request for them fails loudly (their port is
 ROADMAP A9) instead of being dropped.
 """
@@ -23,8 +24,10 @@ class RenderConfig:
     anti_aliasing: bool = False  # not ported: ROADMAP A9
     bloom: bool = False  # not ported: ROADMAP A9
     motion_blur: bool = False  # not ported: ROADMAP A9
-    # 'auto' | 'brute' | 'cuda'.  'auto' resolves from the scene's device:
-    # 'cuda' on CUDA tensors, 'brute' on CPU tensors.
+    # 'auto' | 'brute' | 'bvh' | 'cuda'.  'auto' resolves from the scene's
+    # device: 'cuda' on CUDA tensors; on CPU tensors 'brute' up to
+    # brute_force_max_tris triangles and 'bvh' (the CPU traversal of
+    # ops/bvh.py) beyond.
     backend: str = "auto"
     # Declares that no gradients will be taken: eligible scenes then run the
     # whole forward trace in one kernel (ops/cuda_kernels.py::trace_cuda), and
@@ -46,31 +49,59 @@ class RenderConfig:
     ray_chunk: int = 0  # >0: trace rays in chunks of this size
     tri_chunk: int = 2048  # triangle tile per brute-force sweep step
     reference_quirks: bool = False  # reproduce documented reference bugs
-    # 'auto' on CPU: brute force up to this triangle count (the BVH beyond it
-    # is ROADMAP A6).
+    # 'auto' on CPU: brute force up to this triangle count, the BVH beyond.
     brute_force_max_tris: int = 4096
-    # Cap of the card's brute-force kernels (their shared-memory tables);
-    # past it the JAX package switches to BVH kernels (ROADMAP B5).
+    # The card: the brute-force kernels (shared-memory tables) up to this
+    # count, the 4-wide BVH kernels (ops/bvh4.py) beyond.
     pallas_brute_max_tris: int = 256
+    # BVH split rule: 'auto' | 'median' (the reference's, bvh.cpp:192-207) |
+    # 'sah' (binned surface-area heuristic).  'auto' = 'sah' where the 4-wide
+    # kernels run, else 'median', as the JAX package resolves it.
+    bvh_builder: str = "auto"
+    # Triangles per leaf of the card's tree; 0 = auto = 4 (ops/bvh.py
+    # DEFAULT_MAX_LEAF).  The JAX package's 56 was a TPU measurement.
+    bvh_max_leaf: int = 0
+    # Route forward_only renders past the trace kernel's cap through the
+    # two-phase records and the shade kernel: 'auto' | 'on' | 'off'.  'auto'
+    # is resolved by models.whitted.resolve_fwd_shade_kernel (render(),
+    # run_bench): 'on' where depth 2 runs over a scene whose triangles are
+    # reflective in more than 5% (the JAX package's rule); here 'auto' = 'off'.
+    fwd_shade_kernel: str = "auto"
 
     def resolve_backend(self, num_tris: int, device: torch.device) -> str:
-        """'brute' or 'cuda' for a scene of ``num_tris`` triangles on ``device``."""
-        if self.backend not in ("auto", "brute", "cuda"):
-            raise ValueError(f"backend must be 'auto' | 'brute' | 'cuda', got {self.backend!r}")
+        """'brute', 'bvh' or 'cuda' for a scene of ``num_tris`` triangles on ``device``."""
+        if self.backend not in ("auto", "brute", "bvh", "cuda"):
+            raise ValueError(f"backend must be 'auto' | 'brute' | 'bvh' | 'cuda', got "
+                             f"{self.backend!r}")
         on_card = torch.device(device).type == "cuda"
-        kind = self.backend
-        if kind == "auto":
-            kind = "cuda" if on_card else "brute"
-        if kind == "brute" and on_card:
-            raise ValueError("backend='brute' is the CPU path; a scene on a CUDA "
-                             "device renders with backend='cuda' (or 'auto')")
-        if (kind == "brute" and self.backend == "auto"
-                and num_tris > self.brute_force_max_tris):
-            raise NotImplementedError(
-                f"{num_tris} triangles exceed brute_force_max_tris="
-                f"{self.brute_force_max_tris}; the BVH backend is not ported yet "
-                f"(ROADMAP A6). Pass backend='brute' to sweep every triangle.")
-        return kind
+        if self.backend in ("brute", "bvh") and on_card:
+            raise ValueError(f"backend={self.backend!r} is a CPU path; a scene on a CUDA "
+                             f"device renders with backend='cuda' (or 'auto')")
+        if self.backend != "auto":
+            return self.backend
+        if on_card:
+            return "cuda"
+        return "brute" if num_tris <= self.brute_force_max_tris else "bvh"
+
+    def resolve_bvh_builder(self, num_tris: int, device: torch.device) -> str:
+        if self.bvh_builder not in ("auto", "median", "sah"):
+            raise ValueError(f"bvh_builder must be 'auto' | 'median' | 'sah', got "
+                             f"{self.bvh_builder!r}")
+        if self.bvh_builder != "auto":
+            return self.bvh_builder
+        from ..ops.bvh4 import VMEM_MAX_TRIS
+
+        if (self.resolve_backend(num_tris, device) == "cuda"
+                and self.pallas_brute_max_tris < num_tris <= VMEM_MAX_TRIS):
+            return "sah"
+        return "median"
+
+    def resolve_bvh_max_leaf(self) -> int:
+        if self.bvh_max_leaf < 0:
+            raise ValueError(f"bvh_max_leaf must be positive (0 = auto), got {self.bvh_max_leaf}")
+        from ..ops.bvh import DEFAULT_MAX_LEAF
+
+        return self.bvh_max_leaf or DEFAULT_MAX_LEAF
 
     def resolve_grad_two_phase(self) -> bool:
         if self.grad_two_phase not in ("auto", "on", "off"):

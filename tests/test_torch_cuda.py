@@ -1,5 +1,6 @@
 """PyTorch port on an NVIDIA GPU: each CUDA kernel against its plain PyTorch
-twin on the card.  Skipped where there is no CUDA device.
+twin on the card, the 4-wide BVH kernels on the procedural teacup (48,000
+triangles).  Skipped where there is no CUDA device.
 
 This file imports no JAX, so it runs on a machine without it:
 
@@ -8,17 +9,23 @@ This file imports no JAX, so it runs on a machine without it:
 Tolerances: prim ids and booleans equal on >= 99.5% of rays; where ids match,
 t/u/v (and the records' next rays, where active) within atol 1e-5, rtol
 1e-5; colors on <= 0.5% of rays off by > 1e-4; shade outputs rtol 1e-5,
-atol 1e-6; shade gradients as ``utils.checks.shade_grads_close``.
+atol 1e-6; shade gradients as ``utils.checks.shade_grads_close``.  The
+4-wide BVH kernels walk the same per-ray descent as their twins and are
+held to them exactly.
 """
 import pytest
 import torch
 
+from cg_raytracer_tpu_torch.models.whitted import build_accel
+from cg_raytracer_tpu_torch.ops import bvh4 as b4
 from cg_raytracer_tpu_torch.ops import cuda_kernels as ck
 from cg_raytracer_tpu_torch.ops import shade
 from cg_raytracer_tpu_torch.ops.camera import generate_rays
 from cg_raytracer_tpu_torch.scene import standins
+from cg_raytracer_tpu_torch.scene.presets import load_scene
 from cg_raytracer_tpu_torch.scene.types import Camera, PointLights, Spheres, make_scene
 from cg_raytracer_tpu_torch.utils import checks
+from cg_raytracer_tpu_torch.utils.config import RenderConfig
 
 
 @pytest.fixture
@@ -142,3 +149,79 @@ def test_training_kernel_matches_plain_on_card(kernel, cuda_device):
     name = {"record_trace": "record_trace_cuda", "bounce_refl": "bounce_refl_cuda",
             "shade_fwd": "shade_fwd_cuda", "shade_bwd": "shade_bwd_cuda"}[kernel]
     assert {**ck.launch_counts(), **shade.launch_counts()}[name] > before[name]
+
+
+@pytest.fixture(scope="module")
+def teacup_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    device = torch.device("cuda")
+    teacup = load_scene("teacup", device=device)
+    tree = build_accel(teacup, RenderConfig())
+    gen = torch.Generator(device).manual_seed(3)
+    o_cam, d_cam = generate_rays(Camera.default(device=device), 256, 256)
+    o_rand = torch.rand((1 << 16, 3), device=device, generator=gen) * 2.4 - 1.2
+    d_rand = torch.randn((1 << 16, 3), device=device, generator=gen)
+    d_rand = d_rand / d_rand.norm(dim=1, keepdim=True)
+    return teacup, tree, torch.cat([o_cam, o_rand]), torch.cat([d_cam, d_rand]), gen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["bvh4_closest", "bvh4_anyhit", "bvh4_bounce", "shade_pre_fwd",
+                                    "shade_pre_bwd"])
+def test_mesh_kernel_matches_plain_on_card(kernel, teacup_on_card):
+    teacup, tree, o, d, gen = teacup_on_card
+    before = {**b4.launch_counts(), **shade.launch_counts()}
+    if kernel == "bvh4_closest":
+        got = b4.intersect_bvh4_cuda(teacup, tree, o, d)
+        want = b4.intersect_bvh4_plain(teacup, tree, o, d)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert 0.1 < (got.prim_id >= 0).float().mean().item() < 0.9
+    elif kernel == "bvh4_anyhit":
+        tm = torch.rand(o.shape[0], device=o.device, generator=gen) * 3.0 - 0.5
+        got = b4.occluded_bvh4_cuda(teacup, tree, o, d, tm)
+        assert torch.equal(got, b4.occluded_bvh4_plain(teacup, tree, o, d, tm))
+        assert bool(got.any()) and not bool(got[tm < 0].any())
+    elif kernel == "bvh4_bounce":
+        live = torch.arange(o.shape[0], device=o.device) % 5 != 0
+        (gh, gb), (wh, wb) = (b4.bounce_bvh4_cuda(teacup, tree, o, d, live),
+                              b4.bounce_bvh4_plain(teacup, tree, o, d, live))
+        assert all(torch.equal(a, b) for a, b in zip(gh, wh)) and torch.equal(gb, wb)
+        assert bool((gh.prim_id[~live] == -1).all()) and bool(gb.any())
+    else:
+        hit = b4.intersect_bvh4_cuda(teacup, tree, o, d)
+        prim = hit.prim_id.contiguous()
+        bits = torch.randint(0, 2, prim.shape, device=o.device, dtype=torch.int32, generator=gen)
+        payload, mats, lights, spheres, num_tris = shade._pre_tables(teacup)
+        tables = tuple(x.detach().contiguous() for x in (payload, mats, lights, spheres))
+        if kernel == "shade_pre_fwd":
+            got = shade.shade_pre_fwd_cuda(*tables, o, d, prim, bits)
+            want = shade.shade_plain_pre(*tables, o, d, prim, bits)
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        else:
+            cts = [torch.randn(o.shape, device=o.device, generator=gen) for _ in range(4)]
+            got = shade.shade_pre_bwd_cuda(*tables, o, d, prim, bits, cts)
+            twin, exact = checks.twin_grads(tables, o, d, prim, bits, num_tris, cts,
+                                            plain=shade.shade_plain_pre)
+            checks.shade_grads_close(got, twin, exact, o.shape[0], names=checks.PRE_GRAD_NAMES)
+            assert not bool(got[0][:, 18].any())
+    torch.cuda.synchronize()
+    name = {"bvh4_closest": "intersect_bvh4_cuda", "bvh4_anyhit": "occluded_bvh4_cuda",
+            "bvh4_bounce": "bounce_bvh4_cuda", "shade_pre_fwd": "shade_pre_fwd_cuda",
+            "shade_pre_bwd": "shade_pre_bwd_cuda"}[kernel]
+    assert {**b4.launch_counts(), **shade.launch_counts()}[name] > before[name]
+
+
+@pytest.mark.cuda
+def test_past_the_4_wide_cap_the_card_raises(teacup_on_card):
+    import dataclasses
+
+    from cg_raytracer_tpu_torch.models.whitted import make_backend
+
+    teacup, *_ = teacup_on_card
+    big = dataclasses.replace(
+        teacup, triangles=torch.zeros((200_001, 3), dtype=torch.int32, device=teacup.device),
+        tri_material=torch.zeros((200_001,), dtype=torch.int32, device=teacup.device))
+    with pytest.raises(NotImplementedError, match="B8"):
+        make_backend(big, RenderConfig())

@@ -144,11 +144,16 @@ def test_unported_features_raise():
     for two_phase in ("off", "on"):
         with pytest.raises(NotImplementedError, match="A8"):
             trt.render(sph, tc, trt.RenderConfig(**small, grad_two_phase=two_phase))
-    teacup = trt.load_scene("teacup")
-    with pytest.raises(NotImplementedError, match="B5"):
-        tw.make_backend(teacup, trt.RenderConfig(backend="cuda"))
-    with pytest.raises(NotImplementedError, match="A6"):
-        tw.make_backend(teacup, trt.RenderConfig())
+    # Past the 4-wide BVH kernels' cap (the donut's 320K triangles) the
+    # kernels are ROADMAP B8: the card raises before building a tree.
+    big = dataclasses.replace(t, triangles=torch.zeros((200_001, 3), dtype=torch.int32),
+                              tri_material=torch.zeros((200_001,), dtype=torch.int32))
+    for cfg in (trt.RenderConfig(backend="cuda"), trt.RenderConfig(backend="cuda",
+                                                                    forward_only=True)):
+        with pytest.raises(NotImplementedError, match="B8"):
+            tw.make_backend(big, cfg)
+        with pytest.raises(NotImplementedError, match="B8"):
+            tw.build_accel(big, cfg)
 
 
 def test_forward_only_render_cannot_be_differentiated():
