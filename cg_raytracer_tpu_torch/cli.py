@@ -25,8 +25,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--max-bounces", type=int, default=2)
     p.add_argument("--backend", default="auto", choices=["auto", "brute", "bvh", "cuda"])
     p.add_argument("--spp", type=int, default=200,
-                   help="soft-shadow samples per spherical-light shading (spherical "
-                        "lights are not ported yet: ROADMAP A8)")
+                   help="soft-shadow samples per spherical-light shading")
     p.add_argument("--aa", action="store_true", help="2x2 supersampling (ROADMAP A9)")
     p.add_argument("--bloom", action="store_true", help="(ROADMAP A9)")
     p.add_argument("--motion-blur", action="store_true", help="(ROADMAP A9)")
@@ -83,8 +82,10 @@ def _build(args):
                             device=device)
     cfg = RenderConfig(width=args.width, height=args.height, max_depth=args.max_bounces,
                        anti_aliasing=args.aa, bloom=args.bloom, motion_blur=args.motion_blur,
-                       backend=args.backend, reference_quirks=args.reference_quirks)
-    generator = torch.Generator(device=device).manual_seed(args.seed)
+                       backend=args.backend, reference_quirks=args.reference_quirks,
+                       soft_shadow_samples=args.spp)
+    # A CPU generator: each render draws its sample key on the host.
+    generator = torch.Generator().manual_seed(args.seed)
     return scene, camera, cfg, generator
 
 

@@ -1,6 +1,7 @@
-// Fused differentiable shade: reconstruct + point-light Phong at recorded
-// hits, forward and backward.  Phase 2 of the two-phase gradient structure
-// (models/whitted.py::trace_rays), behind ops/shade.py::_ShadeFn.
+// Fused differentiable shade: reconstruct + Phong from point lights and
+// spherical lights at recorded hits, forward and backward.  Phase 2 of the
+// two-phase gradient structure (models/whitted.py::trace_rays), behind
+// ops/shade.py::_ShadeFn.
 //
 // Replaces four Pallas kernels of cg_raytracer_tpu/ops/pallas_shade.py:
 //   cgrt_shade_fwd     <- _shade_fwd_kernel     (#23, the select-gather forward),
@@ -25,7 +26,10 @@
 // discrete); tables tri [T, 9] (v0 v1 v2) and aux [T, 19] (n0 n1 n2, face
 // normal, kd, ks, shininess), or payload [T, 19] and mats [M, 7]; lights
 // [L, 6] (position, color), spheres [S, 11] (center, radius, kd, ks,
-// shininess).  A ray is live where
+// shininess); spherical lights sph [Ls, 6] (center, color) with the recorded
+// visibility fractions fracs [Ls, N] (discrete, like the bits: the shading
+// uses the light's center and scales its Phong terms by the fraction,
+// main.cpp:168-218).  A ray is live where
 // 0 <= prim < T + S: prim < T is a triangle, T + s sphere s; any other prim
 // is a miss, whose outputs and cotangents are exactly 0 (the Pallas kernel
 // let misses fall through to row 0 and gated them; here they do no work).
@@ -34,13 +38,17 @@
 // T = 256, L = 16, S = 8): Moller-Trumbore recompute on the hit triangle
 // (det_safe), the interpolated normal flipped toward the viewer, or the
 // sphere quadratic recompute and geometric normal; the unit reflection of
-// d; then per light not blocked by its bit, diffuse max(ld.n, 0) and
-// specular pow(max(r.ld, 1e-30), shininess) where r.ld > 0.  Outputs
+// d; then per point light not blocked by its bit, diffuse max(ld.n, 0) and
+// specular pow(max(r.ld, 1e-30), shininess) where r.ld > 0; then per
+// spherical light the same terms times its fraction (a light whose fraction
+// is 0 is skipped: it adds exactly 0 either way).  Outputs
 // direct, ks, normal, position, each [N, 3].  The pregathered forward stages
 // only mats, lights and spheres (<= 1.0 KB at M = L = 16, S = 8).
 //
 // Backward: the same forward recomputed in registers, then the reverse pass
-// written out by hand (the Pallas kernel traced jax.vjp inside its body).
+// written out by hand (the Pallas kernel traced jax.vjp inside its body); a
+// spherical light's terms reverse as a point light's with the direct
+// cotangent scaled by its fraction.
 // The derivation is csrc/SHADE_BWD.md.  Per-ray cotangents d_o, d_d [N, 3]
 // are stored; table cotangents are summed per block into a shared-memory
 // copy of the tables with atomicAdd, then added once per block to d_tri,
@@ -91,6 +99,9 @@ struct ShadeArgs {
   int num_lights;
   const float* spheres;  // [S, 11]
   int num_spheres;
+  const float* sph;  // [Ls, 6] spherical lights: center, color
+  int num_sph;
+  const float* fracs;  // [Ls, N] their visibility fractions
 };
 
 // Cotangents in and out of the backward.
@@ -107,6 +118,7 @@ struct ShadeGrads {
   float* d_mats;     // pregathered
   float* d_lights;
   float* d_spheres;
+  float* d_sph;
 };
 
 // Shared-memory floats before the lights: tri + aux, or mats.
@@ -115,9 +127,15 @@ __host__ __device__ __forceinline__ int head_floats(const ShadeArgs& a) {
   return kPre ? 7 * a.num_mats : 28 * a.rows;
 }
 
+// Then lights [L, 6], spheres [S, 11] and spherical lights [Ls, 6].
+template <bool kPre>
+__host__ __device__ __forceinline__ int sph_offset(const ShadeArgs& a) {
+  return head_floats<kPre>(a) + 6 * a.num_lights + 11 * a.num_spheres;
+}
+
 template <bool kPre>
 __host__ __device__ __forceinline__ int table_floats(const ShadeArgs& a) {
-  return head_floats<kPre>(a) + 6 * a.num_lights + 11 * a.num_spheres;
+  return sph_offset<kPre>(a) + 6 * a.num_sph;
 }
 
 struct Tables {
@@ -127,15 +145,16 @@ struct Tables {
   const float* mats;     // pregathered: shared [num_mats, 7]
   const float* light;    // shared [L, 6]
   const float* sph;      // shared [S, 11]
-  int num_tris, num_mats, num_lights, num_spheres;
+  const float* sphl;     // shared [Ls, 6]
+  int num_tris, num_mats, num_lights, num_spheres, num_sphl;
 };
 
 template <bool kPre>
 __device__ __forceinline__ Tables stage_shade_tables(const ShadeArgs& a, float* smem) {
   const int head = head_floats<kPre>(a);
   Tables tb{smem, smem + 9 * a.rows, a.payload, smem, smem + head,
-            smem + head + 6 * a.num_lights, a.num_tris, a.num_mats, a.num_lights,
-            a.num_spheres};
+            smem + head + 6 * a.num_lights, smem + sph_offset<kPre>(a), a.num_tris,
+            a.num_mats, a.num_lights, a.num_spheres, a.num_sph};
   if (kPre) {
     stage_rows(a.mats, 7 * a.num_mats, smem);
   } else {
@@ -144,6 +163,7 @@ __device__ __forceinline__ Tables stage_shade_tables(const ShadeArgs& a, float* 
   }
   stage_rows(a.lights, 6 * a.num_lights, smem + head);
   stage_rows(a.spheres, 11 * a.num_spheres, smem + head + 6 * a.num_lights);
+  stage_rows(a.sph, 6 * a.num_sph, smem + sph_offset<kPre>(a));
   return tb;
 }
 
@@ -328,6 +348,15 @@ __global__ void __launch_bounds__(kThreads)
       out[1] = out[1] + lrow[4] * (f.kdy * L.dcos + f.ksy * L.spec);
       out[2] = out[2] + lrow[5] * (f.kdz * L.dcos + f.ksz * L.spec);
     }
+    for (int l = 0; l < tb.num_sphl; ++l) {
+      const float w = a.fracs[static_cast<size_t>(l) * a.n + i];
+      if (w == 0.0f) continue;
+      const float* lrow = tb.sphl + 6 * l;
+      const LightTerms L = light_terms(f, lrow);
+      out[0] = out[0] + lrow[3] * (f.kdx * L.dcos + f.ksx * L.spec) * w;
+      out[1] = out[1] + lrow[4] * (f.kdy * L.dcos + f.ksy * L.spec) * w;
+      out[2] = out[2] + lrow[5] * (f.kdz * L.dcos + f.ksz * L.spec) * w;
+    }
     out[3] = f.ksx, out[4] = f.ksy, out[5] = f.ksz;
     out[6] = f.nx, out[7] = f.ny, out[8] = f.nz;
     out[9] = f.px, out[10] = f.py, out[11] = f.pz;
@@ -369,6 +398,7 @@ __global__ void __launch_bounds__(kThreads) shade_bwd_kernel(ShadeArgs a, ShadeG
   float* a_mat = acc;                // pregathered
   float* a_light = acc + head;
   float* a_sph = acc + head + 6 * a.num_lights;
+  float* a_sphl = acc + sph_offset<kPre>(a);
   for (int k = threadIdx.x; k < floats; k += blockDim.x) acc[k] = 0.0f;
   __syncthreads();
 
@@ -390,16 +420,16 @@ __global__ void __launch_bounds__(kThreads) shade_bwd_kernel(ShadeArgs a, ShadeG
       float gks[3] = {g.g_ks[3 * i], g.g_ks[3 * i + 1], g.g_ks[3 * i + 2]};
       float gshin = 0.0f, grx = 0.0f, gry = 0.0f, grz = 0.0f;
 
-      // Lights (SHADE_BWD.md, "Lights").
+      // Lights (SHADE_BWD.md, "Lights"): one light row's reverse, for the
+      // direct cotangent gL (gD, or gD times a spherical light's fraction),
+      // adding the row's cotangents into acc_row.
       const float kd[3] = {f.kdx, f.kdy, f.kdz}, ks[3] = {f.ksx, f.ksy, f.ksz};
-      for (int l = 0; l < tb.num_lights; ++l) {
-        if ((bits >> l) & 1) continue;
-        const float* lrow = tb.light + 6 * l;
+      auto light_bwd = [&](const float* lrow, const float* gL, float* acc_row) {
         const LightTerms L = light_terms(f, lrow);
         float g_dcos = 0.0f, g_spec = 0.0f;
         for (int c = 0; c < 3; ++c) {
-          const float gA = gD[c] * lrow[3 + c];
-          atomicAdd(&a_light[6 * l + 3 + c], gD[c] * (kd[c] * L.dcos + ks[c] * L.spec));
+          const float gA = gL[c] * lrow[3 + c];
+          atomicAdd(&acc_row[3 + c], gL[c] * (kd[c] * L.dcos + ks[c] * L.spec));
           gkd[c] += gA * L.dcos;
           gks[c] += gA * L.spec;
           g_dcos += gA * kd[c];
@@ -420,10 +450,20 @@ __global__ void __launch_bounds__(kThreads) shade_bwd_kernel(ShadeArgs a, ShadeG
         // ld = normalize(to), to = light - p
         float gtx = 0.0f, gty = 0.0f, gtz = 0.0f;
         normalize_bwd(L.tox, L.toy, L.toz, L.ls, L.linv, gldx, gldy, gldz, gtx, gty, gtz);
-        atomicAdd(&a_light[6 * l], gtx);
-        atomicAdd(&a_light[6 * l + 1], gty);
-        atomicAdd(&a_light[6 * l + 2], gtz);
+        atomicAdd(&acc_row[0], gtx);
+        atomicAdd(&acc_row[1], gty);
+        atomicAdd(&acc_row[2], gtz);
         gpx -= gtx, gpy -= gty, gpz -= gtz;
+      };
+      for (int l = 0; l < tb.num_lights; ++l) {
+        if (!((bits >> l) & 1)) light_bwd(tb.light + 6 * l, gD, a_light + 6 * l);
+      }
+      // Spherical lights (SHADE_BWD.md, "Spherical lights").
+      for (int l = 0; l < tb.num_sphl; ++l) {
+        const float w = a.fracs[static_cast<size_t>(l) * a.n + i];
+        if (w == 0.0f) continue;
+        const float gW[3] = {gD[0] * w, gD[1] * w, gD[2] * w};
+        light_bwd(tb.sphl + 6 * l, gW, a_sphl + 6 * l);
       }
 
       // Reflection: r = normalize(rt), rt = d - 2 (d . n) n (SHADE_BWD.md, "Reflection").
@@ -578,8 +618,10 @@ __global__ void __launch_bounds__(kThreads) shade_bwd_kernel(ShadeArgs a, ShadeG
       }
     } else if (k < head + 6 * a.num_lights) {
       atomicAdd(&g.d_lights[k - head], v);
-    } else {
+    } else if (k < sph_offset<kPre>(a)) {
       atomicAdd(&g.d_spheres[k - head - 6 * a.num_lights], v);
+    } else {
+      atomicAdd(&g.d_sph[k - sph_offset<kPre>(a)], v);
     }
   }
 }
@@ -622,54 +664,62 @@ int launch_bwd(const ShadeArgs& a, const ShadeGrads& g, cudaStream_t stream) {
 
 extern "C" {
 
+// sph [Ls, 6] and fracs [Ls, N]: the spherical lights and their fractions.
 int cgrt_shade_fwd(const float* o, const float* d, const int* prim, const int* bits, int n,
                    const float* tris, const float* aux, int rows, int num_tris,
                    const float* lights, int num_lights, const float* spheres, int num_spheres,
-                   float* direct, float* ks, float* normal, float* position,
-                   cudaStream_t stream) {
+                   const float* sph, int num_sph, const float* fracs, float* direct, float* ks,
+                   float* normal, float* position, cudaStream_t stream) {
   const cgrt::ShadeArgs a{o, d, prim, bits, n, tris, aux, rows, nullptr, nullptr, 0,
-                          num_tris, lights, num_lights, spheres, num_spheres};
+                          num_tris, lights, num_lights, spheres, num_spheres, sph, num_sph,
+                          fracs};
   return cgrt::launch_fwd<false>(a, direct, ks, normal, position, stream);
 }
 
-// The table cotangents d_tri, d_aux, d_lights, d_spheres are added to (the
-// caller zeroes them); d_o and d_d are written.
+// The table cotangents d_tri, d_aux, d_lights, d_spheres, d_sph are added to
+// (the caller zeroes them); d_o and d_d are written.
 int cgrt_shade_bwd(const float* o, const float* d, const int* prim, const int* bits, int n,
                    const float* tris, const float* aux, int rows, int num_tris,
                    const float* lights, int num_lights, const float* spheres, int num_spheres,
-                   const float* g_direct, const float* g_ks, const float* g_normal,
-                   const float* g_position, float* d_o, float* d_d, float* d_tri,
-                   float* d_aux, float* d_lights, float* d_spheres, cudaStream_t stream) {
+                   const float* sph, int num_sph, const float* fracs, const float* g_direct,
+                   const float* g_ks, const float* g_normal, const float* g_position,
+                   float* d_o, float* d_d, float* d_tri, float* d_aux, float* d_lights,
+                   float* d_spheres, float* d_sph, cudaStream_t stream) {
   const cgrt::ShadeArgs a{o, d, prim, bits, n, tris, aux, rows, nullptr, nullptr, 0,
-                          num_tris, lights, num_lights, spheres, num_spheres};
+                          num_tris, lights, num_lights, spheres, num_spheres, sph, num_sph,
+                          fracs};
   const cgrt::ShadeGrads g{g_direct, g_ks, g_normal, g_position, d_o, d_d, d_tri, d_aux,
-                           nullptr, nullptr, d_lights, d_spheres};
+                           nullptr, nullptr, d_lights, d_spheres, d_sph};
   return cgrt::launch_bwd<false>(a, g, stream);
 }
 
 int cgrt_shade_pre_fwd(const float* o, const float* d, const int* prim, const int* bits, int n,
                        const float* payload, int num_tris, const float* mats, int num_mats,
                        const float* lights, int num_lights, const float* spheres,
-                       int num_spheres, float* direct, float* ks, float* normal,
-                       float* position, cudaStream_t stream) {
+                       int num_spheres, const float* sph, int num_sph, const float* fracs,
+                       float* direct, float* ks, float* normal, float* position,
+                       cudaStream_t stream) {
   const cgrt::ShadeArgs a{o, d, prim, bits, n, nullptr, nullptr, 0, payload, mats, num_mats,
-                          num_tris, lights, num_lights, spheres, num_spheres};
+                          num_tris, lights, num_lights, spheres, num_spheres, sph, num_sph,
+                          fracs};
   return cgrt::launch_fwd<true>(a, direct, ks, normal, position, stream);
 }
 
-// d_payload, d_mats, d_lights, d_spheres are added to (the caller zeroes
-// them); d_o and d_d are written.
+// d_payload, d_mats, d_lights, d_spheres, d_sph are added to (the caller
+// zeroes them); d_o and d_d are written.
 int cgrt_shade_pre_bwd(const float* o, const float* d, const int* prim, const int* bits, int n,
                        const float* payload, int num_tris, const float* mats, int num_mats,
                        const float* lights, int num_lights, const float* spheres,
-                       int num_spheres, const float* g_direct, const float* g_ks,
-                       const float* g_normal, const float* g_position, float* d_o, float* d_d,
-                       float* d_payload, float* d_mats, float* d_lights, float* d_spheres,
+                       int num_spheres, const float* sph, int num_sph, const float* fracs,
+                       const float* g_direct, const float* g_ks, const float* g_normal,
+                       const float* g_position, float* d_o, float* d_d, float* d_payload,
+                       float* d_mats, float* d_lights, float* d_spheres, float* d_sph,
                        cudaStream_t stream) {
   const cgrt::ShadeArgs a{o, d, prim, bits, n, nullptr, nullptr, 0, payload, mats, num_mats,
-                          num_tris, lights, num_lights, spheres, num_spheres};
+                          num_tris, lights, num_lights, spheres, num_spheres, sph, num_sph,
+                          fracs};
   const cgrt::ShadeGrads g{g_direct, g_ks, g_normal, g_position, d_o, d_d, nullptr, nullptr,
-                           d_payload, d_mats, d_lights, d_spheres};
+                           d_payload, d_mats, d_lights, d_spheres, d_sph};
   return cgrt::launch_bwd<true>(a, g, stream);
 }
 

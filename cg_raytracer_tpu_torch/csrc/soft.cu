@@ -1,0 +1,203 @@
+// Spherical-light soft-shadow samplers: visible-sample counts per shading
+// point for one spherical light (main.cpp:166-218).
+//
+// Replaces four Pallas kernels:
+//   cgrt_soft_brute, PRNG  <- pallas_kernels.py _soft_shadow_prng_kernel (B9),
+//   cgrt_soft_brute, table <- pallas_kernels.py _soft_shadow_table_kernel (B9),
+//   cgrt_soft_bvh4, PRNG   <- pallas_bvh4.py _soft4_cone_prng_kernel (B10),
+//   cgrt_soft_bvh4, table  <- pallas_bvh4.py _soft4_cone_table_kernel (B10).
+// Wrappers, the sample stream and the plain twins: ops/soft.py.
+//
+// One body (sample_visible), templated on the sample source (Philox in the
+// kernel, or a table of Gaussians [N, S, 3]) and on the scene (the triangle
+// table in shared memory, or the 4-wide tree of bvh4.cuh).  Layout: one
+// thread per (point, sample), point-major, so a point's 200 samples fill ~6
+// consecutive warps and a block's four warps sample one or two points.  The
+// Pallas cone sampler's coherence (one point's rays toward a sphere of
+// radius ~0.1 stop at the same blocker or walk nearly the same nodes) then
+// holds across the warps of a block as well as inside each.  A warp adds its
+// count per point with one atomicAdd (__popc of the ballot over the lanes of
+// that point).  A point marked invalid (a miss) does no work and counts 0.
+// One warp per point with one lane per sample was written first and
+// measured slower at 1024^2 (PERF.md, the samplers' layout runs): an SM's ~36
+// resident warps then walk ~36 points at once, against ~9 here.
+//
+// Sample s of the point with global index g = offset + i: Philox4x32-10 at
+// counter (g, s, 0, 0) under the key (k0, k1), its four words turned into
+// three Gaussians by Box-Muller on 24-bit uniforms (_gauss3_from_bits; logf,
+// sqrtf, cosf, sinf, not the fast intrinsics).  The sample ray is
+// _soft_sample_ray op for op (the build's -fmad=false keeps each multiply
+// and add rounded as the twin's), so the table variant agrees with its twin
+// exactly and the PRNG variant up to the transcendental functions.
+//
+// What bounds it on an H100 (counts of utils/roofline.py): per sample ray,
+// 104 integer operations of Philox (at 16.7 Tops/s) and 65 FLOPs of
+// Box-Muller and sample ray, then the any-hit: up to T Moller-Trumbore tests
+// of 68 FLOPs (brute; the lane stops at its first blocker) or a walk of 159
+// FLOPs per 4-wide node visit and 68 per leaf triangle (tree).  Bytes are 13
+// per point in and 4 out, so it is bound by operations: at 67 TFLOP/s
+// float32, the box's level 0 at 1024^2 (1M points x 200 samples, 32
+// triangles) is ~7 ms of float work if every sample swept every triangle.
+// The brute sweep reads each triangle as a shared-memory broadcast (all lanes
+// test the same triangle at a step); the tree walk's node loads are coherent
+// across a point's warps.  Lanes of a warp that finish early idle until its
+// last lane is done.
+#include <cstdint>
+
+#include "bvh4.cuh"
+
+namespace cgrt {
+
+constexpr int kWarp = 32;
+constexpr long long kMaxBlocks = 1 << 24;  // the grid-stride loop takes the rest
+constexpr float kTwoPi = 6.283185307179586f;
+
+struct SoftArgs {
+  const float* pos;      // [N, 3] shading points
+  const uint8_t* valid;  // [N] or null (all valid)
+  int n;
+  const float* light;  // [4] center, radius
+  int num_samples;
+  unsigned k0, k1, offset;  // the light's key and the batch's first global point index
+  const float* gauss;       // table variant: [N, S, 3]
+  int* counts;              // [N]
+};
+
+// Philox4x32-10 (Salmon et al., SC'11), as curand_Philox4x32_10.
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned k0, unsigned k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const unsigned hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return c;
+}
+
+__device__ __forceinline__ float u01(unsigned bits) {
+  return static_cast<float>(bits & 0xFFFFFFu) * (1.0f / 16777216.0f) + (0.5f / 16777216.0f);
+}
+
+__device__ __forceinline__ void gauss3(uint4 b, float& gx, float& gy, float& gz) {
+  const float u1 = u01(b.x), u2 = u01(b.y), u3 = u01(b.z), u4 = u01(b.w);
+  const float r1 = sqrtf(-2.0f * logf(u1));
+  const float r2 = sqrtf(-2.0f * logf(u3));
+  gx = r1 * cosf(kTwoPi * u2);
+  gy = r1 * sinf(kTwoPi * u2);
+  gz = r2 * cosf(kTwoPi * u4);
+}
+
+// Shadow ray from p toward the light's sample point for the Gaussian g.
+__device__ __forceinline__ Ray sample_ray(float px, float py, float pz, float gx, float gy,
+                                          float gz, const float* l, float& t_max) {
+  const float inv = 1.0f / fmaxf(sqrtf(gx * gx + gy * gy + gz * gz), kNormEps);
+  const float sx = l[0] + l[3] * (gx * inv);
+  const float sy = l[1] + l[3] * (gy * inv);
+  const float sz = l[2] + l[3] * (gz * inv);
+  const float tx = sx - px, ty = sy - py, tz = sz - pz;
+  const float invd = 1.0f / fmaxf(sqrtf(tx * tx + ty * ty + tz * tz), kNormEps);
+  const float dx = tx * invd, dy = ty * invd, dz = tz * invd;
+  const float ox = px + kShadowEps * dx, oy = py + kShadowEps * dy, oz = pz + kShadowEps * dz;
+  const float ex = sx - ox, ey = sy - oy, ez = sz - oz;
+  t_max = sqrtf(ex * ex + ey * ey + ez * ez);
+  return Ray{ox, oy, oz, dx, dy, dz};
+}
+
+// Whether sample s of point i (at p) reaches the light l: its Gaussian from
+// the table or the stream, the sample ray, then an any-hit sweep of the
+// staged triangles or an any-hit walk of the tree.
+template <bool kTable, bool kTree>
+__device__ __forceinline__ bool sample_visible(const SoftArgs& a, const Tree& tr,
+                                               const float* s_tri, int num_tris, const float* l,
+                                               int i, int s, float px, float py, float pz) {
+  float gx, gy, gz;
+  if (kTable) {
+    const float* g = a.gauss + 3 * (static_cast<size_t>(i) * a.num_samples + s);
+    gx = g[0], gy = g[1], gz = g[2];
+  } else {
+    const uint4 ctr = make_uint4(a.offset + static_cast<unsigned>(i), static_cast<unsigned>(s),
+                                 0u, 0u);
+    gauss3(philox4x32_10(ctr, a.k0, a.k1), gx, gy, gz);
+  }
+  float tm;
+  const Ray r = sample_ray(px, py, pz, gx, gy, gz, l, tm);
+  if (!(tm > 0.0f)) return true;
+  if (kTree) {
+    float t_best = tm, u = 0.0f, v = 0.0f;
+    return traverse<true>(tr, make_walk(r), t_best, u, v) < 0;
+  }
+  return !any_hit_sweep(s_tri, num_tris, r, tm);
+}
+
+// The port's layout: one thread per (point, sample), point-major.  A warp
+// adds its visible count per point (__match_any_sync groups its lanes by
+// point, at most two points for S >= 32) into counts, which start at 0.
+template <bool kTable, bool kTree>
+__global__ void __launch_bounds__(kThreads) soft_kernel(SoftArgs a, Tree tr, int num_tris) {
+  extern __shared__ float s_tri[];
+  if (!kTree) {
+    stage_triangles(tr.tris, num_tris, s_tri);
+    __syncthreads();
+  }
+  const long long total = static_cast<long long>(a.n) * a.num_samples;
+  // t0 is the same for the whole block, so every lane reaches the warp votes.
+  for (long long t0 = static_cast<long long>(blockIdx.x) * blockDim.x; t0 < total;
+       t0 += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long t = t0 + threadIdx.x;
+    const int i = t < total ? static_cast<int>(t / a.num_samples) : -1;
+    bool visible = false;
+    if (i >= 0 && (a.valid == nullptr || a.valid[i])) {
+      visible = sample_visible<kTable, kTree>(a, tr, s_tri, num_tris, a.light, i,
+                                              static_cast<int>(t % a.num_samples), a.pos[3 * i],
+                                              a.pos[3 * i + 1], a.pos[3 * i + 2]);
+    }
+    const unsigned same = __match_any_sync(0xFFFFFFFFu, i);
+    const int count = __popc(__ballot_sync(0xFFFFFFFFu, visible) & same);
+    if (i >= 0 && count > 0 && threadIdx.x % kWarp == __ffs(same) - 1) {
+      atomicAdd(&a.counts[i], count);
+    }
+  }
+}
+
+template <bool kTable, bool kTree>
+int launch(const SoftArgs& a, const Tree& tr, int num_tris, cudaStream_t stream) {
+  if (a.n <= 0 || a.num_samples <= 0) return static_cast<int>(cudaGetLastError());
+  const size_t smem = kTree ? 0 : sizeof(float) * 9 * num_tris;
+  const long long blocks =
+      (static_cast<long long>(a.n) * a.num_samples + kThreads - 1) / kThreads;
+  const unsigned grid = static_cast<unsigned>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
+  soft_kernel<kTable, kTree><<<grid, kThreads, smem, stream>>>(a, tr, num_tris);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace cgrt
+
+extern "C" {
+
+// counts[i] += visible samples of point i out of num_samples (the caller
+// zeroes counts); gauss null = the Philox stream of (k0, k1) at points
+// offset + i, else the table [N, num_samples, 3].  valid may be null (every
+// point sampled).
+int cgrt_soft_brute(const float* pos, const uint8_t* valid, int n, const float* light,
+                    const float* tris, int num_tris, int num_samples, unsigned k0, unsigned k1,
+                    unsigned offset, const float* gauss, int* counts, cudaStream_t stream) {
+  const cgrt::SoftArgs a{pos, valid, n, light, num_samples, k0, k1, offset, gauss, counts};
+  const cgrt::Tree tr{nullptr, nullptr, nullptr, tris};
+  return gauss != nullptr ? cgrt::launch<true, false>(a, tr, num_tris, stream)
+                          : cgrt::launch<false, false>(a, tr, num_tris, stream);
+}
+
+// The same over the 4-wide tree (ops/bvh4.py layout).
+int cgrt_soft_bvh4(const float* pos, const uint8_t* valid, int n, const float* light,
+                   const float* boxes, const int* meta, const int* nchild, const float* tris,
+                   int num_samples, unsigned k0, unsigned k1, unsigned offset,
+                   const float* gauss, int* counts, cudaStream_t stream) {
+  const cgrt::SoftArgs a{pos, valid, n, light, num_samples, k0, k1, offset, gauss, counts};
+  const cgrt::Tree tr{boxes, meta, nchild, tris};
+  return gauss != nullptr ? cgrt::launch<true, true>(a, tr, 0, stream)
+                          : cgrt::launch<false, true>(a, tr, 0, stream);
+}
+
+}  // extern "C"

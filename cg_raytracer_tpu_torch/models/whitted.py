@@ -18,8 +18,17 @@ once per scene (``build_accel``) and passed in as ``accel``.
 Under ``grad_two_phase='on'`` the trace splits in two (``_trace_two_phase``):
 phase 1 records every level's hits, shadow bits and next rays on the
 detached scene (the record-trace kernel, or a loop of bounce-refl or bounce
-+ ``record_surface``); phase 2 shades the records differentiably, through the
-fused shade kernel (``ops/shade.py``) where the scene allows it.
++ ``record_surface``), and the spherical lights' visibility fractions at the
+recorded hits; phase 2 shades the records differentiably, through the fused
+shade kernel (``ops/shade.py``) where the scene allows it.
+
+Spherical lights are sampled by the soft-shadow kernels of ``ops/soft.py``
+(``Backend.soft_vis``: the brute sampler up to 256 triangles, the cone
+sampler over the 4-wide tree beyond) where ``soft_shadow_kernel`` resolves
+on, else by a scan over the any-hit oracle (``shading.spherical_fracs``).  A
+render draws one sample key from its generator (``soft.draw_key``; a CPU
+generator seeded 0 when none is given) and folds it per level, as the JAX
+package folds its PRNG key.
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ from ..ops import camera as cam_ops
 from ..ops import cuda_kernels as ck
 from ..ops import shade as shade_ops
 from ..ops import shading
+from ..ops import soft
 from ..ops.bvh import BVH, build_bvh, intersect_bvh, occluded_bvh
 from ..ops.intersect import (intersect_brute, occluded_brute, reconstruct_hit,
                              record_surface)
@@ -41,6 +51,15 @@ from ..scene.types import Camera, Scene
 from ..utils.config import RenderConfig
 
 REFLECT_EPS = 1e-3
+
+
+class AccelBundle(NamedTuple):
+    """The 4-wide tree of the primary kernels and the one the cone
+    soft-shadow sampler walks (``soft_bvh_max_leaf`` / ``soft_bvh_builder``);
+    the same object when the knobs match the primary tree's, their auto."""
+
+    primary: object
+    soft: object
 
 
 class Backend(NamedTuple):
@@ -63,6 +82,9 @@ class Backend(NamedTuple):
     # (origins, dirs) -> per-level list of (o, d, Hit, bits, active)
     record_trace: Optional[Callable] = None
     trace: Optional[Callable] = None  # (origins, dirs) -> color [N, 3]
+    # The soft-shadow sampler kernel: (light_pos [3], light_radius, positions
+    # [N, 3], soft.SampleKey, valid [N] bool) -> visible-sample counts [N] f32.
+    soft_vis: Optional[Callable] = None
 
 
 def needs_bvh(cfg: RenderConfig, num_tris: int, device) -> bool:
@@ -78,13 +100,21 @@ def _check_bvh4_cap(num_tris: int) -> None:
             f"the kernels for larger scenes are not ported yet (ROADMAP B8)")
 
 
+def _soft_cone(scene: Scene, cfg: RenderConfig) -> bool:
+    """Whether the cone sampler samples this scene's spherical lights."""
+    return (cfg.resolve_soft_shadow_kernel(scene.device)
+            and soft.supports_soft_shadow_kernel_bvh4(scene)
+            and cfg.resolve_soft_shadow_tile() == "cone")
+
+
 def build_accel(scene: Scene, cfg: RenderConfig):
     """The resolved backend's acceleration structure: a ``BVH`` for the CPU
-    traversal, a ``BVH4`` on the scene's device for the card's kernels, or
-    None.  Memoized on the identity of the scene's triangle and vertex
-    tensors (``_cached_accel``); a caller whose vertex tensors change every
-    step (a training step makes fresh leaves) builds once and passes
-    ``accel=`` instead."""
+    traversal, a ``BVH4`` on the scene's device for the card's kernels
+    (an ``AccelBundle`` with the cone sampler's tree where that samples the
+    scene's spherical lights), or None.  Memoized on the identity of the
+    scene's triangle and vertex tensors (``_cached_accel``); a caller whose
+    vertex tensors change every step (a training step makes fresh leaves)
+    builds once and passes ``accel=`` instead."""
     num_tris, device = scene.num_triangles, scene.device
     kind = cfg.resolve_backend(num_tris, device)
     builder = cfg.resolve_bvh_builder(num_tris, device)
@@ -93,9 +123,25 @@ def build_accel(scene: Scene, cfg: RenderConfig):
     if kind == "cuda" and num_tris > cfg.pallas_brute_max_tris:
         _check_bvh4_cap(num_tris)
         leaf = cfg.resolve_bvh_max_leaf()
-        return _cached_accel(scene, ("bvh4", leaf, builder),
-                             lambda: b4.build_bvh4(scene, max_leaf=leaf, builder=builder)[1])
+        primary = _cached_accel(scene, ("bvh4", leaf, builder),
+                                lambda: b4.build_bvh4(scene, max_leaf=leaf, builder=builder)[1])
+        if not _soft_cone(scene, cfg):
+            return primary
+        return AccelBundle(primary, _soft_tree(scene, cfg, primary))
     return None
+
+
+def _soft_tree(scene: Scene, cfg: RenderConfig, primary):
+    """The cone sampler's tree: ``primary`` itself where the soft-tree knobs
+    resolve to the primary tree's (their auto), else a build of its own."""
+    num_tris, device = scene.num_triangles, scene.device
+    leaf, builder = cfg.resolve_bvh_max_leaf(), cfg.resolve_bvh_builder(num_tris, device)
+    sleaf = cfg.resolve_soft_bvh_max_leaf()
+    sbuilder = cfg.resolve_soft_bvh_builder(num_tris, device)
+    if (sleaf, sbuilder) == (leaf, builder):
+        return primary
+    return _cached_accel(scene, ("bvh4", sleaf, sbuilder),
+                         lambda: b4.build_bvh4(scene, max_leaf=sleaf, builder=sbuilder)[1])
 
 
 _ACCEL_CACHE: dict = {}
@@ -145,12 +191,20 @@ def make_backend(scene: Scene, cfg: RenderConfig, plain: bool = False, accel=Non
         closest, occluded = ck.intersect_plain, ck.occluded_plain
         bounce, trace = ck.bounce_plain, ck.trace_plain
         bounce_refl, record_trace = ck.bounce_refl_plain, ck.record_trace_plain
+        sampler = soft.soft_prng_plain
     else:
         closest, occluded = ck.intersect_cuda, ck.occluded_cuda
         bounce, trace = ck.bounce_cuda, ck.trace_cuda
         bounce_refl, record_trace = ck.bounce_refl_cuda, ck.record_trace_cuda
+        sampler = soft.soft_prng_cuda
     fused = ck.supports_fused_bounce(scene)
     quirk = cfg.reference_quirks
+    soft_vis = None
+    if (cfg.resolve_soft_shadow_kernel(scene.device)
+            and soft.supports_soft_shadow_kernel(scene)):
+        ns = cfg.soft_shadow_samples
+        soft_vis = lambda lpos, lrad, pos, key, valid=None: sampler(  # noqa: E731
+            scene, pos, lpos, lrad, key, ns, valid=valid)
     return Backend(
         closest=lambda o, d: closest(scene, o, d),
         occluded=lambda o, d, tm: occluded(scene, o, d, tm),
@@ -163,33 +217,52 @@ def make_backend(scene: Scene, cfg: RenderConfig, plain: bool = False, accel=Non
         trace=((lambda o, d: trace(scene, o, d, cfg.max_depth, quirk_ks_z=quirk))
                if cfg.forward_only and ck.supports_trace_kernel(scene) else None),
         shade=shade,
+        soft_vis=soft_vis,
     )
 
 
 def _bvh4_backend(scene: Scene, cfg: RenderConfig, plain: bool, accel, shade) -> Backend:
     """The 4-wide BVH kernels (the JAX package's ``bvh_wide`` auto = '4'
-    branch, whitted.py:243-316): closest hit and any hit, and the fused
-    bounce where the scene has no sphere primitives.  There is no record or
-    trace kernel over the tree: phase 1 runs level by level on the bounce."""
+    branch, whitted.py:243-316): closest hit and any hit, the fused bounce
+    where the scene has no sphere primitives, and the cone soft-shadow
+    sampler over ``AccelBundle.soft`` (whitted.py:276-306).  There is no
+    record or trace kernel over the tree: phase 1 runs level by level on the
+    bounce."""
     _check_bvh4_cap(scene.num_triangles)
     tree = accel if accel is not None else build_accel(scene, cfg)
-    if not isinstance(tree, b4.BVH4):
-        raise TypeError(f"the 4-wide BVH kernels traverse a BVH4 (ops/bvh4.py), got {type(tree)}")
-    if tree.device != scene.device or tree.num_tris != scene.num_triangles:
-        raise ValueError(f"accel: a tree of {tree.num_tris} triangles on {tree.device} for a "
-                         f"scene of {scene.num_triangles} on {scene.device}")
+    soft_tree = None
+    if isinstance(tree, AccelBundle):
+        tree, soft_tree = tree
+    for t in (tree, soft_tree):
+        if t is None:
+            continue
+        if not isinstance(t, b4.BVH4):
+            raise TypeError(f"the 4-wide BVH kernels traverse a BVH4 (ops/bvh4.py), got {type(t)}")
+        if t.device != scene.device or t.num_tris != scene.num_triangles:
+            raise ValueError(f"accel: a tree of {t.num_tris} triangles on {t.device} for a "
+                             f"scene of {scene.num_triangles} on {scene.device}")
     if plain:
         closest, occluded, bounce = (b4.intersect_bvh4_plain, b4.occluded_bvh4_plain,
                                      b4.bounce_bvh4_plain)
+        sampler = soft.soft4_prng_plain
     else:
         closest, occluded, bounce = (b4.intersect_bvh4_cuda, b4.occluded_bvh4_cuda,
                                      b4.bounce_bvh4_cuda)
+        sampler = soft.soft4_prng_cuda
     fused = b4.supports_fused_bounce_bvh4(scene)
+    soft_vis = None
+    if _soft_cone(scene, cfg):
+        if soft_tree is None:  # a bare BVH4 from the caller
+            soft_tree = _soft_tree(scene, cfg, tree)
+        ns = cfg.soft_shadow_samples
+        soft_vis = lambda lpos, lrad, pos, key, valid=None: sampler(  # noqa: E731
+            scene, soft_tree, pos, lpos, lrad, key, ns, valid=valid)
     return Backend(
         closest=lambda o, d: closest(scene, tree, o, d),
         occluded=lambda o, d, tm: occluded(scene, tree, o, d, tm),
         bounce=(lambda o, d, live=None: bounce(scene, tree, o, d, live=live)) if fused else None,
         shade=shade,
+        soft_vis=soft_vis,
     )
 
 
@@ -202,14 +275,20 @@ def trace_rays(scene: Scene, origins, dirs, cfg: RenderConfig, backend: Backend,
     - reflection continues while any ks > 0.01; under ``reference_quirks``
       only ks.z is tested (the reference's comma-operator bug, main.cpp:246);
     - reflected ray: reflect(dir, shading normal), origin offset by 1e-3.
+
+    ``generator``: a ``torch.Generator`` (the spherical lights' sample key is
+    drawn from it), or the ``soft.SampleKey`` already drawn, whose offset is
+    the global index of the batch's first ray.
     """
     if backend.trace is not None:
         return backend.trace(origins, dirs)
+    key = (soft.as_key(generator) if scene.spherical_lights.position.shape[0] > 0
+           else None)
     # forward_only renders past the trace kernel's cap take the two-phase
     # structure where resolve_fwd_shade_kernel turned it on (whitted.py:575-583).
     fwd_only_kernel = cfg.forward_only and cfg.fwd_shade_kernel == "on"
     if cfg.resolve_grad_two_phase() or fwd_only_kernel:
-        return _trace_two_phase(scene, origins, dirs, cfg, backend, generator)
+        return _trace_two_phase(scene, origins, dirs, cfg, backend, key)
 
     n = origins.shape[0]
     color = torch.zeros((n, 3), dtype=torch.float32, device=origins.device)
@@ -223,8 +302,9 @@ def trace_rays(scene: Scene, origins, dirs, cfg: RenderConfig, backend: Backend,
         else:
             hit = backend.closest(o, d)
         surf = reconstruct_hit(scene, o, d, hit)
-        direct = shading.direct_light(scene, d, surf, backend.occluded, generator,
-                                      shadow_bits=shadow_bits)
+        direct = shading.direct_light(scene, d, surf, backend.occluded,
+                                      key.fold_in(level) if key is not None else None,
+                                      shadow_bits=shadow_bits, **_soft_args(cfg, backend))
         lit = active & surf.valid
         color = color + throughput * direct * lit[:, None].to(torch.float32)
         if level + 1 >= cfg.max_depth:
@@ -239,6 +319,11 @@ def trace_rays(scene: Scene, origins, dirs, cfg: RenderConfig, backend: Backend,
         o = surf.position + REFLECT_EPS * refl_dir
         d = torch.where(active[:, None], refl_dir, d)
     return color
+
+
+def _soft_args(cfg: RenderConfig, backend: Backend) -> dict:
+    return dict(soft_shadow_samples=cfg.soft_shadow_samples,
+                sample_chunk=cfg.soft_shadow_chunk, soft_vis_fn=backend.soft_vis)
 
 
 def _detached(obj):
@@ -314,13 +399,16 @@ def _two_phase_records(sg_scene: Scene, origins, dirs, cfg: RenderConfig, backen
 
 
 def _trace_two_phase(scene: Scene, origins, dirs, cfg: RenderConfig, backend: Backend,
-                     generator=None):
+                     key=None):
     """The two-phase gradient structure (``trace_rays`` of the JAX package,
     whitted.py:567-695).
 
     Phase 1 records every level on the detached scene: the masks are
     discrete and the records' rays feed only oracles, so the gradients are
-    those of the one-phase trace.  Phase 2 shades each level's records
+    those of the one-phase trace.  With spherical lights it records each
+    level's visibility fractions at the recorded hits (o + t d, under the
+    level's key: the one-phase trace's samples), as whitted.py:633-652 does.
+    Phase 2 shades each level's records
     differentiably.  Under ``two_phase_rays='exact'`` the bounce rays are
     recomputed from the previous level's differentiable surface, so the
     reflected-origin vertex term flows; under 'recorded' phase 2 takes the
@@ -329,10 +417,6 @@ def _trace_two_phase(scene: Scene, origins, dirs, cfg: RenderConfig, backend: Ba
     differentiable ``reconstruct_hit`` + ``direct_light``: the JAX package's
     own routing.
     """
-    if scene.spherical_lights.position.shape[0] > 0:
-        raise NotImplementedError(
-            "the two-phase records of spherical-light soft shadows "
-            "(shading.spherical_fracs) are not ported yet (ROADMAP A8)")
     if backend.bounce is None:
         backend = backend._replace(bounce=_synth_bounce(scene, backend))
     use_shade_kernel = (cfg.resolve_shade_kernel(scene.device)
@@ -343,6 +427,18 @@ def _trace_two_phase(scene: Scene, origins, dirs, cfg: RenderConfig, backend: Ba
     else:
         records = _two_phase_records(_detached(scene), origins, dirs, cfg, backend)
 
+    fracs = [None] * len(records)
+    if scene.spherical_lights.position.shape[0] > 0:
+        sg_scene = _detached(scene)
+        for level, (o_rec, d_rec, hit_l, _, _) in enumerate(records):
+            valid_l = hit_l.prim_id >= 0
+            t_l = torch.where(valid_l, hit_l.t, 0.0)
+            pos_l = torch.where(valid_l[:, None], o_rec + d_rec * t_l[:, None], 0.0)
+            fracs[level] = shading.spherical_fracs(
+                sg_scene, pos_l, backend.occluded, key.fold_in(level),
+                num_samples=cfg.soft_shadow_samples, sample_chunk=cfg.soft_shadow_chunk,
+                soft_vis_fn=backend.soft_vis, valid=valid_l)
+
     exact_rays = cfg.resolve_two_phase_rays() == "exact" and not cfg.forward_only
     color = torch.zeros_like(origins)
     throughput = torch.ones_like(origins)
@@ -351,11 +447,12 @@ def _trace_two_phase(scene: Scene, origins, dirs, cfg: RenderConfig, backend: Ba
         if not exact_rays and level > 0:
             o_l, d_l = o_rec, d_rec
         if use_shade_kernel:
-            direct, valid, ks, normal, position = backend.shade(scene, o_l, d_l, hit_l, bits_l)
+            direct, valid, ks, normal, position = backend.shade(scene, o_l, d_l, hit_l, bits_l,
+                                                                fracs[level])
         else:
             surf = reconstruct_hit(scene, o_l, d_l, hit_l)
-            direct = shading.direct_light(scene, d_l, surf, backend.occluded, generator,
-                                          shadow_bits=bits_l)
+            direct = shading.direct_light(scene, d_l, surf, backend.occluded,
+                                          shadow_bits=bits_l, soft_fracs=fracs[level])
             valid, ks, normal, position = surf.valid, surf.ks, surf.normal, surf.position
         lit = active_l & valid
         color = color + throughput * direct * lit[:, None].to(torch.float32)
@@ -370,12 +467,17 @@ def _trace_two_phase(scene: Scene, origins, dirs, cfg: RenderConfig, backend: Ba
 
 def _render_flat(scene: Scene, camera: Camera, cfg: RenderConfig, backend: Backend,
                  generator=None):
-    """Primary rays in raster order, traced (in ``ray_chunk`` slices if set)."""
+    """Primary rays in raster order, traced (in ``ray_chunk`` slices if set).
+    With spherical lights one sample key is drawn for the frame and each
+    slice samples its rays' part of its stream, so the slicing leaves the
+    image as it is."""
     origins, dirs = cam_ops.generate_rays(camera, cfg.height, cfg.width)
     num = origins.shape[0]
     chunk = cfg.ray_chunk if 0 < cfg.ray_chunk < num else num
+    key = (soft.as_key(generator) if scene.spherical_lights.position.shape[0] > 0
+           else None)
     color = torch.cat([trace_rays(scene, origins[s:s + chunk], dirs[s:s + chunk], cfg,
-                                  backend, generator)
+                                  backend, key.at(s) if key is not None else None)
                        for s in range(0, num, chunk)])
     return color.reshape(cfg.height, cfg.width, 3)
 
@@ -430,10 +532,13 @@ def render(scene: Scene, camera: Camera, cfg: RenderConfig,
            generator: Optional[torch.Generator] = None, accel=None):
     """User-facing render entry point -> [H, W, 3] float32 on the scene's device.
 
-    ``generator`` takes the place of the JAX package's PRNG key; point lights
-    draw no samples, so it is unused on this path.  ``accel``: the scene's
-    tree from ``build_accel`` (the JAX package's ``bvh=``); built and
-    memoized here when None.
+    ``generator`` (a ``torch.Generator``) takes the place of the JAX
+    package's PRNG key: the spherical lights' sample key is drawn from it
+    once per frame (``soft.draw_key``).  Without one, a CPU generator seeded
+    0 (the JAX package's ``PRNGKey(0)``), so repeated renders agree.  Point
+    lights draw no samples.  ``accel``: the scene's tree from
+    ``build_accel`` (the JAX package's ``bvh=``); built and memoized here
+    when None.
     """
     depth = effective_max_depth(scene, cfg)
     if depth != cfg.max_depth:

@@ -27,13 +27,18 @@ import subprocess
 import threading
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = ("oracle.cu", "trace.cu", "record.cu", "shade.cu", "bvh4.cu")
-HEADERS = ("sweep.cuh",)
+SOURCES = ("oracle.cu", "trace.cu", "record.cu", "shade.cu", "bvh4.cu", "soft.cu")
+HEADERS = ("sweep.cuh", "bvh4.cuh")
+# A check of the sample stream against the toolkit's curand Philox, built into
+# a library of its own (``load_check``) that only on-card checks load.
+CHECK_SOURCES = ("philox_check.cu",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lock = threading.Lock()
+_check_lock = threading.Lock()
 _lib = None
+_check_lib = None
 
 
 def build_dir() -> str:
@@ -52,12 +57,12 @@ def _nvcc() -> str:
                        "/usr/local/cuda); the CUDA kernels cannot be built")
 
 
-def library_path() -> str:
+def library_path(sources=SOURCES, stem="libcgrt_kernels") -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+    for name in sources + HEADERS:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
-    return os.path.join(build_dir(), f"libcgrt_kernels_{h.hexdigest()[:16]}.so")
+    return os.path.join(build_dir(), f"{stem}_{h.hexdigest()[:16]}.so")
 
 
 def _run(procs) -> str:
@@ -74,14 +79,14 @@ def _run(procs) -> str:
     return "".join(out)
 
 
-def _compile(path: str) -> None:
+def _compile(path: str, sources=SOURCES) -> None:
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    objs = [f"{tmp}.{name}.o" for name in SOURCES]
+    objs = [f"{tmp}.{name}.o" for name in sources]
     nvcc = _nvcc()
     try:
         compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC_DIR, name)]
-                    for name, obj in zip(SOURCES, objs)]
+                    for name, obj in zip(sources, objs)]
         log = _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                            text=True)) for cmd in compiles])
         link = [nvcc, "-shared", "-o", tmp, *objs]
@@ -97,7 +102,7 @@ def _compile(path: str) -> None:
 
 
 def _declare(lib) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     signatures = {
         "cgrt_closest": [p, p, p, i, p, i, p, p, p, p, p],
         "cgrt_anyhit": [p, p, p, i, p, i, p, p],
@@ -105,13 +110,15 @@ def _declare(lib) -> None:
         "cgrt_trace": [p, p, i, p, i, p, p, i, p, i, i, i, p, p],
         "cgrt_record_trace": [p, p, i, p, i, p, p, i, i, i] + [p] * 8 + [p],
         "cgrt_bounce_refl": [p, p, p, i, p, i, p, p, i, i] + [p] * 8 + [p],
-        "cgrt_shade_fwd": [p, p, p, p, i, p, p, i, i, p, i, p, i] + [p] * 4 + [p],
-        "cgrt_shade_bwd": [p, p, p, p, i, p, p, i, i, p, i, p, i] + [p] * 10 + [p],
-        "cgrt_shade_pre_fwd": [p, p, p, p, i, p, i, p, i, p, i, p, i] + [p] * 4 + [p],
-        "cgrt_shade_pre_bwd": [p, p, p, p, i, p, i, p, i, p, i, p, i] + [p] * 10 + [p],
+        "cgrt_shade_fwd": [p, p, p, p, i, p, p, i, i, p, i, p, i, p, i, p] + [p] * 4 + [p],
+        "cgrt_shade_bwd": [p, p, p, p, i, p, p, i, i, p, i, p, i, p, i, p] + [p] * 11 + [p],
+        "cgrt_shade_pre_fwd": [p, p, p, p, i, p, i, p, i, p, i, p, i, p, i, p] + [p] * 4 + [p],
+        "cgrt_shade_pre_bwd": [p, p, p, p, i, p, i, p, i, p, i, p, i, p, i, p] + [p] * 11 + [p],
         "cgrt_bvh4_closest": [p, p, p, i] + [p] * 5 + [p] * 4 + [p],
         "cgrt_bvh4_anyhit": [p, p, p, i] + [p] * 5 + [p] + [p],
         "cgrt_bvh4_bounce": [p, p, p, i] + [p] * 5 + [p, i] + [p] * 5 + [p],
+        "cgrt_soft_brute": [p, p, i, p, p, i, i, u, u, u, p, p] + [p],
+        "cgrt_soft_bvh4": [p, p, i, p, p, p, p, p, i, u, u, u, p, p] + [p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -133,3 +140,20 @@ def load():
             _declare(lib)
             _lib = lib
     return _lib
+
+
+def load_check():
+    """The library of ``CHECK_SOURCES`` (``cgrt_check_philox``), built first
+    if needed.  It has its own lock, so it builds beside ``load``'s build."""
+    global _check_lib
+    with _check_lock:
+        if _check_lib is None:
+            path = library_path(CHECK_SOURCES, "libcgrt_checks")
+            if not os.path.exists(path):
+                _compile(path, CHECK_SOURCES)
+            lib = ctypes.CDLL(path)
+            lib.cgrt_check_philox.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                              ctypes.c_void_p, ctypes.c_void_p]
+            lib.cgrt_check_philox.restype = ctypes.c_int
+            _check_lib = lib
+    return _check_lib

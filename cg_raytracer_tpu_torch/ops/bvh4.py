@@ -239,9 +239,11 @@ def _padded(t):
 
 
 @torch.no_grad()
-def _traverse_plain(tree: BVH4, o, d, tm, any_hit: bool):
+def _traverse_plain(tree: BVH4, o, d, tm, any_hit: bool, stats=None):
     """-> (t, slot in leaf order, u, v); t = t_max and slot = -1 where nothing
-    nearer was hit.  ``tm`` None means no bound."""
+    nearer was hit.  ``tm`` None means no bound.  ``stats`` (a dict): adds
+    the walk's node visits ('visits', internal nodes expanded) and triangle
+    tests ('tests') over all rays, the work the kernel does on these rays."""
     n, dev = o.shape[0], o.device
     t_best = (torch.full((n,), INF, dtype=torch.float32, device=dev) if tm is None
               else tm.clone())
@@ -298,16 +300,23 @@ def _traverse_plain(tree: BVH4, o, d, tm, any_hit: bool):
         first = meta[lnode, lc]
         cnt = torch.where(leaf, meta[lnode, 4 + lc], 0)
         oi, di = o[idx], d[idx]
+        if stats is not None:
+            stats["visits"] = stats.get("visits", 0) + int(internal.sum())
+            tested = torch.zeros_like(cnt)
         for k in range(int(cnt.max().item()) if cnt.numel() else 0):
             in_range = k < cnt
             tri = torch.where(in_range, first + k, 0)
             row = tree.tris[tri]
             t, uu, vv, ok = moller_trumbore_edges(oi, di, row[:, 0:3], row[:, 3:6], row[:, 6:9])
             closer = in_range & ok & (t < t_i)
+            if stats is not None:  # an any-hit walk stops at its first hit
+                tested = tested + (in_range & ~((slot_i >= 0) & any_hit)).long()
             t_i = torch.where(closer, t, t_i)
             slot_i = torch.where(closer, tri, slot_i)
             u_i = torch.where(closer, uu, u_i)
             v_i = torch.where(closer, vv, v_i)
+        if stats is not None:
+            stats["tests"] = stats.get("tests", 0) + int(tested.sum())
         if any_hit:
             sp_i = torch.where(slot_i >= 0, 0, sp_i)  # stop at the first hit
 
@@ -326,8 +335,8 @@ def _closest_plain(tree, o, d, tm):
     return _prims(tree, *_traverse_plain(tree, o, d, tm, any_hit=False))
 
 
-def _anyhit_plain(tree, o, d, tm):
-    return _traverse_plain(tree, o, d, tm, any_hit=True)[1] >= 0
+def _anyhit_plain(tree, o, d, tm, stats=None):
+    return _traverse_plain(tree, o, d, tm, any_hit=True, stats=stats)[1] >= 0
 
 
 def _bounce_plain(tree, lights, o, d, tm):

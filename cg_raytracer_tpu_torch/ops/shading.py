@@ -1,14 +1,23 @@
-"""Phong shading with hard shadows from point lights, as in
-``cg_raytracer_tpu/ops/shading.py`` (the reference's diffuseOneLight,
-specularOneLight and pointInShadow, main.cpp:61-135).
+"""Phong shading with hard shadows from point lights and soft shadows from
+spherical lights, as in ``cg_raytracer_tpu/ops/shading.py`` (the reference's
+diffuseOneLight, specularOneLight and pointInShadow, main.cpp:61-135, and
+its soft shadows, main.cpp:166-218).
 
-Spherical-light soft shadows are not ported yet (ROADMAP A8).
+A spherical light shades as a point light at its center, scaled by the
+fraction of ``num_samples`` shadow rays toward Gaussian-normalised random
+points on its sphere that reach it (``spherical_fracs``).  The fractions
+come from a sampler kernel (``Backend.soft_vis``, ``ops/soft.py``) or from a
+scan over the any-hit oracle, ``sample_chunk`` samples per step.  Both draw
+the samples of ``ops/soft.py``'s stream: the render's key folded per level
+(by the caller) and per light (here), so for the same key the two see the
+same samples.
 """
 from __future__ import annotations
 
 import torch
 
 from ..scene.types import Scene
+from . import soft
 from .intersect import Surface
 from .linalg import dot, norm, reflect, safe_normalize
 
@@ -57,11 +66,100 @@ def direct_point_lights(scene: Scene, view_dir, surf: Surface, occluded_fn,
     return color
 
 
+def _random_unit_vectors(key: soft.SampleKey, points, samples):
+    """Gaussian-normalised unit vectors [len(samples), len(points), 3] of the
+    stream (randomUnitVector, main.cpp:46-59)."""
+    return safe_normalize(soft.philox_gauss(key, points, samples).transpose(0, 1))
+
+
+def spherical_fracs(scene: Scene, positions, occluded_fn, generator, num_samples: int = 200,
+                    sample_chunk: int = 20, soft_vis_fn=None, gauss=None, valid=None):
+    """Per-(light, point) soft-shadow visibility fractions [Ls, N]: the
+    spherical-light oracle (discrete, not differentiated, like the any-hit
+    bools it counts).
+
+    ``generator``: the render's ``torch.Generator`` (a key is drawn from it)
+    or the ``soft.SampleKey`` drawn from one; light l samples under
+    ``fold_in(l)``.  ``soft_vis_fn(light_pos, light_radius, positions, key,
+    valid) -> counts [N]`` (a sampler kernel) counts out of ``num_samples``;
+    without it the scan over ``occluded_fn`` counts ``sample_chunk`` samples
+    per step out of ``ceil(num_samples / chunk) * chunk``, each path by its
+    own total, as in the JAX package.  ``gauss`` ([S, N, 3], or [Ls, S, N, 3]
+    per light) replaces the scan's draws, so that a test can feed it another
+    stream.  ``valid`` ([N] bool): points to sample; the rest do no work and
+    get fraction 0."""
+    num_lights = scene.spherical_lights.position.shape[0]
+    n = positions.shape[0]
+    if num_lights == 0:
+        return torch.zeros((0, n), dtype=torch.float32, device=positions.device)
+    positions = positions.detach()
+    key = soft.as_key(generator)
+    lights = scene.spherical_lights
+    if soft_vis_fn is not None:
+        return torch.stack([
+            soft_vis_fn(lights.position[li], lights.radius[li], positions, key.fold_in(li),
+                        valid) / float(num_samples) for li in range(num_lights)])
+
+    chunk = max(1, min(sample_chunk, num_samples))
+    num_chunks = -(-num_samples // chunk)
+    total = num_chunks * chunk
+    rows = torch.arange(n, device=positions.device)
+    fracs = []
+    for li in range(num_lights):
+        lpos, lrad = lights.position[li].detach(), lights.radius[li].detach()
+        lkey = key.fold_in(li)
+        count = torch.zeros((n,), dtype=torch.float32, device=positions.device)
+        for ci in range(num_chunks):
+            samples = torch.arange(ci * chunk, (ci + 1) * chunk, device=positions.device)
+            if gauss is None:
+                units = _random_unit_vectors(lkey, rows, samples)  # [C, N, 3]
+            else:
+                g = gauss[li] if gauss.ndim == 4 else gauss
+                units = safe_normalize(g[ci * chunk:(ci + 1) * chunk].to(positions))
+            sample_pts = lpos + lrad * units
+            sdir = safe_normalize(sample_pts - positions[None])
+            sorigin = positions[None] + SHADOW_EPS * sdir
+            light_t = norm(sample_pts - sorigin)  # main.cpp:181 measures from the origin
+            if valid is not None:
+                light_t = torch.where(valid[None], light_t, -1.0)
+            blocked = occluded_fn(sorigin.reshape(-1, 3), sdir.reshape(-1, 3),
+                                  light_t.reshape(-1))
+            visible = ~blocked.reshape(chunk, n)
+            if valid is not None:
+                visible = visible & valid[None]
+            count = count + visible.to(torch.float32).sum(dim=0)
+        fracs.append(count / float(total))
+    return torch.stack(fracs)
+
+
+def direct_spherical_lights(scene: Scene, view_dir, surf: Surface, fracs):
+    """Soft-shadowed Phong from the spherical lights: the terms toward each
+    light's center, scaled by its visibility fraction (``fracs`` [Ls, N])
+    where the surface is valid (main.cpp:168-218)."""
+    contrib = torch.zeros_like(surf.position)
+    lights = scene.spherical_lights
+    for li in range(lights.position.shape[0]):
+        ldir = safe_normalize(lights.position[li] - surf.position)
+        diffuse, specular = phong_one_light(view_dir, surf.normal, surf.kd, surf.ks,
+                                            surf.shininess, ldir, lights.color[li])
+        w = fracs[li] * surf.valid.to(torch.float32)
+        contrib = contrib + (diffuse + specular) * w[:, None]
+    return contrib
+
+
 def direct_light(scene: Scene, view_dir, surf: Surface, occluded_fn, generator=None,
-                 shadow_bits=None):
-    """Total direct lighting (shading(), main.cpp:160-235).  ``generator``
-    (a ``torch.Generator``) is for sampled lights, and unused by point lights."""
-    if scene.spherical_lights.position.shape[0] > 0:
-        raise NotImplementedError(
-            "spherical-light soft shadows are not ported yet (ROADMAP A8)")
-    return direct_point_lights(scene, view_dir, surf, occluded_fn, shadow_bits=shadow_bits)
+                 shadow_bits=None, soft_shadow_samples: int = 200, sample_chunk: int = 20,
+                 soft_vis_fn=None, soft_fracs=None):
+    """Total direct lighting = point lights + spherical lights (shading(),
+    main.cpp:160-235).  ``generator``: the level's ``torch.Generator`` or
+    ``soft.SampleKey``, for the spherical lights' samples (unused without
+    them); ``soft_fracs`` ([Ls, N]): recorded fractions, which skip the
+    sampling."""
+    color = direct_point_lights(scene, view_dir, surf, occluded_fn, shadow_bits=shadow_bits)
+    if scene.spherical_lights.position.shape[0] == 0:
+        return color
+    if soft_fracs is None:
+        soft_fracs = spherical_fracs(scene, surf.position, occluded_fn, generator,
+                                     num_samples=soft_shadow_samples, sample_chunk=sample_chunk,
+                                     soft_vis_fn=soft_vis_fn, valid=surf.valid)
+    return color + direct_spherical_lights(scene, view_dir, surf, soft_fracs)

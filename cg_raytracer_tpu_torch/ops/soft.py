@@ -1,0 +1,399 @@
+"""Spherical-light soft shadows on the card: the sample stream and the two
+samplers, each in a PRNG and a table variant, with their plain twins.
+Counterpart of the in-kernel samplers of
+``cg_raytracer_tpu/ops/pallas_kernels.py`` (brute force, <= 256 triangles) and
+``cg_raytracer_tpu/ops/pallas_bvh4.py`` (the cone sampler over the 4-wide
+tree).
+
+=====================  ================================================  ====================
+wrapper                Pallas kernel replaced                            plain twin
+=====================  ================================================  ====================
+``soft_prng_cuda``     ``_soft_shadow_prng_kernel`` (B9)                 ``soft_prng_plain``
+``soft_table_cuda``    ``_soft_shadow_table_kernel`` (B9)                ``soft_table_plain``
+``soft4_prng_cuda``    ``_soft4_cone_prng_kernel`` (B10)                 ``soft4_prng_plain``
+``soft4_table_cuda``   ``_soft4_cone_table_kernel`` (B10)                ``soft4_table_plain``
+=====================  ================================================  ====================
+
+One kernel body (``csrc/soft.cu``) serves all four.  Each returns, per
+shading point, how many of ``num_samples`` shadow rays toward random points
+on one spherical light reach it (main.cpp:166-218), as float32 counts [N].
+The PRNG variants draw the samples in the kernel; the table variants take
+them as Gaussians [S, N, 3] (the JAX package's layout), for tests and
+parity.  ``valid`` ([N] bool) marks the points to sample: the rest do no work
+and count 0 (the JAX kernels sampled a miss at position 0 and the shading
+discarded it).
+
+The sample stream (``SampleKey``): a render draws one key, two 32-bit
+words, from its ``torch.Generator`` on the host, and folds it per bounce
+level and per light on the host (``SampleKey.fold_in``: the first two words
+of Philox4x32-10 at counter (data, 0, 0, 0) under the key).  Sample s of the
+point with global index g (the batch's ``offset`` plus its row) is
+Philox4x32-10 at counter (g, s, 0, 0) under the light's key; its four words
+become three Gaussians by Box-Muller (``gauss3``, the JAX kernels'
+``_gauss3_from_bits``: 24-bit uniforms, one Gaussian discarded).  The stream
+depends on neither the launch geometry nor ``ray_chunk``, and the twins
+compute the same words in PyTorch (the 32 x 32 -> 64-bit products in int64
+halves), so a PRNG kernel is held to its twin on the card.  The scan over
+the any-hit oracle (``shading.spherical_fracs``) draws the same samples.
+
+Sample ray (``_soft_sample_ray`` of the JAX package, op for op): the
+Gaussian normalised (times a reciprocal), the point on the sphere, the unit
+direction toward it, the origin moved SHADOW_EPS along it, and t_max = the
+distance from that origin to the sample point.  A ray is blocked by a
+triangle at t in [0, t_max).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..scene.types import Scene
+from . import bvh4 as b4
+from . import cuda_kernels as ck
+
+SHADOW_EPS = 1e-3
+RAYS_PER_STEP = 1 << 21  # sample rays per step of the plain twins
+_MASK = 0xFFFFFFFF
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57  # Philox4x32 multipliers
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85  # Philox4x32 key bumps (Weyl sequence)
+_ROUNDS = 10
+_TWO_PI = 6.283185307179586
+
+
+# --------------------------------------------------------------------------
+# Philox4x32-10 and Box-Muller.
+# --------------------------------------------------------------------------
+
+def philox_host(counter, key):
+    """Philox4x32-10 of four 32-bit words under a two-word key, on Python ints."""
+    c0, c1, c2, c3 = (int(x) & _MASK for x in counter)
+    k0, k1 = (int(x) & _MASK for x in key)
+    for _ in range(_ROUNDS):
+        p0, p1 = _M0 * c0, _M1 * c2
+        c0, c1, c2, c3 = ((p1 >> 32) ^ c1 ^ k0, p1 & _MASK, (p0 >> 32) ^ c3 ^ k1, p0 & _MASK)
+        k0, k1 = (k0 + _W0) & _MASK, (k1 + _W1) & _MASK
+    return c0, c1, c2, c3
+
+
+def _mulhilo(a, m: int):
+    """(hi, lo) words of the 64-bit product of ``a`` (int64 tensor of 32-bit
+    words) and the constant ``m``, from two 48-bit partial products (a plain
+    int64 product would overflow past 2**63)."""
+    p_lo, p_hi = a * (m & 0xFFFF), a * (m >> 16)
+    s = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (s >> 32), s & _MASK
+
+
+def philox(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 on int64 tensors of 32-bit words (broadcast together)
+    under the key (k0, k1), ints or such tensors -> four int64 tensors of
+    32-bit words."""
+    for _ in range(_ROUNDS):
+        hi0, lo0 = _mulhilo(c0, _M0)
+        hi1, lo1 = _mulhilo(c2, _M1)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _W0) & _MASK, (k1 + _W1) & _MASK
+    return c0, c1, c2, c3
+
+
+def _u01(bits):
+    """The low 24 bits as a float32 uniform in (0, 1) (``_u01``)."""
+    return (bits & 0xFFFFFF).to(torch.float32) * (1.0 / 16777216.0) + (0.5 / 16777216.0)
+
+
+def gauss3(b0, b1, b2, b3):
+    """Box-Muller: four words -> three standard Gaussians (``_gauss3_from_bits``)."""
+    u1, u2, u3, u4 = _u01(b0), _u01(b1), _u01(b2), _u01(b3)
+    r1 = torch.sqrt(-2.0 * torch.log(u1))
+    r2 = torch.sqrt(-2.0 * torch.log(u3))
+    return r1 * torch.cos(_TWO_PI * u2), r1 * torch.sin(_TWO_PI * u2), r2 * torch.cos(_TWO_PI * u4)
+
+
+class SampleKey(NamedTuple):
+    """The soft-shadow samples' key: two 32-bit words, and the global index
+    of the batch's first point (``offset``)."""
+
+    k0: int
+    k1: int
+    offset: int = 0
+
+    def fold_in(self, data: int) -> "SampleKey":
+        """A key for ``data`` (a level, a light), derived on the host."""
+        w = philox_host((data, 0, 0, 0), (self.k0, self.k1))
+        return SampleKey(w[0], w[1], self.offset)
+
+    def at(self, offset: int) -> "SampleKey":
+        return self._replace(offset=int(offset))
+
+
+def draw_key(generator: Optional[torch.Generator] = None) -> SampleKey:
+    """Draw a key from ``generator`` (None: a CPU generator seeded 0).  A CPU
+    generator draws on the host; a CUDA generator's draw waits for the card
+    once."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    words = torch.randint(0, 1 << 32, (2,), dtype=torch.int64, generator=generator,
+                          device=generator.device)
+    k0, k1 = words.tolist()
+    return SampleKey(k0, k1)
+
+
+def as_key(generator) -> SampleKey:
+    """``generator`` as a key: a SampleKey as it is, else drawn from it."""
+    return generator if isinstance(generator, SampleKey) else draw_key(generator)
+
+
+def philox_gauss(key: SampleKey, points, samples):
+    """Gaussians [len(points), len(samples), 3] of the stream: ``points``
+    are the rows of the batch (int64 [m]; the key's offset is added),
+    ``samples`` the sample indices (int64 [k])."""
+    c0 = (points.to(torch.int64) + key.offset)[:, None] & _MASK
+    c1 = samples.to(torch.int64).to(c0.device)[None, :]
+    zero = torch.zeros((), dtype=torch.int64, device=c0.device)
+    b0, b1, b2, b3 = philox(c0, c1, zero, zero, key.k0, key.k1)
+    return torch.stack(gauss3(b0, b1, b2, b3), dim=-1)
+
+
+# --------------------------------------------------------------------------
+# Sample rays and the plain twins.
+# --------------------------------------------------------------------------
+
+def light_row(light_pos, light_radius):
+    """[4] float32: the light's center and radius (no gradient)."""
+    return torch.cat([light_pos.detach().reshape(3).to(torch.float32),
+                      torch.as_tensor(light_radius).detach().reshape(1).to(
+                          device=light_pos.device, dtype=torch.float32)]).contiguous()
+
+
+def sample_rays(p, g, light):
+    """Shadow rays from points ``p`` [..., 3] toward the light's sample
+    points for Gaussians ``g`` [..., 3] -> (origins, unit dirs, t_max)."""
+    gx, gy, gz = g[..., 0], g[..., 1], g[..., 2]
+    inv = 1.0 / torch.clamp_min(torch.sqrt(gx * gx + gy * gy + gz * gz), 1e-20)
+    sx = light[0] + light[3] * (gx * inv)
+    sy = light[1] + light[3] * (gy * inv)
+    sz = light[2] + light[3] * (gz * inv)
+    tx, ty, tz = sx - p[..., 0], sy - p[..., 1], sz - p[..., 2]
+    invd = 1.0 / torch.clamp_min(torch.sqrt(tx * tx + ty * ty + tz * tz), 1e-20)
+    dx, dy, dz = tx * invd, ty * invd, tz * invd
+    ox = p[..., 0] + SHADOW_EPS * dx
+    oy = p[..., 1] + SHADOW_EPS * dy
+    oz = p[..., 2] + SHADOW_EPS * dz
+    ex, ey, ez = sx - ox, sy - oy, sz - oz
+    tm = torch.sqrt(ex * ex + ey * ey + ez * ez)
+    return torch.stack([ox, oy, oz], -1), torch.stack([dx, dy, dz], -1), tm
+
+
+@torch.no_grad()
+def _counts_plain(anyhit, pos, light, num_samples, valid, key=None, gauss_nsc=None):
+    """Visible-sample counts [N] int32 by stepping the sample rays through
+    ``anyhit(o, d, t_max) -> bool``, at most ``RAYS_PER_STEP`` at a time.
+    Samples come from ``key`` (the stream) or ``gauss_nsc`` ([N, S, 3])."""
+    n = pos.shape[0]
+    counts = torch.zeros((n,), dtype=torch.int32, device=pos.device)
+    rows = (torch.arange(n, device=pos.device) if valid is None
+            else torch.nonzero(valid.to(pos.device)).squeeze(1))
+    m = rows.numel()
+    if m == 0 or num_samples == 0:
+        return counts
+    p = pos[rows][:, None, :]
+    step = max(1, RAYS_PER_STEP // m)
+    visible = torch.zeros((m,), dtype=torch.int32, device=pos.device)
+    for s0 in range(0, num_samples, step):
+        s1 = min(num_samples, s0 + step)
+        if gauss_nsc is None:
+            g = philox_gauss(key, rows, torch.arange(s0, s1, device=pos.device))
+        else:
+            g = gauss_nsc[rows, s0:s1]
+        o, d, tm = sample_rays(p, g, light)
+        k = s1 - s0
+        blocked = anyhit(o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous(),
+                         tm.reshape(-1).contiguous())
+        visible += (~blocked).reshape(m, k).sum(dim=1, dtype=torch.int32)
+    counts[rows] = visible
+    return counts
+
+
+def _brute_anyhit(tri):
+    return lambda o, d, tm: ck._anyhit_plain(tri, o, d, tm)
+
+
+def _tree_anyhit(tree, stats=None):
+    """The twin walk; ``stats`` (a dict) gathers its node visits and tests."""
+    return lambda o, d, tm: b4._anyhit_plain(tree, o, d, tm, stats=stats)
+
+
+# --------------------------------------------------------------------------
+# The kernels.
+# --------------------------------------------------------------------------
+
+def _head(name, pos, light, valid, gauss_nsc):
+    ck._check(name, pos, light, gauss_nsc, device=pos.device)
+    ck._check(name, valid, device=pos.device, dtype=torch.uint8)
+    if pos.ndim != 2 or pos.shape[1] != 3 or pos.shape[0] >= 2 ** 31:
+        raise ValueError(f"{name}: positions must be [N, 3] with N < 2**31")
+    return ck._ptr(pos), ck._ptr(valid), pos.shape[0], ck._ptr(light)
+
+
+def _key_args(key, num_samples):
+    """(S, k0, k1, offset) as the kernels take them; a table launch has no key."""
+    k = key if key is not None else SampleKey(0, 0)
+    return (int(num_samples), *(ctypes.c_uint32(int(x) & _MASK) for x in k))
+
+
+def _brute_kernel(tri, pos, light, num_samples, valid, key=None, gauss_nsc=None):
+    """The brute sampler's launch."""
+    counts = torch.zeros((pos.shape[0],), dtype=torch.int32, device=pos.device)
+    ck._check("cgrt_soft_brute", tri, device=pos.device)
+    ck._launch("cgrt_soft_brute", pos.device, *_head("cgrt_soft_brute", pos, light, valid,
+                                                     gauss_nsc),
+               ck._ptr(tri), tri.shape[0], *_key_args(key, num_samples), ck._ptr(gauss_nsc),
+               ck._ptr(counts))
+    (soft_prng_cuda if gauss_nsc is None else soft_table_cuda).launches += 1
+    return counts
+
+
+def _tree_kernel(tree, pos, light, num_samples, valid, key=None, gauss_nsc=None):
+    """The cone sampler's launch."""
+    counts = torch.zeros((pos.shape[0],), dtype=torch.int32, device=pos.device)
+    boxes, meta, nchild, tris, _ = b4._tree_args("cgrt_soft_bvh4", tree, pos.device)
+    ck._launch("cgrt_soft_bvh4", pos.device, *_head("cgrt_soft_bvh4", pos, light, valid,
+                                                    gauss_nsc),
+               boxes, meta, nchild, tris, *_key_args(key, num_samples), ck._ptr(gauss_nsc),
+               ck._ptr(counts))
+    (soft4_prng_cuda if gauss_nsc is None else soft4_table_cuda).launches += 1
+    return counts
+
+
+# --------------------------------------------------------------------------
+# Public wrappers and their twins.
+# --------------------------------------------------------------------------
+
+def supports_soft_shadow_kernel(scene: Scene, max_tris: int = ck.UNROLL_MAX_TRIS) -> bool:
+    """The brute sampler sweeps the triangle table from shared memory and
+    has no sphere tail: all-triangle scenes of 1..256 triangles with
+    spherical lights (``pallas_kernels.py:786-793``)."""
+    return (0 < scene.num_triangles <= max_tris
+            and scene.spheres.radius.shape[0] == 0
+            and scene.spherical_lights.position.shape[0] > 0)
+
+
+def supports_soft_shadow_kernel_bvh4(scene: Scene) -> bool:
+    """The cone sampler: any scene the 4-wide kernels take, all triangles,
+    with spherical lights (``pallas_bvh.py:1317-1324``)."""
+    return (b4.supports_bvh4(scene) and scene.spheres.radius.shape[0] == 0
+            and scene.spherical_lights.position.shape[0] > 0)
+
+
+def _inputs(positions, light_pos, light_radius, valid):
+    pos = positions.detach().to(torch.float32).contiguous()
+    light = light_row(light_pos, light_radius).to(pos.device)
+    v = None if valid is None else valid.detach().to(device=pos.device,
+                                                     dtype=torch.uint8).contiguous()
+    return pos, light, v
+
+
+def _gauss_nsc(gauss, n, device):
+    """[S, N, 3] Gaussians (the JAX package's layout) -> [N, S, 3] contiguous."""
+    if gauss.ndim != 3 or gauss.shape[1] != n or gauss.shape[2] != 3:
+        raise ValueError(f"gauss must be [S, {n}, 3], got {tuple(gauss.shape)}")
+    return gauss.detach().to(device=device, dtype=torch.float32).permute(1, 0, 2).contiguous()
+
+
+def _brute(scene, positions, light_pos, light_radius, num_samples, valid, key, gauss, on_card):
+    if not supports_soft_shadow_kernel(scene):
+        raise ValueError("soft-shadow kernel: the scene needs 1..256 triangles, no spheres and "
+                         "a spherical light (supports_soft_shadow_kernel)")
+    pos, light, v = _inputs(positions, light_pos, light_radius, valid)
+    g = None if gauss is None else _gauss_nsc(gauss, pos.shape[0], pos.device)
+    tri = ck._tri_table(scene).detach()
+    if on_card:
+        counts = _brute_kernel(tri, pos, light, num_samples, v, key, g)
+    else:
+        counts = _counts_plain(_brute_anyhit(tri), pos, light, num_samples, v, key, g)
+    return counts.to(torch.float32)
+
+
+def _tree(scene, tree, positions, light_pos, light_radius, num_samples, valid, key, gauss,
+          on_card):
+    if not supports_soft_shadow_kernel_bvh4(scene):
+        raise ValueError("cone soft-shadow kernel: the scene needs 1..200000 triangles, no "
+                         "spheres and a spherical light (supports_soft_shadow_kernel_bvh4)")
+    if not isinstance(tree, b4.BVH4) or tree.num_tris != scene.num_triangles:
+        raise ValueError("the cone sampler walks the scene's BVH4 (ops/bvh4.py)")
+    pos, light, v = _inputs(positions, light_pos, light_radius, valid)
+    g = None if gauss is None else _gauss_nsc(gauss, pos.shape[0], pos.device)
+    if on_card:
+        counts = _tree_kernel(tree, pos, light, num_samples, v, key, g)
+    else:
+        counts = _counts_plain(_tree_anyhit(tree), pos, light, num_samples, v, key, g)
+    return counts.to(torch.float32)
+
+
+def soft_prng_cuda(scene: Scene, positions, light_pos, light_radius, key: SampleKey,
+                   num_samples: int, valid=None):
+    """Visible-sample counts [N] float32 in [0, num_samples] for one
+    spherical light, brute force over the scene's triangles, samples from
+    the stream of ``key``."""
+    return _brute(scene, positions, light_pos, light_radius, num_samples, valid, key, None,
+                  on_card=positions.is_cuda)
+
+
+def soft_prng_plain(scene: Scene, positions, light_pos, light_radius, key: SampleKey,
+                    num_samples: int, valid=None):
+    return _brute(scene, positions, light_pos, light_radius, num_samples, valid, key, None,
+                  on_card=False)
+
+
+def soft_table_cuda(scene: Scene, positions, light_pos, light_radius, gauss, valid=None):
+    """``soft_prng_cuda`` on given Gaussians ``gauss`` [S, N, 3]."""
+    return _brute(scene, positions, light_pos, light_radius, gauss.shape[0], valid, None, gauss,
+                  on_card=positions.is_cuda)
+
+
+def soft_table_plain(scene: Scene, positions, light_pos, light_radius, gauss, valid=None):
+    return _brute(scene, positions, light_pos, light_radius, gauss.shape[0], valid, None, gauss,
+                  on_card=False)
+
+
+def soft4_prng_cuda(scene: Scene, tree, positions, light_pos, light_radius, key: SampleKey,
+                    num_samples: int, valid=None):
+    """The counts of ``soft_prng_cuda`` by any-hit walks of the 4-wide
+    ``tree``: one thread per (point, sample)."""
+    return _tree(scene, tree, positions, light_pos, light_radius, num_samples, valid, key, None,
+                 on_card=positions.is_cuda)
+
+
+def soft4_prng_plain(scene: Scene, tree, positions, light_pos, light_radius, key: SampleKey,
+                     num_samples: int, valid=None):
+    return _tree(scene, tree, positions, light_pos, light_radius, num_samples, valid, key, None,
+                 on_card=False)
+
+
+def soft4_table_cuda(scene: Scene, tree, positions, light_pos, light_radius, gauss,
+                     valid=None):
+    """``soft4_prng_cuda`` on given Gaussians ``gauss`` [S, N, 3]."""
+    return _tree(scene, tree, positions, light_pos, light_radius, gauss.shape[0], valid, None,
+                 gauss, on_card=positions.is_cuda)
+
+
+def soft4_table_plain(scene: Scene, tree, positions, light_pos, light_radius, gauss,
+                      valid=None):
+    return _tree(scene, tree, positions, light_pos, light_radius, gauss.shape[0], valid, None,
+                 gauss, on_card=False)
+
+
+KERNEL_WRAPPERS = (soft_prng_cuda, soft_table_cuda, soft4_prng_cuda, soft4_table_cuda)
+for _wrapper in KERNEL_WRAPPERS:
+    _wrapper.launches = 0
+
+
+def launch_counts() -> dict:
+    return {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+
+
+def reset_launch_counts() -> None:
+    for w in KERNEL_WRAPPERS:
+        w.launches = 0

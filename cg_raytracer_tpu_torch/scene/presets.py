@@ -5,6 +5,11 @@ OBJ presets read their files from ``data_dir`` (default: ``$CGRT_DATA_DIR``,
 else the repository's ``data/``) and raise ``FileNotFoundError`` when a file is
 absent.  ``dragon``, ``teacup`` and ``donut`` are procedural stand-ins and
 ``spheres`` has no mesh, so those four always load.
+
+``load_standin`` builds the in-process stand-ins of ``standins.py``, which
+are not presets: ``mirror_box`` (for ``cornell_box``), ``spherical_box``
+(for ``cornell_box_spherical_light``) and ``spherical_teacup`` (the teacup
+lit by ``monkey_spherical_light``'s spherical light, for that scene).
 """
 from __future__ import annotations
 
@@ -29,6 +34,9 @@ SCENE_NAMES = (
     "teacup",
     "donut",
 )
+
+
+STANDIN_NAMES = ("mirror_box", "spherical_box", "spherical_teacup")
 
 
 def default_data_dir() -> str:
@@ -180,3 +188,20 @@ def load_scene(name: str, data_dir: str | None = None, device="cpu") -> Scene:
         center_and_scale_to_unit(meshes)
         return scene(meshes, point_lights=PointLights.of(((-1, 1, -1), white)))
     raise ValueError(f"Unknown scene {name!r}; choose from {SCENE_NAMES}")
+
+
+def load_standin(name: str, device="cpu") -> Scene:
+    """One of ``STANDIN_NAMES`` on ``device``."""
+    from . import standins
+
+    if name == "spherical_teacup":
+        meshes = [_procedural_teacup()]
+        center_and_scale_to_unit(meshes)
+        return make_scene(meshes, device=device,
+                          spherical_lights=SphericalLights.of(*standins.SPHERICAL_CUP_LIGHTS))
+    if name in ("mirror_box", "spherical_box"):
+        lights = (dict(point_lights=PointLights.of(*standins.MIRROR_BOX_LIGHTS))
+                  if name == "mirror_box"
+                  else dict(spherical_lights=SphericalLights.of(*standins.SPHERICAL_BOX_LIGHTS)))
+        return make_scene(standins.mirror_box_meshes(), device=device, **lights)
+    raise ValueError(f"Unknown stand-in {name!r}; choose from {STANDIN_NAMES}")

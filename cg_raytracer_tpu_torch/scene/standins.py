@@ -4,7 +4,10 @@ and on-card checks when the OBJ files are not present.
 ``mirror_box_meshes`` stands in for ``cornell_box`` (CornellBox-Mirror-Rotated
 with one point light at (0, 0.58, 0)): 32 triangles, white/red/green walls,
 two blocks, one mirror quad, and the light inside the box.  It is not a preset
-and does not change what ``cornell_box`` means.  ``mixed_meshes`` and
+and does not change what ``cornell_box`` means.  With ``SPHERICAL_BOX_LIGHTS``
+in place of its point light it stands in for ``cornell_box_spherical_light``;
+the procedural teacup with ``SPHERICAL_CUP_LIGHTS`` stands in for
+``monkey_spherical_light`` (both lights as the presets have them).  ``mixed_meshes`` and
 ``mixed_spheres`` make a small triangles + spheres scene (12 triangles, two
 spheres, one of them glossy).
 
@@ -24,6 +27,9 @@ MIRROR = {"kd": (0.05, 0.05, 0.05), "ks": (0.9, 0.9, 0.9), "shininess": 100.0}
 
 MIRROR_BOX_LIGHTS = (((0.0, 0.58, 0.0), (1.0, 1.0, 1.0)),)
 MIXED_LIGHTS = (((0.5, 1.0, -1.0), (1.0, 1.0, 1.0)),)
+# (position, radius, color), for SphericalLights.of.
+SPHERICAL_BOX_LIGHTS = (((0.0, 0.45, 0.0), 0.1, (1.0, 1.0, 1.0)),)
+SPHERICAL_CUP_LIGHTS = (((-1.0, 1.0, -1.0), 0.1, (1.0, 1.0, 1.0)),)
 
 
 def quad(p0, p1, p2, p3, material) -> dict:

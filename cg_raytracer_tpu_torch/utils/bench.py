@@ -68,14 +68,16 @@ def camera_jitter(generator: torch.Generator, device) -> torch.Tensor:
     return torch.rand((3,), generator=generator, device=device) * 2e-4 - 1e-4
 
 
-def fwd_bwd_step(scene, camera, cfg, params: dict, jitter, plain: bool = False, accel=None):
+def fwd_bwd_step(scene, camera, cfg, params: dict, jitter, plain: bool = False, accel=None,
+                 generator=None):
     """One training step: fresh leaves of ``params`` -> scene -> render with
     the camera's look_at moved by ``jitter`` -> mean -> backward.  Returns
     (loss, {name: gradient}).  ``plain=True`` routes the kernels through
     their plain twins (the reference the kernel step is checked against).
     ``accel``: the scene's tree, built once by the caller (the step's fresh
     vertex leaves would defeat ``build_accel``'s memo and rebuild it every
-    step)."""
+    step).  ``generator``: the step's ``torch.Generator`` for the spherical
+    lights' samples (None: seeded 0)."""
     from ..models.whitted import make_backend, render_image
     from ..optim.inverse import apply_material_params, apply_vertex_params
 
@@ -84,8 +86,8 @@ def fwd_bwd_step(scene, camera, cfg, params: dict, jitter, plain: bool = False, 
     if "vertices" in leaves:
         scn = apply_vertex_params(scn, leaves)
     cam = dataclasses.replace(camera, look_at=camera.look_at + jitter)
-    loss = render_image(scn, cam, cfg, backend=make_backend(scn, cfg, plain=plain,
-                                                           accel=accel)).mean()
+    loss = render_image(scn, cam, cfg, backend=make_backend(scn, cfg, plain=plain, accel=accel),
+                        generator=generator).mean()
     loss.backward()
     return loss.detach(), {k: v.grad for k, v in leaves.items()}
 
@@ -99,7 +101,9 @@ def run_bench(scene: Union[str, "Scene"] = "cornell_box", width: int = 1024,
     """Steady-state throughput in primary rays/s: forward frames, or with
     ``include_bwd`` training steps (materials + lights, plus vertices with
     ``include_vertex_params``; the camera jittered per step from a
-    generator seeded with ``seed``).  ``scene`` is a preset name or a Scene
+    generator seeded with ``seed``, and each step's spherical-light samples
+    from a CPU generator of its own, seeded from ``seed``).  ``scene`` is a
+    preset name, a stand-in (``presets.STANDIN_NAMES``) or a Scene
     (moved to ``device``, and named in the metric by ``scene_name``).  A
     mesh scene's tree is built once on the host (``accel_build_s``, not
     timed in the frames) and serves every frame and step, as the JAX
@@ -108,7 +112,7 @@ def run_bench(scene: Union[str, "Scene"] = "cornell_box", width: int = 1024,
 
     from ..models.whitted import (build_accel, effective_max_depth, make_backend, needs_bvh,
                                   render_image, resolve_fwd_shade_kernel)
-    from ..scene.presets import load_scene
+    from ..scene.presets import STANDIN_NAMES, load_scene, load_standin
     from ..scene.types import Camera
     from .config import RenderConfig
 
@@ -117,9 +121,13 @@ def run_bench(scene: Union[str, "Scene"] = "cornell_box", width: int = 1024,
         raise RuntimeError(f"run_bench times the card with CUDA events; no CUDA device "
                            f"({device}, torch.cuda.is_available()="
                            f"{torch.cuda.is_available()})")
-    name = scene if isinstance(scene, str) else (scene_name or "custom scene")
-    scn = (load_scene(scene, data_dir=data_dir, device=device) if isinstance(scene, str)
-           else scene.to(device))
+    if isinstance(scene, str):
+        standin = scene in STANDIN_NAMES
+        name = f"stand-in {scene.replace('_', ' ')}" if standin else scene
+        scn = (load_standin(scene, device=device) if standin
+               else load_scene(scene, data_dir=data_dir, device=device))
+    else:
+        name, scn = scene_name or "custom scene", scene.to(device)
     cfg = RenderConfig(width=width, height=height, max_depth=max_depth, backend=backend,
                        forward_only=not include_bwd)
     cfg = dataclasses.replace(cfg, **(cfg_overrides or {}))
@@ -134,8 +142,11 @@ def run_bench(scene: Union[str, "Scene"] = "cornell_box", width: int = 1024,
         params = training_params(scn, include_vertex_params)
         gen = torch.Generator(device=device).manual_seed(seed)
         jitters = iter([camera_jitter(gen, device) for _ in range(iters + 2)])
+        seeds = torch.randint(0, 1 << 62, (iters + 2,),
+                              generator=torch.Generator().manual_seed(seed))
+        gens = iter([torch.Generator().manual_seed(s) for s in seeds.tolist()])
         ms = median(time_frames(lambda: fwd_bwd_step(scn, camera, cfg, params, next(jitters),
-                                                     accel=accel),
+                                                     accel=accel, generator=next(gens)),
                                 iters=iters, warmup=2))
         what = ("fwd+bwd", "materials + lights + vertices" if include_vertex_params
                 else "materials + lights")

@@ -10,9 +10,10 @@ from ..ops import shade
 from ..scene.types import PointLights, Scene, Spheres, make_scene
 
 RAY_GRAD = dict(rtol=1e-4, atol=1e-6)  # d_o, d_d: one value per ray
-TABLE_GRAD = dict(rtol=2e-4, atol=1e-5)  # d_tri, d_aux, d_lights, d_spheres: sums over rays
-GRAD_NAMES = ("d_tri", "d_aux", "d_lights", "d_spheres", "d_o", "d_d")
-PRE_GRAD_NAMES = ("d_payload", "d_mats", "d_lights", "d_spheres", "d_o", "d_d")
+# d_tri, d_aux, d_lights, d_spheres, d_sph: sums over rays
+TABLE_GRAD = dict(rtol=2e-4, atol=1e-5)
+GRAD_NAMES = ("d_tri", "d_aux", "d_lights", "d_spheres", "d_o", "d_d", "d_sph")
+PRE_GRAD_NAMES = ("d_payload", "d_mats", "d_lights", "d_spheres", "d_o", "d_d", "d_sph")
 MAX_WIDENED = 1e-3  # share of a ray gradient's elements that may need the float32 widening
 MAX_OUTLIERS = 1e-5  # pregathered kernel: share of elements past even the widened tolerance
 OUTLIER_RTOL = 1e-3  # ... whose error against float64 stays under this share of their row's scale
@@ -41,14 +42,21 @@ def cap_scene(device) -> Scene:
     return make_scene(meshes, spheres=spheres, point_lights=lights, device=device)
 
 
-def twin_grads(tables, o, d, prim, bits, num_tris, cotangents, plain=shade.shade_plain):
+def twin_grads(tables, o, d, prim, bits, num_tris, cotangents, plain=shade.shade_plain,
+               sph=None, fracs=None):
     """Autograd of the twin ``plain`` (``shade_plain``, or ``shade_plain_pre``
     on the pregathered tables) for ``cotangents`` on its four outputs, in
-    float32 and in float64: two lists, the tables' then the rays' gradients."""
+    float32 and in float64: two lists, the tables', the rays' and the
+    spherical lights' gradients (``sph`` [Ls, 6] with ``fracs`` [Ls, N]; an
+    empty [0, 6] gradient without them), in the order of ``GRAD_NAMES``."""
+    if sph is None:
+        sph = torch.zeros((0, 6), dtype=torch.float32, device=o.device)
+        fracs = torch.zeros((0, o.shape[0]), dtype=torch.float32, device=o.device)
     out = []
     for dtype in (torch.float32, torch.float64):
-        leaves = [x.detach().to(dtype).requires_grad_(True) for x in (*tables, o, d)]
-        outs = plain(*leaves, prim, bits, num_tris=num_tris)
+        leaves = [x.detach().to(dtype).requires_grad_(True) for x in (*tables, o, d, sph)]
+        outs = plain(*leaves[:-1], prim, bits, num_tris=num_tris, sph=leaves[-1],
+                     fracs=fracs.to(dtype))
         grads = torch.autograd.grad(outs, leaves, [c.to(dtype) for c in cotangents],
                                     allow_unused=True)
         out.append([torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)])
@@ -140,3 +148,30 @@ def shade_grads_close(got, twin, exact, n_rays: int, names=GRAD_NAMES) -> dict:
         assert past <= MAX_WIDENED, f"{name}: {past:.4%} of elements need the float32 widening"
         report[name] = ((err / widened).max().item(), past)
     return report
+
+
+def philox_matches_curand(device, n: int = 4096, seed: int = 0) -> float:
+    """Share of ``n`` random (counter, key) pairs whose Philox4x32-10 words
+    from ``ops/soft.py``'s twin equal the CUDA toolkit's
+    ``curand_Philox4x32_10`` (``csrc/philox_check.cu``, a check library the
+    port never calls)."""
+    import ctypes
+
+    from ..ops import _build, soft
+
+    words = torch.randint(0, 1 << 32, (n, 6), dtype=torch.int64,
+                          generator=torch.Generator().manual_seed(seed)).to(device)
+    twin = torch.stack(soft.philox(*words[:, :4].unbind(1), words[:, 4], words[:, 5]), dim=1)
+    signed = (words - (words >= (1 << 31)).to(torch.int64) * (1 << 32)).to(torch.int32)
+    ctr, key = signed[:, :4].contiguous(), signed[:, 4:].contiguous()
+    out = torch.empty((n, 4), dtype=torch.int32, device=device)
+    lib = _build.load_check()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.cgrt_check_philox(ctypes.c_void_p(ctr.data_ptr()),
+                                    ctypes.c_void_p(key.data_ptr()), n,
+                                    ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"cgrt_check_philox: CUDA error {err}")
+    curand = out.to(torch.int64) & 0xFFFFFFFF
+    return (twin == curand).all(dim=1).float().mean().item()

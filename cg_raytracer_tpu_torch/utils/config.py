@@ -3,8 +3,8 @@ RenderConfig`` that the render and its gradients read, under the same names,
 defaults and errors.
 
 The TPU auto-tuning knobs (tile rows, interleave, pop mode, ray order,
-``remat_shade``, ``bounce_resort``, ``shade_gather``, ...) are not carried
-over: each was a measurement on a TPU.  The BVH leaf size is this port's own
+``remat_shade``, ``bounce_resort``, ``shade_gather``, ``soft_cone_interleave``,
+...) are not carried over: each was a measurement on a TPU.  The BVH leaf size is this port's own
 knob (``bvh_max_leaf``), for the same reason.  ``anti_aliasing``, ``bloom`` and
 ``motion_blur`` exist so that a request for them fails loudly (their port is
 ROADMAP A9) instead of being dropped.
@@ -24,6 +24,21 @@ class RenderConfig:
     anti_aliasing: bool = False  # not ported: ROADMAP A9
     bloom: bool = False  # not ported: ROADMAP A9
     motion_blur: bool = False  # not ported: ROADMAP A9
+    soft_shadow_samples: int = 200  # shadow rays per spherical-light shading (main.cpp:176)
+    soft_shadow_chunk: int = 20  # samples per step of the scan over the any-hit oracle
+    # Spherical-light soft shadows through the sampler kernels (ops/soft.py):
+    # 'auto' = on for a scene on a CUDA device, off on the CPU (the scan over
+    # the any-hit oracle); 'on' on the CPU runs the kernels' plain twins.
+    soft_shadow_kernel: str = "auto"
+    # The BVH sampler's layout: 'auto' = 'cone' (all of a point's samples in
+    # one warp over the 4-wide tree).  'sample' (the JAX package's per-sample
+    # sampler on the binary tree) is not ported: ROADMAP B12.
+    soft_shadow_tile: str = "auto"
+    # The cone sampler's tree: leaf size (0 = auto) and split rule ('auto' |
+    # 'median' | 'sah').  'auto' takes the primary tree's value, and where
+    # both match the sampler walks the primary tree itself (no second build).
+    soft_bvh_max_leaf: int = 0
+    soft_bvh_builder: str = "auto"
     # 'auto' | 'brute' | 'bvh' | 'cuda'.  'auto' resolves from the scene's
     # device: 'cuda' on CUDA tensors; on CPU tensors 'brute' up to
     # brute_force_max_tris triangles and 'bvh' (the CPU traversal of
@@ -102,6 +117,43 @@ class RenderConfig:
         from ..ops.bvh import DEFAULT_MAX_LEAF
 
         return self.bvh_max_leaf or DEFAULT_MAX_LEAF
+
+    def resolve_soft_shadow_kernel(self, device: torch.device) -> bool:
+        """'auto' = on for a scene on a CUDA device, off on the CPU."""
+        if self.soft_shadow_kernel not in ("auto", "on", "off"):
+            raise ValueError(
+                f"soft_shadow_kernel must be 'auto' | 'on' | 'off', got "
+                f"{self.soft_shadow_kernel!r}")
+        if self.soft_shadow_kernel != "auto":
+            return self.soft_shadow_kernel == "on"
+        return torch.device(device).type == "cuda"
+
+    def resolve_soft_shadow_tile(self) -> str:
+        if self.soft_shadow_tile not in ("auto", "sample", "cone"):
+            raise ValueError(
+                f"soft_shadow_tile must be 'auto' | 'sample' | 'cone', got "
+                f"{self.soft_shadow_tile!r}")
+        if self.soft_shadow_tile == "sample":
+            raise NotImplementedError(
+                "soft_shadow_tile='sample' (the per-sample sampler on the binary tree) is not "
+                "ported (ROADMAP B12); 'cone' is the port's sampler")
+        return "cone"
+
+    def resolve_soft_bvh_max_leaf(self) -> int:
+        if self.soft_bvh_max_leaf:
+            if self.soft_bvh_max_leaf < 1:
+                raise ValueError("soft_bvh_max_leaf must be positive")
+            return self.soft_bvh_max_leaf
+        return self.resolve_bvh_max_leaf()
+
+    def resolve_soft_bvh_builder(self, num_tris: int, device: torch.device) -> str:
+        if self.soft_bvh_builder not in ("auto", "median", "sah"):
+            raise ValueError(
+                f"soft_bvh_builder must be 'auto' | 'median' | 'sah', got "
+                f"{self.soft_bvh_builder!r}")
+        if self.soft_bvh_builder != "auto":
+            return self.soft_bvh_builder
+        return self.resolve_bvh_builder(num_tris, device)
 
     def resolve_grad_two_phase(self) -> bool:
         if self.grad_two_phase not in ("auto", "on", "off"):

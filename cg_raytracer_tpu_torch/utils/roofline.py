@@ -1,0 +1,143 @@
+"""The least time an H100 could take for a kernel's work: the larger of its
+operations over the card's rates and its bytes over the memory rate
+(``chip_smoke.py`` reports it as each kernel's ``bound_ms``).
+
+Per-operation counts are those of ``cg_raytracer_tpu/utils/roofline.py``
+(counted there line by line from the Pallas kernels; each add, multiply,
+compare, select, min, max, division, square root or transcendental is one
+operation), with the 4-wide node visit counted here.  Work that depends on
+the data is counted on this run's data: an any-hit sweep's triangle tests
+up to its first blocker (``anyhit_tests``), a tree walk's node visits and
+triangle tests (counted by the twins' traversal, ``ops/bvh4.py``
+``_traverse_plain(stats=)``).  Bytes count each input read once and each
+output written once.
+
+Peaks (NVIDIA's H100 SXM data sheet, at its 700 W limit): 67 TFLOP/s float32
+outside the tensor cores, 3.35 TB/s of HBM3.  32-bit integer operations
+(the samplers' Philox) run at 64 per clock per SM on compute capability 9.0
+(CUDA C++ Programming Guide, arithmetic instruction throughput), against 128
+for float32: 132 SMs x 64 x 1.98 GHz boost = 16.7 Tops/s.  Integer and
+float32 instructions share each SM's issue slots, so their two times add.
+A card set below 700 W runs slower; the callers print its limit beside these
+numbers.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..ops.intersect import moller_trumbore
+
+F32_FLOPS = 67e12
+INT32_OPS = 132 * 64 * 1.98e9
+HBM_BYTES_PER_S = 3.35e12
+
+MT_FLOPS = 64  # one Moller-Trumbore test
+CLOSEST_UPDATE = 6  # closer = ok & t < t_best, four selects
+ANYHIT_UPDATE = 4  # ok & t < t_max
+SHADOW_SETUP = 21  # a point light's shadow ray
+SLAB_FLOPS = 30  # one child box's slab test
+TBOUND_FLOPS = 6  # its prune against the padded best
+# A 4-wide node visit: four child slab tests and prunes, the five
+# compare-exchanges of the sort (3 each).
+INTERNAL4_VISIT_FLOPS = 4 * (SLAB_FLOPS + TBOUND_FLOPS) + 15
+RECON_FLOPS = 150  # the hit's surface: MT re-solve, normal, flip, masks
+SHADE_FLOPS = 60  # Phong toward one light
+BOUNCE_MISC_FLOPS = 50  # reflection, throughput, masks
+SAMPLE_FLOPS = 65  # a soft-shadow sample's float work: Box-Muller (25), its ray (40)
+# Philox4x32-10's integer work per sample: ten rounds of two 32 x 32 -> 64-bit
+# products (a high and a low word each), four xors and two key bumps, then
+# the four 24-bit masks of the uniforms.
+PHILOX_INT_OPS = 10 * (4 + 4 + 2) + 4
+
+
+def bound_ms(flops: float, bytes_: float, int_ops: float = 0.0):
+    """(least ms, 'operations' or 'bytes': which of the two bounds it);
+    ``int_ops`` are 32-bit integer operations beside the float ``flops``."""
+    t_ops, t_bytes = flops / F32_FLOPS + int_ops / INT32_OPS, bytes_ / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+@torch.no_grad()
+def anyhit_tests(tri, o, d, t_max, chunk: int = 1 << 16):
+    """Triangle tests [N] of any-hit sweeps over ``tri`` [T, 9] that stop at
+    their first blocker (t in [0, t_max)); a ray with t_max <= 0 tests none."""
+    v0, v1, v2 = tri[:, 0:3], tri[:, 3:6], tri[:, 6:9]
+    num = tri.shape[0]
+    out = torch.empty((o.shape[0],), dtype=torch.int64, device=o.device)
+    for s in range(0, o.shape[0], chunk):
+        oc, dc, tc = o[s:s + chunk, None], d[s:s + chunk, None], t_max[s:s + chunk]
+        t, _, _, ok = moller_trumbore(oc, dc, v0[None], v1[None], v2[None])
+        blocked = ok & (t < tc[:, None])
+        first = torch.where(blocked.any(dim=1), blocked.to(torch.int8).argmax(dim=1) + 1, num)
+        out[s:s + chunk] = torch.where(tc > 0.0, first, 0)
+    return out
+
+
+def table_bytes(*tables) -> int:
+    return sum(int(x.numel()) * x.element_size() for x in tables if x is not None)
+
+
+def tree_bytes(tree) -> int:
+    """The 4-wide tree's tables (ops/bvh4.py BVH4)."""
+    return table_bytes(tree.boxes, tree.meta, tree.nchild, tree.tris, tree.slot_to_prim)
+
+
+@torch.no_grad()
+def brute_bounce_flops(tri, lights, o, d, live=None):
+    """Operations of a closest sweep over every triangle for each live ray,
+    then per point light a shadow ray and its any-hit sweep from each hit
+    (the bounce kernels; with no lights, the closest sweep alone) ->
+    (flops, hit mask [N])."""
+    from ..ops import cuda_kernels as ck
+
+    num = tri.shape[0]
+    tm = None if live is None else torch.where(live, float("inf"), -1.0)
+    hit = ck._closest_plain(tri, o, d, tm)
+    ok = hit.prim_id >= 0
+    n_live = o.shape[0] if live is None else int(live.sum())
+    flops = n_live * num * (MT_FLOPS + CLOSEST_UPDATE)
+    p = o + d * torch.where(ok, hit.t, 0.0)[:, None]
+    for li in range(lights.shape[0]):
+        so, sd, dist = ck._shadow_rays(p, lights[li, 0:3])
+        tests = anyhit_tests(tri, so, sd, torch.where(ok, dist - ck.SHADOW_EPS, -1.0))
+        flops += int(ok.sum()) * SHADOW_SETUP + int(tests.sum()) * (MT_FLOPS + ANYHIT_UPDATE)
+    return float(flops), ok
+
+
+@torch.no_grad()
+def tree_anyhit_flops(tree, o, d, t_max) -> float:
+    """Operations of any-hit walks of the 4-wide tree: the node visits and
+    triangle tests as the twin counts them on these rays."""
+    from ..ops import bvh4 as b4
+
+    stats: dict = {}
+    b4._anyhit_plain(tree, o, d, t_max, stats=stats)
+    return float(stats.get("visits", 0) * INTERNAL4_VISIT_FLOPS
+                 + stats.get("tests", 0) * (MT_FLOPS + ANYHIT_UPDATE))
+
+
+@torch.no_grad()
+def tree_bounce_flops(tree, lights, o, d, live=None):
+    """``brute_bounce_flops`` over the 4-wide tree: the walks' node visits
+    and triangle tests as the twin counts them -> (flops, hit mask [N])."""
+    from ..ops import bvh4 as b4
+    from ..ops import cuda_kernels as ck
+
+    stats: dict = {}
+    tm = None if live is None else torch.where(live, float("inf"), -1.0)
+    t, slot, _, _ = b4._traverse_plain(tree, o, d, tm, any_hit=False, stats=stats)
+    flops = float(stats.get("visits", 0) * INTERNAL4_VISIT_FLOPS
+                  + stats.get("tests", 0) * (MT_FLOPS + CLOSEST_UPDATE))
+    ok = slot >= 0
+    p = o + d * torch.where(ok, t, 0.0)[:, None]
+    for li in range(lights.shape[0]):
+        so, sd, dist = ck._shadow_rays(p, lights[li, 0:3])
+        flops += int(ok.sum()) * SHADOW_SETUP + tree_anyhit_flops(
+            tree, so, sd, torch.where(ok, dist - ck.SHADOW_EPS, -1.0))
+    return flops, ok
+
+
+def shade_flops(n_live: int, num_lights: int, backward: bool = False) -> float:
+    """The shade kernels: each live ray's surface and Phong toward each
+    light (its backward about three times the forward)."""
+    return float(n_live * (RECON_FLOPS + SHADE_FLOPS * num_lights) * (3 if backward else 1))

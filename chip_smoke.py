@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch + CUDA port: the forward render path, the
-training path and the mesh slice (the 4-wide BVH and the pregathered shade).
+training path, the mesh slice (the 4-wide BVH and the pregathered shade) and
+the soft-shadow slice (spherical lights: the brute and cone samplers, and
+the shade kernels' spherical fractions).
 
 Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
@@ -8,7 +10,8 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
 Phases, each printing its own lines:
  1. the card's name and power limit (nvidia-smi);
- 2. build the CUDA kernels from cg_raytracer_tpu_torch/csrc (ptxas report);
+ 2. build the CUDA kernels from cg_raytracer_tpu_torch/csrc (ptxas report),
+    and beside them the check library of the sample stream (curand's Philox);
  3. each kernel against its plain PyTorch twin on the card, on the stand-in
     mirror box and on a triangles + spheres scene, at 1024x1024 primary rays
     plus one set of secondary rays;
@@ -53,20 +56,45 @@ Phases, each printing its own lines:
     > 0; every image agrees with the plain path, one step's loss and
     gradients per contract with the plain step's;
 15. each new kernel's time against its twin at 1024x1024, the teacup's
-    end-to-end rays/s, and leaf 4 against leaf 56.
+    end-to-end rays/s, and leaf 4 against leaf 56;
+16. the soft-shadow slice on the spherical stand-ins (the box lit by
+    cornell_box_spherical_light's light, the teacup by
+    monkey_spherical_light's, 200 samples): the table samplers exactly and
+    the PRNG samplers on the same Philox stream against their twins on 4,096
+    hit points of each 1024x1024 frame (one in eight unmarked, the stream
+    not starting at point 0), through the wrappers the backend calls, the
+    twin's Philox words against
+    curand_Philox4x32_10, the penumbra of each frame, and the shade kernels
+    with the recorded fractions (forward and backward) against their twins;
+17. the soft-shadow main path, every count set to 0 first: ``render`` of
+    both stand-ins at 800x800 and 1024x1024, default and forward-only,
+    ``run_bench(include_bwd=True)`` under both contracts, and
+    ``cgrt-torch render --scene teacup --add-spherical-light ...``; the
+    samplers' and the shade kernels' counts are > 0 and the any-hit kernels
+    (the scan's oracle) never launched; images agree with the plain path at
+    256x256, and one 256x256 step's loss and gradients with the plain step's;
+18. the PRNG samplers' counts on every hit point of both 1024x1024 frames
+    equal to their twins', the samplers' times against their twins,
+    ms/frame, ms/step, rays/s and the device-busy share of both stand-ins,
+    and the cone sampler over the port's tree (SAH, leaf 4) against a median
+    leaf-14 tree.
 
-Then one JSON line with the kernels' results and, last, ``{"ok": true,
-"device": ...}``.  Any failure raises and exits non-zero; so does a machine
+Every kernel's entry has its bound: the larger of its operations over 67
+TFLOP/s (integer ones over 16.7 Tops/s) and its bytes over 3.35 TB/s
+(utils/roofline.py), its work counted on this run's inputs.  Then one JSON line with the kernels' results and,
+last, ``{"ok": true, "device": ...}``.  Any failure raises and exits non-zero; so does a machine
 without CUDA.  Images and a results file go to ``--out`` (default
 ``chip_smoke_out/`` beside this script).
 """
 import argparse
+import concurrent.futures
 import dataclasses
 import json
 import os
 import subprocess
 import sys
 import time
+from functools import partial
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNELS = {  # wrapper -> (name, source, Pallas kernel replaced), forward path first
@@ -95,11 +123,23 @@ KERNELS = {  # wrapper -> (name, source, Pallas kernel replaced), forward path f
                            "cg_raytracer_tpu/ops/pallas_shade.py:363"),
     "shade_pre_bwd_cuda": ("shade_pre_bwd", "cg_raytracer_tpu_torch/csrc/shade.cu",
                            "cg_raytracer_tpu/ops/pallas_shade.py:548"),
+    # The soft-shadow slice.
+    "soft_prng_cuda": ("soft_prng", "cg_raytracer_tpu_torch/csrc/soft.cu",
+                       "cg_raytracer_tpu/ops/pallas_kernels.py:690"),
+    "soft_table_cuda": ("soft_table", "cg_raytracer_tpu_torch/csrc/soft.cu",
+                        "cg_raytracer_tpu/ops/pallas_kernels.py:717"),
+    "soft4_prng_cuda": ("soft4_prng", "cg_raytracer_tpu_torch/csrc/soft.cu",
+                        "cg_raytracer_tpu/ops/pallas_bvh4.py:732"),
+    "soft4_table_cuda": ("soft4_table", "cg_raytracer_tpu_torch/csrc/soft.cu",
+                         "cg_raytracer_tpu/ops/pallas_bvh4.py:778"),
 }
 FORWARD_KERNELS = ("intersect_cuda", "occluded_cuda", "bounce_cuda", "trace_cuda")
 TRAIN_KERNELS = ("record_trace_cuda", "bounce_refl_cuda", "shade_fwd_cuda", "shade_bwd_cuda")
 MESH_KERNELS = ("intersect_bvh4_cuda", "bounce_bvh4_cuda", "shade_pre_fwd_cuda",
                 "shade_pre_bwd_cuda")
+SOFT_KERNELS = ("soft_prng_cuda", "soft_table_cuda", "soft4_prng_cuda", "soft4_table_cuda")
+SOFT_SUB = 4096  # hit points of the samplers' checks against their twins
+SOFT_KEY_OFFSET = 777_777  # global index of the checks' first point
 TOL = 1e-5  # t/u/v where prim ids match
 MIN_MATCH = 0.995  # prim ids, shadow bits, booleans
 IMG_ATOL, IMG_MAX_BAD = 1e-4, 0.005  # assert_images_close
@@ -137,7 +177,7 @@ def main(argv=None) -> int:
     from cg_raytracer_tpu_torch.ops.linalg import norm, reflect, safe_normalize
     from cg_raytracer_tpu_torch.scene import standins
     from cg_raytracer_tpu_torch.scene.types import Camera, PointLights, Spheres, make_scene
-    from cg_raytracer_tpu_torch.utils import bench, checks
+    from cg_raytracer_tpu_torch.utils import bench, checks, roofline
     from cg_raytracer_tpu_torch.utils.bench import median, run_bench, time_frames
     from cg_raytracer_tpu_torch.utils.config import RenderConfig
     from cg_raytracer_tpu_torch.utils.image import read_image, write_png
@@ -158,7 +198,9 @@ def main(argv=None) -> int:
 
     print("phase 2: build the kernels")
     t0 = time.perf_counter()
-    _build.load()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for job in [pool.submit(_build.load), pool.submit(_build.load_check)]:
+            job.result()
     results["build_s"] = time.perf_counter() - t0
     log = _build.library_path()[:-3] + ".log"
     print(f"  built {os.path.relpath(_build.library_path(), ROOT)} in {results['build_s']:.1f} s")
@@ -301,8 +343,31 @@ def main(argv=None) -> int:
                        lambda: ck._trace_kernel(tri, aux, sph, lt, o1, d1, 2, False),
                        lambda: ck._trace_plain(tri, aux, sph, lt, o1, d1, 2, False)),
     }
+    # The work of these inputs (utils/roofline.py), for each kernel's bound.
+    tb, n1 = roofline.table_bytes, o1.shape[0]
+    closest_f, _ = roofline.brute_bounce_flops(tri, lpos[:0], o1, d1)
+    bounce_f, hit0 = roofline.brute_bounce_flops(tri, lpos, o1, d1)
+    rec_tables = ck._record_tables(box, "record")
+    _, slot2, _, _, _, o_next, d_next, active2 = ck._record_plain(*rec_tables, o1, d1, 2, False)
+    level1_f, hit1 = roofline.brute_bounce_flops(tri, lpos, o_next[0], d_next[0], active2[0])
+    hits, n_l = int(hit0.sum()) + int(hit1.sum()), lpos.shape[0]
+    work = {
+        "intersect_cuda": (closest_f, n1 * (24 + 16) + tb(tri)),
+        "occluded_cuda": (float(roofline.anyhit_tests(tri, so, sd, st).sum())
+                          * (roofline.MT_FLOPS + roofline.ANYHIT_UPDATE), n1 * (28 + 1) + tb(tri)),
+        "bounce_cuda": (bounce_f, n1 * (24 + 20) + tb(tri, lpos)),
+        "trace_cuda": (bounce_f + level1_f
+                       + hits * (roofline.RECON_FLOPS + n_l * roofline.SHADE_FLOPS
+                                 + roofline.BOUNCE_MISC_FLOPS),
+                       n1 * (24 + 12) + tb(tri, aux, sph, lt)),
+        "record_trace_cuda": (bounce_f + level1_f + hits * roofline.RECON_FLOPS,
+                              n1 * (24 + 2 * 20 + 24 + 1) + tb(*rec_tables)),
+        "bounce_refl_cuda": (bounce_f + int(hit0.sum()) * roofline.RECON_FLOPS,
+                             n1 * (24 + 20 + 24 + 1) + tb(*rec_tables)),
+    }
     print("  ms = kernel time on the device (profiler); launch_ms = one bare launch between "
-          "CUDA events; wrapper_ms = the wrapper call; plain_ms = the plain twin (events)")
+          "CUDA events; wrapper_ms = the wrapper call; plain_ms = the plain twin (events); "
+          "bound_ms = the least time for this work at 67 TFLOP/s and 3.35 TB/s")
     kernels = []
     for wrapper, (wrapper_fn, kernel_fn, plain_fn) in calls.items():
         wrapper_ms = median(time_frames(wrapper_fn, iters=20))
@@ -311,15 +376,16 @@ def main(argv=None) -> int:
         plain_ms = median(time_frames(plain_fn, iters=5, warmup=1))
         ms = device_ms if device_ms is not None else launch_ms
         name, source, replaces = KERNELS[wrapper]
+        b_ms, b_by = roofline.bound_ms(*work[wrapper])
         print(f"  {name}: ms {ms:.5f} ({1024 * 1024 / ms / 1e3:.5g} M rays/s), launch_ms "
               f"{launch_ms:.5f}, wrapper_ms {wrapper_ms:.5f}, plain_ms {plain_ms:.4f} "
-              f"(x{plain_ms / ms:.1f}); device time "
-              f"{'measured' if device_ms is not None else 'not measured'}")
+              f"(x{plain_ms / ms:.1f}), bound_ms {b_ms:.5f} by {b_by} ({b_ms / ms:.1%} of it); "
+              f"device time {'measured' if device_ms is not None else 'not measured'}")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": counts[wrapper], "max_abs_err": check[wrapper]["err"],
                         "mismatch_frac": check[wrapper]["mismatch"], "ms": ms,
-                        "plain_ms": plain_ms, "launch_ms": launch_ms,
-                        "wrapper_ms": wrapper_ms})
+                        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None, "launch_ms": launch_ms, "wrapper_ms": wrapper_ms})
     e2e = {}
     for size in (800, 1024):
         for fo in (True, False):
@@ -477,6 +543,12 @@ def main(argv=None) -> int:
                                                         num_t, cts),
                            shade_bwd_plain),
     }
+    n_live = int((rhit.prim_id >= 0).sum())
+    work.update({
+        "shade_fwd_cuda": (roofline.shade_flops(n_live, n_l), n1 * (24 + 8 + 48) + tb(*s_tables)),
+        "shade_bwd_cuda": (roofline.shade_flops(n_live, n_l, backward=True),
+                           n1 * (24 + 8 + 48 + 24) + 2 * tb(*s_tables)),
+    })
     print("  ms = kernel time on the device (profiler); launch_ms = one bare launch between "
           "CUDA events; plain_ms = the plain twin (events; for shade_bwd the twin's forward "
           "and autograd backward)")
@@ -486,14 +558,16 @@ def main(argv=None) -> int:
         plain_ms = median(time_frames(plain_fn, iters=5, warmup=1))
         ms = device_ms if device_ms is not None else launch_ms
         name, source, replaces = KERNELS[wrapper]
+        b_ms, b_by = roofline.bound_ms(*work[wrapper])
         print(f"  {name}: ms {ms:.5f}, launch_ms {launch_ms:.5f}, plain_ms {plain_ms:.4f} "
-              f"(x{plain_ms / ms:.1f}); device time "
-              f"{'measured' if device_ms is not None else 'not measured'}")
+              f"(x{plain_ms / ms:.1f}), bound_ms {b_ms:.5f} by {b_by} ({b_ms / ms:.1%} of it); "
+              f"device time {'measured' if device_ms is not None else 'not measured'}")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": train_counts[wrapper],
                         "max_abs_err": check[wrapper]["err"],
                         "mismatch_frac": check[wrapper]["mismatch"], "ms": ms,
-                        "plain_ms": plain_ms, "launch_ms": launch_ms})
+                        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None, "launch_ms": launch_ms})
     for c, (cfg, params) in steps.items():
         step = lambda: bench.fwd_bwd_step(box, cam, cfg, params, jitter)  # noqa: E731
         prof = device_breakdown(step, iters=5)
@@ -514,6 +588,7 @@ def main(argv=None) -> int:
 
     mesh_counts = mesh_phases(out, device, check, note, kernels, e2e, results)
     counts.update(mesh_counts)
+    counts.update(soft_phases(out, device, check, note, kernels, e2e, results))
 
     results.update(card=smi, counts=counts, kernels=kernels, end_to_end=e2e)
     with open(os.path.join(out, "results.json"), "w") as f:
@@ -543,7 +618,7 @@ def mesh_phases(out, device, check, note, kernels, e2e, results) -> dict:
     from cg_raytracer_tpu_torch.ops.linalg import norm, reflect, safe_normalize
     from cg_raytracer_tpu_torch.scene.presets import load_scene
     from cg_raytracer_tpu_torch.scene.types import Camera, Spheres
-    from cg_raytracer_tpu_torch.utils import bench, checks
+    from cg_raytracer_tpu_torch.utils import bench, checks, roofline
     from cg_raytracer_tpu_torch.utils.bench import median, run_bench, time_frames
     from cg_raytracer_tpu_torch.utils.config import RenderConfig
     from cg_raytracer_tpu_torch.utils.image import read_image, write_png
@@ -738,28 +813,44 @@ def mesh_phases(out, device, check, note, kernels, e2e, results) -> dict:
                                                                 cts),
                                pre_bwd_plain),
     }
+    tb, n1, n_l = roofline.table_bytes, o1.shape[0], lpos.shape[0]
+    n_hit = int((prim0 >= 0).sum())
+    work = {
+        "intersect_bvh4_cuda": (roofline.tree_bounce_flops(tree, lpos[:0], o1, d1)[0],
+                                n1 * (24 + 16) + roofline.tree_bytes(tree)),
+        "occluded_bvh4_cuda": (roofline.tree_anyhit_flops(tree, so, ldir, st),
+                               n1 * (28 + 1) + roofline.tree_bytes(tree)),
+        "bounce_bvh4_cuda": (roofline.tree_bounce_flops(tree, lpos, o1, d1)[0],
+                             n1 * (24 + 20) + roofline.tree_bytes(tree) + tb(lpos)),
+        "shade_pre_fwd_cuda": (roofline.shade_flops(n_hit, n_l), n1 * (24 + 8 + 48) + tb(*tables)),
+        "shade_pre_bwd_cuda": (roofline.shade_flops(n_hit, n_l, backward=True),
+                               n1 * (24 + 8 + 48 + 24) + 2 * tb(*tables)),
+    }
     print("  ms = kernel time on the device (profiler); launch_ms = one bare launch between "
-          "CUDA events; plain_ms = the plain twin (events)")
+          "CUDA events; plain_ms = the plain twin (events); bound_ms = the least time for this "
+          "work (node visits and tests counted by the twin on these rays)")
     timed = {}
     for wrapper, (kernel_fn, plain_fn) in calls.items():
         launch_ms = median(time_frames(kernel_fn, iters=20))
         device_ms = device_breakdown(kernel_fn, iters=10)["device_ms"]
         plain_ms = median(time_frames(plain_fn, iters=3, warmup=1))
         ms = device_ms if device_ms is not None else launch_ms
-        timed[wrapper] = (ms, plain_ms, launch_ms)
+        b_ms, b_by = roofline.bound_ms(*work[wrapper])
+        timed[wrapper] = (ms, plain_ms, launch_ms, b_ms, b_by)
         print(f"  {wrapper}: ms {ms:.5f}, launch_ms {launch_ms:.5f}, plain_ms {plain_ms:.4f} "
-              f"(x{plain_ms / ms:.1f}); device time "
-              f"{'measured' if device_ms is not None else 'not measured'}")
+              f"(x{plain_ms / ms:.1f}), bound_ms {b_ms:.5f} by {b_by} ({b_ms / ms:.1%} of it); "
+              f"device time {'measured' if device_ms is not None else 'not measured'}")
     for wrapper in MESH_KERNELS:
         name, source, replaces = KERNELS[wrapper]
-        ms, plain_ms, launch_ms = timed[wrapper]
+        ms, plain_ms, launch_ms, b_ms, b_by = timed[wrapper]
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": mesh_counts[wrapper], "max_abs_err": check[wrapper]["err"],
                  "mismatch_frac": check[wrapper]["mismatch"], "ms": ms, "plain_ms": plain_ms,
-                 "launch_ms": launch_ms}
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "launch_ms": launch_ms}
         if wrapper == "intersect_bvh4_cuda":
             entry.update(anyhit_ms=timed["occluded_bvh4_cuda"][0],
-                         anyhit_plain_ms=timed["occluded_bvh4_cuda"][1])
+                         anyhit_plain_ms=timed["occluded_bvh4_cuda"][1],
+                         anyhit_bound_ms=timed["occluded_bvh4_cuda"][3])
         kernels.append(entry)
     for size in (800, 1024):
         for fo in (False, True):
@@ -812,6 +903,325 @@ def mesh_phases(out, device, check, note, kernels, e2e, results) -> dict:
               f"kernel {bounce_ms:.5f} ms (events), default-route frame {frame_ms:.4f} ms")
     results["leaf_ab"] = leaf
     return mesh_counts
+
+
+def soft_phases(out, device, check, note, kernels, e2e, results) -> dict:
+    """Phases 16-18: the soft-shadow slice on the spherical stand-ins (the
+    box through the brute sampler, the teacup through the cone sampler).
+    Returns the new kernels' launch counts from the main path (phase 17)."""
+    import torch
+
+    from cg_raytracer_tpu_torch import cli
+    from cg_raytracer_tpu_torch.models.whitted import (build_accel, make_backend, render,
+                                                       render_image)
+    from cg_raytracer_tpu_torch.ops import bvh4 as b4
+    from cg_raytracer_tpu_torch.ops import cuda_kernels as ck
+    from cg_raytracer_tpu_torch.ops import shade, soft
+    from cg_raytracer_tpu_torch.ops.camera import generate_rays
+    from cg_raytracer_tpu_torch.scene.presets import load_standin
+    from cg_raytracer_tpu_torch.scene.types import Camera
+    from cg_raytracer_tpu_torch.utils import bench, checks, roofline
+    from cg_raytracer_tpu_torch.utils.bench import median, run_bench, time_frames
+    from cg_raytracer_tpu_torch.utils.config import RenderConfig
+    from cg_raytracer_tpu_torch.utils.image import read_image, write_png
+    from cg_raytracer_tpu_torch.utils.profiling import device_breakdown
+
+    cam = Camera.default(device=device)
+    gen = torch.Generator(device).manual_seed(16)
+    num = RenderConfig().soft_shadow_samples  # 200, the reference's count
+    # A batch that does not start at point 0, as a later ray chunk's.
+    key = soft.SampleKey(2026, 16).at(SOFT_KEY_OFFSET)
+
+    print("phase 16: the soft-shadow kernels against their twins, spherical box and teacup 1024^2")
+    box = load_standin("spherical_box", device)
+    cup = load_standin("spherical_teacup", device)
+    t0 = time.perf_counter()
+    accel = build_accel(cup, RenderConfig())
+    torch.cuda.synchronize()
+    results["soft_accel_build_s"] = time.perf_counter() - t0
+    tree = accel.soft
+    print(f"  spherical teacup: tree built in {results['soft_accel_build_s']:.3f} s; the cone "
+          f"sampler walks the primary tree (soft-tree knobs on auto): {tree is accel.primary}")
+    o1, d1 = generate_rays(cam, 1024, 1024)
+    frames = {}
+    for label, scene, hit in (("box", box, ck.intersect_cuda(box, o1, d1)),
+                              ("teacup", cup, b4.intersect_bvh4_cuda(cup, accel.primary, o1, d1))):
+        valid = hit.prim_id >= 0
+        pos = torch.where(valid[:, None], o1 + d1 * torch.where(valid, hit.t, 0.0)[:, None], 0.0)
+        light = soft.light_row(scene.spherical_lights.position[0],
+                               scene.spherical_lights.radius[0])
+        frames[label] = (scene, pos.contiguous(), valid, light, hit.prim_id.contiguous())
+    tri = ck._tri_table(box).detach()
+    # label: the wrappers the backend calls and their twins, each with the
+    # scene (and tree) bound: (prng, prng twin, table, table twin), then the
+    # bare launch that phase 18 times.
+    sampler = {
+        "box": (*(partial(f, box) for f in (soft.soft_prng_cuda, soft.soft_prng_plain,
+                                            soft.soft_table_cuda, soft.soft_table_plain)),
+                lambda *a: soft._brute_kernel(tri, *a)),
+        "teacup": (*(partial(f, cup, tree) for f in (soft.soft4_prng_cuda, soft.soft4_prng_plain,
+                                                     soft.soft4_table_cuda,
+                                                     soft.soft4_table_plain)),
+                   lambda *a: soft._tree_kernel(tree, *a)),
+    }
+    wrapper_names = {"box": ("soft_prng_cuda", "soft_table_cuda"),
+                     "teacup": ("soft4_prng_cuda", "soft4_table_cuda")}
+    subsample, work = {}, {}
+    for label, (scene, pos, valid, light, _) in frames.items():
+        prng, prng_plain, table, table_plain, _ = sampler[label]
+        prng_w, table_w = wrapper_names[label]
+        lights = (scene.spherical_lights.position[0], scene.spherical_lights.radius[0])
+        rows = torch.nonzero(valid).squeeze(1)
+        pick = rows[torch.linspace(0, rows.numel() - 1, SOFT_SUB, device=device).long()]
+        p_sub = pos[pick].contiguous()
+        v_sub = torch.arange(SOFT_SUB, device=device) % 8 != 0  # every eighth point unmarked
+        g = torch.randn((num, SOFT_SUB, 3), device=device, generator=gen)
+        subsample[label] = (p_sub, g)
+        got_t, want_t = (f(p_sub, *lights, g, valid=v_sub) for f in (table, table_plain))
+        got_p, want_p = (f(p_sub, *lights, key, num, valid=v_sub) for f in (prng, prng_plain))
+        torch.cuda.synchronize()
+        table_exact = torch.equal(got_t, want_t)
+        agree = (got_p == want_p).float().mean().item()
+        diff = (got_p - want_p).abs().max().item()
+        print(f"  {label} table kernel vs twin, {SOFT_SUB} hit points x {num} samples, one in "
+              f"eight unmarked: {'exact' if table_exact else 'DIFFER'}; PRNG kernel vs twin on the "
+              f"same Philox stream (first point {SOFT_KEY_OFFSET}): counts equal on {agree:.5%} "
+              f"of points, max |diff| {diff:g}")
+        assert table_exact, f"{label}: the table kernel differs from its twin"
+        assert agree == 1.0, f"{label}: PRNG kernel vs twin {agree:.4%}"
+        assert not (got_t[~v_sub].any() or got_p[~v_sub].any()), f"{label}: unmarked points count"
+        note(table_w, 0.0, 0.0)
+        note(prng_w, 1.0 - agree, diff)
+        # This run's work per sample ray, on the subsample's marked points.
+        marked = torch.nonzero(v_sub).squeeze(1)
+        so, sd, tm = soft.sample_rays(p_sub[marked][:, None], soft.philox_gauss(
+            key, marked, torch.arange(num, device=device)), light)
+        so, sd, tm = so.reshape(-1, 3), sd.reshape(-1, 3), tm.reshape(-1)
+        if label == "box":
+            tests = roofline.anyhit_tests(tri, so, sd, tm).double().mean().item()
+            work[label] = tests * (roofline.MT_FLOPS + roofline.ANYHIT_UPDATE)
+            what = f"{tests:.3f} triangle tests"
+        else:
+            work[label] = roofline.tree_anyhit_flops(tree, so, sd, tm) / tm.numel()
+            what = f"{work[label]:.1f} operations of node visits and triangle tests"
+        print(f"  {label}: a sample ray of this frame makes {what} (twin's count on the subsample)")
+    curand = checks.philox_matches_curand(device, n=4096)
+    print(f"  Philox4x32-10 words of the twin equal curand_Philox4x32_10 on {curand:.2%} of 4096 "
+          f"random (counter, key) pairs")
+    assert curand == 1.0
+    fracs, full = {}, {}
+    for label, (scene, pos, valid, light, prim) in frames.items():
+        full[label] = sampler[label][0](pos, scene.spherical_lights.position[0],
+                                        scene.spherical_lights.radius[0], key, num, valid=valid)
+        fr = full[label] / num
+        pen = (valid & (fr > 0) & (fr < 1)).float().sum().item() / valid.sum().item()
+        lit = (valid & (fr > 0)).float().sum().item() / valid.sum().item()
+        print(f"  {label} 1024^2 level 0: {valid.float().mean().item():.2%} of rays hit; of the "
+              f"hit points {lit:.2%} see the light, {pen:.2%} in penumbra (0 < fraction < 1)")
+        assert pen > 0.001 and lit > 0.1, label
+        fracs[label] = fr[None].contiguous()
+    # The shade kernels with spherical fractions, on level 0's records.
+    for label, (scene, pos, valid, light, prim) in frames.items():
+        bits = torch.zeros_like(prim)
+        sph, fr = shade._sph_table(scene).detach().contiguous(), fracs[label]
+        cts = [torch.randn(o1.shape, device=device, generator=gen) for _ in range(4)]
+        if label == "box":
+            tables = tuple(x.detach() for x in shade._shade_tables(scene)[:4])
+            got = shade.shade_fwd_cuda(*tables, o1, d1, prim, bits, scene.num_triangles, sph, fr)
+            want = shade.shade_plain(*tables, o1, d1, prim, bits, num_tris=scene.num_triangles,
+                                     sph=sph, fracs=fr)
+            grads = shade.shade_bwd_cuda(*tables, o1, d1, prim, bits, scene.num_triangles, cts,
+                                         sph, fr)
+            twin, exact = checks.twin_grads(tables, o1, d1, prim, bits, scene.num_triangles, cts,
+                                            sph=sph, fracs=fr)
+            names, fwd_w, bwd_w = checks.GRAD_NAMES, "shade_fwd_cuda", "shade_bwd_cuda"
+        else:
+            tables = tuple(x.detach().contiguous() for x in shade._pre_tables(scene)[:4])
+            got = shade.shade_pre_fwd_cuda(*tables, o1, d1, prim, bits, sph, fr)
+            want = shade.shade_plain_pre(*tables, o1, d1, prim, bits, sph=sph, fracs=fr)
+            grads = shade.shade_pre_bwd_cuda(*tables, o1, d1, prim, bits, cts, sph, fr)
+            twin, exact = checks.twin_grads(tables, o1, d1, prim, bits, scene.num_triangles, cts,
+                                            plain=shade.shade_plain_pre, sph=sph, fracs=fr)
+            names, fwd_w, bwd_w = checks.PRE_GRAD_NAMES, "shade_pre_fwd_cuda", "shade_pre_bwd_cuda"
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, **SHADE_FWD)
+        note(fwd_w, 0.0, err)
+        report = checks.shade_grads_close(grads, twin, exact, o1.shape[0], names=names)
+        d_sph = (grads[-1] - twin[-1]).abs().max().item()
+        print(f"  {fwd_w} with the recorded fractions, {label}: max |d direct,ks,normal,position| "
+              f"{err:.3g}; {bwd_w}: d_sph max |kernel - twin| {d_sph:.3g} (max |twin| "
+              f"{twin[-1].abs().max().item():.3g}), every cotangent within "
+              f"{max(r for r, _ in report.values()):.3g} of its tolerance")
+        assert twin[-1].abs().sum().item() > 0
+        note(bwd_w, max(p for _, p in report.values()), d_sph)
+    torch.cuda.synchronize()
+
+    print("phase 17: the soft-shadow main path (spherical box and teacup; counts from 0)")
+    for module in (ck, shade, b4, soft):
+        module.reset_launch_counts()
+    scenes = {"spherical_box": (box, None), "spherical_teacup": (cup, accel)}
+    renders = {}
+    for label, (scene, acc) in scenes.items():
+        for size in (800, 1024):
+            for fo in (False, True):
+                cfg = RenderConfig(width=size, height=size, forward_only=fo)
+                renders[(label, size, fo)] = render(scene, cam, cfg, accel=acc)
+    contracts = {"full": True, "materials": False}
+    train = {(label, c): run_bench(scene, width=1024, height=1024, include_bwd=True, iters=3,
+                                   include_vertex_params=v, scene_name=f"stand-in {label}")
+             for label, (scene, _) in scenes.items() for c, v in contracts.items()}
+    cli_png = os.path.join(out, "cli_spherical_teacup.png")
+    assert cli.main(["render", "--scene", "teacup", "--device", "cuda", "--remove-light", "0",
+                     "--add-spherical-light", "-1", "1", "-1", "0.1", "1", "1", "1",
+                     "--spp", str(num), "-o", cli_png]) == 0
+    torch.cuda.synchronize()
+    counts = {**ck.launch_counts(), **shade.launch_counts(), **b4.launch_counts(),
+              **soft.launch_counts()}
+    print(f"  launch counts of the soft-shadow main path {counts}")
+    for wrapper in ("soft_prng_cuda", "soft4_prng_cuda", "shade_fwd_cuda", "shade_bwd_cuda",
+                    "shade_pre_fwd_cuda", "shade_pre_bwd_cuda"):
+        assert counts[wrapper] > 0, f"{wrapper} never launched its kernel on the main path"
+    assert counts["occluded_cuda"] == counts["occluded_bvh4_cuda"] == 0, (
+        "the card ran the scan over the any-hit oracle for a scene the samplers support")
+    for (label, size, fo), img in renders.items():
+        what = f"{label} {size}^2 forward_only={fo}"
+        assert img.shape == (size, size, 3) and bool(torch.isfinite(img).all()), what
+        lit = (img.amax(dim=-1) > 0.02).float().mean().item()
+        print(f"  {what}: lit fraction {lit:.3f}, mean {img.mean().item():.4f}")
+        assert lit > 0.1, what
+        write_png(os.path.join(out, f"{label}_{size}_{'fwd_only' if fo else 'default'}.png"), img)
+    cli_img = read_image(cli_png)
+    assert cli_img.shape == (800, 800, 3) and (cli_img.max(axis=-1) > 0.02).mean() > 0.1
+    # Against the plain path at 256^2: the same samples (a generator seeded 0).
+    cfg256 = RenderConfig(width=256, height=256)
+    for label, (scene, acc) in scenes.items():
+        img = render(scene, cam, cfg256, accel=acc)
+        plain = render_image(scene, cam, cfg256, generator=torch.Generator().manual_seed(0),
+                             backend=make_backend(scene, cfg256, plain=True, accel=acc))
+        images_close(img, plain, f"{label} 256^2 vs plain path")
+    jitter = bench.camera_jitter(torch.Generator(device).manual_seed(9), device)
+    steps = {}
+    for label, (scene, acc) in scenes.items():
+        for c, v in contracts.items():
+            cfg = bench.training_config(RenderConfig(width=256, height=256), v)
+            params = bench.training_params(scene, v)
+            (lk, gk), (lp, gp) = (bench.fwd_bwd_step(
+                scene, cam, cfg, params, jitter, plain=plain, accel=acc,
+                generator=torch.Generator().manual_seed(4)) for plain in (False, True))
+            print(f"  {label} {c} contract, one 256^2 step: loss {lk.item():.8g} (plain path "
+                  f"{lp.item():.8g})")
+            torch.testing.assert_close(lk, lp, rtol=1e-5, atol=1e-7)
+            for name in gk:
+                assert bool(torch.isfinite(gk[name]).all()), name
+                tol = (dict(checks.TABLE_GRAD, atol=2e-5) if name == "vertices"
+                       else checks.TABLE_GRAD)
+                torch.testing.assert_close(gk[name], gp[name], **tol, msg=f"{label} {c} d/d{name}")
+                print(f"    d/d{name}: max |kernel - plain| "
+                      f"{(gk[name] - gp[name]).abs().max().item():.3g}, max |grad| "
+                      f"{gp[name].abs().max().item():.3g}")
+            steps[(label, c)] = (bench.training_config(RenderConfig(width=1024, height=1024), v),
+                                 params)
+
+    print("phase 18: soft-shadow kernel times at 1024^2, frames, steps and the soft tree")
+    print("  ms = one bare launch between CUDA events (median of 5: each runs 0.1-20 ms, so the "
+          "launch's own microseconds do not count); plain_ms = the twin (events, one run); the "
+          f"PRNG kernels on the frame's hit points, the table kernels on the {SOFT_SUB}-point "
+          "subsample")
+    for label, (scene, pos, valid, light, _) in frames.items():
+        prng_plain, table_plain, bare = sampler[label][1], sampler[label][3], sampler[label][4]
+        lights = (scene.spherical_lights.position[0], scene.spherical_lights.radius[0])
+        v8 = valid.to(torch.uint8).contiguous()
+        n_valid = int(valid.sum())
+        scene_bytes = roofline.table_bytes(tri) if label == "box" else roofline.tree_bytes(tree)
+        p_sub, g = subsample[label]
+        g_nsc = g.permute(1, 0, 2).contiguous()
+        for wrapper, kernel_fn, plain_fn, points, flops, int_ops, bytes_ in (
+                (wrapper_names[label][0], lambda: bare(pos, light, num, v8, key),
+                 lambda: prng_plain(pos, *lights, key, num, valid=valid), n_valid,
+                 n_valid * num * (roofline.SAMPLE_FLOPS + work[label]),
+                 n_valid * num * roofline.PHILOX_INT_OPS,
+                 pos.shape[0] * (12 + 1 + 4) + 16 + scene_bytes),
+                (wrapper_names[label][1], lambda: bare(p_sub, light, num, None, None, g_nsc),
+                 lambda: table_plain(p_sub, *lights, g), SOFT_SUB,
+                 SOFT_SUB * num * (roofline.SAMPLE_FLOPS - 25 + work[label]), 0,
+                 SOFT_SUB * (12 + 4 + 12 * num) + 16 + scene_bytes)):
+            ms = median(time_frames(kernel_fn, iters=5, warmup=1))
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            want = plain_fn()
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+            name, source, replaces = KERNELS[wrapper]
+            if wrapper == wrapper_names[label][0]:
+                # The wrapper's counts on the whole frame (phase 16), the hit
+                # mask and the key's offset included, against the twin's.
+                exact = torch.equal(full[label], want)
+                diff = (full[label] - want).abs().max().item()
+                print(f"  {name} ({label}): the wrapper's counts on all {pos.shape[0]} points "
+                      f"({n_valid} hit) {'equal' if exact else 'DIFFER from'} the twin's, max "
+                      f"|diff| {diff:g}")
+                assert exact, f"{label}: the PRNG sampler differs from its twin on the frame"
+                note(wrapper, 0.0, diff)
+            b_ms, b_by = roofline.bound_ms(flops, bytes_, int_ops)
+            print(f"  {name} ({label}, {points} points x {num} samples): ms {ms:.5f}, plain_ms "
+                  f"{plain_ms:.3f} (x{plain_ms / ms:.1f}), bound_ms {b_ms:.5f} by {b_by} "
+                  f"({b_ms / ms:.1%} of it); {points * num / ms / 1e6:.4g} G sample rays/s")
+            kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                            "launches": counts[wrapper], "max_abs_err": check[wrapper]["err"],
+                            "mismatch_frac": check[wrapper]["mismatch"], "ms": ms,
+                            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                            "library_ms": None, "points": points, "samples": num})
+    for label, (scene, acc) in scenes.items():
+        r = run_bench(scene, width=1024, height=1024, scene_name=f"stand-in {label}", iters=5)
+        cfg = RenderConfig(width=1024, height=1024)
+        prof = device_breakdown(lambda: render(scene, cam, cfg, accel=acc), iters=3)
+        busy = f"{prof['busy']:.3f}" if prof["busy"] is not None else "not measured"
+        e2e[f"{label}_1024_default"] = {"ms": r["seconds_per_frame"] * 1e3,
+                                        "rays_per_s": r["value"], "profile": prof}
+        print(f"  render {label} 1024^2: {r['seconds_per_frame'] * 1e3:.5f} ms/frame (CUDA "
+              f"events), {r['value']:.6g} primary rays/s; profiled wall {prof['wall_ms']:.4f} ms, "
+              f"device busy {busy}")
+        for kname, kms, n in prof["kernels"][:5]:
+            print(f"    {kms:.5f} ms x{n:g}  {kname[:90]}")
+        for c in contracts:
+            cfg, params = steps[(label, c)]
+            prof = device_breakdown(lambda: bench.fwd_bwd_step(
+                scene, cam, cfg, params, jitter, accel=acc,
+                generator=torch.Generator().manual_seed(5)), iters=2)
+            r = train[(label, c)]
+            busy = f"{prof['busy']:.3f}" if prof["busy"] is not None else "not measured"
+            e2e[f"{label}_1024_train_{c}"] = {"ms": r["seconds_per_frame"] * 1e3,
+                                              "rays_per_s": r["value"], "profile": prof}
+            print(f"  train {label} {c} contract 1024^2: {r['seconds_per_frame'] * 1e3:.5f} "
+                  f"ms/step (CUDA events), {r['value']:.6g} primary rays/s fwd+bwd; profiled "
+                  f"wall {prof['wall_ms']:.4f} ms, device busy {busy}")
+            for kname, kms, n in prof["kernels"][:5]:
+                print(f"    {kms:.5f} ms x{n:g}  {kname[:90]}")
+    # The soft tree: the primary tree (SAH, leaf 4; the port's auto) against
+    # the JAX package's soft-tree auto (median, leaf 14), on the teacup's frame.
+    _, pos, valid, light, _ = frames["teacup"]
+    v8 = valid.to(torch.uint8).contiguous()
+    soft_trees = {}
+    for leaf, builder in ((4, "sah"), (14, "median")):
+        t0 = time.perf_counter()
+        tr = tree if (leaf, builder) == (4, "sah") else b4.build_bvh4(cup, max_leaf=leaf,
+                                                                     builder=builder)[1]
+        build_s = time.perf_counter() - t0
+        cnt = soft._tree_kernel(tr, pos, light, num, v8, key)
+        ms = median(time_frames(lambda: soft._tree_kernel(tr, pos, light, num, v8, key), iters=5))
+        soft_trees[f"{builder}{leaf}"] = {"ms": ms, "nodes": tr.num_nodes, "build_s": build_s,
+                                          "counts": cnt}
+        print(f"  cone sampler over the {builder} leaf-{leaf} tree ({tr.num_nodes} nodes, built "
+              f"in {build_s:.3f} s): {ms:.5f} ms (events)")
+    same = (soft_trees["sah4"]["counts"] == soft_trees["median14"]["counts"]).float().mean().item()
+    print(f"  the two trees' counts agree on {same:.5%} of points (the rest are ties)")
+    assert same >= 0.995
+    results["soft_tree_ab"] = {k: {kk: vv for kk, vv in v.items() if kk != "counts"}
+                               for k, v in soft_trees.items()}
+    return {w: counts[w] for w in SOFT_KERNELS}
 
 
 if __name__ == "__main__":

@@ -36,9 +36,13 @@ def test_list_scenes(capsys):
 def test_unported_flags_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="A9"):
         cli.main(["render", *SMALL, "--aa", "-o", str(tmp_path / "x.png")])
-    with pytest.raises(NotImplementedError, match="A8"):
-        cli.main(["render", *SMALL, "--add-spherical-light", "0", "1", "0", "0.1", "1", "1",
-                  "1", "-o", str(tmp_path / "y.png")])
+    # Spherical lights are ported (ROADMAP A8): --add-spherical-light renders
+    # with --spp samples and lights the scene.
+    plain, lit = tmp_path / "y0.png", tmp_path / "y.png"
+    assert cli.main(["render", *SMALL, "-o", str(plain)]) == 0
+    assert cli.main(["render", *SMALL, "--add-spherical-light", "0", "1", "0", "0.1", "1", "1",
+                     "1", "--spp", "8", "-o", str(lit)]) == 0
+    assert read_image(str(lit)).sum() > read_image(str(plain)).sum()
 
 
 def test_cuda_device_has_no_cpu_fallback(tmp_path):

@@ -1,6 +1,8 @@
 """PyTorch port on an NVIDIA GPU: each CUDA kernel against its plain PyTorch
 twin on the card, the 4-wide BVH kernels on the procedural teacup (48,000
-triangles).  Skipped where there is no CUDA device.
+triangles), the soft-shadow samplers and the spherical-light shade on the
+spherical stand-ins (``presets.load_standin``).  Skipped where there is no
+CUDA device.
 
 This file imports no JAX, so it runs on a machine without it:
 
@@ -11,7 +13,9 @@ t/u/v (and the records' next rays, where active) within atol 1e-5, rtol
 1e-5; colors on <= 0.5% of rays off by > 1e-4; shade outputs rtol 1e-5,
 atol 1e-6; shade gradients as ``utils.checks.shade_grads_close``.  The
 4-wide BVH kernels walk the same per-ray descent as their twins and are
-held to them exactly.
+held to them exactly, and so are the soft-shadow samplers' counts (their
+sample rays are the twins' op for op); the twin's Philox words equal
+curand's.
 """
 import pytest
 import torch
@@ -19,10 +23,10 @@ import torch
 from cg_raytracer_tpu_torch.models.whitted import build_accel
 from cg_raytracer_tpu_torch.ops import bvh4 as b4
 from cg_raytracer_tpu_torch.ops import cuda_kernels as ck
-from cg_raytracer_tpu_torch.ops import shade
+from cg_raytracer_tpu_torch.ops import shade, soft
 from cg_raytracer_tpu_torch.ops.camera import generate_rays
 from cg_raytracer_tpu_torch.scene import standins
-from cg_raytracer_tpu_torch.scene.presets import load_scene
+from cg_raytracer_tpu_torch.scene.presets import load_scene, load_standin
 from cg_raytracer_tpu_torch.scene.types import Camera, PointLights, Spheres, make_scene
 from cg_raytracer_tpu_torch.utils import checks
 from cg_raytracer_tpu_torch.utils.config import RenderConfig
@@ -225,3 +229,117 @@ def test_past_the_4_wide_cap_the_card_raises(teacup_on_card):
         tri_material=torch.zeros((200_001,), dtype=torch.int32, device=teacup.device))
     with pytest.raises(NotImplementedError, match="B8"):
         make_backend(big, RenderConfig())
+
+
+@pytest.fixture(scope="module")
+def spherical_on_card():
+    """The spherical stand-ins on the card, the teacup's tree, and the
+    level-0 hit points of a 128^2 frame of each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    device = torch.device("cuda")
+    box, cup = load_standin("spherical_box", device), load_standin("spherical_teacup", device)
+    tree = build_accel(cup, RenderConfig()).primary
+    o, d = generate_rays(Camera.default(device=device), 128, 128)
+    points = {}
+    for label, hit in (("box", ck.intersect_cuda(box, o, d)),
+                       ("cup", b4.intersect_bvh4_cuda(cup, tree, o, d))):
+        valid = hit.prim_id >= 0
+        t = torch.where(valid, hit.t, 0.0)
+        points[label] = (torch.where(valid[:, None], o + d * t[:, None], 0.0), valid)
+    return box, cup, tree, o, d, points
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["soft_table", "soft_prng", "soft4_table", "soft4_prng"])
+def test_soft_shadow_kernel_matches_plain_on_card(kernel, spherical_on_card):
+    box, cup, tree, _, _, points = spherical_on_card
+    scene, label = (cup, "cup") if kernel.startswith("soft4") else (box, "box")
+    pos, valid = points[label]
+    lpos, lrad = scene.spherical_lights.position[0], scene.spherical_lights.radius[0]
+    before = soft.launch_counts()
+    key = soft.SampleKey(11, 22, 33)
+    args = (scene, tree) if label == "cup" else (scene,)
+    if kernel.endswith("table"):
+        gauss = torch.randn((64, pos.shape[0], 3), device=pos.device,
+                            generator=torch.Generator(pos.device).manual_seed(1))
+        run = soft.soft4_table_cuda if label == "cup" else soft.soft_table_cuda
+        plain = soft.soft4_table_plain if label == "cup" else soft.soft_table_plain
+        got, want = (f(*args, pos, lpos, lrad, gauss, valid=valid) for f in (run, plain))
+    else:
+        run = soft.soft4_prng_cuda if label == "cup" else soft.soft_prng_cuda
+        plain = soft.soft4_prng_plain if label == "cup" else soft.soft_prng_plain
+        got, want = (f(*args, pos, lpos, lrad, key, 200, valid=valid) for f in (run, plain))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert not bool(got[~valid].any())
+    frac = got[valid] / (64 if kernel.endswith("table") else 200)
+    assert bool(((frac > 0) & (frac < 1)).any()) and bool((frac == 1).any())
+    name = {"soft_table": "soft_table_cuda", "soft_prng": "soft_prng_cuda",
+            "soft4_table": "soft4_table_cuda", "soft4_prng": "soft4_prng_cuda"}[kernel]
+    assert soft.launch_counts()[name] > before[name]
+
+
+@pytest.mark.cuda
+def test_philox_twin_matches_curand(cuda_device):
+    assert checks.philox_matches_curand(cuda_device, n=4096) == 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["shade_sph", "shade_pre_sph"])
+def test_spherical_shade_matches_plain_on_card(kernel, spherical_on_card):
+    box, cup, tree, o, d, _ = spherical_on_card
+    gen = torch.Generator(o.device).manual_seed(5)
+    scene = box if kernel == "shade_sph" else cup
+    hit = (ck.intersect_cuda(box, o, d) if kernel == "shade_sph"
+           else b4.intersect_bvh4_cuda(cup, tree, o, d))
+    prim, bits = hit.prim_id.contiguous(), torch.zeros_like(hit.prim_id)
+    sph = shade._sph_table(scene).detach()
+    fracs = torch.rand((1, o.shape[0]), device=o.device, generator=gen)
+    fracs[0, ::7] = 0.0
+    cts = [torch.randn(o.shape, device=o.device, generator=gen) for _ in range(4)]
+    if kernel == "shade_sph":
+        tri, aux, lights, spheres, num_tris = shade._shade_tables(scene)
+        tables = tuple(x.detach() for x in (tri, aux, lights, spheres))
+        got = shade.shade_fwd_cuda(*tables, o, d, prim, bits, num_tris, sph, fracs)
+        want = shade.shade_plain(*tables, o, d, prim, bits, num_tris=num_tris, sph=sph,
+                                 fracs=fracs)
+        grads = shade.shade_bwd_cuda(*tables, o, d, prim, bits, num_tris, cts, sph, fracs)
+        twin, exact = checks.twin_grads(tables, o, d, prim, bits, num_tris, cts, sph=sph,
+                                        fracs=fracs)
+        names = checks.GRAD_NAMES
+    else:
+        payload, mats, lights, spheres, num_tris = shade._pre_tables(scene)
+        tables = tuple(x.detach() for x in (payload, mats, lights, spheres))
+        got = shade.shade_pre_fwd_cuda(*tables, o, d, prim, bits, sph, fracs)
+        want = shade.shade_plain_pre(*tables, o, d, prim, bits, sph=sph, fracs=fracs)
+        grads = shade.shade_pre_bwd_cuda(*tables, o, d, prim, bits, cts, sph, fracs)
+        twin, exact = checks.twin_grads(tables, o, d, prim, bits, num_tris, cts,
+                                        plain=shade.shade_plain_pre, sph=sph, fracs=fracs)
+        names = checks.PRE_GRAD_NAMES
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    assert want[0].abs().sum().item() > 0
+    checks.shade_grads_close(grads, twin, exact, o.shape[0], names=names)
+    assert grads[-1].abs().sum().item() > 0  # d_sph
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["spherical_box", "spherical_teacup"])
+def test_spherical_standin_renders_through_the_kernels(name, spherical_on_card):
+    from cg_raytracer_tpu_torch.models.whitted import make_backend, render, render_image
+
+    box, cup, tree, *_ = spherical_on_card
+    scene = box if name == "spherical_box" else cup
+    cam = Camera.default(device=scene.device)
+    cfg = RenderConfig(width=64, height=64)
+    soft.reset_launch_counts()
+    img = render(scene, cam, cfg)
+    counts = soft.launch_counts()
+    assert counts["soft4_prng_cuda" if name == "spherical_teacup" else "soft_prng_cuda"] > 0
+    plain = render_image(scene, cam, cfg, backend=make_backend(scene, cfg, plain=True,
+                                                               accel=build_accel(scene, cfg)),
+                         generator=torch.Generator().manual_seed(0))
+    bad = ((img - plain).abs().amax(dim=-1) > 1e-4).float().mean().item()
+    assert bad <= 0.005 and bool(torch.isfinite(img).all())
+    assert (img.amax(dim=-1) > 0.02).float().mean().item() > 0.1

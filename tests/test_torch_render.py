@@ -139,11 +139,15 @@ def test_unported_features_raise():
     # The two-phase structure is ported (it renders the one-phase image).
     torch.testing.assert_close(trt.render(t, tc, trt.RenderConfig(**small, grad_two_phase="on")),
                                trt.render(t, tc, trt.RenderConfig(**small)))
+    # Spherical lights are ported (ROADMAP A8): one phase and two phase
+    # render the same image from the same samples.
     sph = dataclasses.replace(t, spherical_lights=trt.SphericalLights.of(((0, 0.4, 0), 0.1,
                                                                          (1, 1, 1))))
-    for two_phase in ("off", "on"):
-        with pytest.raises(NotImplementedError, match="A8"):
-            trt.render(sph, tc, trt.RenderConfig(**small, grad_two_phase=two_phase))
+    imgs = [trt.render(sph, tc, trt.RenderConfig(**small, grad_two_phase=two_phase,
+                                                 soft_shadow_samples=8))
+            for two_phase in ("off", "on")]
+    torch.testing.assert_close(imgs[0], imgs[1])
+    assert bool(torch.isfinite(imgs[0]).all()) and imgs[0].amax() > 0.02
     # Past the 4-wide BVH kernels' cap (the donut's 320K triangles) the
     # kernels are ROADMAP B8: the card raises before building a tree.
     big = dataclasses.replace(t, triangles=torch.zeros((200_001, 3), dtype=torch.int32),

@@ -219,11 +219,18 @@ def test_supports_shade_kernel_matches_jax_gate(kind, same):
     if not same:
         assert got and t.num_triangles <= 256
     if kind == "a spherical light":
+        # Spherical lights are ported (ROADMAP A8): the shade takes their
+        # recorded fractions, and without them raises, as the JAX wrapper does.
         o = torch.zeros((4, 3))
         d = torch.tensor([[0.0, -1.0, 0.0]] * 4)
         hit = tint.intersect_brute(t, o, d)
-        with pytest.raises(NotImplementedError, match="A8"):
-            tshade.shade_fused_cuda(t, o, d, hit, torch.zeros(4, dtype=torch.int32))
+        bits = torch.zeros(4, dtype=torch.int32)
+        with pytest.raises(ValueError, match="fractions"):
+            tshade.shade_fused_cuda(t, o, d, hit, bits)
+        lit = tshade.shade_fused_cuda(t, o, d, hit, bits, torch.ones((1, 4)))[0]
+        dark = tshade.shade_fused_cuda(t, o, d, hit, bits, torch.zeros((1, 4)))[0]
+        valid = hit.prim_id >= 0
+        assert bool(valid.any()) and bool((lit[valid] > dark[valid]).any())
 
 
 def test_shade_plain_miss_lanes_add_exactly_zero():
