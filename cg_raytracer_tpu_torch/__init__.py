@@ -1,12 +1,13 @@
 """cg_raytracer_tpu_torch: the PyTorch + CUDA port of ``cg_raytracer_tpu``.
 
-The forward render and the training step (render, loss, backward through
-the two-phase gradient structure) of small scenes (up to 256 triangles,
-point lights, up to 16 spheres) run end to end on an NVIDIA Hopper card
-through eight hand-written CUDA kernels (``ops/cuda_kernels.py``,
-``ops/shade.py``).  Public layouts follow the JAX package: rays are [N, 3]
-float32, a ``Hit`` is (t, prim_id, u, v), images are [H, W, 3] float32.  This
-package imports no JAX.
+The forward render, the training step (render, loss, backward through the
+two-phase gradient structure) and inverse rendering (``optim/inverse.py``)
+of scenes up to 2,752,512 triangles (a 4-wide BVH past 256, refit when
+vertices move), point and spherical lights and up to 16 spheres run end to
+end on an NVIDIA Hopper card through hand-written CUDA kernels (``csrc/``,
+wrapped in ``ops/``).  Public layouts follow the JAX package: rays are
+[N, 3] float32, a ``Hit`` is (t, prim_id, u, v), images are [H, W, 3]
+float32.  This package imports no JAX.
 """
 
 from .models.whitted import make_backend, render, render_image, trace_rays

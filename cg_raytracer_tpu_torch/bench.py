@@ -1,15 +1,18 @@
 """The port's training benchmark: prints ONE JSON line with the keys of the
 repository's ``bench.py``.
 
-    python -m cg_raytracer_tpu_torch.bench [--scene teacup | spherical_box | spherical_teacup]
+    python -m cg_raytracer_tpu_torch.bench [--scene teacup | dragon | donut | spherical_box
+                                            | spherical_teacup]
 
 Primary rays/s, forward + backward, at 1024x1024, under the full-gradient
 contract (materials + lights + vertices); the materials-only contract rides
 along as ``materials_only_*``.  The default scene is the stand-in mirror box
 (``scene/standins.py``: 32 triangles, one point light, depth 2; it stands in
 for ``cornell_box``, whose OBJ is not in the repository); ``--scene`` takes a
-preset (``teacup``: 48,000 triangles through the 4-wide BVH kernels) or a
-stand-in of ``scene/presets.py::STANDIN_NAMES`` instead: ``spherical_box``
+preset the port can load (``teacup``: 48,000 triangles, ``dragon``: 87,780,
+``donut``: 320,000, past the JAX package's on-chip tier; all through the
+4-wide BVH kernels) or a stand-in of ``scene/presets.py::STANDIN_NAMES``
+instead: ``spherical_box``
 (the box lit by ``cornell_box_spherical_light``'s spherical light, through
 the brute soft-shadow sampler) or ``spherical_teacup`` (the teacup lit by
 ``monkey_spherical_light``'s, through the cone sampler), both at the
@@ -25,7 +28,8 @@ import sys
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--scene", default="mirror_box",
-                        help="preset or stand-in name (default: the stand-in mirror box)")
+                        help="teacup, dragon, donut or a stand-in (default: the stand-in "
+                             "mirror box)")
     args = parser.parse_args(argv)
     from .utils.bench import run_bench
 

@@ -1,11 +1,19 @@
-"""Command-line interface of the PyTorch port (``cgrt-torch``): ``render`` and
-``list-scenes`` with the flags of ``cg_raytracer_tpu/cli.py``, plus ``--device``.
+"""Command-line interface of the PyTorch port (``cgrt-torch``): ``render``,
+``optimize``, ``bench`` and ``list-scenes`` with the flags of
+``cg_raytracer_tpu/cli.py``, plus ``--device``.
 
 ``render`` writes the image and prints the wall-clock time like the
 reference's "Time to render image: ... milliseconds" (main.cpp:796), after a
 warm-up render (kernel build and first launches excluded, like the
 reference's BVH build; a mesh scene's tree is built once, in the warm-up).
-``--device`` defaults to ``cuda``; there is no fallback to the CPU.
+``optimize`` fits the scene's materials and point lights to a target image
+(``optim/inverse.py::optimize``, npz checkpoint and resume with
+``--checkpoint``) and prints the final loss; ``--output`` renders the
+optimised scene.  ``bench`` prints ``run_bench``'s forward result as one
+JSON line (the card only).  ``--scene`` takes a preset (``list-scenes``) or
+a stand-in of ``scene/presets.py::STANDIN_NAMES`` (``mirror_box`` for the
+absent ``cornell_box`` OBJ).  ``--device`` defaults to ``cuda``; there is no
+fallback to the CPU.
 """
 from __future__ import annotations
 
@@ -16,7 +24,9 @@ import time
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--scene", default="cornell_box", help="preset name (see list-scenes)")
+    p.add_argument("--scene", default="cornell_box",
+                   help="preset (see list-scenes) or stand-in (mirror_box, spherical_box, "
+                        "spherical_teacup)")
     p.add_argument("--data-dir", default=None, help="OBJ/MTL directory")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on ('cuda', 'cuda:1', 'cpu')")
@@ -66,12 +76,13 @@ def _build(args):
     import torch
 
     from .scene.lights import apply_edits
-    from .scene.presets import load_scene
+    from .scene.presets import STANDIN_NAMES, load_scene, load_standin
     from .scene.types import Camera
     from .utils.config import RenderConfig
 
     device = _device(args.device)
-    scene = load_scene(args.scene, data_dir=args.data_dir, device=device)
+    scene = (load_standin(args.scene, device=device) if args.scene in STANDIN_NAMES
+             else load_scene(args.scene, data_dir=args.data_dir, device=device))
     scene = apply_edits(scene, removes=args.remove_light or (),
                         add_points=args.add_point_light or (),
                         add_sphericals=args.add_spherical_light or (),
@@ -115,6 +126,40 @@ def cmd_render(args) -> int:
     return 0
 
 
+def cmd_optimize(args) -> int:
+    from .models.whitted import render
+    from .optim.inverse import apply_material_params, optimize
+    from .utils.image import read_image, write_png
+
+    scene, camera, cfg, generator = _build(args)
+    target = read_image(args.target)
+    if target.shape[:2] != (cfg.height, cfg.width):
+        print(f"error: target is {target.shape[1]}x{target.shape[0]}, "
+              f"render is {cfg.width}x{cfg.height}", file=sys.stderr)
+        return 2
+    params, losses = optimize(scene, camera, target, cfg, steps=args.steps,
+                              learning_rate=args.lr, checkpoint_path=args.checkpoint,
+                              key=generator)
+    if losses:
+        print(f"final loss: {losses[-1]:.6e}")
+    if args.output:
+        img = render(apply_material_params(scene, params), camera, cfg, generator=generator)
+        write_png(args.output, img)
+        print(f"wrote {args.output}")
+    return 0
+
+
+def cmd_bench(args) -> int:
+    import json
+
+    from .utils.bench import run_bench
+
+    result = run_bench(scene=args.scene, width=args.width, height=args.height,
+                       backend=args.backend, data_dir=args.data_dir, device=args.device)
+    print(json.dumps(result))
+    return 0
+
+
 def main(argv=None) -> int:
     from .scene.presets import SCENE_NAMES
 
@@ -124,6 +169,17 @@ def main(argv=None) -> int:
     _add_common(p_render)
     p_render.add_argument("--output", "-o", default="render.png")
     p_render.set_defaults(fn=cmd_render)
+    p_opt = sub.add_parser("optimize", help="inverse rendering against a target image")
+    _add_common(p_opt)
+    p_opt.add_argument("--target", required=True, help="target image path")
+    p_opt.add_argument("--steps", type=int, default=100)
+    p_opt.add_argument("--lr", type=float, default=1e-2)
+    p_opt.add_argument("--checkpoint", default=None, help="npz checkpoint (resumed if present)")
+    p_opt.add_argument("--output", "-o", default=None, help="render the optimised scene here")
+    p_opt.set_defaults(fn=cmd_optimize)
+    p_bench = sub.add_parser("bench", help="forward throughput on the card (one JSON line)")
+    _add_common(p_bench)
+    p_bench.set_defaults(fn=cmd_bench)
     p_list = sub.add_parser("list-scenes", help="list preset scenes")
     p_list.set_defaults(fn=lambda a: (print("\n".join(SCENE_NAMES)), 0)[1])
     args = parser.parse_args(argv)

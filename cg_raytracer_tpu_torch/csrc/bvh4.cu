@@ -2,8 +2,21 @@
 //
 // Replaces the Pallas kernels of cg_raytracer_tpu/ops/pallas_bvh4.py:
 //   cgrt_bvh4_closest / cgrt_bvh4_anyhit <- _bvh4_kernel / _bvh4_kernel_xn (B5),
-//   cgrt_bvh4_bounce                     <- _bvh4_bounce_kernel / _xn      (B6).
+//                                           _bvh4_hbm_kernel_xn (B8),
+//   cgrt_bvh4_bounce                     <- _bvh4_bounce_kernel / _xn      (B6),
+//                                           _bvh4_hbm_bounce_kernel_xn (B8).
 // Wrappers and plain twins: ops/bvh4.py (which also documents the layout).
+//
+// One body for both of the JAX package's tiers: B5/B6 held the tree in VMEM
+// (to 200,000 triangles), B8 streamed each leaf's triangle rows from HBM (to
+// HBM_MAX_TRIS = 2,752,512).  Here every table is read from global memory
+// either way; a tree past the 50 MB L2 simply streams from HBM.  Checked at
+// that cap: the int32 index arithmetic (24 * ref and 8 * ref with ref < Nw
+// <= T, 9 * k and slot_to_prim[k] with k < T, ~(4 * ref + c)) stays below
+// 24 * T = 6.6e7, far from 2^31; and build_bvh's binary depth cap of 20
+// leaves internal nodes at depth <= 19, so a collapsed tree has at most 10
+// levels and a walk at most 3 * 10 + 1 = 31 live stack entries of kStack =
+// 64, whatever T (collapse_bvh4 checks the bound per tree).
 //
 // One thread per ray with a per-thread stack in local memory, where the Pallas
 // kernels walked a tile of 8192 rays through the tree in lockstep with one

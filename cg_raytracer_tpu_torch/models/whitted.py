@@ -94,14 +94,17 @@ def needs_bvh(cfg: RenderConfig, num_tris: int, device) -> bool:
 
 
 def _check_bvh4_cap(num_tris: int) -> None:
-    if num_tris > b4.VMEM_MAX_TRIS:
+    if num_tris > b4.HBM_MAX_TRIS:
         raise NotImplementedError(
-            f"{num_tris} triangles exceed the 4-wide BVH kernels' cap ({b4.VMEM_MAX_TRIS}); "
-            f"the kernels for larger scenes are not ported yet (ROADMAP B8)")
+            f"{num_tris} triangles exceed the 4-wide BVH kernels' cap (HBM_MAX_TRIS = "
+            f"{b4.HBM_MAX_TRIS}); the JAX package leaves its kernels there for its XLA "
+            f"traversal (backend='bvh'), which has no counterpart on the card (ROADMAP A13)")
 
 
 def _soft_cone(scene: Scene, cfg: RenderConfig) -> bool:
-    """Whether the cone sampler samples this scene's spherical lights."""
+    """Whether the cone sampler samples this scene's spherical lights (never
+    past ``VMEM_MAX_TRIS``: the JAX package's streaming tier has no sampler,
+    so its spherical lights take the scan over the any-hit kernel)."""
     return (cfg.resolve_soft_shadow_kernel(scene.device)
             and soft.supports_soft_shadow_kernel_bvh4(scene)
             and cfg.resolve_soft_shadow_tile() == "cone")
@@ -223,11 +226,12 @@ def make_backend(scene: Scene, cfg: RenderConfig, plain: bool = False, accel=Non
 
 def _bvh4_backend(scene: Scene, cfg: RenderConfig, plain: bool, accel, shade) -> Backend:
     """The 4-wide BVH kernels (the JAX package's ``bvh_wide`` auto = '4'
-    branch, whitted.py:243-316): closest hit and any hit, the fused bounce
-    where the scene has no sphere primitives, and the cone soft-shadow
-    sampler over ``AccelBundle.soft`` (whitted.py:276-306).  There is no
-    record or trace kernel over the tree: phase 1 runs level by level on the
-    bounce."""
+    branch, whitted.py:243-316, and past ``VMEM_MAX_TRIS`` its streaming
+    tier, ``_hbm4_backend`` :210-232): closest hit and any hit, the fused
+    bounce where the scene has no sphere primitives, and up to
+    ``VMEM_MAX_TRIS`` the cone soft-shadow sampler over ``AccelBundle.soft``
+    (whitted.py:276-306).  There is no record or trace kernel over the tree:
+    phase 1 runs level by level on the bounce."""
     _check_bvh4_cap(scene.num_triangles)
     tree = accel if accel is not None else build_accel(scene, cfg)
     soft_tree = None

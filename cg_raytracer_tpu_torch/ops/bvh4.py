@@ -1,17 +1,29 @@
-"""The 4-wide BVH on the card: its node layout, kernels B5 and B6 and their
-plain twins.  Counterpart of ``cg_raytracer_tpu/ops/pallas_bvh4.py``
-(``collapse_bvhw`` at width 4, ``build_packed_bvh4``, ``_bvh4_kernel`` and
-``_bvh4_bounce_kernel``) and of the layout parts of ``pallas_bvh.py``.
+"""The 4-wide BVH on the card: its node layout, kernels B5, B6 and B8 and
+their plain twins.  Counterpart of ``cg_raytracer_tpu/ops/pallas_bvh4.py``
+(``collapse_bvhw`` at width 4, ``build_packed_bvh4``, ``build_hbm_bvh4``,
+``_bvh4_kernel``, ``_bvh4_bounce_kernel`` and their streaming variants
+``_bvh4_hbm_kernel_xn`` and ``_bvh4_hbm_bounce_kernel_xn``) and of the
+layout parts of ``pallas_bvh.py``.
 
-=======================  ========================================  ========================
-wrapper                  Pallas kernel replaced                    plain twin
-=======================  ========================================  ========================
-``intersect_bvh4_cuda``  ``_bvh4_kernel`` / ``_xn``, closest hit   ``intersect_bvh4_plain``
-``occluded_bvh4_cuda``   ``_bvh4_kernel`` / ``_xn``, any hit       ``occluded_bvh4_plain``
-``bounce_bvh4_cuda``     ``_bvh4_bounce_kernel`` / ``_xn``         ``bounce_bvh4_plain``
-=======================  ========================================  ========================
+=======================  ==================================================  ========================
+wrapper                  Pallas kernel replaced                              plain twin
+=======================  ==================================================  ========================
+``intersect_bvh4_cuda``  ``_bvh4_kernel`` / ``_xn``, closest hit (B5)        ``intersect_bvh4_plain``
+``occluded_bvh4_cuda``   ``_bvh4_kernel`` / ``_xn``, any hit (B5)            ``occluded_bvh4_plain``
+``bounce_bvh4_cuda``     ``_bvh4_bounce_kernel`` / ``_xn`` (B6)              ``bounce_bvh4_plain``
+``intersect_bvh4_cuda``  ``_bvh4_hbm_kernel_xn``, closest hit (B8)           ``intersect_bvh4_plain``
+``occluded_bvh4_cuda``   ``_bvh4_hbm_kernel_xn``, any hit (B8)               ``occluded_bvh4_plain``
+``bounce_bvh4_cuda``     ``_bvh4_hbm_bounce_kernel_xn`` (B8)                 ``bounce_bvh4_plain``
+=======================  ==================================================  ========================
 
 The first two share one kernel (``csrc/bvh4.cu``, a template on any-hit).
+One kernel body serves both of the JAX package's tiers: its kernels kept
+the nodes and triangle rows in VMEM up to ``VMEM_MAX_TRIS`` triangles (B5,
+B6) and streamed each leaf's rows from HBM past it, up to ``HBM_MAX_TRIS``
+(B8).  On the card every table sits in global memory either way (cached in
+L2 where it fits), so the tiers differ only in the tree's size.  Past
+``HBM_MAX_TRIS`` the JAX package leaves its kernels for its XLA traversal;
+the card raises there (``models/whitted.py``).
 
 Layout (``BVH4``), built on the host by collapsing the binary tree of
 ``ops/bvh.py`` two levels per node, as ``collapse_bvhw`` does:
@@ -58,7 +70,15 @@ from .bvh import _SLAB_EPS, BVH, build_bvh
 from .intersect import (INF, MISS, Hit, merge_spheres_closest, moller_trumbore_edges,
                         spheres_occluded)
 
-VMEM_MAX_TRIS = 200_000  # the JAX package's cap of these kernels; past it ROADMAP B8
+# The JAX package's tiers (pallas_bvh.py:57-63): its on-chip kernels (B5,
+# B6) up to VMEM_MAX_TRIS triangles, its streaming kernels (B8) up to
+# HBM_MAX_TRIS.  The card runs the same kernels on both; VMEM_MAX_TRIS still
+# routes the builder's auto (utils/config.py) and the cone sampler's gate
+# (ops/soft.py), as in the JAX package.
+VMEM_MAX_TRIS = 200_000
+# A 6 MB VMEM node budget at 512 B per node, half of the nodes leaves, each
+# leaf at most 32 rows of 14 triangles: 2,752,512.
+HBM_MAX_TRIS = (6 * 1024 * 1024 // 512 // 2) * 32 * 14
 MAX_STACK = 64  # per-ray stack entries (csrc/bvh4.cu kStack)
 _BIG = 3.4e38  # entry t of a child that is not pushed
 _SORT4 = ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2))  # descending compare-exchange network
@@ -151,8 +171,9 @@ def build_bvh4(scene: Scene, max_leaf: int, builder: str = "median"):
 
 
 def supports_bvh4(scene: Scene) -> bool:
-    """``supports_pallas_bvh``: the kernels' triangle range."""
-    return 0 < scene.num_triangles <= VMEM_MAX_TRIS
+    """``supports_pallas_bvh`` or ``supports_pallas_bvh4_hbm``: the kernels'
+    triangle range over both tiers."""
+    return 0 < scene.num_triangles <= HBM_MAX_TRIS
 
 
 def supports_fused_bounce_bvh4(scene: Scene) -> bool:
@@ -169,10 +190,10 @@ def supports_fused_bounce_bvh4(scene: Scene) -> bool:
 # --------------------------------------------------------------------------
 
 def _tree_args(name, tree: BVH4, device):
-    if tree.num_tris > VMEM_MAX_TRIS:
+    if tree.num_tris > HBM_MAX_TRIS:
         raise NotImplementedError(
-            f"{tree.num_tris} triangles exceed the 4-wide kernels' cap of {VMEM_MAX_TRIS}; "
-            f"the kernels for larger scenes are not ported yet (ROADMAP B8)")
+            f"{tree.num_tris} triangles exceed the 4-wide kernels' cap of {HBM_MAX_TRIS} "
+            f"(HBM_MAX_TRIS; ROADMAP A13)")
     ck._check(name, tree.boxes, tree.tris, device=device)
     ck._check(name, tree.meta, tree.nchild, tree.slot_to_prim, device=device, dtype=torch.int32)
     return (ck._ptr(tree.boxes), ck._ptr(tree.meta), ck._ptr(tree.nchild), ck._ptr(tree.tris),
@@ -399,8 +420,8 @@ def occluded_bvh4_plain(scene: Scene, tree: BVH4, origins, dirs, t_max):
 @torch.no_grad()
 def _bounce(scene, tree, origins, dirs, live, on_card):
     if not supports_fused_bounce_bvh4(scene):
-        raise ValueError("4-wide bounce kernel: the scene needs 1..200000 triangles, no "
-                         "spheres and at most 30 point lights (supports_fused_bounce_bvh4)")
+        raise ValueError(f"4-wide bounce kernel: the scene needs 1..{HBM_MAX_TRIS} triangles, "
+                         f"no spheres and at most 30 point lights (supports_fused_bounce_bvh4)")
     o, d = ck._rays(origins, dirs)
     lights = scene.point_lights.position.detach().contiguous()
     run = _bounce_kernel if on_card else _bounce_plain

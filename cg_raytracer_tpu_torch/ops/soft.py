@@ -281,9 +281,10 @@ def supports_soft_shadow_kernel(scene: Scene, max_tris: int = ck.UNROLL_MAX_TRIS
 
 
 def supports_soft_shadow_kernel_bvh4(scene: Scene) -> bool:
-    """The cone sampler: any scene the 4-wide kernels take, all triangles,
-    with spherical lights (``pallas_bvh.py:1317-1324``)."""
-    return (b4.supports_bvh4(scene) and scene.spheres.radius.shape[0] == 0
+    """The cone sampler: all-triangle scenes of 1..``VMEM_MAX_TRIS``
+    triangles with spherical lights (``pallas_bvh.py:1317-1324``; the JAX
+    package's streaming tier past that cap has no sampler)."""
+    return (0 < scene.num_triangles <= b4.VMEM_MAX_TRIS and scene.spheres.radius.shape[0] == 0
             and scene.spherical_lights.position.shape[0] > 0)
 
 
@@ -319,8 +320,9 @@ def _brute(scene, positions, light_pos, light_radius, num_samples, valid, key, g
 def _tree(scene, tree, positions, light_pos, light_radius, num_samples, valid, key, gauss,
           on_card):
     if not supports_soft_shadow_kernel_bvh4(scene):
-        raise ValueError("cone soft-shadow kernel: the scene needs 1..200000 triangles, no "
-                         "spheres and a spherical light (supports_soft_shadow_kernel_bvh4)")
+        raise ValueError(f"cone soft-shadow kernel: the scene needs 1..{b4.VMEM_MAX_TRIS} "
+                         f"triangles, no spheres and a spherical light "
+                         f"(supports_soft_shadow_kernel_bvh4)")
     if not isinstance(tree, b4.BVH4) or tree.num_tris != scene.num_triangles:
         raise ValueError("the cone sampler walks the scene's BVH4 (ops/bvh4.py)")
     pos, light, v = _inputs(positions, light_pos, light_radius, valid)

@@ -1,17 +1,32 @@
-"""Scene parameter sets for inverse rendering, as in
-``cg_raytracer_tpu/optim/inverse.py``: which tensors a training step
-differentiates, and how a step puts them back into the scene.
+"""Inverse rendering, as in ``cg_raytracer_tpu/optim/inverse.py``: optimize
+scene parameters against a target image (differentiable render -> L2 loss
+-> Adam), with npz checkpoints that resume to the same losses.
 
 Parameter sets are dicts of tensors; ``apply_*`` rebuilds the scene with
-``dataclasses.replace`` and leaves the given scene unchanged.  The optimiser
-loop and its checkpoints are not ported yet (ROADMAP A10).
+``dataclasses.replace`` and leaves the given scene unchanged.
+
+``optimize`` builds the scene's tree once, on the host, over the initial
+geometry.  Materials and lights do not shape it; when ``"vertices"`` is among
+the parameters, every step refits its boxes and triangle table from the
+current vertices (``ops/refit.py``), so the kernels never walk a stale tree.
+Step i's spherical-light samples come from the key folded with i
+(``soft.SampleKey.fold_in``), as the JAX package folds its PRNG key with the
+global step: the losses depend neither on the checkpoint cadence nor on a
+resume.  The JAX package's ``steps_per_call`` (K steps per dispatch, to
+amortise a remote TPU's per-call cost) has no counterpart: a step here is
+one render, one backward and one optimizer update.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+import os
+import time
+from typing import Callable, Dict, Optional
 
-from ..scene.types import PointLights, Scene
+import numpy as np
+import torch
+
+from ..scene.types import Camera, PointLights, Scene
 
 
 def vertex_params(scene: Scene) -> Dict:
@@ -45,3 +60,178 @@ def apply_material_params(scene: Scene, params: Dict) -> Scene:
         lights = PointLights(position=params["light_position"], color=params["light_color"])
         scene = dataclasses.replace(scene, point_lights=lights)
     return scene
+
+
+def training_config(cfg, include_vertex_params: bool):
+    """The training routing (``optimize``'s two auto flips,
+    inverse.py:126-138 of the JAX package): the two-phase structure on, and
+    phase 2 on the recorded rays when no vertex is differentiated (the
+    reflected-origin vertex term is then zero)."""
+    if cfg.grad_two_phase == "auto":
+        cfg = dataclasses.replace(cfg, grad_two_phase="on")
+    if cfg.two_phase_rays == "auto" and not include_vertex_params:
+        cfg = dataclasses.replace(cfg, two_phase_rays="recorded")
+    return cfg
+
+
+def render_params(params: Dict, scene: Scene, camera: Camera, cfg,
+                  apply_params: Callable = apply_material_params, generator=None, accel=None,
+                  refit_plan=None, plain: bool = False):
+    """The image of ``apply_params(scene, params)``, differentiable in
+    ``params``.  ``accel``: the scene's tree (``build_accel``); with
+    ``refit_plan`` it is refit from the current vertices first.
+    ``plain=True`` routes the kernels through their plain twins."""
+    from ..models.whitted import make_backend, render_image
+    from ..ops.refit import refit_accel
+
+    scene_p = apply_params(scene, params)
+    if refit_plan is not None and accel is not None:
+        accel = refit_accel(accel, scene_p, refit_plan)
+    return render_image(scene_p, camera, cfg, generator=generator,
+                        backend=make_backend(scene_p, cfg, plain=plain, accel=accel))
+
+
+def render_loss(params: Dict, scene: Scene, camera: Camera, target, cfg, **render_kw):
+    """L2 image loss, mean((render(scene <- params) - target)^2)
+    (``parallel/sharding.py::render_loss`` on one device); ``render_kw`` as
+    ``render_params``."""
+    return torch.mean((render_params(params, scene, camera, cfg, **render_kw) - target) ** 2)
+
+
+def loss_and_grads(loss_fn: Callable, params: Dict):
+    """One step's forward and backward: ``loss_fn`` on fresh leaves of
+    ``params``, then backward.  Returns (loss, {name: gradient}); a
+    parameter the loss does not depend on has None.  The training step of
+    ``optimize`` and ``utils/bench.py::fwd_bwd_step``."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    loss = loss_fn(leaves)
+    loss.backward()
+    return loss.detach(), {k: v.grad for k, v in leaves.items()}
+
+
+def save_checkpoint(path: str, step: int, params: Dict, optimizer) -> None:
+    """(step, params, optimizer state) into one npz at ``path`` (the name as
+    given: no ``.npz`` is appended)."""
+    arrays = {"step": np.int64(step), "param_names": np.asarray(list(params))}
+    arrays.update({f"p_{k}": v.detach().cpu().numpy() for k, v in params.items()})
+    for i, state in optimizer.state_dict()["state"].items():
+        for name, value in state.items():
+            arrays[f"o{i}_{name}"] = torch.as_tensor(value).detach().cpu().numpy()
+    with open(path, "wb") as f:
+        np.savez(f, **arrays)
+
+
+def load_checkpoint(path: str, params: Dict, optimizer) -> int:
+    """Restore ``params`` (in place) and the optimizer's state from
+    ``save_checkpoint``'s file; returns the step it was saved at.  The
+    optimizer must be built as the saved one was (its parameter groups and
+    rates come from its constructor, its moments from the file)."""
+    with np.load(path) as data:
+        names = [str(n) for n in data["param_names"]]
+        if names != list(params):
+            raise ValueError(f"checkpoint {path} holds parameters {names}, not {list(params)}")
+        with torch.no_grad():
+            for k, v in params.items():
+                v.copy_(torch.from_numpy(data[f"p_{k}"]))
+        state: dict = {}
+        for key in data.files:
+            if key.startswith("o"):
+                index, name = key[1:].split("_", 1)
+                state.setdefault(int(index), {})[name] = torch.from_numpy(data[key])
+        saved = optimizer.state_dict()
+        saved["state"] = state
+        optimizer.load_state_dict(saved)
+        return int(data["step"])
+
+
+def _base_key(key):
+    from ..ops import soft
+
+    if key is None or isinstance(key, int):
+        return soft.draw_key(torch.Generator().manual_seed(key or 0))
+    return soft.as_key(key)
+
+
+def optimize(scene: Scene, camera: Camera, target, cfg, steps: int = 100,
+             learning_rate: float = 1e-2, params: Optional[Dict] = None,
+             apply_params: Callable = apply_material_params, mesh=None,
+             checkpoint_path: Optional[str] = None, checkpoint_every: int = 50,
+             resume: bool = True, log_every: int = 10, log_fn: Callable = print,
+             log_jsonl: Optional[str] = None, key=None, optimizer: Optional[Callable] = None,
+             plain: bool = False):
+    """Run the inverse-rendering loop on the scene's device; returns (params,
+    losses), the params detached, one loss per step run.
+
+    - ``params`` (default ``material_params(scene)``) are copied; the scene
+      is left as it is.  ``apply_params(scene, params) -> scene``.
+    - ``optimizer``: a function from the parameter dict to a torch optimizer
+      (default ``torch.optim.Adam`` at ``learning_rate``, optax.adam's
+      update); per-group learning rates are its parameter groups.
+    - ``checkpoint_path``: an npz of (step, params, optimizer state) written
+      every ``checkpoint_every`` steps and at the end; with ``resume`` an
+      existing one is loaded and the loop continues from its step.
+    - ``log_every``: a ``log_fn`` line every that many steps (0: none);
+      ``log_jsonl``: one JSON line per step (loss, parameter norm, step
+      seconds, rays/s).
+    - ``key``: the spherical lights' sample stream: a seed (default 0), a
+      ``torch.Generator`` or a ``soft.SampleKey``; step i samples under its
+      fold with i.
+    - ``plain=True`` routes the kernels through their plain twins (the
+      reference an on-card run is checked against).
+    - ``mesh`` (the JAX package's device mesh) raises: multi-device training
+      is ROADMAP A11.
+    """
+    from ..models.whitted import build_accel, needs_bvh
+    from ..ops.refit import make_refit_plan
+    from ..utils.profiling import JsonlLogger
+
+    if mesh is not None:
+        raise NotImplementedError("optimize(mesh=...): multi-device training is not ported "
+                                  "yet (ROADMAP A11)")
+    if params is None:
+        params = material_params(scene)
+    cfg = training_config(cfg, "vertices" in params)
+    device = scene.device
+    params = {k: v.detach().to(device).clone().requires_grad_(True) for k, v in params.items()}
+    target = torch.as_tensor(target).to(device=device, dtype=torch.float32)
+    if optimizer is None:
+        optimizer = lambda p: torch.optim.Adam(list(p.values()), lr=learning_rate)  # noqa: E731
+    opt = optimizer(params)
+    base = _base_key(key)
+    accel = build_accel(scene, cfg) if needs_bvh(cfg, scene.num_triangles, device) else None
+    refit_plan = (make_refit_plan(accel) if accel is not None and "vertices" in params
+                  else None)
+
+    start = 0
+    if checkpoint_path and resume and os.path.exists(checkpoint_path):
+        start = load_checkpoint(checkpoint_path, params, opt)
+        log_fn(f"resumed from {checkpoint_path} at step {start}")
+    logger = JsonlLogger(log_jsonl, echo=False) if log_jsonl else None
+    losses = []
+    for i in range(start, steps):
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(
+            lambda p: render_loss(p, scene, camera, target, cfg, apply_params=apply_params,
+                                  generator=base.fold_in(i), accel=accel,
+                                  refit_plan=refit_plan, plain=plain), params)
+        for k, p in params.items():
+            p.grad = grads[k]
+        opt.step()
+        loss_f = loss.item()
+        dt = time.perf_counter() - t0
+        losses.append(loss_f)
+        if logger:
+            with torch.no_grad():
+                norm = float(torch.sqrt(sum((p.double() ** 2).sum() for p in params.values())))
+            logger.log(step=i, loss=loss_f, param_norm=norm, step_seconds=dt,
+                       rays_per_s=cfg.width * cfg.height / max(dt, 1e-9))
+        if log_every and (i % log_every == 0 or i == steps - 1):
+            log_fn(f"step {i}: loss {loss_f:.6e}")
+        if checkpoint_path and checkpoint_every and (i + 1) % checkpoint_every == 0 \
+                and i + 1 < steps:
+            save_checkpoint(checkpoint_path, i + 1, params, opt)
+    if logger:
+        logger.close()
+    if checkpoint_path:
+        save_checkpoint(checkpoint_path, steps, params, opt)
+    return {k: v.detach() for k, v in params.items()}, losses

@@ -16,6 +16,8 @@ from typing import Optional, Union
 
 import torch
 
+from ..optim.inverse import training_config
+
 BASELINE_RAYS_PER_S = 3.8e6  # reference CPU, Cornell/point 800x800 (BASELINE.md)
 
 
@@ -40,17 +42,6 @@ def median(values):
     return values[len(values) // 2]
 
 
-def training_config(cfg, include_vertex_params: bool):
-    """The JAX package's training routing (utils/bench.py:81-97): the
-    two-phase structure on, and phase 2 on the recorded rays when no vertex
-    is differentiated (the reflected-origin vertex term is then zero)."""
-    if cfg.grad_two_phase == "auto":
-        cfg = dataclasses.replace(cfg, grad_two_phase="on")
-    if cfg.two_phase_rays == "auto" and not include_vertex_params:
-        cfg = dataclasses.replace(cfg, two_phase_rays="recorded")
-    return cfg
-
-
 def training_params(scene, include_vertex_params: bool) -> dict:
     """What a step differentiates: materials and point lights, plus the
     vertices under the full-gradient contract."""
@@ -68,28 +59,29 @@ def camera_jitter(generator: torch.Generator, device) -> torch.Tensor:
     return torch.rand((3,), generator=generator, device=device) * 2e-4 - 1e-4
 
 
-def fwd_bwd_step(scene, camera, cfg, params: dict, jitter, plain: bool = False, accel=None,
-                 generator=None):
-    """One training step: fresh leaves of ``params`` -> scene -> render with
-    the camera's look_at moved by ``jitter`` -> mean -> backward.  Returns
-    (loss, {name: gradient}).  ``plain=True`` routes the kernels through
-    their plain twins (the reference the kernel step is checked against).
-    ``accel``: the scene's tree, built once by the caller (the step's fresh
-    vertex leaves would defeat ``build_accel``'s memo and rebuild it every
-    step).  ``generator``: the step's ``torch.Generator`` for the spherical
-    lights' samples (None: seeded 0)."""
-    from ..models.whitted import make_backend, render_image
+def _training_apply(scene, params):
     from ..optim.inverse import apply_material_params, apply_vertex_params
 
-    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    scn = apply_material_params(scene, leaves)
-    if "vertices" in leaves:
-        scn = apply_vertex_params(scn, leaves)
+    scene = apply_material_params(scene, params)
+    return apply_vertex_params(scene, params) if "vertices" in params else scene
+
+
+def fwd_bwd_step(scene, camera, cfg, params: dict, jitter, plain: bool = False, accel=None,
+                 generator=None):
+    """One training step (``optim/inverse.py::loss_and_grads`` of
+    ``render_params``): fresh leaves of ``params`` -> scene -> render with
+    the camera's look_at moved by ``jitter`` -> mean -> backward.  Returns (loss, {name: gradient}).
+    ``plain=True`` routes the kernels through their plain twins (the
+    reference the kernel step is checked against).  ``accel``: the scene's
+    tree, built once by the caller (the step's fresh vertex leaves would
+    defeat ``build_accel``'s memo and rebuild it every step).
+    ``generator``: the step's ``torch.Generator`` for the spherical lights'
+    samples (None: seeded 0)."""
+    from ..optim.inverse import loss_and_grads, render_params
+
     cam = dataclasses.replace(camera, look_at=camera.look_at + jitter)
-    loss = render_image(scn, cam, cfg, backend=make_backend(scn, cfg, plain=plain, accel=accel),
-                        generator=generator).mean()
-    loss.backward()
-    return loss.detach(), {k: v.grad for k, v in leaves.items()}
+    return loss_and_grads(lambda p: render_params(p, scene, cam, cfg, _training_apply,
+                                                  generator, accel, plain=plain).mean(), params)
 
 
 def run_bench(scene: Union[str, "Scene"] = "cornell_box", width: int = 1024,

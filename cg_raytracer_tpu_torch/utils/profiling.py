@@ -1,8 +1,11 @@
 """Where the time of a call goes on the card: ``torch.profiler`` (CUPTI)
-kernel times against the host's wall clock."""
+kernel times against the host's wall clock; and per-step JSONL logging
+(``JsonlLogger``, as ``cg_raytracer_tpu/utils/profiling.py``)."""
 from __future__ import annotations
 
+import json
 import time
+from typing import Optional
 
 import torch
 
@@ -34,3 +37,27 @@ def device_breakdown(fn, iters: int = 5) -> dict:
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy": device_ms / wall_ms if device_ms is not None else None,
             "kernels": kernels}
+
+
+class JsonlLogger:
+    """Structured per-step records (``optimize``'s loss, parameter norm,
+    step seconds, rays/s): one JSON object per line, to stdout (``echo``)
+    and, with ``path``, appended to a file."""
+
+    def __init__(self, path: Optional[str] = None, echo: bool = True):
+        self.path = path
+        self.echo = echo
+        self._fh = open(path, "a") if path else None
+
+    def log(self, **fields):
+        rec = json.dumps(fields)
+        if self.echo:
+            print(rec)
+        if self._fh:
+            self._fh.write(rec + "\n")
+            self._fh.flush()
+
+    def close(self):
+        if self._fh:
+            self._fh.close()
+            self._fh = None

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch + CUDA port: the forward render path, the
-training path, the mesh slice (the 4-wide BVH and the pregathered shade) and
+training path, the mesh slice (the 4-wide BVH and the pregathered shade),
 the soft-shadow slice (spherical lights: the brute and cone samplers, and
-the shade kernels' spherical fractions).
+the shade kernels' spherical fractions) and the scale slice (the 4-wide
+kernels past 200,000 triangles, ``optimize()`` with the refit).
 
 Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
@@ -77,7 +78,33 @@ Phases, each printing its own lines:
     equal to their twins', the samplers' times against their twins,
     ms/frame, ms/step, rays/s and the device-busy share of both stand-ins,
     and the cone sampler over the port's tree (SAH, leaf 4) against a median
-    leaf-14 tree.
+    leaf-14 tree;
+19. the large tier's trees, built on the host: the donut (320,000
+    triangles; the auto past 200,000: median, leaf 4) and a torus of
+    1,280,000 triangles built here (not a preset) whose tree exceeds the
+    50 MB L2: nodes, levels, bytes, seconds;
+20. the 4-wide kernels on that tier (closest hit, any hit, the fused bounce;
+    the JAX package's streaming kernels B8) exactly equal to their twins on
+    the donut's 1024x1024 primary rays, shadow rays with a random t_max and
+    a live mask, and on every 16th ray of the torus's frame;
+21. the donut main path, every count set to 0 first: ``render`` at 800x800
+    and 1024x1024, default and forward-only, the donut with two sphere
+    primitives, ``run_bench(include_bwd=True)`` under both contracts,
+    ``cgrt-torch render --scene donut`` with its point light and with a
+    spherical light (the scan over the any-hit kernel: no sampler past
+    200,000 triangles); the 4-wide and pregathered-shade counts are > 0;
+    images agree with the plain path, one step per contract with the plain
+    step;
+22. ``optimize()`` on the card: vertex steps at 1024x1024 on the teacup
+    (depth 2) and the donut with the tree refit in every step, the
+    teacup's losses equal to the plain path's to rtol 1e-4 and its refit
+    tree's hits equal to a fresh build's on the moved vertices up to ties;
+    ``cgrt-torch optimize`` on the stand-in box writing and resuming a
+    checkpoint;
+23. the large tier's kernel times against their twins and bounds, ms per
+    million camera rays on the teacup, the donut and the torus, the donut's
+    ms/frame, ms/step and device-busy share, refit and optimize ms per step,
+    and the donut's tree: median against SAH, leaf 4 against leaf 28.
 
 Every kernel's entry has its bound: the larger of its operations over 67
 TFLOP/s (integer ones over 16.7 Tops/s) and its bytes over 3.35 TB/s
@@ -132,12 +159,21 @@ KERNELS = {  # wrapper -> (name, source, Pallas kernel replaced), forward path f
                         "cg_raytracer_tpu/ops/pallas_bvh4.py:732"),
     "soft4_table_cuda": ("soft4_table", "cg_raytracer_tpu_torch/csrc/soft.cu",
                          "cg_raytracer_tpu/ops/pallas_bvh4.py:778"),
+    # The scale slice: the same wrappers and kernel body past 200,000
+    # triangles, where the JAX package ran its streaming kernels (B8).
+    "intersect_bvh4_cuda:large": ("bvh4_large", "cg_raytracer_tpu_torch/csrc/bvh4.cu",
+                                  "cg_raytracer_tpu/ops/pallas_bvh4.py:1197"),
+    "bounce_bvh4_cuda:large": ("bvh4_bounce_large", "cg_raytracer_tpu_torch/csrc/bvh4.cu",
+                               "cg_raytracer_tpu/ops/pallas_bvh4.py:1222"),
 }
 FORWARD_KERNELS = ("intersect_cuda", "occluded_cuda", "bounce_cuda", "trace_cuda")
 TRAIN_KERNELS = ("record_trace_cuda", "bounce_refl_cuda", "shade_fwd_cuda", "shade_bwd_cuda")
 MESH_KERNELS = ("intersect_bvh4_cuda", "bounce_bvh4_cuda", "shade_pre_fwd_cuda",
                 "shade_pre_bwd_cuda")
 SOFT_KERNELS = ("soft_prng_cuda", "soft_table_cuda", "soft4_prng_cuda", "soft4_table_cuda")
+SCALE_KERNELS = ("intersect_bvh4_cuda:large", "bounce_bvh4_cuda:large")
+TORUS_GRID = 800  # the donut's surface on an 800 x 800 grid: 1,280,000 triangles
+L2_BYTES = 50 * 1024 * 1024  # the H100's L2
 SOFT_SUB = 4096  # hit points of the samplers' checks against their twins
 SOFT_KEY_OFFSET = 777_777  # global index of the checks' first point
 TOL = 1e-5  # t/u/v where prim ids match
@@ -589,6 +625,7 @@ def main(argv=None) -> int:
     mesh_counts = mesh_phases(out, device, check, note, kernels, e2e, results)
     counts.update(mesh_counts)
     counts.update(soft_phases(out, device, check, note, kernels, e2e, results))
+    counts.update(scale_phases(out, device, check, note, kernels, e2e, results))
 
     results.update(card=smi, counts=counts, kernels=kernels, end_to_end=e2e)
     with open(os.path.join(out, "results.json"), "w") as f:
@@ -599,6 +636,20 @@ def main(argv=None) -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def two_spheres(device):
+    """Two sphere primitives beside a mesh (the closest-hit and any-hit
+    kernels then run instead of the fused bounce)."""
+    import torch
+
+    from cg_raytracer_tpu_torch.scene.types import Spheres
+
+    return Spheres(center=torch.tensor([[0.55, -0.35, -0.45], [-0.6, 0.45, 0.3]]),
+                   radius=torch.tensor([0.2, 0.15]),
+                   kd=torch.tensor([[0.9, 0.2, 0.2], [0.2, 0.3, 0.9]]),
+                   ks=torch.tensor([[0.3, 0.3, 0.3], [0.0, 0.0, 0.0]]),
+                   shininess=torch.tensor([20.0, 1.0])).to(device)
 
 
 def mesh_phases(out, device, check, note, kernels, e2e, results) -> dict:
@@ -617,7 +668,7 @@ def mesh_phases(out, device, check, note, kernels, e2e, results) -> dict:
     from cg_raytracer_tpu_torch.ops.intersect import intersect_brute, reconstruct_hit
     from cg_raytracer_tpu_torch.ops.linalg import norm, reflect, safe_normalize
     from cg_raytracer_tpu_torch.scene.presets import load_scene
-    from cg_raytracer_tpu_torch.scene.types import Camera, Spheres
+    from cg_raytracer_tpu_torch.scene.types import Camera
     from cg_raytracer_tpu_torch.utils import bench, checks, roofline
     from cg_raytracer_tpu_torch.utils.bench import median, run_bench, time_frames
     from cg_raytracer_tpu_torch.utils.config import RenderConfig
@@ -629,12 +680,7 @@ def mesh_phases(out, device, check, note, kernels, e2e, results) -> dict:
 
     print("phase 11: host build of the 4-wide BVH (SAH, leaf 4: the card's autos)")
     teacup, dragon = load_scene("teacup", device=device), load_scene("dragon", device=device)
-    spheres = Spheres(center=torch.tensor([[0.55, -0.35, -0.45], [-0.6, 0.45, 0.3]]),
-                      radius=torch.tensor([0.2, 0.15]),
-                      kd=torch.tensor([[0.9, 0.2, 0.2], [0.2, 0.3, 0.9]]),
-                      ks=torch.tensor([[0.3, 0.3, 0.3], [0.0, 0.0, 0.0]]),
-                      shininess=torch.tensor([20.0, 1.0])).to(device)
-    cup_spheres = dataclasses.replace(teacup, spheres=spheres)
+    cup_spheres = dataclasses.replace(teacup, spheres=two_spheres(device))
     trees, builds = {}, {}
     for label, scene in (("teacup", teacup), ("dragon", dragon)):
         t0 = time.perf_counter()
@@ -1222,6 +1268,377 @@ def soft_phases(out, device, check, note, kernels, e2e, results) -> dict:
     results["soft_tree_ab"] = {k: {kk: vv for kk, vv in v.items() if kk != "counts"}
                                for k, v in soft_trees.items()}
     return {w: counts[w] for w in SOFT_KERNELS}
+
+
+def torus_scene(device, grid: int = TORUS_GRID):
+    """The donut's torus, material and light on a grid x grid surface grid
+    (2 grid^2 triangles): a tree past the card's L2.  Not a preset."""
+    import numpy as np
+
+    from cg_raytracer_tpu_torch.scene.loader import center_and_scale_to_unit
+    from cg_raytracer_tpu_torch.scene.presets import _grid_mesh
+    from cg_raytracer_tpu_torch.scene.types import PointLights, make_scene
+
+    def surface(uu, vv):
+        th, ph = 2 * np.pi * uu, 2 * np.pi * vv
+        return ((1.0 + 0.4 * np.cos(ph)) * np.cos(th), 0.4 * np.sin(ph),
+                (1.0 + 0.4 * np.cos(ph)) * np.sin(th))
+
+    mesh = _grid_mesh(surface, grid, grid, wrap_u=True, wrap_v=True,
+                      material={"kd": (0.9, 0.6, 0.3), "ks": (0.0, 0.0, 0.0), "shininess": 1.0,
+                                "transparency": 1.0})
+    center_and_scale_to_unit([mesh])
+    return make_scene([mesh], point_lights=PointLights.of(((-1, 1, -1), (1.0, 1.0, 1.0))),
+                      device=device)
+
+
+def scale_phases(out, device, check, note, kernels, e2e, results) -> dict:
+    """Phases 19-23: the scale slice (the donut, a torus past L2) and
+    ``optimize()`` with the refit.  Returns the large tier's launch counts
+    from the donut main path (phase 21)."""
+    import numpy as np
+    import torch
+
+    from cg_raytracer_tpu_torch import cli
+    from cg_raytracer_tpu_torch.models.whitted import (build_accel, effective_max_depth,
+                                                       make_backend, render, render_image,
+                                                       resolve_fwd_shade_kernel)
+    from cg_raytracer_tpu_torch.ops import bvh4 as b4
+    from cg_raytracer_tpu_torch.ops import cuda_kernels as ck
+    from cg_raytracer_tpu_torch.ops import refit, shade, soft
+    from cg_raytracer_tpu_torch.ops.camera import generate_rays
+    from cg_raytracer_tpu_torch.ops.intersect import reconstruct_hit
+    from cg_raytracer_tpu_torch.ops.linalg import norm, safe_normalize
+    from cg_raytracer_tpu_torch.optim import inverse
+    from cg_raytracer_tpu_torch.scene.presets import load_scene, load_standin
+    from cg_raytracer_tpu_torch.scene.types import Camera
+    from cg_raytracer_tpu_torch.utils import bench, checks, roofline
+    from cg_raytracer_tpu_torch.utils.bench import median, run_bench, time_frames
+    from cg_raytracer_tpu_torch.utils.config import RenderConfig
+    from cg_raytracer_tpu_torch.utils.image import read_image, write_png
+    from cg_raytracer_tpu_torch.utils.profiling import device_breakdown
+
+    cam = Camera.default(device=device)
+    gen = torch.Generator(device).manual_seed(19)
+    big = lambda t: torch.where(torch.isinf(t), 1e9, t)  # noqa: E731
+
+    print("phase 19: large-tier builds on the host (the auto past 200,000 triangles)")
+    donut = load_scene("donut", device=device)
+    cfg0 = RenderConfig()
+    builder = cfg0.resolve_bvh_builder(donut.num_triangles, device)
+    leaf = cfg0.resolve_bvh_max_leaf()
+    t0 = time.perf_counter()
+    tree = build_accel(donut, cfg0)
+    torch.cuda.synchronize()
+    donut_s = time.perf_counter() - t0
+    assert isinstance(tree, b4.BVH4) and builder == "median", (type(tree), builder)
+    t0 = time.perf_counter()
+    torus = torus_scene(device)
+    make_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ttree = b4.build_bvh4(torus, max_leaf=leaf, builder=builder)[1]
+    torch.cuda.synchronize()
+    torus_s = time.perf_counter() - t0
+    builds = {}
+    for label, scene, tr, secs in (("donut", donut, tree, donut_s), ("torus", torus, ttree, torus_s)):
+        nbytes = roofline.tree_bytes(tr)
+        builds[label] = {"triangles": scene.num_triangles, "builder": builder, "leaf": leaf,
+                         "nodes": tr.num_nodes, "depth": tr.depth, "bytes": nbytes,
+                         "build_s": secs, "stack_entries": 3 * tr.depth + 1}
+        print(f"  {label}: {scene.num_triangles} triangles, {builder} leaf {leaf}: {tr.num_nodes} "
+              f"4-wide nodes, {tr.depth} levels (a walk holds at most {3 * tr.depth + 1} of "
+              f"{b4.MAX_STACK} stack entries), {nbytes} bytes ({nbytes / L2_BYTES:.3f}x the L2), "
+              f"built in {secs:.3f} s")
+    print(f"  (the torus's mesh made in {make_s:.3f} s)")
+    assert torus.num_triangles >= 1_280_000 and builds["torus"]["bytes"] > L2_BYTES
+    results["scale_builds"] = builds
+
+    print("phase 20: the 4-wide kernels on the large tier against their twins, exactly")
+    o1, d1 = generate_rays(cam, 1024, 1024)
+
+    def against_twins(label, scene, tr, o, d):
+        exact = {}
+        got, want = b4._closest_kernel(tr, o, d, None), b4._closest_plain(tr, o, d, None)
+        exact["closest"] = all(torch.equal(a, b) for a, b in zip(got, want))
+        surf = reconstruct_hit(scene, o, d, got)
+        to_light = scene.point_lights.position[0] - surf.position
+        ldir = safe_normalize(to_light).contiguous()
+        so = (surf.position + 1e-3 * ldir).contiguous()
+        st = torch.where(surf.valid, norm(to_light) - 1e-3, -1.0)
+        st = (st * torch.rand(st.shape, device=device, generator=gen) * 1.5).contiguous()
+        got_a, want_a = b4._anyhit_kernel(tr, so, ldir, st), b4._anyhit_plain(tr, so, ldir, st)
+        exact["anyhit"] = torch.equal(got_a, want_a)
+        live = torch.arange(o.shape[0], device=device) % 5 != 0
+        tml = torch.where(live, float("inf"), -1.0).contiguous()
+        lp = scene.point_lights.position.contiguous()
+        (gh, gb), (wh, wb) = (b4._bounce_kernel(tr, lp, o, d, tml),
+                              b4._bounce_plain(tr, lp, o, d, tml))
+        exact["bounce"] = all(torch.equal(a, b) for a, b in zip(gh, wh)) and torch.equal(gb, wb)
+        print(f"  {label}: t, prim, u, v and bits equal to the twins' {exact} "
+              f"({(got.prim_id >= 0).float().mean().item():.2%} of {o.shape[0]} rays hit, "
+              f"{want_a.float().mean().item():.2%} of the shadow rays occluded, "
+              f"{(gb > 0).float().mean().item():.2%} of the bounce rays shadowed)")
+        assert all(exact.values()), (label, exact)
+        return so, ldir, st
+
+    shadow = against_twins("donut, 1024^2 primary rays", donut, tree, o1, d1)
+    sub = torch.arange(0, o1.shape[0], 16, device=device)
+    against_twins("torus, every 16th ray of the 1024^2 frame", torus, ttree,
+                  o1[sub].contiguous(), d1[sub].contiguous())
+    for wrapper in SCALE_KERNELS:
+        note(wrapper, 0.0, 0.0)
+    torch.cuda.synchronize()
+
+    print("phase 21: the donut main path (counts from 0)")
+    for module in (ck, shade, b4, soft):
+        module.reset_launch_counts()
+    renders = {}
+    for size in (800, 1024):
+        for fo in (False, True):
+            cfg = RenderConfig(width=size, height=size, forward_only=fo)
+            renders[("donut", size, fo)] = (donut, cfg, render(donut, cam, cfg))
+    donut_spheres = dataclasses.replace(donut, spheres=two_spheres(device))
+    cfg = RenderConfig(width=800, height=800)
+    renders[("donut+spheres", 800, False)] = (donut_spheres, cfg, render(donut_spheres, cam, cfg))
+    contracts = {"full": True, "materials": False}
+    train = {c: run_bench(donut, width=1024, height=1024, include_bwd=True, iters=3,
+                          include_vertex_params=v, scene_name="donut")
+             for c, v in contracts.items()}
+    cli_png = os.path.join(out, "cli_donut.png")
+    assert cli.main(["render", "--scene", "donut", "--device", "cuda", "-o", cli_png]) == 0
+    sph_png = os.path.join(out, "cli_spherical_donut.png")
+    assert cli.main(["render", "--scene", "donut", "--device", "cuda", "--remove-light", "0",
+                     "--add-spherical-light", "-1", "1", "-1", "0.1", "1", "1", "1",
+                     "-o", sph_png]) == 0
+    torch.cuda.synchronize()
+    counts = {**ck.launch_counts(), **shade.launch_counts(), **b4.launch_counts(),
+              **soft.launch_counts()}
+    print(f"  launch counts of the donut main path {counts}")
+    for wrapper in ("intersect_bvh4_cuda", "occluded_bvh4_cuda", "bounce_bvh4_cuda",
+                    "shade_pre_fwd_cuda", "shade_pre_bwd_cuda"):
+        assert counts[wrapper] > 0, f"{wrapper} never launched its kernel on the main path"
+    assert counts["soft4_prng_cuda"] == 0, "a sampler ran past 200,000 triangles"
+    scale_counts = {"intersect_bvh4_cuda:large": (counts["intersect_bvh4_cuda"]
+                                                  + counts["occluded_bvh4_cuda"]),
+                    "bounce_bvh4_cuda:large": counts["bounce_bvh4_cuda"]}
+    for (label, size, fo), (scene, cfg, img) in renders.items():
+        what = f"{label} {size}^2 forward_only={fo}"
+        assert img.shape == (size, size, 3) and bool(torch.isfinite(img).all()), what
+        cfg = resolve_fwd_shade_kernel(scene, dataclasses.replace(
+            cfg, max_depth=effective_max_depth(scene, cfg)))
+        plain = render_image(scene, cam, cfg, backend=make_backend(
+            scene, cfg, plain=True, accel=build_accel(scene, cfg)))
+        images_close(img, plain, f"{what} vs plain path (depth {cfg.max_depth})")
+        write_png(os.path.join(out, f"{label}_{size}_{'fwd_only' if fo else 'default'}.png"), img)
+        lit = (img.amax(dim=-1) > 0.02).float().mean().item()
+        print(f"  {what}: lit fraction {lit:.3f}, mean {img.mean().item():.4f}")
+        assert lit > 0.1, what
+    for png in (cli_png, sph_png):
+        img = read_image(png)
+        assert img.shape == (800, 800, 3) and (img.max(axis=-1) > 0.02).mean() > 0.1, png
+    jitter = bench.camera_jitter(torch.Generator(device).manual_seed(9), device)
+    steps = {}
+    for c, v in contracts.items():
+        cfg = RenderConfig(width=1024, height=1024)
+        cfg = bench.training_config(dataclasses.replace(  # depth 1, as run_bench resolves it
+            cfg, max_depth=effective_max_depth(donut, cfg)), v)
+        params = bench.training_params(donut, v)
+        (lk, gk), (lp, gp) = (bench.fwd_bwd_step(donut, cam, cfg, params, jitter, plain=plain,
+                                                 accel=tree) for plain in (False, True))
+        steps[c] = (cfg, params)
+        print(f"  {c} contract, one donut step: loss {lk.item():.8g} (plain path {lp.item():.8g})")
+        torch.testing.assert_close(lk, lp, rtol=1e-5, atol=1e-7)
+        for name in gk:
+            assert bool(torch.isfinite(gk[name]).all()), name
+            tol = dict(checks.TABLE_GRAD, atol=2e-5) if name == "vertices" else checks.TABLE_GRAD
+            torch.testing.assert_close(gk[name], gp[name], **tol, msg=f"{c} d/d{name}")
+            print(f"    d/d{name}: max |kernel - plain| "
+                  f"{(gk[name] - gp[name]).abs().max().item():.3g}, max |grad| "
+                  f"{gp[name].abs().max().item():.3g}")
+        for name in ("kd", "light_color", "light_position") + (("vertices",) if v else ()):
+            assert gk[name].abs().sum().item() > 0, f"{c}: d/d{name} is zero"
+
+    print("phase 22: optimize() on the card: vertex steps, the tree refit in every step")
+    teacup = load_scene("teacup", device=device)
+    refits = []
+    real_refit = refit.refit_accel
+    refit.refit_accel = lambda *a, **k: refits.append(1) or real_refit(*a, **k)
+    opt = {}
+    try:
+        for label, scene in (("teacup", teacup), ("donut", donut)):
+            cfg = RenderConfig(width=1024, height=1024)
+            target = render(scene, cam, cfg)
+            moved = dataclasses.replace(
+                scene, vertices=scene.vertices + torch.tensor([0.0, 0.0, 0.02], device=device))
+            log = os.path.join(out, f"optimize_{label}.jsonl")
+            if os.path.exists(log):
+                os.remove(log)
+            run = dict(steps=4, learning_rate=1e-3, params=inverse.vertex_params(moved),
+                       apply_params=inverse.apply_vertex_params, log_every=1)
+            del refits[:]
+            params, losses = inverse.optimize(moved, cam, target, cfg, log_jsonl=log, **run)
+            assert len(refits) == run["steps"], f"{label}: {len(refits)} refits"
+            step_s = [json.loads(line)["step_seconds"] for line in open(log)]
+            opt[label] = {"losses": losses, "step_ms": median(step_s[1:]) * 1e3}
+            print(f"  {label} 1024^2 (depth {effective_max_depth(scene, cfg)}), "
+                  f"{moved.num_triangles} triangles: losses {losses}, "
+                  f"{opt[label]['step_ms']:.4f} ms/step after the first (host clock)")
+            assert all(np.isfinite(losses)) and losses[-1] < losses[0], (label, losses)
+            tcfg = inverse.training_config(cfg, True)
+            accel0 = build_accel(moved, tcfg)  # memoized: the tree optimize built
+            plan = refit.make_refit_plan(accel0)
+            final = inverse.apply_vertex_params(moved, params)
+            refit_ms = median(time_frames(lambda: real_refit(accel0, final, plan), iters=10))
+            opt[label]["refit_ms"] = refit_ms
+            print(f"  {label}: refit {refit_ms:.5f} ms per step (CUDA events, "
+                  f"{accel0.num_nodes} nodes, {len(plan.levels)} levels)")
+            if label != "teacup":
+                continue
+            _, plain_losses = inverse.optimize(moved, cam, target, cfg, plain=True, **run)
+            print(f"  teacup, the same steps through the plain path: losses {plain_losses}")
+            np.testing.assert_allclose(losses, plain_losses, rtol=1e-4)
+            refit_tree = real_refit(accel0, final, plan)
+            fresh = b4.build_bvh4(final, max_leaf=tcfg.resolve_bvh_max_leaf(),
+                                  builder=tcfg.resolve_bvh_builder(final.num_triangles, device))[1]
+            a = b4.intersect_bvh4_cuda(final, refit_tree, o1, d1)
+            b = b4.intersect_bvh4_cuda(final, fresh, o1, d1)
+            t_ok = torch.isclose(big(a.t), big(b.t), atol=1e-4, rtol=1e-5).float().mean().item()
+            p_ok = (a.prim_id == b.prim_id).float().mean().item()
+            print(f"  teacup after the last step: the refit tree's hits against a fresh build "
+                  f"on the moved vertices: t agrees on {t_ok:.5%}, prim ids on {p_ok:.5%}")
+            assert t_ok >= 0.998 and p_ok >= 0.998
+    finally:
+        refit.refit_accel = real_refit
+    box = load_standin("mirror_box", device=device)
+    target_png = os.path.join(out, "optimize_target.png")
+    write_png(target_png, render(box, cam, RenderConfig(width=64, height=64)) * 0.8)
+    ckpt = os.path.join(out, "optimize_box.npz")
+    if os.path.exists(ckpt):
+        os.remove(ckpt)
+    fit_png = os.path.join(out, "optimize_box.png")
+    base = ["optimize", "--scene", "mirror_box", "--device", "cuda", "--width", "64",
+            "--height", "64", "--target", target_png, "--checkpoint", ckpt]
+    assert cli.main([*base, "--steps", "2"]) == 0
+    with np.load(ckpt) as data:
+        assert int(data["step"]) == 2
+    assert cli.main([*base, "--steps", "4", "-o", fit_png]) == 0  # resumes at step 2
+    with np.load(ckpt) as data:
+        assert int(data["step"]) == 4
+    assert read_image(fit_png).shape == (64, 64, 3)
+    print("  cgrt-torch optimize on the stand-in box: checkpoint written at step 2, resumed to 4")
+    results["optimize"] = opt
+
+    print("phase 23: times (rows 21-22 on the donut's 1024^2 primary rays, frames, steps, trees)")
+    so, sd, st = shadow
+    lpos = donut.point_lights.position.contiguous()
+    tb, n1, tbytes = roofline.table_bytes, o1.shape[0], roofline.tree_bytes(tree)
+    calls = {  # (the bare kernel launch, its plain twin, (operations, bytes))
+        "intersect_bvh4_cuda:large": (
+            lambda: b4._closest_kernel(tree, o1, d1, None),
+            lambda: b4._closest_plain(tree, o1, d1, None),
+            (roofline.tree_bounce_flops(tree, lpos[:0], o1, d1)[0], n1 * (24 + 16) + tbytes)),
+        "anyhit": (lambda: b4._anyhit_kernel(tree, so, sd, st),
+                   lambda: b4._anyhit_plain(tree, so, sd, st),
+                   (roofline.tree_anyhit_flops(tree, so, sd, st), n1 * (28 + 1) + tbytes)),
+        "bounce_bvh4_cuda:large": (
+            lambda: b4._bounce_kernel(tree, lpos, o1, d1, None),
+            lambda: b4._bounce_plain(tree, lpos, o1, d1, None),
+            (roofline.tree_bounce_flops(tree, lpos, o1, d1)[0], n1 * (24 + 20) + tbytes + tb(lpos))),
+    }
+    # One bare launch between CUDA events: the profiler records no event of
+    # some bare launches, and once caught only the any-hit wrapper's .bool().
+    print("  ms = one bare launch between CUDA events (median of 20; each runs ~0.3-0.6 ms); "
+          "plain_ms = the twin (events)")
+    timed = {}
+    for key, (kernel_fn, plain_fn, work) in calls.items():
+        ms = median(time_frames(kernel_fn, iters=20))
+        plain_ms = median(time_frames(plain_fn, iters=2, warmup=1))
+        b_ms, b_by = roofline.bound_ms(*work)
+        timed[key] = (ms, plain_ms, b_ms, b_by)
+        print(f"  {key}: ms {ms:.5f}, plain_ms {plain_ms:.4f} (x{plain_ms / ms:.1f}), bound_ms "
+              f"{b_ms:.5f} by {b_by} ({b_ms / ms:.1%} of it)")
+    for wrapper in SCALE_KERNELS:
+        name, source, replaces = KERNELS[wrapper]
+        ms, plain_ms, b_ms, b_by = timed[wrapper]
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": scale_counts[wrapper], "max_abs_err": check[wrapper]["err"],
+                 "mismatch_frac": check[wrapper]["mismatch"], "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        if wrapper == "intersect_bvh4_cuda:large":
+            entry.update(anyhit_ms=timed["anyhit"][0], anyhit_plain_ms=timed["anyhit"][1],
+                         anyhit_bound_ms=timed["anyhit"][2])
+        kernels.append(entry)
+    # The closest-hit kernel per million camera rays across tree sizes.
+    per_mray = {}
+    for label, scene, tr in (("teacup", teacup, build_accel(teacup, cfg0)),
+                             ("donut", donut, tree), ("torus", torus, ttree)):
+        ms = median(time_frames(lambda: b4._closest_kernel(tr, o1, d1, None), iters=10))
+        hit = (b4._closest_kernel(tr, o1, d1, None).prim_id >= 0).float().mean().item()
+        per_mray[label] = {"ms_per_mray": ms / (n1 / 1e6), "hit": hit,
+                           "tree_bytes": roofline.tree_bytes(tr), "nodes": tr.num_nodes}
+        print(f"  closest hit, {label} ({scene.num_triangles} triangles, tree "
+              f"{roofline.tree_bytes(tr) / 1e6:.1f} MB): {ms / (n1 / 1e6):.5f} ms per million "
+              f"camera rays, {hit:.2%} hit")
+    results["closest_ms_per_mray"] = per_mray
+    for size, fo in ((800, False), (1024, False), (1024, True)):
+        route = "fwd_only" if fo else "default"
+        r = run_bench(donut, width=size, height=size, cfg_overrides={"forward_only": fo})
+        cfg = RenderConfig(width=size, height=size, forward_only=fo)
+        prof = device_breakdown(lambda: render(donut, cam, cfg, accel=tree), iters=3)
+        busy = f"{prof['busy']:.3f}" if prof["busy"] is not None else "not measured"
+        e2e[f"donut_{size}_{route}"] = {"ms": r["seconds_per_frame"] * 1e3,
+                                        "rays_per_s": r["value"], "profile": prof}
+        print(f"  render donut {size}^2 {route}: {r['seconds_per_frame'] * 1e3:.5f} ms/frame "
+              f"(CUDA events), {r['value']:.6g} primary rays/s; profiled wall "
+              f"{prof['wall_ms']:.4f} ms, device busy {busy}")
+        for kname, kms, n in prof["kernels"][:5]:
+            print(f"    {kms:.5f} ms x{n:g}  {kname[:90]}")
+    for c, (cfg, params) in steps.items():
+        prof = device_breakdown(lambda: bench.fwd_bwd_step(donut, cam, cfg, params, jitter,
+                                                           accel=tree), iters=3)
+        r = train[c]
+        busy = f"{prof['busy']:.3f}" if prof["busy"] is not None else "not measured"
+        e2e[f"donut_1024_train_{c}"] = {"ms": r["seconds_per_frame"] * 1e3,
+                                        "rays_per_s": r["value"], "profile": prof}
+        print(f"  train donut {c} contract 1024^2: {r['seconds_per_frame'] * 1e3:.5f} ms/step "
+              f"(CUDA events), {r['value']:.6g} primary rays/s fwd+bwd; profiled wall "
+              f"{prof['wall_ms']:.4f} ms, busy {busy}")
+        for kname, kms, n in prof["kernels"][:6]:
+            print(f"    {kms:.5f} ms x{n:g}  {kname[:90]}")
+    # The donut's tree: the auto (median, leaf 4) against SAH, and against
+    # leaf 28 (the JAX package's streaming build on the donut: 2 rows of 14).
+    # Frames are host-clocked, so the trees take turns over three rounds.
+    variants = {}
+    base_hit = b4._closest_kernel(tree, o1, d1, None)
+    for bld, lf in (("median", 4), ("sah", 4), ("median", 28)):
+        t0 = time.perf_counter()
+        tr = tree if (bld, lf) == ("median", 4) else b4.build_bvh4(donut, max_leaf=lf,
+                                                                   builder=bld)[1]
+        torch.cuda.synchronize()
+        build_s = donut_s if (bld, lf) == ("median", 4) else time.perf_counter() - t0
+        same = (b4._closest_kernel(tr, o1, d1, None).prim_id == base_hit.prim_id)
+        assert same.float().mean().item() >= MIN_MATCH
+        variants[f"{bld}{lf}"] = (tr, RenderConfig(width=1024, height=1024, bvh_builder=bld,
+                                                   bvh_max_leaf=lf),
+                                  {"build_s": build_s, "nodes": tr.num_nodes, "depth": tr.depth,
+                                   "same_prim": same.float().mean().item(), "bounce_ms": [],
+                                   "frame_ms": []})
+    for _ in range(3):
+        for key, (tr, cfg, row) in variants.items():
+            row["bounce_ms"].append(median(time_frames(
+                lambda: b4._bounce_kernel(tr, lpos, o1, d1, None), iters=10)))
+            row["frame_ms"].append(median(time_frames(lambda: render(donut, cam, cfg, accel=tr),
+                                                      iters=10)))
+    trees = {}
+    for key, (tr, cfg, row) in variants.items():
+        trees[key] = row
+        print(f"  donut tree {key}: built in {row['build_s']:.3f} s, {row['nodes']} nodes, "
+              f"{row['depth']} levels, prim ids equal to the auto tree's on "
+              f"{row['same_prim']:.5%}; bounce kernel ms (events, three rounds) "
+              f"{[round(x, 5) for x in row['bounce_ms']]}, default-route frame ms (build "
+              f"excluded) {[round(x, 4) for x in row['frame_ms']]}")
+    results["donut_tree_ab"] = trees
+    return scale_counts
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """PyTorch port on an NVIDIA GPU: each CUDA kernel against its plain PyTorch
 twin on the card, the 4-wide BVH kernels on the procedural teacup (48,000
-triangles), the soft-shadow samplers and the spherical-light shade on the
-spherical stand-ins (``presets.load_standin``).  Skipped where there is no
-CUDA device.
+triangles) and on the donut (320,000, past the JAX package's on-chip tier),
+the soft-shadow samplers and the spherical-light shade on the spherical
+stand-ins (``presets.load_standin``), the donut's render and training step
+and ``optimize()`` with the refit.  Skipped where there is no CUDA device.
 
 This file imports no JAX, so it runs on a machine without it:
 
@@ -17,6 +18,8 @@ held to them exactly, and so are the soft-shadow samplers' counts (their
 sample rays are the twins' op for op); the twin's Philox words equal
 curand's.
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -25,10 +28,11 @@ from cg_raytracer_tpu_torch.ops import bvh4 as b4
 from cg_raytracer_tpu_torch.ops import cuda_kernels as ck
 from cg_raytracer_tpu_torch.ops import shade, soft
 from cg_raytracer_tpu_torch.ops.camera import generate_rays
+from cg_raytracer_tpu_torch.ops.refit import make_refit_plan, refit_accel
 from cg_raytracer_tpu_torch.scene import standins
 from cg_raytracer_tpu_torch.scene.presets import load_scene, load_standin
 from cg_raytracer_tpu_torch.scene.types import Camera, PointLights, Spheres, make_scene
-from cg_raytracer_tpu_torch.utils import checks
+from cg_raytracer_tpu_torch.utils import bench, checks
 from cg_raytracer_tpu_torch.utils.config import RenderConfig
 
 
@@ -224,10 +228,11 @@ def test_past_the_4_wide_cap_the_card_raises(teacup_on_card):
     from cg_raytracer_tpu_torch.models.whitted import make_backend
 
     teacup, *_ = teacup_on_card
+    n = b4.HBM_MAX_TRIS + 1  # past both of the JAX package's kernel tiers
     big = dataclasses.replace(
-        teacup, triangles=torch.zeros((200_001, 3), dtype=torch.int32, device=teacup.device),
-        tri_material=torch.zeros((200_001,), dtype=torch.int32, device=teacup.device))
-    with pytest.raises(NotImplementedError, match="B8"):
+        teacup, triangles=torch.zeros((n, 3), dtype=torch.int32, device=teacup.device),
+        tri_material=torch.zeros((n,), dtype=torch.int32, device=teacup.device))
+    with pytest.raises(NotImplementedError, match="HBM_MAX_TRIS"):
         make_backend(big, RenderConfig())
 
 
@@ -343,3 +348,105 @@ def test_spherical_standin_renders_through_the_kernels(name, spherical_on_card):
     bad = ((img - plain).abs().amax(dim=-1) > 1e-4).float().mean().item()
     assert bad <= 0.005 and bool(torch.isfinite(img).all())
     assert (img.amax(dim=-1) > 0.02).float().mean().item() > 0.1
+
+
+@pytest.fixture(scope="module")
+def donut_on_card():
+    """The donut on the card, its tree (the auto: median, leaf 4), and a
+    256^2 frame of camera rays plus 64K random rays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    device = torch.device("cuda")
+    donut = load_scene("donut", device=device)
+    tree = build_accel(donut, RenderConfig())
+    gen = torch.Generator(device).manual_seed(5)
+    o_cam, d_cam = generate_rays(Camera.default(device=device), 256, 256)
+    o_rand = torch.rand((1 << 16, 3), device=device, generator=gen) * 2.4 - 1.2
+    d_rand = torch.randn((1 << 16, 3), device=device, generator=gen)
+    d_rand = d_rand / d_rand.norm(dim=1, keepdim=True)
+    return donut, tree, torch.cat([o_cam, o_rand]), torch.cat([d_cam, d_rand]), gen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["closest", "anyhit", "bounce"])
+def test_large_tier_kernel_matches_plain_on_card(kernel, donut_on_card):
+    donut, tree, o, d, gen = donut_on_card
+    assert isinstance(tree, b4.BVH4) and tree.num_tris > b4.VMEM_MAX_TRIS
+    before = b4.launch_counts()
+    if kernel == "closest":
+        got = b4.intersect_bvh4_cuda(donut, tree, o, d)
+        assert all(torch.equal(a, b) for a, b in zip(got, b4.intersect_bvh4_plain(donut, tree,
+                                                                                   o, d)))
+        assert 0.05 < (got.prim_id >= 0).float().mean().item() < 0.9
+    elif kernel == "anyhit":
+        tm = torch.rand(o.shape[0], device=o.device, generator=gen) * 3.0 - 0.5
+        got = b4.occluded_bvh4_cuda(donut, tree, o, d, tm)
+        assert torch.equal(got, b4.occluded_bvh4_plain(donut, tree, o, d, tm))
+        assert bool(got.any()) and not bool(got[tm < 0].any())
+    else:
+        live = torch.arange(o.shape[0], device=o.device) % 5 != 0
+        (gh, gb), (wh, wb) = (b4.bounce_bvh4_cuda(donut, tree, o, d, live),
+                              b4.bounce_bvh4_plain(donut, tree, o, d, live))
+        assert all(torch.equal(a, b) for a, b in zip(gh, wh)) and torch.equal(gb, wb)
+        assert bool(gb.any())
+    torch.cuda.synchronize()
+    name = {"closest": "intersect_bvh4_cuda", "anyhit": "occluded_bvh4_cuda",
+            "bounce": "bounce_bvh4_cuda"}[kernel]
+    assert b4.launch_counts()[name] > before[name]
+
+
+@pytest.mark.cuda
+def test_donut_renders_and_trains_on_card(donut_on_card):
+    from cg_raytracer_tpu_torch.models.whitted import make_backend, render, render_image
+
+    donut, tree, *_ = donut_on_card
+    cam = Camera.default(device=donut.device)
+    cfg = RenderConfig(width=64, height=64)
+    b4.reset_launch_counts()
+    shade.reset_launch_counts()
+    img = render(donut, cam, cfg, accel=tree)
+    assert b4.launch_counts()["bounce_bvh4_cuda"] > 0
+    depth1 = dataclasses.replace(cfg, max_depth=1)  # ks 0: render() traces one level
+    plain = render_image(donut, cam, depth1,
+                         backend=make_backend(donut, depth1, plain=True, accel=tree))
+    colors_close(img, plain)
+    assert (img.amax(dim=-1) > 0.02).float().mean().item() > 0.1
+    tcfg = bench.training_config(cfg, True)
+    params = bench.training_params(donut, True)
+    jitter = torch.zeros(3, device=donut.device)
+    (lk, gk), (lp, gp) = (bench.fwd_bwd_step(donut, cam, tcfg, params, jitter, plain=plain,
+                                             accel=tree) for plain in (False, True))
+    assert shade.launch_counts()["shade_pre_bwd_cuda"] > 0
+    torch.testing.assert_close(lk, lp, rtol=1e-5, atol=1e-7)
+    for name in gk:
+        tol = dict(checks.TABLE_GRAD, atol=2e-5) if name == "vertices" else checks.TABLE_GRAD
+        torch.testing.assert_close(gk[name], gp[name], **tol, msg=name)
+    assert gk["vertices"].abs().sum().item() > 0
+
+
+@pytest.mark.cuda
+def test_optimize_refits_the_tree_on_card(teacup_on_card):
+    from cg_raytracer_tpu_torch.models.whitted import render
+    from cg_raytracer_tpu_torch.optim import inverse
+
+    teacup, _, o, d, _ = teacup_on_card
+    cam = Camera.default(device=teacup.device)
+    cfg = RenderConfig(width=64, height=64)
+    target = render(teacup, cam, cfg)
+    moved = dataclasses.replace(
+        teacup, vertices=teacup.vertices + torch.tensor([0.0, 0.0, 0.02], device=teacup.device))
+    run = dict(steps=3, learning_rate=1e-3, params=inverse.vertex_params(moved),
+               apply_params=inverse.apply_vertex_params, log_every=0)
+    params, losses = inverse.optimize(moved, cam, target, cfg, **run)
+    _, plain_losses = inverse.optimize(moved, cam, target, cfg, plain=True, **run)
+    torch.testing.assert_close(torch.tensor(losses), torch.tensor(plain_losses), rtol=1e-4,
+                               atol=0.0)
+    assert losses[-1] < losses[0]
+    tree0 = build_accel(moved, inverse.training_config(cfg, True))  # the tree optimize built
+    final = inverse.apply_vertex_params(moved, params)
+    refit = refit_accel(tree0, final, make_refit_plan(tree0))
+    fresh = b4.build_bvh4(final, max_leaf=4, builder="sah")[1]
+    a, b = b4.intersect_bvh4_cuda(final, refit, o, d), b4.intersect_bvh4_cuda(final, fresh, o, d)
+    big = lambda t: torch.where(torch.isinf(t), 1e9, t)  # noqa: E731
+    assert torch.isclose(big(a.t), big(b.t), atol=1e-4, rtol=1e-5).float().mean().item() >= 0.998
+    assert (a.prim_id == b.prim_id).float().mean().item() >= 0.998

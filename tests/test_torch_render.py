@@ -20,6 +20,7 @@ import cg_raytracer_tpu as jrt
 import cg_raytracer_tpu_torch as trt
 from cg_raytracer_tpu_torch.interop import camera_from_numpy
 from cg_raytracer_tpu_torch.models import whitted as tw
+from cg_raytracer_tpu_torch.ops import bvh4 as tb4
 from tests.conftest import assert_images_close
 from tests.test_torch_scene import jax_leaves, scene_pair
 
@@ -148,15 +149,17 @@ def test_unported_features_raise():
             for two_phase in ("off", "on")]
     torch.testing.assert_close(imgs[0], imgs[1])
     assert bool(torch.isfinite(imgs[0]).all()) and imgs[0].amax() > 0.02
-    # Past the 4-wide BVH kernels' cap (the donut's 320K triangles) the
-    # kernels are ROADMAP B8: the card raises before building a tree.
-    big = dataclasses.replace(t, triangles=torch.zeros((200_001, 3), dtype=torch.int32),
-                              tri_material=torch.zeros((200_001,), dtype=torch.int32))
+    # Past the 4-wide BVH kernels' cap over both tiers (HBM_MAX_TRIS; the
+    # JAX package's XLA traversal there is ROADMAP A13): the card raises
+    # before building a tree.
+    n = tb4.HBM_MAX_TRIS + 1
+    big = dataclasses.replace(t, triangles=torch.zeros((n, 3), dtype=torch.int32),
+                              tri_material=torch.zeros((n,), dtype=torch.int32))
     for cfg in (trt.RenderConfig(backend="cuda"), trt.RenderConfig(backend="cuda",
                                                                     forward_only=True)):
-        with pytest.raises(NotImplementedError, match="B8"):
+        with pytest.raises(NotImplementedError, match="HBM_MAX_TRIS"):
             tw.make_backend(big, cfg)
-        with pytest.raises(NotImplementedError, match="B8"):
+        with pytest.raises(NotImplementedError, match="HBM_MAX_TRIS"):
             tw.build_accel(big, cfg)
 
 
