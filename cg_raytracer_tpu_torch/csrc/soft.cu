@@ -1,16 +1,25 @@
 // Spherical-light soft-shadow samplers: visible-sample counts per shading
 // point for one spherical light (main.cpp:166-218).
 //
-// Replaces four Pallas kernels:
+// Replaces eight Pallas kernels:
 //   cgrt_soft_brute, PRNG  <- pallas_kernels.py _soft_shadow_prng_kernel (B9),
 //   cgrt_soft_brute, table <- pallas_kernels.py _soft_shadow_table_kernel (B9),
-//   cgrt_soft_bvh4, PRNG   <- pallas_bvh4.py _soft4_cone_prng_kernel (B10),
-//   cgrt_soft_bvh4, table  <- pallas_bvh4.py _soft4_cone_table_kernel (B10).
+//   cgrt_soft_bvh4, PRNG   <- pallas_bvh4.py _soft4_cone_prng_kernel (B10; at
+//                             W = 8 B15), pallas_bvh.py _soft_bvh_prng_kernel
+//                             (B12, W = 2) and _soft_bvh_cone_prng_kernel
+//                             (B11, W = 2),
+//   cgrt_soft_bvh4, table  <- their table twins _soft4_cone_table_kernel,
+//                             _soft_bvh_table_kernel, _soft_bvh_cone_table_
+//                             kernel.
 // Wrappers, the sample stream and the plain twins: ops/soft.py.
 //
 // One body (sample_visible), templated on the sample source (Philox in the
 // kernel, or a table of Gaussians [N, S, 3]) and on the scene (the triangle
-// table in shared memory, or the 4-wide tree of bvh4.cuh).  Layout: one
+// table in shared memory, or the W-wide tree of bvh4.cuh, W = 2, 4 or 8).
+// The JAX package's 'sample' tile (points on lanes, a loop over samples,
+// the binary primary tree) and 'cone' tile (128 pixels x all their samples
+// in one lockstep walk of the soft tree) are both this layout: on the card
+// they differ only in the tree the caller passes.  Layout: one
 // thread per (point, sample), point-major, so a point's 200 samples fill ~6
 // consecutive warps and a block's four warps sample one or two points.  The
 // Pallas cone sampler's coherence (one point's rays toward a sphere of
@@ -34,7 +43,8 @@
 // 104 integer operations of Philox (at 16.7 Tops/s) and 65 FLOPs of
 // Box-Muller and sample ray, then the any-hit: up to T Moller-Trumbore tests
 // of 68 FLOPs (brute; the lane stops at its first blocker) or a walk of 159
-// FLOPs per 4-wide node visit and 68 per leaf triangle (tree).  Bytes are 13
+// FLOPs per 4-wide node visit (75 at W = 2, 345 at W = 8) and 68 per leaf
+// triangle (tree).  Bytes are 13
 // per point in and 4 out, so it is bound by operations: at 67 TFLOP/s
 // float32, the box's level 0 at 1024^2 (1M points x 200 samples, 32
 // triangles) is ~7 ms of float work if every sample swept every triangle.
@@ -108,7 +118,7 @@ __device__ __forceinline__ Ray sample_ray(float px, float py, float pz, float gx
 // Whether sample s of point i (at p) reaches the light l: its Gaussian from
 // the table or the stream, the sample ray, then an any-hit sweep of the
 // staged triangles or an any-hit walk of the tree.
-template <bool kTable, bool kTree>
+template <bool kTable, int W>
 __device__ __forceinline__ bool sample_visible(const SoftArgs& a, const Tree& tr,
                                                const float* s_tri, int num_tris, const float* l,
                                                int i, int s, float px, float py, float pz) {
@@ -124,20 +134,22 @@ __device__ __forceinline__ bool sample_visible(const SoftArgs& a, const Tree& tr
   float tm;
   const Ray r = sample_ray(px, py, pz, gx, gy, gz, l, tm);
   if (!(tm > 0.0f)) return true;
-  if (kTree) {
+  if constexpr (W > 0) {
     float t_best = tm, u = 0.0f, v = 0.0f;
-    return traverse<true>(tr, make_walk(r), t_best, u, v) < 0;
+    return traverse<W, true>(tr, make_walk(r), t_best, u, v) < 0;
+  } else {
+    return !any_hit_sweep(s_tri, num_tris, r, tm);
   }
-  return !any_hit_sweep(s_tri, num_tris, r, tm);
 }
 
 // The port's layout: one thread per (point, sample), point-major.  A warp
 // adds its visible count per point (__match_any_sync groups its lanes by
 // point, at most two points for S >= 32) into counts, which start at 0.
-template <bool kTable, bool kTree>
+// W: the tree's node width, 0 for the brute sweep of the staged table.
+template <bool kTable, int W>
 __global__ void __launch_bounds__(kThreads) soft_kernel(SoftArgs a, Tree tr, int num_tris) {
   extern __shared__ float s_tri[];
-  if (!kTree) {
+  if (W == 0) {
     stage_triangles(tr.tris, num_tris, s_tri);
     __syncthreads();
   }
@@ -149,7 +161,7 @@ __global__ void __launch_bounds__(kThreads) soft_kernel(SoftArgs a, Tree tr, int
     const int i = t < total ? static_cast<int>(t / a.num_samples) : -1;
     bool visible = false;
     if (i >= 0 && (a.valid == nullptr || a.valid[i])) {
-      visible = sample_visible<kTable, kTree>(a, tr, s_tri, num_tris, a.light, i,
+      visible = sample_visible<kTable, W>(a, tr, s_tri, num_tris, a.light, i,
                                               static_cast<int>(t % a.num_samples), a.pos[3 * i],
                                               a.pos[3 * i + 1], a.pos[3 * i + 2]);
     }
@@ -161,14 +173,14 @@ __global__ void __launch_bounds__(kThreads) soft_kernel(SoftArgs a, Tree tr, int
   }
 }
 
-template <bool kTable, bool kTree>
+template <bool kTable, int W>
 int launch(const SoftArgs& a, const Tree& tr, int num_tris, cudaStream_t stream) {
   if (a.n <= 0 || a.num_samples <= 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = kTree ? 0 : sizeof(float) * 9 * num_tris;
+  const size_t smem = W > 0 ? 0 : sizeof(float) * 9 * num_tris;
   const long long blocks =
       (static_cast<long long>(a.n) * a.num_samples + kThreads - 1) / kThreads;
   const unsigned grid = static_cast<unsigned>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
-  soft_kernel<kTable, kTree><<<grid, kThreads, smem, stream>>>(a, tr, num_tris);
+  soft_kernel<kTable, W><<<grid, kThreads, smem, stream>>>(a, tr, num_tris);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -185,19 +197,27 @@ int cgrt_soft_brute(const float* pos, const uint8_t* valid, int n, const float* 
                     unsigned offset, const float* gauss, int* counts, cudaStream_t stream) {
   const cgrt::SoftArgs a{pos, valid, n, light, num_samples, k0, k1, offset, gauss, counts};
   const cgrt::Tree tr{nullptr, nullptr, nullptr, tris};
-  return gauss != nullptr ? cgrt::launch<true, false>(a, tr, num_tris, stream)
-                          : cgrt::launch<false, false>(a, tr, num_tris, stream);
+  return gauss != nullptr ? cgrt::launch<true, 0>(a, tr, num_tris, stream)
+                          : cgrt::launch<false, 0>(a, tr, num_tris, stream);
 }
 
-// The same over the 4-wide tree (ops/bvh4.py layout).
-int cgrt_soft_bvh4(const float* pos, const uint8_t* valid, int n, const float* light,
+// The same over the width-wide tree (ops/bvh4.py layout; width 2, 4 or 8).
+int cgrt_soft_bvh4(const float* pos, const uint8_t* valid, int n, const float* light, int width,
                    const float* boxes, const int* meta, const int* nchild, const float* tris,
                    int num_samples, unsigned k0, unsigned k1, unsigned offset,
                    const float* gauss, int* counts, cudaStream_t stream) {
   const cgrt::SoftArgs a{pos, valid, n, light, num_samples, k0, k1, offset, gauss, counts};
   const cgrt::Tree tr{boxes, meta, nchild, tris};
-  return gauss != nullptr ? cgrt::launch<true, true>(a, tr, 0, stream)
-                          : cgrt::launch<false, true>(a, tr, 0, stream);
+  const bool table = gauss != nullptr;
+  switch (width) {
+    case 2: return table ? cgrt::launch<true, 2>(a, tr, 0, stream)
+                         : cgrt::launch<false, 2>(a, tr, 0, stream);
+    case 4: return table ? cgrt::launch<true, 4>(a, tr, 0, stream)
+                         : cgrt::launch<false, 4>(a, tr, 0, stream);
+    case 8: return table ? cgrt::launch<true, 8>(a, tr, 0, stream)
+                         : cgrt::launch<false, 8>(a, tr, 0, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

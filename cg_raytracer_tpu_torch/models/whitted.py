@@ -11,8 +11,9 @@ Intersection backends sit behind one oracle contract (``ops/intersect.py``):
 ``brute`` sweeps in PyTorch on the CPU and ``bvh`` traverses a BVH there
 (``ops/bvh.py``); ``cuda`` runs the kernels on the card (and their plain
 twins for CPU tensors): the brute-force kernels of ``ops/cuda_kernels.py`` up
-to ``pallas_brute_max_tris`` triangles, the 4-wide BVH kernels of
-``ops/bvh4.py`` beyond.  The acceleration structure is built on the host
+to ``pallas_brute_max_tris`` triangles, the wide BVH kernels of
+``ops/bvh4.py`` beyond (node width ``bvh_wide`` up to ``VMEM_MAX_TRIS``
+triangles, ``bvh_wide_hbm`` past it; 4 by default).  The acceleration structure is built on the host
 once per scene (``build_accel``) and passed in as ``accel``.
 
 Under ``grad_two_phase='on'`` the trace splits in two (``_trace_two_phase``):
@@ -23,8 +24,9 @@ recorded hits; phase 2 shades the records differentiably, through the fused
 shade kernel (``ops/shade.py``) where the scene allows it.
 
 Spherical lights are sampled by the soft-shadow kernels of ``ops/soft.py``
-(``Backend.soft_vis``: the brute sampler up to 256 triangles, the cone
-sampler over the 4-wide tree beyond) where ``soft_shadow_kernel`` resolves
+(``Backend.soft_vis``: the brute sampler up to 256 triangles, a tree
+sampler beyond: 'cone' over ``AccelBundle.soft``, 'sample' over the binary
+primary tree) where ``soft_shadow_kernel`` resolves
 on, else by a scan over the any-hit oracle (``shading.spherical_fracs``).  A
 render draws one sample key from its generator (``soft.draw_key``; a CPU
 generator seeded 0 when none is given) and folds it per level, as the JAX
@@ -54,9 +56,10 @@ REFLECT_EPS = 1e-3
 
 
 class AccelBundle(NamedTuple):
-    """The 4-wide tree of the primary kernels and the one the cone
-    soft-shadow sampler walks (``soft_bvh_max_leaf`` / ``soft_bvh_builder``);
-    the same object when the knobs match the primary tree's, their auto."""
+    """The wide tree of the primary kernels and the one the cone soft-shadow
+    sampler walks (``soft_bvh_max_leaf`` / ``soft_bvh_builder``, at the
+    primary tree's width); the same object when the knobs match the primary
+    tree's, their auto."""
 
     primary: object
     soft: object
@@ -101,23 +104,38 @@ def _check_bvh4_cap(num_tris: int) -> None:
             f"traversal (backend='bvh'), which has no counterpart on the card (ROADMAP A13)")
 
 
-def _soft_cone(scene: Scene, cfg: RenderConfig) -> bool:
-    """Whether the cone sampler samples this scene's spherical lights (never
-    past ``VMEM_MAX_TRIS``: the JAX package's streaming tier has no sampler,
-    so its spherical lights take the scan over the any-hit kernel)."""
-    return (cfg.resolve_soft_shadow_kernel(scene.device)
-            and soft.supports_soft_shadow_kernel_bvh4(scene)
-            and cfg.resolve_soft_shadow_tile() == "cone")
+def _soft_route(scene: Scene, cfg: RenderConfig) -> Optional[str]:
+    """'cone' or 'sample' where a tree sampler samples this scene's
+    spherical lights, else None (never past ``VMEM_MAX_TRIS``: the JAX
+    package's streaming tier has no sampler, so its spherical lights take
+    the scan over the any-hit kernel)."""
+    if (cfg.resolve_soft_shadow_kernel(scene.device)
+            and soft.supports_soft_shadow_kernel_bvh(scene)):
+        return cfg.resolve_soft_shadow_tile()
+    return None
+
+
+def tree_width(scene: Scene, cfg: RenderConfig) -> int:
+    """The node width of the card's tree for ``scene``: ``bvh_wide`` up to
+    ``VMEM_MAX_TRIS`` triangles, where the 'sample' sampler makes it binary
+    (the JAX package's ``build_accel`` and ``make_backend``, whitted.py:
+    970-984, 249-260); ``bvh_wide_hbm`` past it."""
+    if scene.num_triangles > b4.VMEM_MAX_TRIS:
+        return int(cfg.resolve_bvh_wide_hbm())
+    if _soft_route(scene, cfg) == "sample":
+        return 2
+    return int(cfg.resolve_bvh_wide())
 
 
 def build_accel(scene: Scene, cfg: RenderConfig):
     """The resolved backend's acceleration structure: a ``BVH`` for the CPU
-    traversal, a ``BVH4`` on the scene's device for the card's kernels
-    (an ``AccelBundle`` with the cone sampler's tree where that samples the
-    scene's spherical lights), or None.  Memoized on the identity of the
-    scene's triangle and vertex tensors (``_cached_accel``); a caller whose
-    vertex tensors change every step (a training step makes fresh leaves)
-    builds once and passes ``accel=`` instead."""
+    traversal, a ``BVH4`` of width ``tree_width`` on the scene's device for
+    the card's kernels (an ``AccelBundle`` with the cone sampler's tree
+    where that samples the scene's spherical lights), or None.  Memoized on
+    the identity of the scene's triangle and vertex tensors
+    (``_cached_accel``), the binary tree once for every width; a caller
+    whose vertex tensors change every step (a training step makes fresh
+    leaves) builds once and passes ``accel=`` instead."""
     num_tris, device = scene.num_triangles, scene.device
     kind = cfg.resolve_backend(num_tris, device)
     builder = cfg.resolve_bvh_builder(num_tris, device)
@@ -125,26 +143,32 @@ def build_accel(scene: Scene, cfg: RenderConfig):
         return _cached_accel(scene, ("bvh", builder), lambda: build_bvh(scene, builder=builder))
     if kind == "cuda" and num_tris > cfg.pallas_brute_max_tris:
         _check_bvh4_cap(num_tris)
-        leaf = cfg.resolve_bvh_max_leaf()
-        primary = _cached_accel(scene, ("bvh4", leaf, builder),
-                                lambda: b4.build_bvh4(scene, max_leaf=leaf, builder=builder)[1])
-        if not _soft_cone(scene, cfg):
+        primary = _wide_tree(scene, cfg.resolve_bvh_max_leaf(), builder, tree_width(scene, cfg))
+        if _soft_route(scene, cfg) != "cone":
             return primary
         return AccelBundle(primary, _soft_tree(scene, cfg, primary))
     return None
 
 
+def _wide_tree(scene: Scene, leaf: int, builder: str, width: int):
+    """The ``width``-wide collapse of the scene's binary tree (each memoized)."""
+    binary = _cached_accel(scene, ("binary", leaf, builder),
+                           lambda: build_bvh(scene, max_leaf=leaf, builder=builder))
+    return _cached_accel(scene, ("bvh4", leaf, builder, width),
+                         lambda: b4.collapse_bvhw(binary, width).to(scene.device))
+
+
 def _soft_tree(scene: Scene, cfg: RenderConfig, primary):
-    """The cone sampler's tree: ``primary`` itself where the soft-tree knobs
-    resolve to the primary tree's (their auto), else a build of its own."""
+    """The cone sampler's tree, at the primary tree's width: ``primary``
+    itself where the soft-tree knobs resolve to the primary tree's (their
+    auto), else a build of its own."""
     num_tris, device = scene.num_triangles, scene.device
     leaf, builder = cfg.resolve_bvh_max_leaf(), cfg.resolve_bvh_builder(num_tris, device)
     sleaf = cfg.resolve_soft_bvh_max_leaf()
     sbuilder = cfg.resolve_soft_bvh_builder(num_tris, device)
     if (sleaf, sbuilder) == (leaf, builder):
         return primary
-    return _cached_accel(scene, ("bvh4", sleaf, sbuilder),
-                         lambda: b4.build_bvh4(scene, max_leaf=sleaf, builder=sbuilder)[1])
+    return _wide_tree(scene, sleaf, sbuilder, primary.width)
 
 
 _ACCEL_CACHE: dict = {}
@@ -225,42 +249,50 @@ def make_backend(scene: Scene, cfg: RenderConfig, plain: bool = False, accel=Non
 
 
 def _bvh4_backend(scene: Scene, cfg: RenderConfig, plain: bool, accel, shade) -> Backend:
-    """The 4-wide BVH kernels (the JAX package's ``bvh_wide`` auto = '4'
-    branch, whitted.py:243-316, and past ``VMEM_MAX_TRIS`` its streaming
-    tier, ``_hbm4_backend`` :210-232): closest hit and any hit, the fused
-    bounce where the scene has no sphere primitives, and up to
-    ``VMEM_MAX_TRIS`` the cone soft-shadow sampler over ``AccelBundle.soft``
-    (whitted.py:276-306).  There is no record or trace kernel over the tree:
-    phase 1 runs level by level on the bounce."""
+    """The wide BVH kernels at the width ``tree_width`` resolves (the JAX
+    package's ``bvh_wide`` branches, whitted.py:243-368, and past
+    ``VMEM_MAX_TRIS`` its streaming tier, ``_hbm_backend`` /
+    ``_hbm4_backend`` :196-232): closest hit and any hit, the fused bounce
+    where the scene has no sphere primitives, and up to ``VMEM_MAX_TRIS`` a
+    tree sampler, 'cone' over ``AccelBundle.soft`` or 'sample' over the
+    primary tree (whitted.py:276-306, 341-360).  There is no record or trace
+    kernel over the tree: phase 1 runs level by level on the bounce."""
     _check_bvh4_cap(scene.num_triangles)
     tree = accel if accel is not None else build_accel(scene, cfg)
     soft_tree = None
     if isinstance(tree, AccelBundle):
         tree, soft_tree = tree
+    width = tree_width(scene, cfg)
     for t in (tree, soft_tree):
         if t is None:
             continue
         if not isinstance(t, b4.BVH4):
-            raise TypeError(f"the 4-wide BVH kernels traverse a BVH4 (ops/bvh4.py), got {type(t)}")
+            raise TypeError(f"the wide BVH kernels traverse a BVH4 (ops/bvh4.py), got {type(t)}")
         if t.device != scene.device or t.num_tris != scene.num_triangles:
             raise ValueError(f"accel: a tree of {t.num_tris} triangles on {t.device} for a "
                              f"scene of {scene.num_triangles} on {scene.device}")
+        if t.width != width:
+            raise ValueError(f"accel: a width-{t.width} tree where the config resolves width "
+                             f"{width} (bvh_wide, bvh_wide_hbm, soft_shadow_tile)")
     if plain:
         closest, occluded, bounce = (b4.intersect_bvh4_plain, b4.occluded_bvh4_plain,
                                      b4.bounce_bvh4_plain)
-        sampler = soft.soft4_prng_plain
+        samplers = {"cone": soft.soft4_prng_plain, "sample": soft.soft_bvh_prng_plain}
     else:
         closest, occluded, bounce = (b4.intersect_bvh4_cuda, b4.occluded_bvh4_cuda,
                                      b4.bounce_bvh4_cuda)
-        sampler = soft.soft4_prng_cuda
+        samplers = {"cone": soft.soft4_prng_cuda, "sample": soft.soft_bvh_prng_cuda}
     fused = b4.supports_fused_bounce_bvh4(scene)
     soft_vis = None
-    if _soft_cone(scene, cfg):
-        if soft_tree is None:  # a bare BVH4 from the caller
-            soft_tree = _soft_tree(scene, cfg, tree)
-        ns = cfg.soft_shadow_samples
+    route = _soft_route(scene, cfg)
+    if route is not None:
+        if route == "sample":
+            sampled = tree
+        else:
+            sampled = soft_tree if soft_tree is not None else _soft_tree(scene, cfg, tree)
+        sampler, ns = samplers[route], cfg.soft_shadow_samples
         soft_vis = lambda lpos, lrad, pos, key, valid=None: sampler(  # noqa: E731
-            scene, soft_tree, pos, lpos, lrad, key, ns, valid=valid)
+            scene, sampled, pos, lpos, lrad, key, ns, valid=valid)
     return Backend(
         closest=lambda o, d: closest(scene, tree, o, d),
         occluded=lambda o, d, tm: occluded(scene, tree, o, d, tm),

@@ -1,37 +1,44 @@
-"""The 4-wide BVH on the card: its node layout, kernels B5, B6 and B8 and
-their plain twins.  Counterpart of ``cg_raytracer_tpu/ops/pallas_bvh4.py``
-(``collapse_bvhw`` at width 4, ``build_packed_bvh4``, ``build_hbm_bvh4``,
-``_bvh4_kernel``, ``_bvh4_bounce_kernel`` and their streaming variants
-``_bvh4_hbm_kernel_xn`` and ``_bvh4_hbm_bounce_kernel_xn``) and of the
-layout parts of ``pallas_bvh.py``.
+"""The wide BVH on the card: its node layout at width 2, 4 or 8, the kernels
+over it and their plain twins.  Counterpart of
+``cg_raytracer_tpu/ops/pallas_bvh4.py`` (``collapse_bvhw``,
+``build_packed_bvh4``, ``build_hbm_bvh4``, ``_bvh4_kernel``,
+``_bvh4_bounce_kernel`` and their streaming variants ``_bvh4_hbm_kernel_xn``
+and ``_bvh4_hbm_bounce_kernel_xn``) and of ``pallas_bvh.py`` (the binary
+kernels ``_bvh_kernel``, ``_bvh_bounce_kernel`` and their streaming variants
+``_bvh_hbm_kernel``, ``_bvh_hbm_bounce_kernel``, and the layout parts).
 
-=======================  ==================================================  ========================
-wrapper                  Pallas kernel replaced                              plain twin
-=======================  ==================================================  ========================
-``intersect_bvh4_cuda``  ``_bvh4_kernel`` / ``_xn``, closest hit (B5)        ``intersect_bvh4_plain``
-``occluded_bvh4_cuda``   ``_bvh4_kernel`` / ``_xn``, any hit (B5)            ``occluded_bvh4_plain``
-``bounce_bvh4_cuda``     ``_bvh4_bounce_kernel`` / ``_xn`` (B6)              ``bounce_bvh4_plain``
-``intersect_bvh4_cuda``  ``_bvh4_hbm_kernel_xn``, closest hit (B8)           ``intersect_bvh4_plain``
-``occluded_bvh4_cuda``   ``_bvh4_hbm_kernel_xn``, any hit (B8)               ``occluded_bvh4_plain``
-``bounce_bvh4_cuda``     ``_bvh4_hbm_bounce_kernel_xn`` (B8)                 ``bounce_bvh4_plain``
-=======================  ==================================================  ========================
+Wrappers, each with its plain twin (``*_plain``), and the Pallas kernels
+they replace, by node width W:
 
-The first two share one kernel (``csrc/bvh4.cu``, a template on any-hit).
-One kernel body serves both of the JAX package's tiers: its kernels kept
-the nodes and triangle rows in VMEM up to ``VMEM_MAX_TRIS`` triangles (B5,
-B6) and streamed each leaf's rows from HBM past it, up to ``HBM_MAX_TRIS``
-(B8).  On the card every table sits in global memory either way (cached in
-L2 where it fits), so the tiers differ only in the tree's size.  Past
-``HBM_MAX_TRIS`` the JAX package leaves its kernels for its XLA traversal;
-the card raises there (``models/whitted.py``).
+- ``intersect_bvh4_cuda`` / ``occluded_bvh4_cuda`` (closest hit, any hit):
+  W = 4 ``_bvh4_kernel`` / ``_xn`` (B5) and ``_bvh4_hbm_kernel_xn`` (B8);
+  W = 2 ``_bvh_kernel`` (B13) and ``_bvh_hbm_kernel`` (B14); W = 8 the B5
+  kernels at width 8 (B15);
+- ``bounce_bvh4_cuda`` (closest hit and per-light shadow bits): W = 4
+  ``_bvh4_bounce_kernel`` / ``_xn`` (B6) and ``_bvh4_hbm_bounce_kernel_xn``
+  (B8); W = 2 ``_bvh_bounce_kernel`` (B13) and ``_bvh_hbm_bounce_kernel``
+  (B14); W = 8 B6 at width 8 (B15).
+
+One walk (``csrc/bvh4.cuh``, a template on the node width W) serves every
+row: the width is a field of the tree (``BVH4.width``), as it is of the JAX
+package's ``PackedBVH4``, and the wrappers launch the instantiation for it.
+One kernel body also serves both of the JAX package's tiers: its kernels
+kept the nodes and triangle rows in VMEM up to ``VMEM_MAX_TRIS`` triangles
+(B5, B6, B13) and streamed each leaf's rows from HBM past it, up to
+``HBM_MAX_TRIS`` (B8, B14).  On the card every table sits in global memory
+either way (cached in L2 where it fits), so the tiers differ only in the
+tree's size.  Past ``HBM_MAX_TRIS`` the JAX package leaves its kernels for
+its XLA traversal; the card raises there (``models/whitted.py``).
 
 Layout (``BVH4``), built on the host by collapsing the binary tree of
-``ops/bvh.py`` two levels per node, as ``collapse_bvhw`` does:
+``ops/bvh.py`` log2(W) levels per node, as ``collapse_bvhw`` does (W = 2 is
+the binary tree itself, relaid out so that a parent holds its children's
+boxes; nothing is rebuilt):
 
-- ``boxes`` [Nw, 24] f32: the four child boxes of a node as lo.x of children
-  0..3, then lo.y, lo.z, hi.x, hi.y, hi.z (six aligned 16-byte groups);
-- ``meta`` [Nw, 8] i32: ``meta[c]`` is child c's node id when
-  ``meta[4 + c] == 0``, else child c is a leaf of ``meta[4 + c]`` triangles
+- ``boxes`` [Nw, 6W] f32: the W child boxes of a node as lo.x of children
+  0..W-1, then lo.y, lo.z, hi.x, hi.y, hi.z;
+- ``meta`` [Nw, 2W] i32: ``meta[c]`` is child c's node id when
+  ``meta[W + c] == 0``, else child c is a leaf of ``meta[W + c]`` triangles
   from ``meta[c]`` on;
 - ``nchild`` [Nw] i32: children sit in slots 0..nchild-1 and no other slot
   is read.  (The Pallas table filled empty slots with NaN boxes and relied on
@@ -44,15 +51,17 @@ Layout (``BVH4``), built on the host by collapsing the binary tree of
 Traversal, one ray at a time (the kernels run one thread per ray; the twins
 step every ray at once, one stack entry per ray per step, with the same
 child order and tie rule, so each kernel is held to its twin exactly): a
-stack of entries (node id >= 0, or ``~(4 * node + c)`` for leaf child c)
+stack of entries (node id >= 0, or ``~(W * node + c)`` for leaf child c)
 and their entry t.  A popped entry whose entry t exceeds the padded current
-best is skipped.  A node's four child boxes get the padded slab test
-(``_slab4``: pad 1e-5 (1 + |t_out|), NaN-propagating min/max) and are pruned
-past the padded best; the hit children are sorted by entry t with
-``_slab4``'s compare-exchange network (descending) and pushed, so the
-nearest pops first.  A leaf runs Moller-Trumbore on its rows with
-``closer = ok & (t < t_best)``; any-hit stops at the first hit.  A ray with
-``t_max < 0`` (dead) does no work.
+best is skipped.  A node's child boxes get the padded slab test (``_slab``:
+pad 1e-5 (1 + |t_out|), NaN-propagating min/max) and are pruned past the
+padded best; the hit children are sorted by entry t with the JAX package's
+compare-exchange network for W (``SORT_NET``, descending) and pushed, so the
+nearest pops first.  At W = 2 the compare swaps on equal t too, so the left
+child pops first on a tie, as the binary kernel's ``left_near = min_tl <=
+min_tr`` (``pallas_bvh.py:238``).  A leaf runs Moller-Trumbore on its rows
+with ``closer = ok & (t < t_best)``; any-hit stops at the first hit.  A ray
+with ``t_max < 0`` (dead) does no work.
 
 The Pallas kernels' interleave, batched pop and tile rows hid TPU latency for
 a tile that walked the tree in lockstep; a thread per ray needs none of them.
@@ -71,28 +80,39 @@ from .intersect import (INF, MISS, Hit, merge_spheres_closest, moller_trumbore_e
                         spheres_occluded)
 
 # The JAX package's tiers (pallas_bvh.py:57-63): its on-chip kernels (B5,
-# B6) up to VMEM_MAX_TRIS triangles, its streaming kernels (B8) up to
-# HBM_MAX_TRIS.  The card runs the same kernels on both; VMEM_MAX_TRIS still
-# routes the builder's auto (utils/config.py) and the cone sampler's gate
-# (ops/soft.py), as in the JAX package.
+# B6, B13) up to VMEM_MAX_TRIS triangles, its streaming kernels (B8, B14) up
+# to HBM_MAX_TRIS.  The card runs the same kernels on both; VMEM_MAX_TRIS
+# still routes the width, the builder's auto (utils/config.py) and the
+# samplers' gate (ops/soft.py), as in the JAX package.
 VMEM_MAX_TRIS = 200_000
 # A 6 MB VMEM node budget at 512 B per node, half of the nodes leaves, each
 # leaf at most 32 rows of 14 triangles: 2,752,512.
 HBM_MAX_TRIS = (6 * 1024 * 1024 // 512 // 2) * 32 * 14
-MAX_STACK = 64  # per-ray stack entries (csrc/bvh4.cu kStack)
+MAX_STACK = 64  # per-ray stack entries (csrc/bvh4.cuh kStack)
+WIDTHS = (2, 4, 8)
 _BIG = 3.4e38  # entry t of a child that is not pushed
-_SORT4 = ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2))  # descending compare-exchange network
+# Descending compare-exchange networks (pallas_bvh4.py _SORT_NET): pair (a, b)
+# swaps when t[a] < t[b] (at W = 2 when t[a] <= t[b]: the left child first
+# on a tie).  8 is Batcher's odd-even mergesort, 19 comparators.
+SORT_NET = {
+    2: ((0, 1),),
+    4: ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2)),
+    8: ((0, 1), (2, 3), (4, 5), (6, 7), (0, 2), (1, 3), (4, 6), (5, 7),
+        (1, 2), (5, 6), (0, 4), (1, 5), (2, 6), (3, 7), (2, 4), (3, 5),
+        (1, 2), (3, 4), (5, 6)),
+}
 
 
 class BVH4(NamedTuple):
-    """The 4-wide tree in the kernels' layout (see the module docstring)."""
+    """The wide tree in the kernels' layout (see the module docstring)."""
 
-    boxes: torch.Tensor  # [Nw, 24] f32
-    meta: torch.Tensor  # [Nw, 8] i32
+    boxes: torch.Tensor  # [Nw, 6W] f32
+    meta: torch.Tensor  # [Nw, 2W] i32
     nchild: torch.Tensor  # [Nw] i32
     tris: torch.Tensor  # [T, 9] f32, leaf order
     slot_to_prim: torch.Tensor  # [T] i32
-    depth: int  # levels of 4-wide nodes
+    depth: int  # levels of W-wide nodes
+    width: int = 4
 
     @property
     def num_nodes(self) -> int:
@@ -107,67 +127,92 @@ class BVH4(NamedTuple):
         return self.boxes.device
 
     def to(self, device) -> "BVH4":
-        return BVH4(*(x.to(device) for x in self[:-1]), depth=self.depth)
+        return BVH4(*(x.to(device) for x in self[:5]), depth=self.depth, width=self.width)
 
 
-def collapse_bvh4(bvh: BVH) -> BVH4:
-    """Collapse the binary tree into 4-wide nodes: each node's children are
-    its binary grandchildren (a leaf child stays one child), in the order
-    left-left, left-right, right-left, right-right.  A leaf root becomes a
-    node with one leaf child.  Raises if the deepest root-to-leaf descent can
-    hold more than ``MAX_STACK`` stack entries."""
-    left, right = bvh.left.cpu().numpy(), bvh.right.cpu().numpy()
+def _expand(par, ch, left, right, is_leaf):
+    """One binary level down: each internal entry of ``ch`` (binary node
+    ids, with their rows ``par``) becomes its left and right child in place;
+    a leaf stays."""
+    split = ~is_leaf[ch]
+    k = 1 + split
+    starts = np.cumsum(k) - k
+    out = np.empty(int(k.sum()), np.int64)
+    out[starts] = np.where(split, left[ch], ch)
+    out[starts[split] + 1] = right[ch[split]]
+    return np.repeat(par, k), out
+
+
+def collapse_bvhw(bvh: BVH, width: int = 4) -> BVH4:
+    """Collapse the binary tree into ``width``-wide nodes: each node's
+    children are its binary descendants log2(width) levels down (a leaf
+    child stays one child), left to right, and nodes are numbered breadth
+    first, as ``collapse_bvhw`` of the JAX package does.  A leaf root
+    becomes a node with one leaf child.  Raises if the deepest root-to-leaf
+    descent can hold more than ``MAX_STACK`` stack entries."""
+    if width not in WIDTHS:
+        raise ValueError(f"width must be one of {WIDTHS}, got {width!r}")
+    levels = width.bit_length() - 1
+    left, right = bvh.left.cpu().numpy().astype(np.int64), bvh.right.cpu().numpy().astype(np.int64)
     first, count = bvh.first.cpu().numpy(), bvh.count.cpu().numpy()
     lo, hi = bvh.node_lo.cpu().numpy(), bvh.node_hi.cpu().numpy()
     is_leaf = count > 0
 
-    def children(b):
-        out = []
-        for c in (left[b], right[b]):
-            out.extend([c] if is_leaf[c] else [left[c], right[c]])
-        return out
-
-    rows = [[0] if is_leaf[0] else children(0)]
-    wide_of, depth = {}, [0]
-    i = 0
-    while i < len(rows):
-        for b in rows[i]:
-            if not is_leaf[b]:
-                wide_of[b] = len(rows)
-                rows.append(children(b))
-                depth.append(depth[i] + 1)
-        i += 1
-    max_depth = max(depth)
-    need = 3 * (max_depth + 1) + 1  # each internal pop: one entry off, four on
+    # Breadth first, one layer of wide nodes at a time: a layer's rows are
+    # the internal children of the layer above, in order.
+    pars, chs = [], []
+    if is_leaf[0]:
+        pars.append(np.zeros(1, np.int64))
+        chs.append(np.zeros(1, np.int64))
+    else:
+        layer, base = np.zeros(1, np.int64), 0
+        while layer.size:
+            par = np.repeat(base + np.arange(layer.size), 2)
+            ch = np.stack([left[layer], right[layer]], axis=1).reshape(-1)
+            for _ in range(levels - 1):
+                par, ch = _expand(par, ch, left, right, is_leaf)
+            pars.append(par)
+            chs.append(ch)
+            base += layer.size
+            layer = ch[~is_leaf[ch]]
+    max_depth = len(pars) - 1
+    need = (width - 1) * (max_depth + 1) + 1  # each internal pop: one entry off, W on
     if need > MAX_STACK:
-        raise ValueError(f"the 4-wide tree is {max_depth + 1} levels deep and needs a "
-                         f"{need}-entry traversal stack > MAX_STACK={MAX_STACK}; rebuild "
-                         f"with wider leaves")
+        raise ValueError(f"collapsed width-{width} tree depth {max_depth + 1} needs a {need}-entry "
+                         f"traversal stack > MAX_STACK={MAX_STACK}; rebuild with a narrower "
+                         f"width (bvh_wide='4') or wider leaves")
 
-    ws = np.repeat(np.arange(len(rows)), [len(r) for r in rows])
-    cs = np.concatenate([np.arange(len(r)) for r in rows])
-    bs = np.concatenate([np.asarray(r, np.int64) for r in rows])
-    boxes = np.zeros((len(rows), 24), np.float32)
-    for k in range(3):
-        boxes[ws, 4 * k + cs] = lo[bs, k]
-        boxes[ws, 12 + 4 * k + cs] = hi[bs, k]
-    meta = np.zeros((len(rows), 8), np.int32)
+    ws, bs = np.concatenate(pars), np.concatenate(chs)
+    nw = int(ws[-1]) + 1
+    cs = np.arange(ws.size) - np.searchsorted(ws, ws)  # slot within the row
     leaf = is_leaf[bs]
-    meta[ws, cs] = np.where(leaf, first[bs], [wide_of.get(int(b), 0) for b in bs])
-    meta[ws, 4 + cs] = np.where(leaf, count[bs], 0)
+    wide_id = np.cumsum(~leaf)  # internal children are the rows 1, 2, ... in order
+    boxes = np.zeros((nw, 6 * width), np.float32)
+    for k in range(3):
+        boxes[ws, width * k + cs] = lo[bs, k]
+        boxes[ws, 3 * width + width * k + cs] = hi[bs, k]
+    meta = np.zeros((nw, 2 * width), np.int32)
+    meta[ws, cs] = np.where(leaf, first[bs], wide_id)
+    meta[ws, width + cs] = np.where(leaf, count[bs], 0)
     tv0, tv1, tv2 = (x.cpu().numpy() for x in (bvh.tv0, bvh.tv1, bvh.tv2))
     tris = np.concatenate([tv0, tv1 - tv0, tv2 - tv0], axis=1).astype(np.float32)
     t = torch.from_numpy
     return BVH4(boxes=t(boxes), meta=t(meta),
-                nchild=t(np.asarray([len(r) for r in rows], np.int32)),
+                nchild=t(np.bincount(ws, minlength=nw).astype(np.int32)),
                 tris=t(np.ascontiguousarray(tris)), slot_to_prim=bvh.tri_order.cpu().clone(),
-                depth=max_depth + 1)
+                depth=max_depth + 1, width=width)
 
 
-def build_bvh4(scene: Scene, max_leaf: int, builder: str = "median"):
-    """Host build: binary BVH -> 4-wide collapse -> (BVH, BVH4 on the scene's device)."""
+def collapse_bvh4(bvh: BVH) -> BVH4:
+    return collapse_bvhw(bvh, width=4)
+
+
+def build_bvh4(scene: Scene, max_leaf: int, builder: str = "median", width: int = 4):
+    """Host build: binary BVH -> ``width``-wide collapse -> (BVH, BVH4 on the
+    scene's device).  A caller that wants several widths collapses the one
+    ``BVH``."""
     bvh = build_bvh(scene, max_leaf=max_leaf, builder=builder)
-    return bvh, collapse_bvh4(bvh).to(scene.device)
+    return bvh, collapse_bvhw(bvh, width).to(scene.device)
 
 
 def supports_bvh4(scene: Scene) -> bool:
@@ -190,14 +235,26 @@ def supports_fused_bounce_bvh4(scene: Scene) -> bool:
 # --------------------------------------------------------------------------
 
 def _tree_args(name, tree: BVH4, device):
+    """(width, boxes, meta, nchild, tris, slot_to_prim) as the kernels take them."""
     if tree.num_tris > HBM_MAX_TRIS:
         raise NotImplementedError(
-            f"{tree.num_tris} triangles exceed the 4-wide kernels' cap of {HBM_MAX_TRIS} "
+            f"{tree.num_tris} triangles exceed the wide kernels' cap of {HBM_MAX_TRIS} "
             f"(HBM_MAX_TRIS; ROADMAP A13)")
+    w = tree.width
+    if (w not in WIDTHS or tree.boxes.shape[1:] != (6 * w,) or tree.meta.shape[1:] != (2 * w,)
+            or tree.nchild.shape != (tree.num_nodes,) or tree.tris.shape[1:] != (9,)):
+        raise ValueError(f"{name}: not a width-{w} tree (boxes {tuple(tree.boxes.shape)}, meta "
+                         f"{tuple(tree.meta.shape)}, nchild {tuple(tree.nchild.shape)})")
     ck._check(name, tree.boxes, tree.tris, device=device)
     ck._check(name, tree.meta, tree.nchild, tree.slot_to_prim, device=device, dtype=torch.int32)
-    return (ck._ptr(tree.boxes), ck._ptr(tree.meta), ck._ptr(tree.nchild), ck._ptr(tree.tris),
+    return (w, ck._ptr(tree.boxes), ck._ptr(tree.meta), ck._ptr(tree.nchild), ck._ptr(tree.tris),
             ck._ptr(tree.slot_to_prim))
+
+
+def count_launch(wrapper, width: int) -> None:
+    """One launch of ``wrapper``'s kernel at node width ``width``."""
+    wrapper.launches += 1
+    wrapper.launches_by_width[width] += 1
 
 
 def _closest_kernel(tree, o, d, tm):
@@ -208,7 +265,7 @@ def _closest_kernel(tree, o, d, tm):
     ck._launch("cgrt_bvh4_closest", o.device, ck._ptr(o), ck._ptr(d), ck._ptr(tm), n,
                *_tree_args("cgrt_bvh4_closest", tree, o.device), ck._ptr(t), ck._ptr(prim),
                ck._ptr(u), ck._ptr(v))
-    intersect_bvh4_cuda.launches += 1
+    count_launch(intersect_bvh4_cuda, tree.width)
     return Hit(t, prim, u, v)
 
 
@@ -218,7 +275,7 @@ def _anyhit_kernel(tree, o, d, tm):
     hit = torch.empty((n,), dtype=torch.uint8, device=o.device)
     ck._launch("cgrt_bvh4_anyhit", o.device, ck._ptr(o), ck._ptr(d), ck._ptr(tm), n,
                *_tree_args("cgrt_bvh4_anyhit", tree, o.device), ck._ptr(hit))
-    occluded_bvh4_cuda.launches += 1
+    count_launch(occluded_bvh4_cuda, tree.width)
     return hit.bool()
 
 
@@ -230,7 +287,7 @@ def _bounce_kernel(tree, lights, o, d, tm):
     ck._launch("cgrt_bvh4_bounce", o.device, ck._ptr(o), ck._ptr(d), ck._ptr(tm), n,
                *_tree_args("cgrt_bvh4_bounce", tree, o.device), ck._ptr(lights),
                lights.shape[0], ck._ptr(t), ck._ptr(prim), ck._ptr(u), ck._ptr(v), ck._ptr(bits))
-    bounce_bvh4_cuda.launches += 1
+    count_launch(bounce_bvh4_cuda, tree.width)
     return Hit(t, prim, u, v), bits
 
 
@@ -238,16 +295,18 @@ def _bounce_kernel(tree, lights, o, d, tm):
 # Plain PyTorch twins: the kernels' per-ray traversal, every ray stepped at once.
 # --------------------------------------------------------------------------
 
-def _slab4(ox, oy, oz, ix, iy, iz, boxes):
-    """Padded slab test of a node's four child boxes ([k, 24]) against k rays
-    ([k] components, reciprocal directions) -> (t_in, hit), each [k, 4]."""
+def _slab(ox, oy, oz, ix, iy, iz, boxes, width: int):
+    """Padded slab test of a node's ``width`` child boxes ([k, 6 width])
+    against k rays ([k] components, reciprocal directions) -> (t_in, hit),
+    each [k, width]."""
     col = lambda a: a[:, None]  # noqa: E731
-    t0x = (boxes[:, 0:4] - col(ox)) * col(ix)
-    t0y = (boxes[:, 4:8] - col(oy)) * col(iy)
-    t0z = (boxes[:, 8:12] - col(oz)) * col(iz)
-    t1x = (boxes[:, 12:16] - col(ox)) * col(ix)
-    t1y = (boxes[:, 16:20] - col(oy)) * col(iy)
-    t1z = (boxes[:, 20:24] - col(oz)) * col(iz)
+    w = width
+    t0x = (boxes[:, 0:w] - col(ox)) * col(ix)
+    t0y = (boxes[:, w:2 * w] - col(oy)) * col(iy)
+    t0z = (boxes[:, 2 * w:3 * w] - col(oz)) * col(iz)
+    t1x = (boxes[:, 3 * w:4 * w] - col(ox)) * col(ix)
+    t1y = (boxes[:, 4 * w:5 * w] - col(oy)) * col(iy)
+    t1z = (boxes[:, 5 * w:6 * w] - col(oz)) * col(iz)
     mn, mx = torch.minimum, torch.maximum
     tin = mx(mx(mn(t0x, t1x), mn(t0y, t1y)), mn(t0z, t1z))
     tout = mn(mn(mx(t0x, t1x), mx(t0y, t1y)), mx(t0z, t1z))
@@ -265,7 +324,7 @@ def _traverse_plain(tree: BVH4, o, d, tm, any_hit: bool, stats=None):
     nearer was hit.  ``tm`` None means no bound.  ``stats`` (a dict): adds
     the walk's node visits ('visits', internal nodes expanded) and triangle
     tests ('tests') over all rays, the work the kernel does on these rays."""
-    n, dev = o.shape[0], o.device
+    n, dev, w = o.shape[0], o.device, tree.width
     t_best = (torch.full((n,), INF, dtype=torch.float32, device=dev) if tm is None
               else tm.clone())
     slot = torch.full((n,), MISS, dtype=torch.long, device=dev)
@@ -278,7 +337,7 @@ def _traverse_plain(tree: BVH4, o, d, tm, any_hit: bool, stats=None):
     sp = ((t_best > 0.0) if any_hit else (t_best >= 0.0)).long()
     inv = 1.0 / d
     meta, nchild = tree.meta.long(), tree.nchild.long()
-    lanes = torch.arange(4, device=dev)
+    lanes = torch.arange(w, device=dev)
     top = MAX_STACK - 1
 
     while True:
@@ -299,13 +358,14 @@ def _traverse_plain(tree: BVH4, o, d, tm, any_hit: bool, stats=None):
 
         # Internal node: test, sort and push its children.
         node = torch.where(internal, ref, 0)
-        tin, hit = _slab4(ox, oy, oz, ix, iy, iz, tree.boxes[node])
+        tin, hit = _slab(ox, oy, oz, ix, iy, iz, tree.boxes[node], w)
         hit = hit & (lanes < nchild[node][:, None]) & (tin <= bound[:, None]) & internal[:, None]
         m = meta[node]
         tv = list(torch.where(hit, tin, _BIG).unbind(1))
-        ev = list(torch.where(m[:, 4:8] > 0, ~(4 * node[:, None] + lanes), m[:, 0:4]).unbind(1))
-        for a, b in _SORT4:
-            sw = tv[a] < tv[b]
+        ev = list(torch.where(m[:, w:2 * w] > 0, ~(w * node[:, None] + lanes),
+                              m[:, 0:w]).unbind(1))
+        for a, b in SORT_NET[w]:
+            sw = tv[a] <= tv[b] if w == 2 else tv[a] < tv[b]
             tv[a], tv[b] = torch.where(sw, tv[b], tv[a]), torch.where(sw, tv[a], tv[b])
             ev[a], ev[b] = torch.where(sw, ev[b], ev[a]), torch.where(sw, ev[a], ev[b])
         for tc, ec in zip(tv, ev):
@@ -317,9 +377,9 @@ def _traverse_plain(tree: BVH4, o, d, tm, any_hit: bool, stats=None):
 
         # Leaf child: sweep its triangles.
         s = torch.where(leaf, ~ref, 0)
-        lnode, lc = s >> 2, s & 3
+        lnode, lc = s // w, s % w
         first = meta[lnode, lc]
-        cnt = torch.where(leaf, meta[lnode, 4 + lc], 0)
+        cnt = torch.where(leaf, meta[lnode, w + lc], 0)
         oi, di = o[idx], d[idx]
         if stats is not None:
             stats["visits"] = stats.get("visits", 0) + int(internal.sum())
@@ -420,7 +480,7 @@ def occluded_bvh4_plain(scene: Scene, tree: BVH4, origins, dirs, t_max):
 @torch.no_grad()
 def _bounce(scene, tree, origins, dirs, live, on_card):
     if not supports_fused_bounce_bvh4(scene):
-        raise ValueError(f"4-wide bounce kernel: the scene needs 1..{HBM_MAX_TRIS} triangles, "
+        raise ValueError(f"BVH bounce kernel: the scene needs 1..{HBM_MAX_TRIS} triangles, "
                          f"no spheres and at most 30 point lights (supports_fused_bounce_bvh4)")
     o, d = ck._rays(origins, dirs)
     lights = scene.point_lights.position.detach().contiguous()
@@ -440,14 +500,30 @@ def bounce_bvh4_plain(scene: Scene, tree: BVH4, origins, dirs, live=None):
 
 
 KERNEL_WRAPPERS = (intersect_bvh4_cuda, occluded_bvh4_cuda, bounce_bvh4_cuda)
-for _wrapper in KERNEL_WRAPPERS:
-    _wrapper.launches = 0
+
+
+def width_counts(wrappers) -> dict:
+    """Each wrapper's launches in all (under its name) and at each node
+    width (under ``name:wW``)."""
+    out = {}
+    for w in wrappers:
+        out[w.__name__] = w.launches
+        out.update({f"{w.__name__}:w{k}": n for k, n in w.launches_by_width.items()})
+    return out
+
+
+def reset_counts(wrappers) -> None:
+    for w in wrappers:
+        w.launches = 0
+        w.launches_by_width = {k: 0 for k in WIDTHS}
 
 
 def launch_counts() -> dict:
-    return {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    return width_counts(KERNEL_WRAPPERS)
 
 
 def reset_launch_counts() -> None:
-    for w in KERNEL_WRAPPERS:
-        w.launches = 0
+    reset_counts(KERNEL_WRAPPERS)
+
+
+reset_launch_counts()

@@ -8,7 +8,9 @@ refit keeps the topology and recomputes, from the current vertices:
 
 1. the triangle table in leaf order (one gather through ``tri_order`` /
    ``slot_to_prim``): ``tv0..tv2`` of a ``BVH``, ``tris`` (v0, v1 - v0,
-   v2 - v0) of a ``BVH4``;
+   v2 - v0) of a ``BVH4`` of width 2 or 4 (the trees the JAX package
+   refits: its binary tree and its 4-wide one, both tiers; width 8 raises,
+   as there);
 2. the leaf boxes, a segment min/max over each leaf's rows
    (``scatter_reduce`` amin/amax);
 3. the internal boxes bottom-up, one gather and min/max per level, as the
@@ -54,16 +56,17 @@ class RefitPlan(NamedTuple):
 
 
 class RefitPlan4(NamedTuple):
-    """A ``BVH4``'s static topology, on the tree's device.  A lane is
-    (node, child slot c); its box columns are 4 * k + c (lo) and
-    12 + 4 * k + c (hi) of ``boxes``."""
+    """A width-W ``BVH4``'s static topology, on the tree's device.  A lane
+    is (node, child slot c); its box columns are W * k + c (lo) and
+    3 W + W * k + c (hi) of ``boxes``."""
 
     slot_tri: torch.Tensor  # [T] i64: leaf-order row -> triangle id
-    slot_lane: torch.Tensor  # [T] i64: row -> 4 * node + c of its leaf lane
-    leaf_lanes: torch.Tensor  # [Lf] i64: every leaf lane, 4 * node + c
+    slot_lane: torch.Tensor  # [T] i64: row -> W * node + c of its leaf lane
+    leaf_lanes: torch.Tensor  # [Lf] i64: every leaf lane, W * node + c
     levels: Tuple[Tuple[torch.Tensor, torch.Tensor, torch.Tensor], ...]
     # each level: (parent nodes, child slots, child nodes), deepest child first
     num_nodes: int
+    width: int = 4
 
 
 def _by_depth(depth: np.ndarray, *columns: np.ndarray, device):
@@ -98,12 +101,17 @@ def _plan_bvh(bvh: BVH) -> RefitPlan:
 
 
 def _plan_bvh4(tree: BVH4) -> RefitPlan4:
+    w = tree.width
+    if w not in (2, 4):
+        raise NotImplementedError(
+            f"refit supports width-4 wide trees only (got width={w}); build the accel with "
+            f"bvh_wide='4' when optimizing vertices")
     meta, nchild = tree.meta.cpu().numpy(), tree.nchild.cpu().numpy()
     num = nchild.shape[0]
-    valid = np.arange(4)[None, :] < nchild[:, None]
-    leaf = valid & (meta[:, 4:8] > 0)
-    inner = valid & (meta[:, 4:8] == 0)
-    # Depth of each node: rows are appended parent before child (collapse_bvh4).
+    valid = np.arange(w)[None, :] < nchild[:, None]
+    leaf = valid & (meta[:, w:2 * w] > 0)
+    inner = valid & (meta[:, w:2 * w] == 0)
+    # Depth of each node: rows are appended parent before child (collapse_bvhw).
     par, lane = np.nonzero(inner)
     child = meta[par, lane]
     depth = np.zeros(num, np.int64)
@@ -112,8 +120,8 @@ def _plan_bvh4(tree: BVH4) -> RefitPlan4:
     lw, lc = np.nonzero(leaf)
     starts = meta[lw, lc]
     order = np.argsort(starts, kind="stable")
-    lanes = (4 * lw + lc)[order]
-    slot_lane = np.repeat(lanes, meta[lw, 4 + lc][order])
+    lanes = (w * lw + lc)[order]
+    slot_lane = np.repeat(lanes, meta[lw, w + lc][order])
     if slot_lane.shape[0] != tree.num_tris:
         raise ValueError(f"the tree's leaves cover {slot_lane.shape[0]} rows of "
                          f"{tree.num_tris}")
@@ -122,7 +130,7 @@ def _plan_bvh4(tree: BVH4) -> RefitPlan4:
     return RefitPlan4(slot_tri=tree.slot_to_prim.to(device=dev, dtype=torch.int64),
                       slot_lane=t(slot_lane), leaf_lanes=t(lanes),
                       levels=_by_depth(depth[child], par, lane, child, device=dev),
-                      num_nodes=num)
+                      num_nodes=num, width=w)
 
 
 def make_refit_plan(accel):
@@ -171,22 +179,21 @@ def _refit_bvh(bvh: BVH, plan: RefitPlan, scene: Scene) -> BVH:
                         tv1=p1.contiguous(), tv2=p2.contiguous())
 
 
-_LO_COLS = 4 * torch.arange(3)  # column of lo.x, lo.y, lo.z of child slot 0
-_HI_COLS = 12 + _LO_COLS
-
-
 def _refit_bvh4(tree: BVH4, plan: RefitPlan4, scene: Scene) -> BVH4:
-    dev = tree.device
+    dev, w = tree.device, plan.width
+    if tree.width != w:
+        raise ValueError(f"a refit plan of width {w} for a width-{tree.width} tree")
     p0, p1, p2 = _rows(scene, plan.slot_tri, dev)
-    seg_lo, seg_hi = _segment_boxes(p0, p1, p2, plan.slot_lane, 4 * plan.num_nodes)
+    seg_lo, seg_hi = _segment_boxes(p0, p1, p2, plan.slot_lane, w * plan.num_nodes)
     boxes = tree.boxes.clone()
-    lo_cols, hi_cols = _LO_COLS.to(dev), _HI_COLS.to(dev)
-    node, slot = plan.leaf_lanes // 4, plan.leaf_lanes % 4
+    lo_cols = w * torch.arange(3, device=dev)  # lo.x, lo.y, lo.z of child slot 0
+    hi_cols = 3 * w + lo_cols
+    node, slot = plan.leaf_lanes // w, plan.leaf_lanes % w
     boxes[node[:, None], lo_cols + slot[:, None]] = seg_lo[plan.leaf_lanes]
     boxes[node[:, None], hi_cols + slot[:, None]] = seg_hi[plan.leaf_lanes]
-    lanes = torch.arange(4, device=dev)
+    lanes = torch.arange(w, device=dev)
     for parents, slots, children in plan.levels:
-        rows = boxes[children].view(-1, 6, 4)  # [k, lo.x .. hi.z, child slot]
+        rows = boxes[children].view(-1, 6, w)  # [k, lo.x .. hi.z, child slot]
         live = (lanes < tree.nchild[children].to(torch.int64)[:, None])[:, None, :]
         lo = torch.where(live, rows[:, 0:3], float("inf")).amin(dim=2)
         hi = torch.where(live, rows[:, 3:6], float("-inf")).amax(dim=2)

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from .loader import center_and_scale_to_unit, load_obj
-from .types import PointLights, Scene, SphericalLights, Spheres, make_scene
+from .types import PointLights, Scene, SphericalLights, Spheres, entry_device, make_scene
 
 SCENE_NAMES = (
     "single_triangle",
@@ -133,8 +133,10 @@ def _procedural_donut() -> dict:
                                 "shininess": 1.0, "transparency": 1.0})
 
 
-def load_scene(name: str, data_dir: str | None = None, device="cpu") -> Scene:
-    """Load a preset scene by name onto ``device``.  Parity table: scene.cpp:7-66."""
+def load_scene(name: str, data_dir: str | None = None, device="cuda") -> Scene:
+    """Load a preset scene by name onto ``device`` (the card unless asked for
+    the CPU).  Parity table: scene.cpp:7-66."""
+    device = entry_device(device)
     data_dir = data_dir or default_data_dir()
     name = name.lower()
     white = (1.0, 1.0, 1.0)
@@ -190,8 +192,9 @@ def load_scene(name: str, data_dir: str | None = None, device="cpu") -> Scene:
     raise ValueError(f"Unknown scene {name!r}; choose from {SCENE_NAMES}")
 
 
-def load_standin(name: str, device="cpu") -> Scene:
-    """One of ``STANDIN_NAMES`` on ``device``."""
+def load_standin(name: str, device="cuda") -> Scene:
+    """One of ``STANDIN_NAMES`` on ``device`` (the card unless asked for the CPU)."""
+    device = entry_device(device)
     from . import standins
 
     if name == "spherical_teacup":

@@ -26,6 +26,17 @@ def _f32(x, device):
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 
+def entry_device(device) -> torch.device:
+    """The device of an entry point (``make_scene``, ``Camera.default``,
+    ``load_scene``, ``load_standin``), which defaults to the card: a CUDA
+    device where there is none raises; nothing falls back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r}: this machine has no CUDA device; pass "
+                           f"device='cpu' for the CPU path")
+    return dev
+
+
 @dataclasses.dataclass
 class Materials(_Tensors):
     """Compact material table: ``kd``/``ks`` [M,3], ``shininess`` [M],
@@ -140,9 +151,10 @@ class Camera(_Tensors):
 
     @staticmethod
     def default(look_at=(0.0, 0.0, 0.0), euler_deg=(20.0, 20.0, 0.0), dist=3.0,
-                fovy_deg=50.0, aspect=1.0, device="cpu"):
+                fovy_deg=50.0, aspect=1.0, device="cuda"):
         # Radians are taken in float64 and rounded once to float32, as the
         # JAX package does, so both packages aim the same rays.
+        device = entry_device(device)
         return Camera(
             look_at=_f32(look_at, device),
             euler=_f32(np.radians(np.asarray(euler_deg, np.float64)), device),
@@ -188,9 +200,10 @@ def merge_meshes(meshes):
 
 
 def make_scene(meshes=(), spheres=None, point_lights=None, spherical_lights=None,
-               device="cpu") -> Scene:
-    """Build a Scene on ``device`` from mesh dicts and light/sphere containers
-    (which are moved to ``device``)."""
+               device="cuda") -> Scene:
+    """Build a Scene on ``device`` (the card unless asked for the CPU) from
+    mesh dicts and light/sphere containers (which are moved to ``device``)."""
+    device = entry_device(device)
     v, n, t, tm, materials = merge_meshes(list(meshes))
     return Scene(
         vertices=torch.as_tensor(v, device=device),

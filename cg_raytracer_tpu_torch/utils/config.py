@@ -30,9 +30,10 @@ class RenderConfig:
     # 'auto' = on for a scene on a CUDA device, off on the CPU (the scan over
     # the any-hit oracle); 'on' on the CPU runs the kernels' plain twins.
     soft_shadow_kernel: str = "auto"
-    # The BVH sampler's layout: 'auto' = 'cone' (all of a point's samples in
-    # one warp over the 4-wide tree).  'sample' (the JAX package's per-sample
-    # sampler on the binary tree) is not ported: ROADMAP B12.
+    # The tree sampler's route: 'cone' walks the soft tree (AccelBundle.soft,
+    # at the primary tree's width); 'sample' walks the primary tree and, as in
+    # the JAX package, makes it binary.  On the card both run one thread per
+    # (point, sample) and count the same.  'auto' = 'cone'.
     soft_shadow_tile: str = "auto"
     # The cone sampler's tree: leaf size (0 = auto) and split rule ('auto' |
     # 'median' | 'sah').  'auto' takes the primary tree's value, and where
@@ -76,6 +77,13 @@ class RenderConfig:
     # Triangles per leaf of the card's tree; 0 = auto = 4 (ops/bvh.py
     # DEFAULT_MAX_LEAF).  The JAX package's 56 was a TPU measurement.
     bvh_max_leaf: int = 0
+    # Node width of the card's tree up to VMEM_MAX_TRIS triangles: 'auto' |
+    # '2' (the binary tree) | '4' | '8' (ops/bvh4.py collapse_bvhw); past it
+    # bvh_wide_hbm: 'auto' | '2' | '4'.  One kernel walks every width.  Both
+    # autos are '4', the JAX package's; the H100's numbers for the other
+    # widths are in PERF.md.
+    bvh_wide: str = "auto"
+    bvh_wide_hbm: str = "auto"
     # Route forward_only renders past the trace kernel's cap through the
     # two-phase records and the shade kernel: 'auto' | 'on' | 'off'.  'auto'
     # is resolved by models.whitted.resolve_fwd_shade_kernel (render(),
@@ -133,11 +141,21 @@ class RenderConfig:
             raise ValueError(
                 f"soft_shadow_tile must be 'auto' | 'sample' | 'cone', got "
                 f"{self.soft_shadow_tile!r}")
-        if self.soft_shadow_tile == "sample":
-            raise NotImplementedError(
-                "soft_shadow_tile='sample' (the per-sample sampler on the binary tree) is not "
-                "ported (ROADMAP B12); 'cone' is the port's sampler")
-        return "cone"
+        return "cone" if self.soft_shadow_tile == "auto" else self.soft_shadow_tile
+
+    def resolve_bvh_wide(self) -> str:
+        if self.bvh_wide not in ("auto", "2", "4", "8"):
+            raise ValueError(
+                f"bvh_wide must be 'auto' | '2' | '4' | '8', got "
+                f"{self.bvh_wide!r}")
+        return "4" if self.bvh_wide == "auto" else self.bvh_wide
+
+    def resolve_bvh_wide_hbm(self) -> str:
+        if self.bvh_wide_hbm not in ("auto", "2", "4"):
+            raise ValueError(
+                f"bvh_wide_hbm must be 'auto' | '2' | '4', got "
+                f"{self.bvh_wide_hbm!r}")
+        return "4" if self.bvh_wide_hbm == "auto" else self.bvh_wide_hbm
 
     def resolve_soft_bvh_max_leaf(self) -> int:
         if self.soft_bvh_max_leaf:

@@ -5,7 +5,7 @@ operations over the card's rates and its bytes over the memory rate
 Per-operation counts are those of ``cg_raytracer_tpu/utils/roofline.py``
 (counted there line by line from the Pallas kernels; each add, multiply,
 compare, select, min, max, division, square root or transcendental is one
-operation), with the 4-wide node visit counted here.  Work that depends on
+operation), with the wide node visits counted here.  Work that depends on
 the data is counted on this run's data: an any-hit sweep's triangle tests
 up to its first blocker (``anyhit_tests``), a tree walk's node visits and
 triangle tests (counted by the twins' traversal, ``ops/bvh4.py``
@@ -37,9 +37,7 @@ ANYHIT_UPDATE = 4  # ok & t < t_max
 SHADOW_SETUP = 21  # a point light's shadow ray
 SLAB_FLOPS = 30  # one child box's slab test
 TBOUND_FLOPS = 6  # its prune against the padded best
-# A 4-wide node visit: four child slab tests and prunes, the five
-# compare-exchanges of the sort (3 each).
-INTERNAL4_VISIT_FLOPS = 4 * (SLAB_FLOPS + TBOUND_FLOPS) + 15
+CSWAP_FLOPS = 3  # a compare-exchange of the children's sort
 RECON_FLOPS = 150  # the hit's surface: MT re-solve, normal, flip, masks
 SHADE_FLOPS = 60  # Phong toward one light
 BOUNCE_MISC_FLOPS = 50  # reflection, throughput, masks
@@ -48,6 +46,15 @@ SAMPLE_FLOPS = 65  # a soft-shadow sample's float work: Box-Muller (25), its ray
 # products (a high and a low word each), four xors and two key bumps, then
 # the four 24-bit masks of the uniforms.
 PHILOX_INT_OPS = 10 * (4 + 4 + 2) + 4
+
+
+def internal_visit_flops(width: int) -> int:
+    """A width-W node visit: W child slab tests (6 W subtractions and
+    multiplies, the min/max tree) and prunes, and the comparators of the
+    sort network for W (ops/bvh4.py SORT_NET: 1, 5, 19): 75, 159, 345."""
+    from ..ops.bvh4 import SORT_NET
+
+    return width * (SLAB_FLOPS + TBOUND_FLOPS) + CSWAP_FLOPS * len(SORT_NET[width])
 
 
 def bound_ms(flops: float, bytes_: float, int_ops: float = 0.0):
@@ -78,7 +85,7 @@ def table_bytes(*tables) -> int:
 
 
 def tree_bytes(tree) -> int:
-    """The 4-wide tree's tables (ops/bvh4.py BVH4)."""
+    """The wide tree's tables (ops/bvh4.py BVH4)."""
     return table_bytes(tree.boxes, tree.meta, tree.nchild, tree.tris, tree.slot_to_prim)
 
 
@@ -106,27 +113,28 @@ def brute_bounce_flops(tri, lights, o, d, live=None):
 
 @torch.no_grad()
 def tree_anyhit_flops(tree, o, d, t_max) -> float:
-    """Operations of any-hit walks of the 4-wide tree: the node visits and
-    triangle tests as the twin counts them on these rays."""
+    """Operations of any-hit walks of the tree (any width): the node visits
+    and triangle tests as the twin counts them on these rays."""
     from ..ops import bvh4 as b4
 
     stats: dict = {}
     b4._anyhit_plain(tree, o, d, t_max, stats=stats)
-    return float(stats.get("visits", 0) * INTERNAL4_VISIT_FLOPS
+    return float(stats.get("visits", 0) * internal_visit_flops(tree.width)
                  + stats.get("tests", 0) * (MT_FLOPS + ANYHIT_UPDATE))
 
 
 @torch.no_grad()
 def tree_bounce_flops(tree, lights, o, d, live=None):
-    """``brute_bounce_flops`` over the 4-wide tree: the walks' node visits
-    and triangle tests as the twin counts them -> (flops, hit mask [N])."""
+    """``brute_bounce_flops`` over the tree (any width): the walks' node
+    visits and triangle tests as the twin counts them -> (flops, hit mask
+    [N])."""
     from ..ops import bvh4 as b4
     from ..ops import cuda_kernels as ck
 
     stats: dict = {}
     tm = None if live is None else torch.where(live, float("inf"), -1.0)
     t, slot, _, _ = b4._traverse_plain(tree, o, d, tm, any_hit=False, stats=stats)
-    flops = float(stats.get("visits", 0) * INTERNAL4_VISIT_FLOPS
+    flops = float(stats.get("visits", 0) * internal_visit_flops(tree.width)
                   + stats.get("tests", 0) * (MT_FLOPS + CLOSEST_UPDATE))
     ok = slot >= 0
     p = o + d * torch.where(ok, t, 0.0)[:, None]

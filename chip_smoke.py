@@ -2,8 +2,9 @@
 """On-card check of the PyTorch + CUDA port: the forward render path, the
 training path, the mesh slice (the 4-wide BVH and the pregathered shade),
 the soft-shadow slice (spherical lights: the brute and cone samplers, and
-the shade kernels' spherical fractions) and the scale slice (the 4-wide
-kernels past 200,000 triangles, ``optimize()`` with the refit).
+the shade kernels' spherical fractions), the scale slice (the 4-wide
+kernels past 200,000 triangles, ``optimize()`` with the refit) and the
+tree-width slice (the walk and the samplers at node widths 2 and 8).
 
 Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
@@ -104,7 +105,31 @@ Phases, each printing its own lines:
 23. the large tier's kernel times against their twins and bounds, ms per
     million camera rays on the teacup, the donut and the torus, the donut's
     ms/frame, ms/step and device-busy share, refit and optimize ms per step,
-    and the donut's tree: median against SAH, leaf 4 against leaf 28.
+    and the donut's tree: median against SAH, leaf 4 against leaf 28;
+24. the walk at node widths 2 (the JAX package's binary kernels, B13) and 8
+    (B15), collapsed from the memoized binary trees of the teacup, dragon,
+    donut and torus: closest hit, any hit (level-0 shadow rays, random
+    t_max) and the fused bounce (a live mask) exactly equal to their twins
+    on the teacup's 1024x1024 camera rays;
+25. width 2 on the large tier (B14): the same on the donut's frame and on
+    every 16th ray of the torus's;
+26. the tree samplers at width 2 (the 'sample' route over the binary
+    primary tree, B12; the 'cone' route over a binary soft tree, B11) and
+    8: table and PRNG kernels exactly equal to their twins on the 4,096-
+    point subsample of both spherical stand-ins, and each route's PRNG
+    counts on every hit point of both 1024x1024 frames equal to the 4-wide
+    kernel's;
+27. the width routes end to end, every count set to 0 first: ``render`` at
+    1024x1024 and ``run_bench(include_bwd=True)`` under bvh_wide='2' and '8'
+    (teacup, dragon, teacup + spheres), soft_shadow_tile='sample' and the
+    cone at widths 2 and 8 (spherical teacup), then bvh_wide_hbm='2' (donut,
+    donut + spheres); each width's counts are > 0 and the 4-wide kernels
+    never ran; images agree with the plain path (the spherical ones at
+    256x256), one full-contract step's gradients with the plain step's;
+28. per width: closest-hit ms per million camera rays and bounce ms on the
+    teacup, dragon, donut and torus, the default-route frame and the
+    full-contract step at 1024x1024 (run_bench, two alternating rounds), and
+    the new rows' kernel times against their twins and bounds.
 
 Every kernel's entry has its bound: the larger of its operations over 67
 TFLOP/s (integer ones over 16.7 Tops/s) and its bytes over 3.35 TB/s
@@ -165,6 +190,32 @@ KERNELS = {  # wrapper -> (name, source, Pallas kernel replaced), forward path f
                                   "cg_raytracer_tpu/ops/pallas_bvh4.py:1197"),
     "bounce_bvh4_cuda:large": ("bvh4_bounce_large", "cg_raytracer_tpu_torch/csrc/bvh4.cu",
                                "cg_raytracer_tpu/ops/pallas_bvh4.py:1222"),
+    # The tree-width slice: the same wrappers and walk at node width 2 (the
+    # JAX package's binary kernels, both tiers, and its binary samplers) and 8.
+    "intersect_bvh4_cuda:w2": ("bvh_w2", "cg_raytracer_tpu_torch/csrc/bvh4.cu",
+                               "cg_raytracer_tpu/ops/pallas_bvh.py:262"),
+    "bounce_bvh4_cuda:w2": ("bvh_bounce_w2", "cg_raytracer_tpu_torch/csrc/bvh4.cu",
+                            "cg_raytracer_tpu/ops/pallas_bvh.py:276"),
+    "intersect_bvh4_cuda:w2:large": ("bvh_w2_large", "cg_raytracer_tpu_torch/csrc/bvh4.cu",
+                                     "cg_raytracer_tpu/ops/pallas_bvh.py:732"),
+    "bounce_bvh4_cuda:w2:large": ("bvh_bounce_w2_large", "cg_raytracer_tpu_torch/csrc/bvh4.cu",
+                                  "cg_raytracer_tpu/ops/pallas_bvh.py:747"),
+    "soft_bvh_prng_cuda:w2": ("soft_bvh_prng", "cg_raytracer_tpu_torch/csrc/soft.cu",
+                              "cg_raytracer_tpu/ops/pallas_bvh.py:1008"),
+    "soft_bvh_table_cuda:w2": ("soft_bvh_table", "cg_raytracer_tpu_torch/csrc/soft.cu",
+                               "cg_raytracer_tpu/ops/pallas_bvh.py:1036"),
+    "soft4_prng_cuda:w2": ("soft_bvh_cone_prng", "cg_raytracer_tpu_torch/csrc/soft.cu",
+                           "cg_raytracer_tpu/ops/pallas_bvh.py:1109"),
+    "soft4_table_cuda:w2": ("soft_bvh_cone_table", "cg_raytracer_tpu_torch/csrc/soft.cu",
+                            "cg_raytracer_tpu/ops/pallas_bvh.py:1158"),
+    "intersect_bvh4_cuda:w8": ("bvh4_w8", "cg_raytracer_tpu_torch/csrc/bvh4.cu",
+                               "cg_raytracer_tpu/ops/pallas_bvh4.py:439"),
+    "bounce_bvh4_cuda:w8": ("bvh4_bounce_w8", "cg_raytracer_tpu_torch/csrc/bvh4.cu",
+                            "cg_raytracer_tpu/ops/pallas_bvh4.py:534"),
+    "soft4_prng_cuda:w8": ("soft4_prng_w8", "cg_raytracer_tpu_torch/csrc/soft.cu",
+                           "cg_raytracer_tpu/ops/pallas_bvh4.py:732"),
+    "soft4_table_cuda:w8": ("soft4_table_w8", "cg_raytracer_tpu_torch/csrc/soft.cu",
+                            "cg_raytracer_tpu/ops/pallas_bvh4.py:778"),
 }
 FORWARD_KERNELS = ("intersect_cuda", "occluded_cuda", "bounce_cuda", "trace_cuda")
 TRAIN_KERNELS = ("record_trace_cuda", "bounce_refl_cuda", "shade_fwd_cuda", "shade_bwd_cuda")
@@ -172,6 +223,7 @@ MESH_KERNELS = ("intersect_bvh4_cuda", "bounce_bvh4_cuda", "shade_pre_fwd_cuda",
                 "shade_pre_bwd_cuda")
 SOFT_KERNELS = ("soft_prng_cuda", "soft_table_cuda", "soft4_prng_cuda", "soft4_table_cuda")
 SCALE_KERNELS = ("intersect_bvh4_cuda:large", "bounce_bvh4_cuda:large")
+WIDTH_KERNELS = tuple(k for k in KERNELS if ":w" in k)
 TORUS_GRID = 800  # the donut's surface on an 800 x 800 grid: 1,280,000 triangles
 L2_BYTES = 50 * 1024 * 1024  # the H100's L2
 SOFT_SUB = 4096  # hit points of the samplers' checks against their twins
@@ -180,6 +232,18 @@ TOL = 1e-5  # t/u/v where prim ids match
 MIN_MATCH = 0.995  # prim ids, shadow bits, booleans
 IMG_ATOL, IMG_MAX_BAD = 1e-4, 0.005  # assert_images_close
 SHADE_FWD = dict(rtol=1e-5, atol=1e-6)
+
+
+_CLOCK = {"start": time.perf_counter(), "last": None}
+
+
+def phase(title):
+    """Print a phase's title with the script's seconds so far and the
+    seconds the phase before it took."""
+    now = time.perf_counter()
+    took = "" if _CLOCK["last"] is None else f", the phase before {now - _CLOCK['last']:.1f} s"
+    _CLOCK["last"] = now
+    print(f"{title}  [{now - _CLOCK['start']:.1f} s{took}]")
 
 
 def images_close(a, b, what):
@@ -225,14 +289,14 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     results = {}
 
-    print("phase 1: nvidia-smi --query-gpu=name,power.limit --format=csv,noheader")
+    phase("phase 1: nvidia-smi --query-gpu=name,power.limit --format=csv,noheader")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    print("phase 2: build the kernels")
+    phase("phase 2: build the kernels")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         for job in [pool.submit(_build.load), pool.submit(_build.load_check)]:
@@ -241,7 +305,8 @@ def main(argv=None) -> int:
     log = _build.library_path()[:-3] + ".log"
     print(f"  built {os.path.relpath(_build.library_path(), ROOT)} in {results['build_s']:.1f} s")
     with open(log) as f:
-        print("".join(f"  ptxas: {line}" for line in f if "registers" in line or "spill" in line))
+        print("".join(f"  ptxas: {line}" for line in f
+                      if any(k in line for k in ("registers", "spill", "entry function"))))
 
     box = make_scene(standins.mirror_box_meshes(),
                      point_lights=PointLights.of(*standins.MIRROR_BOX_LIGHTS), device=device)
@@ -251,7 +316,7 @@ def main(argv=None) -> int:
                        point_lights=PointLights.of(*standins.MIXED_LIGHTS), device=device)
     cam = Camera.default(device=device)
 
-    print("phase 3: kernels against their plain twins, 1024^2 primary + secondary rays")
+    phase("phase 3: kernels against their plain twins, 1024^2 primary + secondary rays")
     o1, d1 = generate_rays(cam, 1024, 1024)
 
     def ray_sets(scene):
@@ -312,7 +377,7 @@ def main(argv=None) -> int:
     note("bounce_cuda", max(1 - match, 1 - bits), err)
     torch.cuda.synchronize()
 
-    print("phase 4: main path (render) on the stand-in box and the triangles + spheres scene")
+    phase("phase 4: main path (render) on the stand-in box and the triangles + spheres scene")
     ck.reset_launch_counts()
     renders = {}
     for size in (800, 1024):
@@ -322,14 +387,14 @@ def main(argv=None) -> int:
     for fo in (True, False):
         cfg = RenderConfig(width=800, height=800, forward_only=fo)
         renders[("mixed", 800, fo)] = (mixed, cfg, render(mixed, cam, cfg))
-    print("phase 5: cgrt-torch render --scene spheres --device cuda")
+    phase("phase 5: cgrt-torch render --scene spheres --device cuda")
     cli_png = os.path.join(out, "cli_spheres.png")
     assert cli.main(["render", "--scene", "spheres", "--device", "cuda", "--width", "800",
                      "--height", "800", "-o", cli_png]) == 0
     torch.cuda.synchronize()
     counts = {k: ck.launch_counts()[k] for k in FORWARD_KERNELS}
 
-    print(f"phase 6: launch counts of the main path {counts}")
+    phase(f"phase 6: launch counts of the main path {counts}")
     for wrapper, n in counts.items():
         assert n > 0, f"{wrapper} never launched its kernel on the main path"
     for (label, size, fo), (scene, cfg, img) in renders.items():
@@ -353,14 +418,14 @@ def main(argv=None) -> int:
     # An independent reference: the CPU brute-force path, at 64^2.
     cpu_cfg = RenderConfig(width=64, height=64, backend="brute")
     for label, scene in (("box", box), ("mixed", mixed)):
-        ref = render(scene.to("cpu"), Camera.default(), cpu_cfg)
+        ref = render(scene.to("cpu"), Camera.default(device="cpu"), cpu_cfg)
         for fo in (True, False):
             img = render(scene, cam, RenderConfig(width=64, height=64, forward_only=fo))
             images_close(img.cpu(), ref, f"{label} 64^2 forward_only={fo} vs CPU brute force")
     spheres_img = read_image(cli_png)
     assert spheres_img.shape == (800, 800, 3) and (spheres_img.max(axis=-1) > 0.02).mean() > 0.05
 
-    print("phase 7: times at 1024^2 on the stand-in box")
+    phase("phase 7: times at 1024^2 on the stand-in box")
     _, _, _, (so, sd, st) = sets["box"]
     tri, aux, sph, lt = (ck._tri_table(box), ck._aux_table(box), ck._sphere_table(box),
                          ck._light_table(box))
@@ -442,7 +507,7 @@ def main(argv=None) -> int:
             for kname, kms, n in prof["kernels"][:6]:
                 print(f"    {kms:.5f} ms x{n:g}  {kname[:90]}")
 
-    print("phase 8: training kernels against their plain twins, 1024^2 primary rays")
+    phase("phase 8: training kernels against their plain twins, 1024^2 primary rays")
     rec_tables = ck._record_tables(box, "record")
     for quirks in (False, True):
         got, want = ck.record_trace_cuda(box, o1, d1, 2, quirks), ck.record_trace_plain(
@@ -507,7 +572,7 @@ def main(argv=None) -> int:
             note("shade_bwd_cuda", past, err)
     torch.cuda.synchronize()
 
-    print("phase 9: training main path, run_bench(include_bwd=True) on the stand-in box 1024^2")
+    phase("phase 9: training main path, run_bench(include_bwd=True) on the stand-in box 1024^2")
     contracts = {"full": True, "materials": False}
     ck.reset_launch_counts()
     shade.reset_launch_counts()
@@ -554,7 +619,7 @@ def main(argv=None) -> int:
         for k in ("kd", "ks", "light_color", "light_position") + (("vertices",) if v else ()):
             assert gk[k].abs().sum().item() > 0, f"{c}: d/d{k} is zero"
 
-    print("phase 10: training kernel times at 1024^2 on the stand-in box")
+    phase("phase 10: training kernel times at 1024^2 on the stand-in box")
     recs = ck.record_trace_cuda(box, o1, d1, 2)
     ro, rd, rhit, rbits, _ = recs[0]
     s_tables = tuple(x.detach() for x in shade._shade_tables(box)[:4])
@@ -622,15 +687,17 @@ def main(argv=None) -> int:
             print(f"    {kms:.5f} ms x{n:g}  {kname[:90]}")
     counts.update({k: train_counts[k] for k in TRAIN_KERNELS})
 
-    mesh_counts = mesh_phases(out, device, check, note, kernels, e2e, results)
-    counts.update(mesh_counts)
-    counts.update(soft_phases(out, device, check, note, kernels, e2e, results))
-    counts.update(scale_phases(out, device, check, note, kernels, e2e, results))
+    scenes = {}  # the scenes and trees later phases reuse (their trees memoized)
+    counts.update(mesh_phases(out, device, check, note, kernels, e2e, results, scenes))
+    counts.update(soft_phases(out, device, check, note, kernels, e2e, results, scenes))
+    counts.update(scale_phases(out, device, check, note, kernels, e2e, results, scenes))
+    counts.update(width_phases(out, device, check, note, kernels, e2e, results, scenes))
 
     results.update(card=smi, counts=counts, kernels=kernels, end_to_end=e2e)
     with open(os.path.join(out, "results.json"), "w") as f:
         json.dump(results, f, indent=1)
 
+    phase("done")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -652,7 +719,7 @@ def two_spheres(device):
                    shininess=torch.tensor([20.0, 1.0])).to(device)
 
 
-def mesh_phases(out, device, check, note, kernels, e2e, results) -> dict:
+def mesh_phases(out, device, check, note, kernels, e2e, results, scenes) -> dict:
     """Phases 11-15: the mesh slice on the teacup and the dragon.  Returns
     the new kernels' launch counts from the main path (phase 14)."""
     import torch
@@ -678,9 +745,10 @@ def mesh_phases(out, device, check, note, kernels, e2e, results) -> dict:
     cam = Camera.default(device=device)
     gen = torch.Generator(device).manual_seed(11)
 
-    print("phase 11: host build of the 4-wide BVH (SAH, leaf 4: the card's autos)")
+    phase("phase 11: host build of the 4-wide BVH (SAH, leaf 4: the card's autos)")
     teacup, dragon = load_scene("teacup", device=device), load_scene("dragon", device=device)
     cup_spheres = dataclasses.replace(teacup, spheres=two_spheres(device))
+    scenes.update(teacup=teacup, dragon=dragon, teacup_spheres=cup_spheres)
     trees, builds = {}, {}
     for label, scene in (("teacup", teacup), ("dragon", dragon)):
         t0 = time.perf_counter()
@@ -694,7 +762,7 @@ def mesh_phases(out, device, check, note, kernels, e2e, results) -> dict:
     results["bvh_build_s"] = builds
     tree = trees["teacup"]
 
-    print("phase 12: the 4-wide BVH kernels against their plain twins, teacup 1024^2")
+    phase("phase 12: the 4-wide BVH kernels against their plain twins, teacup 1024^2")
     o1, d1 = generate_rays(cam, 1024, 1024)
     surf = reconstruct_hit(teacup, o1, d1, b4.intersect_bvh4_plain(teacup, tree, o1, d1))
     refl = safe_normalize(reflect(d1, surf.normal))
@@ -734,7 +802,7 @@ def mesh_phases(out, device, check, note, kernels, e2e, results) -> dict:
           f"{p_ok:.5%} (the rest are coincident-t ties)")
     assert t_ok >= 0.998 and p_ok >= 0.995
 
-    print("phase 13: the pregathered shade kernels against their twin, teacup records")
+    phase("phase 13: the pregathered shade kernels against their twin, teacup records")
     payload, mats, lights6, sph, num_t = shade._pre_tables(teacup)
     tables = tuple(x.detach().contiguous() for x in (payload, mats, lights6, sph))
     records = []
@@ -766,7 +834,7 @@ def mesh_phases(out, device, check, note, kernels, e2e, results) -> dict:
         assert not got[0][:, 18].any(), "the material-id column got a cotangent"
     torch.cuda.synchronize()
 
-    print("phase 14: the mesh main path (teacup, dragon, teacup + spheres; counts from 0)")
+    phase("phase 14: the mesh main path (teacup, dragon, teacup + spheres; counts from 0)")
     ck.reset_launch_counts()
     shade.reset_launch_counts()
     b4.reset_launch_counts()
@@ -810,7 +878,8 @@ def mesh_phases(out, device, check, note, kernels, e2e, results) -> dict:
         images_close(renders[("teacup", size, False)][2], renders[("teacup", size, True)][2],
                       f"teacup {size}^2 default route vs forward-only route")
     # An independent reference: the CPU BVH traversal (ops/bvh.py), at 64^2.
-    cpu_img = render(teacup.to("cpu"), Camera.default(), RenderConfig(width=64, height=64))
+    cpu_img = render(teacup.to("cpu"), Camera.default(device="cpu"),
+                     RenderConfig(width=64, height=64))
     for fo in (False, True):
         img = render(teacup, cam, RenderConfig(width=64, height=64, forward_only=fo))
         images_close(img.cpu(), cpu_img, f"teacup 64^2 forward_only={fo} vs the CPU BVH path")
@@ -837,7 +906,7 @@ def mesh_phases(out, device, check, note, kernels, e2e, results) -> dict:
         for name in ("kd", "ks", "light_color", "light_position") + (("vertices",) if v else ()):
             assert gk[name].abs().sum().item() > 0, f"{c}: d/d{name} is zero"
 
-    print("phase 15: mesh kernel times at 1024^2 on the teacup")
+    phase("phase 15: mesh kernel times at 1024^2 on the teacup")
     o0, d0, prim0, bits0 = records[0]
     cts = [torch.full_like(o0, 1.0 / o0.numel()) for _ in range(4)]
 
@@ -951,7 +1020,7 @@ def mesh_phases(out, device, check, note, kernels, e2e, results) -> dict:
     return mesh_counts
 
 
-def soft_phases(out, device, check, note, kernels, e2e, results) -> dict:
+def soft_phases(out, device, check, note, kernels, e2e, results, scenes) -> dict:
     """Phases 16-18: the soft-shadow slice on the spherical stand-ins (the
     box through the brute sampler, the teacup through the cone sampler).
     Returns the new kernels' launch counts from the main path (phase 17)."""
@@ -978,7 +1047,7 @@ def soft_phases(out, device, check, note, kernels, e2e, results) -> dict:
     # A batch that does not start at point 0, as a later ray chunk's.
     key = soft.SampleKey(2026, 16).at(SOFT_KEY_OFFSET)
 
-    print("phase 16: the soft-shadow kernels against their twins, spherical box and teacup 1024^2")
+    phase("phase 16: the soft-shadow kernels against their twins, spherical box and teacup 1024^2")
     box = load_standin("spherical_box", device)
     cup = load_standin("spherical_teacup", device)
     t0 = time.perf_counter()
@@ -1103,12 +1172,12 @@ def soft_phases(out, device, check, note, kernels, e2e, results) -> dict:
         note(bwd_w, max(p for _, p in report.values()), d_sph)
     torch.cuda.synchronize()
 
-    print("phase 17: the soft-shadow main path (spherical box and teacup; counts from 0)")
+    phase("phase 17: the soft-shadow main path (spherical box and teacup; counts from 0)")
     for module in (ck, shade, b4, soft):
         module.reset_launch_counts()
-    scenes = {"spherical_box": (box, None), "spherical_teacup": (cup, accel)}
+    spherical = {"spherical_box": (box, None), "spherical_teacup": (cup, accel)}
     renders = {}
-    for label, (scene, acc) in scenes.items():
+    for label, (scene, acc) in spherical.items():
         for size in (800, 1024):
             for fo in (False, True):
                 cfg = RenderConfig(width=size, height=size, forward_only=fo)
@@ -1116,7 +1185,7 @@ def soft_phases(out, device, check, note, kernels, e2e, results) -> dict:
     contracts = {"full": True, "materials": False}
     train = {(label, c): run_bench(scene, width=1024, height=1024, include_bwd=True, iters=3,
                                    include_vertex_params=v, scene_name=f"stand-in {label}")
-             for label, (scene, _) in scenes.items() for c, v in contracts.items()}
+             for label, (scene, _) in spherical.items() for c, v in contracts.items()}
     cli_png = os.path.join(out, "cli_spherical_teacup.png")
     assert cli.main(["render", "--scene", "teacup", "--device", "cuda", "--remove-light", "0",
                      "--add-spherical-light", "-1", "1", "-1", "0.1", "1", "1", "1",
@@ -1141,14 +1210,14 @@ def soft_phases(out, device, check, note, kernels, e2e, results) -> dict:
     assert cli_img.shape == (800, 800, 3) and (cli_img.max(axis=-1) > 0.02).mean() > 0.1
     # Against the plain path at 256^2: the same samples (a generator seeded 0).
     cfg256 = RenderConfig(width=256, height=256)
-    for label, (scene, acc) in scenes.items():
+    for label, (scene, acc) in spherical.items():
         img = render(scene, cam, cfg256, accel=acc)
         plain = render_image(scene, cam, cfg256, generator=torch.Generator().manual_seed(0),
                              backend=make_backend(scene, cfg256, plain=True, accel=acc))
         images_close(img, plain, f"{label} 256^2 vs plain path")
     jitter = bench.camera_jitter(torch.Generator(device).manual_seed(9), device)
     steps = {}
-    for label, (scene, acc) in scenes.items():
+    for label, (scene, acc) in spherical.items():
         for c, v in contracts.items():
             cfg = bench.training_config(RenderConfig(width=256, height=256), v)
             params = bench.training_params(scene, v)
@@ -1169,7 +1238,7 @@ def soft_phases(out, device, check, note, kernels, e2e, results) -> dict:
             steps[(label, c)] = (bench.training_config(RenderConfig(width=1024, height=1024), v),
                                  params)
 
-    print("phase 18: soft-shadow kernel times at 1024^2, frames, steps and the soft tree")
+    phase("phase 18: soft-shadow kernel times at 1024^2, frames, steps and the soft tree")
     print("  ms = one bare launch between CUDA events (median of 5: each runs 0.1-20 ms, so the "
           "launch's own microseconds do not count); plain_ms = the twin (events, one run); the "
           f"PRNG kernels on the frame's hit points, the table kernels on the {SOFT_SUB}-point "
@@ -1220,7 +1289,7 @@ def soft_phases(out, device, check, note, kernels, e2e, results) -> dict:
                             "mismatch_frac": check[wrapper]["mismatch"], "ms": ms,
                             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                             "library_ms": None, "points": points, "samples": num})
-    for label, (scene, acc) in scenes.items():
+    for label, (scene, acc) in spherical.items():
         r = run_bench(scene, width=1024, height=1024, scene_name=f"stand-in {label}", iters=5)
         cfg = RenderConfig(width=1024, height=1024)
         prof = device_breakdown(lambda: render(scene, cam, cfg, accel=acc), iters=3)
@@ -1267,6 +1336,8 @@ def soft_phases(out, device, check, note, kernels, e2e, results) -> dict:
     assert same >= 0.995
     results["soft_tree_ab"] = {k: {kk: vv for kk, vv in v.items() if kk != "counts"}
                                for k, v in soft_trees.items()}
+    scenes.update(spherical_box=box, spherical_teacup=(cup, accel),
+                  soft=dict(frames=frames, subsample=subsample, full=full, key=key, num=num))
     return {w: counts[w] for w in SOFT_KERNELS}
 
 
@@ -1292,7 +1363,7 @@ def torus_scene(device, grid: int = TORUS_GRID):
                       device=device)
 
 
-def scale_phases(out, device, check, note, kernels, e2e, results) -> dict:
+def scale_phases(out, device, check, note, kernels, e2e, results, scenes) -> dict:
     """Phases 19-23: the scale slice (the donut, a torus past L2) and
     ``optimize()`` with the refit.  Returns the large tier's launch counts
     from the donut main path (phase 21)."""
@@ -1322,7 +1393,7 @@ def scale_phases(out, device, check, note, kernels, e2e, results) -> dict:
     gen = torch.Generator(device).manual_seed(19)
     big = lambda t: torch.where(torch.isinf(t), 1e9, t)  # noqa: E731
 
-    print("phase 19: large-tier builds on the host (the auto past 200,000 triangles)")
+    phase("phase 19: large-tier builds on the host (the auto past 200,000 triangles)")
     donut = load_scene("donut", device=device)
     cfg0 = RenderConfig()
     builder = cfg0.resolve_bvh_builder(donut.num_triangles, device)
@@ -1336,7 +1407,7 @@ def scale_phases(out, device, check, note, kernels, e2e, results) -> dict:
     torus = torus_scene(device)
     make_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ttree = b4.build_bvh4(torus, max_leaf=leaf, builder=builder)[1]
+    tbvh, ttree = b4.build_bvh4(torus, max_leaf=leaf, builder=builder)
     torch.cuda.synchronize()
     torus_s = time.perf_counter() - t0
     builds = {}
@@ -1353,7 +1424,7 @@ def scale_phases(out, device, check, note, kernels, e2e, results) -> dict:
     assert torus.num_triangles >= 1_280_000 and builds["torus"]["bytes"] > L2_BYTES
     results["scale_builds"] = builds
 
-    print("phase 20: the 4-wide kernels on the large tier against their twins, exactly")
+    phase("phase 20: the 4-wide kernels on the large tier against their twins, exactly")
     o1, d1 = generate_rays(cam, 1024, 1024)
 
     def against_twins(label, scene, tr, o, d):
@@ -1389,7 +1460,7 @@ def scale_phases(out, device, check, note, kernels, e2e, results) -> dict:
         note(wrapper, 0.0, 0.0)
     torch.cuda.synchronize()
 
-    print("phase 21: the donut main path (counts from 0)")
+    phase("phase 21: the donut main path (counts from 0)")
     for module in (ck, shade, b4, soft):
         module.reset_launch_counts()
     renders = {}
@@ -1398,6 +1469,7 @@ def scale_phases(out, device, check, note, kernels, e2e, results) -> dict:
             cfg = RenderConfig(width=size, height=size, forward_only=fo)
             renders[("donut", size, fo)] = (donut, cfg, render(donut, cam, cfg))
     donut_spheres = dataclasses.replace(donut, spheres=two_spheres(device))
+    scenes.update(donut=donut, donut_spheres=donut_spheres, torus=(torus, tbvh, ttree))
     cfg = RenderConfig(width=800, height=800)
     renders[("donut+spheres", 800, False)] = (donut_spheres, cfg, render(donut_spheres, cam, cfg))
     contracts = {"full": True, "materials": False}
@@ -1458,7 +1530,7 @@ def scale_phases(out, device, check, note, kernels, e2e, results) -> dict:
         for name in ("kd", "light_color", "light_position") + (("vertices",) if v else ()):
             assert gk[name].abs().sum().item() > 0, f"{c}: d/d{name} is zero"
 
-    print("phase 22: optimize() on the card: vertex steps, the tree refit in every step")
+    phase("phase 22: optimize() on the card: vertex steps, the tree refit in every step")
     teacup = load_scene("teacup", device=device)
     refits = []
     real_refit = refit.refit_accel
@@ -1528,7 +1600,7 @@ def scale_phases(out, device, check, note, kernels, e2e, results) -> dict:
     print("  cgrt-torch optimize on the stand-in box: checkpoint written at step 2, resumed to 4")
     results["optimize"] = opt
 
-    print("phase 23: times (rows 21-22 on the donut's 1024^2 primary rays, frames, steps, trees)")
+    phase("phase 23: times (rows 21-22 on the donut's 1024^2 primary rays, frames, steps, trees)")
     so, sd, st = shadow
     lpos = donut.point_lights.position.contiguous()
     tb, n1, tbytes = roofline.table_bytes, o1.shape[0], roofline.tree_bytes(tree)
@@ -1639,6 +1711,412 @@ def scale_phases(out, device, check, note, kernels, e2e, results) -> dict:
               f"excluded) {[round(x, 4) for x in row['frame_ms']]}")
     results["donut_tree_ab"] = trees
     return scale_counts
+
+
+def width_phases(out, device, check, note, kernels, e2e, results, scenes) -> dict:
+    """Phases 24-28: the tree width.  The one walk of csrc/bvh4.cuh at node
+    width 2 (the JAX package's binary kernels: B13 on-chip, B14 streaming)
+    and 8 (B15), and the samplers over those trees: the 'sample' route over
+    the binary primary tree (B12) and the 'cone' route at widths 2 (B11) and
+    8.  Returns the new rows' launch counts from the main path (phase 27)."""
+    import torch
+
+    from cg_raytracer_tpu_torch.models import whitted
+    from cg_raytracer_tpu_torch.models.whitted import (build_accel, effective_max_depth,
+                                                       make_backend, render, render_image,
+                                                       resolve_fwd_shade_kernel)
+    from cg_raytracer_tpu_torch.ops import bvh4 as b4
+    from cg_raytracer_tpu_torch.ops import soft
+    from cg_raytracer_tpu_torch.ops.bvh import build_bvh
+    from cg_raytracer_tpu_torch.ops.camera import generate_rays
+    from cg_raytracer_tpu_torch.ops.intersect import reconstruct_hit
+    from cg_raytracer_tpu_torch.ops.linalg import norm, safe_normalize
+    from cg_raytracer_tpu_torch.scene.types import Camera
+    from cg_raytracer_tpu_torch.utils import bench, checks, roofline
+    from cg_raytracer_tpu_torch.utils.bench import median, run_bench, time_frames
+    from cg_raytracer_tpu_torch.utils.config import RenderConfig
+    from cg_raytracer_tpu_torch.utils.image import write_png
+
+    cam = Camera.default(device=device)
+    gen = torch.Generator(device).manual_seed(24)
+    o1, d1 = generate_rays(cam, 1024, 1024)
+    n1 = o1.shape[0]
+    teacup, dragon, donut = scenes["teacup"], scenes["dragon"], scenes["donut"]
+    torus, torus_bvh, torus4 = scenes["torus"]
+
+    def events(fn):
+        """(fn(), the ms of that one call between CUDA events)."""
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        res = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return res, start.elapsed_time(end)
+
+    def shadow_rays(scene, tree, o, d):
+        """Shadow rays toward light 0 from the rays' hits, with a random t_max."""
+        surf = reconstruct_hit(scene, o, d, b4._closest_kernel(tree, o, d, None))
+        to_light = scene.point_lights.position[0] - surf.position
+        ldir = safe_normalize(to_light).contiguous()
+        so = (surf.position + 1e-3 * ldir).contiguous()
+        st = torch.where(surf.valid, norm(to_light) - 1e-3, -1.0)
+        return so, ldir, (st * torch.rand(st.shape, device=device, generator=gen) * 1.5).contiguous()
+
+    walks = {}  # (scene, width): the inputs of the checks, reused for the times
+
+    def against_twins(label, width, scene, tree, o, d):
+        """The walk's three entry points at the tree's width, exactly equal to
+        their twins; each twin timed on its one run."""
+        assert tree.width == width
+        lp = scene.point_lights.position.contiguous()
+        so, sd, st = shadow_rays(scene, tree, o, d)
+        tml = torch.where(torch.arange(o.shape[0], device=device) % 5 != 0, float("inf"),
+                          -1.0).contiguous()
+        got, (want, closest_ms) = (b4._closest_kernel(tree, o, d, None),
+                                   events(lambda: b4._closest_plain(tree, o, d, None)))
+        exact = {"closest": all(torch.equal(a, b) for a, b in zip(got, want))}
+        got_a, (want_a, anyhit_ms) = (b4._anyhit_kernel(tree, so, sd, st),
+                                      events(lambda: b4._anyhit_plain(tree, so, sd, st)))
+        exact["anyhit"] = torch.equal(got_a, want_a)
+        (gh, gb), ((wh, wb), bounce_ms) = (b4._bounce_kernel(tree, lp, o, d, tml),
+                                           events(lambda: b4._bounce_plain(tree, lp, o, d, tml)))
+        exact["bounce"] = all(torch.equal(a, b) for a, b in zip(gh, wh)) and torch.equal(gb, wb)
+        print(f"  {label}, width {width} ({tree.num_nodes} nodes, {tree.depth} levels): t, prim, "
+              f"u, v and bits equal to the twins' {exact} ({(got.prim_id >= 0).float().mean():.2%}"
+              f" of {o.shape[0]} rays hit, {want_a.float().mean():.2%} of the shadow rays "
+              f"occluded, {(gb > 0).float().mean():.2%} of the bounce rays shadowed)")
+        assert all(exact.values()), (label, width, exact)
+        walks[(label, width)] = dict(tree=tree, lp=lp, o=o, d=d, shadow=(so, sd, st), tml=tml,
+                                     plain_ms=(closest_ms, anyhit_ms, bounce_ms))
+
+    phase("phase 24: the walk at widths 2 (B13) and 8 (B15) against its twins, teacup 1024^2")
+    trees, collapse = {}, {}
+    for label, scene in (("teacup", teacup), ("dragon", dragon)):
+        for w in (2, 4, 8):
+            t0 = time.perf_counter()
+            trees[(label, w)] = build_accel(scene, RenderConfig(bvh_wide=str(w)))
+            collapse[(label, w)] = time.perf_counter() - t0
+    donut_leaf = RenderConfig().resolve_bvh_max_leaf()
+    donut_builder = RenderConfig().resolve_bvh_builder(donut.num_triangles, device)
+    for w in (2, 4, 8):
+        t0 = time.perf_counter()
+        trees[("donut", w)] = (build_accel(donut, RenderConfig(bvh_wide_hbm=str(w))) if w < 8 else
+                               whitted._wide_tree(donut, donut_leaf, donut_builder, 8))
+        collapse[("donut", w)] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        trees[("torus", w)] = torus4 if w == 4 else b4.collapse_bvhw(torus_bvh, w).to(device)
+        collapse[("torus", w)] = time.perf_counter() - t0
+    shapes = {}
+    for (label, w), tr in trees.items():
+        assert tr.width == w, (label, w, tr.width)
+        shapes[f"{label}_w{w}"] = {"nodes": tr.num_nodes, "levels": tr.depth,
+                                   "stack": (w - 1) * tr.depth + 1, "bytes": roofline.tree_bytes(tr),
+                                   "collapse_s": collapse[(label, w)]}
+        print(f"  {label} width {w}: {tr.num_nodes} nodes, {tr.depth} levels (a walk holds at "
+              f"most {(w - 1) * tr.depth + 1} of {b4.MAX_STACK} stack entries), "
+              f"{roofline.tree_bytes(tr) / 1e6:.2f} MB, {collapse[(label, w)]:.3f} s from the "
+              f"memoized binary tree")
+    results["width_trees"] = shapes
+    for w in (2, 8):
+        against_twins("teacup 1024^2 camera rays", w, teacup, trees[("teacup", w)], o1, d1)
+    for key in ("intersect_bvh4_cuda:w2", "bounce_bvh4_cuda:w2", "intersect_bvh4_cuda:w8",
+                "bounce_bvh4_cuda:w8"):
+        note(key, 0.0, 0.0)
+
+    phase("phase 25: the binary walk on the large tier (B14) against its twins")
+    against_twins("donut 1024^2 camera rays", 2, donut, trees[("donut", 2)], o1, d1)
+    sub = torch.arange(0, n1, 16, device=device)
+    against_twins("torus, every 16th ray of the 1024^2 frame", 2, torus, trees[("torus", 2)],
+                  o1[sub].contiguous(), d1[sub].contiguous())
+    for key in ("intersect_bvh4_cuda:w2:large", "bounce_bvh4_cuda:w2:large"):
+        note(key, 0.0, 0.0)
+    torch.cuda.synchronize()
+
+    phase("phase 26: the tree samplers at width 2 ('sample' B12, 'cone' B11) and 8 (B15)")
+    sd_ = scenes["soft"]
+    frames, subsample, key, num = sd_["frames"], sd_["subsample"], sd_["key"], sd_["num"]
+    box, (cup, cup_accel) = scenes["spherical_box"], scenes["spherical_teacup"]
+    box_bvh = build_bvh(box, max_leaf=4, builder="sah")
+    stree = {("box", w): b4.collapse_bvhw(box_bvh, w).to(device) for w in (2, 4, 8)}
+    stree[("teacup", 2)] = build_accel(cup, RenderConfig(soft_shadow_tile="sample"))
+    stree[("teacup", 4)] = cup_accel.soft
+    stree[("teacup", 8)] = build_accel(cup, RenderConfig(bvh_wide="8")).soft
+    for (label, w), tr in stree.items():
+        assert isinstance(tr, b4.BVH4) and tr.width == w, (label, w)
+    routes = (("sample", 2), ("cone", 2), ("cone", 8))
+    wrappers = {"sample": (soft.soft_bvh_prng_cuda, soft.soft_bvh_table_cuda),
+                "cone": (soft.soft4_prng_cuda, soft.soft4_table_cuda)}
+    v_sub = torch.arange(SOFT_SUB, device=device) % 8 != 0  # as phase 16
+    sampler_plain, per_sample = {}, {}
+    for label, (scene, pos, valid, light, _) in frames.items():
+        lights = (scene.spherical_lights.position[0], scene.spherical_lights.radius[0])
+        p_sub, g = subsample[label]
+        for w in (2, 8):
+            tr = stree[(label, w)]
+            want_t, table_ms = events(lambda: soft.soft4_table_plain(scene, tr, p_sub, *lights, g,
+                                                                     valid=v_sub))
+            want_p, prng_ms = events(lambda: soft.soft4_prng_plain(scene, tr, p_sub, *lights, key,
+                                                                   num, valid=v_sub))
+            sampler_plain[(label, w)] = (prng_ms, table_ms)
+            for route, rw in routes:
+                if rw != w:
+                    continue
+                prng, table = wrappers[route]
+                got_t = table(scene, tr, p_sub, *lights, g, valid=v_sub)
+                got_p = prng(scene, tr, p_sub, *lights, key, num, valid=v_sub)
+                exact = (torch.equal(got_t, want_t), torch.equal(got_p, want_p))
+                print(f"  {label} '{route}' width {w}, {SOFT_SUB} hit points x {num} samples, one "
+                      f"in eight unmarked: table kernel vs twin {'exact' if exact[0] else 'DIFFER'}"
+                      f", PRNG kernel vs twin {'exact' if exact[1] else 'DIFFER'} (twins: "
+                      f"{table_ms:.1f} ms, {prng_ms:.1f} ms)")
+                assert all(exact), (label, route, w)
+                for f in (prng, table):
+                    note(f"{f.__name__}:w{w}", 0.0, 0.0)
+            # This run's work per sample ray at this width (twin's count).
+            marked = torch.nonzero(v_sub).squeeze(1)
+            so, sd, tm = soft.sample_rays(p_sub[marked][:, None], soft.philox_gauss(
+                key, marked, torch.arange(num, device=device)), light)
+            per_sample[(label, w)] = roofline.tree_anyhit_flops(
+                tr, so.reshape(-1, 3), sd.reshape(-1, 3), tm.reshape(-1)) / tm.numel()
+        # Every hit point of the 1024^2 frame: each route's counts equal the
+        # 4-wide kernel's (an any-hit count does not depend on the tree).
+        ref = soft.soft4_prng_cuda(scene, stree[(label, 4)], pos, *lights, key, num, valid=valid)
+        for route, w in routes:
+            got = wrappers[route][0](scene, stree[(label, w)], pos, *lights, key, num, valid=valid)
+            same = (got == ref).float().mean().item()
+            print(f"  {label} 1024^2, all {pos.shape[0]} points ({int(valid.sum())} hit): '{route}'"
+                  f" width {w} counts equal the 4-wide kernel's on {same:.5%} of points, max "
+                  f"|diff| {(got - ref).abs().max().item():g}")
+            assert torch.equal(got, ref), (label, route, w)
+    torch.cuda.synchronize()
+
+    phase("phase 27: the width routes end to end: renders and steps (counts from 0)")
+    point_cfgs = {  # label: (scene, knobs)
+        "teacup bvh_wide=2": (teacup, {"bvh_wide": "2"}),
+        "teacup bvh_wide=8": (teacup, {"bvh_wide": "8"}),
+        "dragon bvh_wide=2": (dragon, {"bvh_wide": "2"}),
+        "dragon bvh_wide=8": (dragon, {"bvh_wide": "8"}),
+        "teacup+spheres bvh_wide=2": (scenes["teacup_spheres"], {"bvh_wide": "2"}),
+        "teacup+spheres bvh_wide=8": (scenes["teacup_spheres"], {"bvh_wide": "8"}),
+    }
+    soft_cfgs = {
+        "spherical teacup soft_shadow_tile=sample": (cup, {"soft_shadow_tile": "sample"}),
+        "spherical teacup bvh_wide=2 (cone)": (cup, {"bvh_wide": "2"}),
+        "spherical teacup bvh_wide=8 (cone)": (cup, {"bvh_wide": "8"}),
+    }
+    large_cfgs = {
+        "donut bvh_wide_hbm=2": (donut, {"bvh_wide_hbm": "2"}),
+        "donut+spheres bvh_wide_hbm=2": (scenes["donut_spheres"], {"bvh_wide_hbm": "2"}),
+    }
+    trained = ("teacup bvh_wide=2", "teacup bvh_wide=8", "dragon bvh_wide=2", "dragon bvh_wide=8",
+               "spherical teacup soft_shadow_tile=sample", "donut bvh_wide_hbm=2")
+    jitter = bench.camera_jitter(torch.Generator(device).manual_seed(9), device)
+
+    def drive(cfgs):
+        """The main path of each configuration with the counts from 0: a
+        1024^2 render and run_bench(include_bwd=True) -> (images, counts)."""
+        for module in (b4, soft):
+            module.reset_launch_counts()
+        images = {}
+        for label, (scene, kw) in cfgs.items():
+            images[label] = render(scene, cam, RenderConfig(width=1024, height=1024, **kw))
+            if label in trained:
+                r = run_bench(scene, width=1024, height=1024, include_bwd=True, iters=2,
+                              include_vertex_params=True, cfg_overrides=kw,
+                              scene_name=label.split(" bvh")[0].split(" soft")[0])
+                print(f"  {label}: run_bench(include_bwd=True) {r['seconds_per_frame'] * 1e3:.5f}"
+                      f" ms/step")
+        torch.cuda.synchronize()
+        return images, {**b4.launch_counts(), **soft.launch_counts()}
+
+    vmem_imgs, vmem_counts = drive({**point_cfgs, **soft_cfgs})
+    print(f"  launch counts, on-chip tier {vmem_counts}")
+    large_imgs, large_counts = drive(large_cfgs)
+    print(f"  launch counts, large tier {large_counts}")
+    for counts_, keys in ((vmem_counts, ("intersect_bvh4_cuda:w2", "occluded_bvh4_cuda:w2",
+                                         "bounce_bvh4_cuda:w2", "intersect_bvh4_cuda:w8",
+                                         "occluded_bvh4_cuda:w8", "bounce_bvh4_cuda:w8",
+                                         "soft_bvh_prng_cuda:w2", "soft4_prng_cuda:w2",
+                                         "soft4_prng_cuda:w8")),
+                          (large_counts, ("intersect_bvh4_cuda:w2", "occluded_bvh4_cuda:w2",
+                                          "bounce_bvh4_cuda:w2"))):
+        for k in keys:
+            assert counts_[k] > 0, f"{k} never launched its kernel on the main path"
+        wide4 = {k: n for k, n in counts_.items() if k.endswith(":w4") and n}
+        assert not wide4, f"the 4-wide kernels ran under another width's knob: {wide4}"
+    width_counts = {
+        "intersect_bvh4_cuda:w2": (vmem_counts["intersect_bvh4_cuda:w2"]
+                                   + vmem_counts["occluded_bvh4_cuda:w2"]),
+        "bounce_bvh4_cuda:w2": vmem_counts["bounce_bvh4_cuda:w2"],
+        "intersect_bvh4_cuda:w2:large": (large_counts["intersect_bvh4_cuda:w2"]
+                                         + large_counts["occluded_bvh4_cuda:w2"]),
+        "bounce_bvh4_cuda:w2:large": large_counts["bounce_bvh4_cuda:w2"],
+        "intersect_bvh4_cuda:w8": (vmem_counts["intersect_bvh4_cuda:w8"]
+                                   + vmem_counts["occluded_bvh4_cuda:w8"]),
+        "bounce_bvh4_cuda:w8": vmem_counts["bounce_bvh4_cuda:w8"],
+    }
+    for k in ("soft_bvh_prng_cuda:w2", "soft_bvh_table_cuda:w2", "soft4_prng_cuda:w2",
+              "soft4_table_cuda:w2", "soft4_prng_cuda:w8", "soft4_table_cuda:w8"):
+        width_counts[k] = vmem_counts[k]
+    # Each image against the plain path on the config render() resolved; the
+    # spherical ones at 256^2 on one generator (the samplers' twins on a
+    # whole 1024^2 frame take tens of seconds).
+    for label, img in {**vmem_imgs, **large_imgs}.items():
+        scene, kw = {**point_cfgs, **soft_cfgs, **large_cfgs}[label]
+        assert img.shape == (1024, 1024, 3) and bool(torch.isfinite(img).all()), label
+        lit = (img.amax(dim=-1) > 0.02).float().mean().item()
+        write_png(os.path.join(out, label.replace(" ", "_").replace("=", "") + ".png"), img)
+        size = 256 if label in soft_cfgs else 1024
+        cfg = RenderConfig(width=size, height=size, **kw)
+        cfg = resolve_fwd_shade_kernel(scene, dataclasses.replace(
+            cfg, max_depth=effective_max_depth(scene, cfg)))
+        accel = build_accel(scene, cfg)
+        gen0 = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+        if size != 1024:
+            img = render_image(scene, cam, cfg, generator=gen0(),
+                               backend=make_backend(scene, cfg, accel=accel))
+        plain = render_image(scene, cam, cfg, generator=gen0(),
+                             backend=make_backend(scene, cfg, plain=True, accel=accel))
+        images_close(img, plain, f"{label} {size}^2 vs plain path (lit fraction {lit:.3f})")
+        assert lit > 0.1, label
+    for label in trained:
+        scene, kw = {**point_cfgs, **soft_cfgs, **large_cfgs}[label]
+        size = 256 if label in soft_cfgs else 1024
+        cfg = RenderConfig(width=size, height=size, **kw)
+        cfg = bench.training_config(dataclasses.replace(
+            cfg, max_depth=effective_max_depth(scene, cfg)), True)
+        params = bench.training_params(scene, True)
+        accel = build_accel(scene, cfg)
+        (lk, gk), (lp, gp) = (bench.fwd_bwd_step(scene, cam, cfg, params, jitter, plain=plain,
+                                                 accel=accel,
+                                                 generator=torch.Generator().manual_seed(4))
+                              for plain in (False, True))
+        torch.testing.assert_close(lk, lp, rtol=1e-5, atol=1e-7)
+        worst = 0.0
+        for name in gk:
+            assert bool(torch.isfinite(gk[name]).all()), (label, name)
+            tol = dict(checks.TABLE_GRAD, atol=2e-5) if name == "vertices" else checks.TABLE_GRAD
+            torch.testing.assert_close(gk[name], gp[name], **tol, msg=f"{label} d/d{name}")
+            worst = max(worst, (gk[name] - gp[name]).abs().max().item())
+        assert gk["vertices"].abs().sum().item() > 0, label
+        print(f"  {label}, one full-contract {size}^2 step: loss {lk.item():.8g} (plain path "
+              f"{lp.item():.8g}), gradients within {worst:.3g} of the plain step's")
+    torch.cuda.synchronize()
+
+    phase("phase 28: times by node width (events; frames and steps by run_bench)")
+    per_mray = {}
+    for label, scene in (("teacup", teacup), ("dragon", dragon), ("donut", donut),
+                         ("torus", torus)):
+        lp = scene.point_lights.position.contiguous()
+        for w in (2, 4, 8):
+            tr = trees[(label, w)]
+            closest = median(time_frames(lambda: b4._closest_kernel(tr, o1, d1, None), iters=10))
+            bounce = median(time_frames(lambda: b4._bounce_kernel(tr, lp, o1, d1, None), iters=10))
+            per_mray[f"{label}_w{w}"] = {"closest_ms_per_mray": closest / (n1 / 1e6),
+                                         "bounce_ms": bounce}
+            print(f"  {label} width {w}: closest hit {closest / (n1 / 1e6):.5f} ms per million "
+                  f"camera rays, bounce {bounce:.5f} ms (1024^2 camera rays, one light)")
+    results["width_kernel_ms"] = per_mray
+    frame_cfgs = {
+        "teacup": (teacup, [{"bvh_wide": w} for w in "248"]),
+        "dragon": (dragon, [{"bvh_wide": w} for w in "248"]),
+        "donut": (donut, [{"bvh_wide_hbm": w} for w in "24"]),
+        "spherical_teacup": (cup, [{"soft_shadow_tile": "sample"}, {"bvh_wide": "2"}, {},
+                                   {"bvh_wide": "8"}]),
+    }
+    frames_ms = {}
+    for rnd in range(2):  # host-clocked: the widths take turns, twice
+        for label, (scene, kws) in frame_cfgs.items():
+            for kw in kws:
+                tag = f"{label} " + (",".join(f"{k}={v}" for k, v in kw.items()) or "auto")
+                r = run_bench(scene, width=1024, height=1024, iters=5,
+                              cfg_overrides={"forward_only": False, **kw}, scene_name=label)
+                s = run_bench(scene, width=1024, height=1024, include_bwd=True, iters=3,
+                              include_vertex_params=True, cfg_overrides=kw, scene_name=label)
+                row = frames_ms.setdefault(tag, {"frame_ms": [], "step_ms": []})
+                row["frame_ms"].append(r["seconds_per_frame"] * 1e3)
+                row["step_ms"].append(s["seconds_per_frame"] * 1e3)
+    for tag, row in frames_ms.items():
+        print(f"  {tag}: default-route frame {[round(x, 4) for x in row['frame_ms']]} ms, "
+              f"full-contract step {[round(x, 4) for x in row['step_ms']]} ms (two rounds)")
+        e2e[f"width {tag}"] = row
+    # The new rows: a bare launch between CUDA events (median of 20) on the
+    # inputs the twins ran on, the twin's time from its check run, the bound
+    # counted by the twin on the same rays.
+    tb = roofline.table_bytes
+    for closest_w, (label, w) in (("intersect_bvh4_cuda:w2", ("teacup 1024^2 camera rays", 2)),
+                                  ("intersect_bvh4_cuda:w8", ("teacup 1024^2 camera rays", 8)),
+                                  ("intersect_bvh4_cuda:w2:large", ("donut 1024^2 camera rays",
+                                                                    2))):
+        k = walks[(label, w)]
+        tr, o, d, (so, sd, st), lp, tml = (k["tree"], k["o"], k["d"], k["shadow"], k["lp"],
+                                           k["tml"])
+        nr, tbytes = o.shape[0], roofline.tree_bytes(tr)
+        closest_plain, anyhit_plain, bounce_plain = k["plain_ms"]
+        ms = median(time_frames(lambda: b4._closest_kernel(tr, o, d, None), iters=20))
+        any_ms = median(time_frames(lambda: b4._anyhit_kernel(tr, so, sd, st), iters=20))
+        b_ms_ = median(time_frames(lambda: b4._bounce_kernel(tr, lp, o, d, tml), iters=20))
+        bound = roofline.bound_ms(roofline.tree_bounce_flops(tr, lp[:0], o, d)[0],
+                                  nr * (24 + 16) + tbytes)
+        any_bound = roofline.bound_ms(roofline.tree_anyhit_flops(tr, so, sd, st),
+                                      nr * (28 + 1) + tbytes)
+        live = tml > 0
+        bounce_bound = roofline.bound_ms(roofline.tree_bounce_flops(tr, lp, o, d, live)[0],
+                                         nr * (24 + 20) + tbytes + tb(lp))
+        bounce_w = closest_w.replace("intersect", "bounce")
+        for wrapper, row in ((closest_w, (ms, closest_plain, *bound)),
+                             (bounce_w, (b_ms_, bounce_plain, *bounce_bound))):
+            name, source, replaces = KERNELS[wrapper]
+            entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": width_counts[wrapper], "max_abs_err": check[wrapper]["err"],
+                     "mismatch_frac": check[wrapper]["mismatch"], "ms": row[0],
+                     "plain_ms": row[1], "bound_ms": row[2], "bound_by": row[3],
+                     "library_ms": None, "width": w, "rays": nr}
+            if wrapper == closest_w:
+                entry.update(anyhit_ms=any_ms, anyhit_plain_ms=anyhit_plain,
+                             anyhit_bound_ms=any_bound[0])
+            print(f"  {name} ({label}): ms {row[0]:.5f}, plain_ms {row[1]:.4f} "
+                  f"(x{row[1] / row[0]:.1f}), bound_ms {row[2]:.5f} by {row[3]} "
+                  f"({row[2] / row[0]:.1%} of it)"
+                  + (f"; any hit ms {any_ms:.5f}, plain {anyhit_plain:.4f}, bound "
+                     f"{any_bound[0]:.5f}" if wrapper == closest_w else ""))
+            kernels.append(entry)
+    # The samplers on the spherical teacup: PRNG on every hit point of the
+    # 1024^2 frame, table on the subsample; the twins on the subsample.
+    scene, pos, valid, light, _ = frames["teacup"]
+    v8 = valid.to(torch.uint8).contiguous()
+    n_valid = int(valid.sum())
+    p_sub, g = subsample["teacup"]
+    g_nsc = g.permute(1, 0, 2).contiguous()
+    for route, w in routes:
+        tr = stree[("teacup", w)]
+        prng_plain, table_plain = sampler_plain[("teacup", w)]
+        work = per_sample[("teacup", w)]
+        tbytes = roofline.tree_bytes(tr)
+        prng_w, table_w = (f"{f.__name__}:w{w}" for f in wrappers[route])
+        for wrapper, fn, plain_ms, points, flops, int_ops, bytes_ in (
+                (prng_w, lambda: soft._tree_kernel(tr, pos, light, num, v8, key, None, route),
+                 prng_plain, n_valid, n_valid * num * (roofline.SAMPLE_FLOPS + work),
+                 n_valid * num * roofline.PHILOX_INT_OPS, pos.shape[0] * (12 + 1 + 4) + 16 + tbytes),
+                (table_w, lambda: soft._tree_kernel(tr, p_sub, light, num, None, None, g_nsc,
+                                                    route),
+                 table_plain, SOFT_SUB, SOFT_SUB * num * (roofline.SAMPLE_FLOPS - 25 + work), 0,
+                 SOFT_SUB * (12 + 4 + 12 * num) + 16 + tbytes)):
+            ms = median(time_frames(fn, iters=5, warmup=1))
+            b_ms, b_by = roofline.bound_ms(flops, bytes_, int_ops)
+            name, source, replaces = KERNELS[wrapper]
+            print(f"  {name} ('{route}', width {w}, {points} points x {num} samples): ms {ms:.5f},"
+                  f" plain_ms {plain_ms:.3f} on {SOFT_SUB} points, bound_ms {b_ms:.5f} by {b_by} "
+                  f"({b_ms / ms:.1%} of it); {points * num / ms / 1e6:.4g} G sample rays/s")
+            kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                            "launches": width_counts[wrapper],
+                            "max_abs_err": check[wrapper]["err"],
+                            "mismatch_frac": check[wrapper]["mismatch"], "ms": ms,
+                            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                            "library_ms": None, "points": points, "plain_points": SOFT_SUB,
+                            "samples": num, "width": w})
+    return {k: width_counts[k] for k in WIDTH_KERNELS}
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 // A stand-in for the CUDA runtime header that lets a kernel source compile as
 // plain C++ and run on the host, one block and one thread at a time, so that
 // AddressSanitizer and UBSan check every load and store of the kernel's body
-// (tests/test_torch_soft_memcheck.py).  Kernel launches are rewritten to
+// (tests/test_torch_soft_memcheck.py,
+// tests/test_torch_bvh_memcheck.py).  Kernel launches are rewritten to
 // emu_launch by the test.  A warp vote sees only the calling lane, so each
 // lane adds its own vote: a kernel whose warp adds its lanes' votes adds the
 // same total.  __syncthreads is empty: a block's shared memory is filled by
@@ -51,7 +52,7 @@ inline int atomicAdd(int* p, int v) {
 inline void __syncthreads() {}
 
 typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0 };
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
 template <class F, class... A>

@@ -173,8 +173,8 @@ def test_cpu_auto_backend_is_the_bvh_past_the_brute_cap():
     assert tw.needs_bvh(cfg, t.num_triangles, torch.device("cpu"))
     accel = tw.build_accel(t, cfg)
     assert isinstance(accel, tbvh.BVH) and tw.build_accel(t, cfg) is accel  # memoized
-    img = trt.render(t, trt.Camera.default(), cfg)
-    brute = trt.render(t, trt.Camera.default(), dataclasses.replace(cfg, backend="brute"))
+    img = trt.render(t, trt.Camera.default(device="cpu"), cfg)
+    brute = trt.render(t, trt.Camera.default(device="cpu"), dataclasses.replace(cfg, backend="brute"))
     assert_images_close(img.numpy(), brute.numpy(), msg="bvh vs brute")
     jimg = jrt.render(j, jrt.Camera.default(),
                       jrt.RenderConfig(width=32, height=32, backend="bvh"))

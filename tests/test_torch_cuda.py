@@ -1,6 +1,7 @@
 """PyTorch port on an NVIDIA GPU: each CUDA kernel against its plain PyTorch
-twin on the card, the 4-wide BVH kernels on the procedural teacup (48,000
-triangles) and on the donut (320,000, past the JAX package's on-chip tier),
+twin on the card, the wide BVH kernels on the procedural teacup (48,000
+triangles; node widths 2, 4 and 8) and on the donut (320,000, past the JAX
+package's on-chip tier; widths 4 and 2),
 the soft-shadow samplers and the spherical-light shade on the spherical
 stand-ins (``presets.load_standin``), the donut's render and training step
 and ``optimize()`` with the refit.  Skipped where there is no CUDA device.
@@ -450,3 +451,87 @@ def test_optimize_refits_the_tree_on_card(teacup_on_card):
     big = lambda t: torch.where(torch.isinf(t), 1e9, t)  # noqa: E731
     assert torch.isclose(big(a.t), big(b.t), atol=1e-4, rtol=1e-5).float().mean().item() >= 0.998
     assert (a.prim_id == b.prim_id).float().mean().item() >= 0.998
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["closest", "anyhit", "bounce"])
+@pytest.mark.parametrize("width", [2, 8])
+def test_width_kernel_matches_plain_on_card(width, kernel, teacup_on_card):
+    # B13 (width 2) and B15 (width 8): the walk's other instantiations,
+    # exactly equal to their twins, on the teacup's binary tree collapsed.
+    teacup, _, o, d, gen = teacup_on_card
+    tree = build_accel(teacup, RenderConfig(bvh_wide=str(width)))
+    assert isinstance(tree, b4.BVH4) and tree.width == width
+    before = b4.launch_counts()
+    if kernel == "closest":
+        got = b4.intersect_bvh4_cuda(teacup, tree, o, d)
+        assert all(torch.equal(a, b) for a, b in zip(got, b4.intersect_bvh4_plain(teacup, tree,
+                                                                                   o, d)))
+    elif kernel == "anyhit":
+        tm = torch.rand(o.shape[0], device=o.device, generator=gen) * 3.0 - 0.5
+        got = b4.occluded_bvh4_cuda(teacup, tree, o, d, tm)
+        assert torch.equal(got, b4.occluded_bvh4_plain(teacup, tree, o, d, tm))
+        assert bool(got.any()) and not bool(got[tm < 0].any())
+    else:
+        live = torch.arange(o.shape[0], device=o.device) % 5 != 0
+        (gh, gb), (wh, wb) = (b4.bounce_bvh4_cuda(teacup, tree, o, d, live),
+                              b4.bounce_bvh4_plain(teacup, tree, o, d, live))
+        assert all(torch.equal(a, b) for a, b in zip(gh, wh)) and torch.equal(gb, wb)
+    torch.cuda.synchronize()
+    name = {"closest": "intersect_bvh4_cuda", "anyhit": "occluded_bvh4_cuda",
+            "bounce": "bounce_bvh4_cuda"}[kernel]
+    assert b4.launch_counts()[f"{name}:w{width}"] > before[f"{name}:w{width}"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,width", [("sample", 2), ("cone", 2), ("cone", 8)])
+def test_tree_sampler_widths_on_card(route, width, spherical_on_card):
+    # B12 ('sample', the primary binary tree), B11 ('cone' over a binary
+    # tree) and B15's cone at width 8: the PRNG kernel equal to its twin,
+    # and its counts equal to the 4-wide kernel's (a count does not depend
+    # on the tree).
+    _, cup, tree4, _, _, points = spherical_on_card
+    pos, valid = points["cup"]
+    lpos, lrad = cup.spherical_lights.position[0], cup.spherical_lights.radius[0]
+    tree = build_accel(cup, RenderConfig(bvh_wide=str(width), soft_shadow_tile=route))
+    tree = tree if isinstance(tree, b4.BVH4) else tree.soft
+    assert tree.width == width
+    run, plain = ((soft.soft_bvh_prng_cuda, soft.soft_bvh_prng_plain) if route == "sample"
+                  else (soft.soft4_prng_cuda, soft.soft4_prng_plain))
+    key = soft.SampleKey(11, 22, 33)
+    before = soft.launch_counts()
+    got = run(cup, tree, pos, lpos, lrad, key, 200, valid=valid)
+    assert torch.equal(got, plain(cup, tree, pos, lpos, lrad, key, 200, valid=valid))
+    assert torch.equal(got, soft.soft4_prng_cuda(cup, tree4, pos, lpos, lrad, key, 200,
+                                                 valid=valid))
+    name = "soft_bvh_prng_cuda" if route == "sample" else "soft4_prng_cuda"
+    assert soft.launch_counts()[f"{name}:w{width}"] > before[f"{name}:w{width}"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["sample", "bvh_wide_hbm=2"])
+def test_width_routes_render_on_card(route, spherical_on_card, donut_on_card):
+    from cg_raytracer_tpu_torch.models.whitted import make_backend, render, render_image
+
+    if route == "sample":
+        scene = spherical_on_card[1]
+        cfg = RenderConfig(width=64, height=64, soft_shadow_tile="sample")
+        gen = torch.Generator().manual_seed(0)
+    else:
+        scene = donut_on_card[0]
+        cfg = RenderConfig(width=64, height=64, bvh_wide_hbm="2", max_depth=1)
+        gen = None
+    accel = build_accel(scene, cfg)
+    assert accel.width == 2
+    cam = Camera.default(device=scene.device)
+    b4.reset_launch_counts()
+    soft.reset_launch_counts()
+    img = render(scene, cam, cfg, accel=accel)
+    counts = {**b4.launch_counts(), **soft.launch_counts()}
+    if route == "sample":
+        assert counts["soft_bvh_prng_cuda:w2"] > 0 and counts["soft4_prng_cuda"] == 0
+    assert counts["bounce_bvh4_cuda:w2"] > 0
+    plain = render_image(scene, cam, cfg, backend=make_backend(scene, cfg, plain=True,
+                                                               accel=accel), generator=gen)
+    colors_close(img, plain)
+    assert (img.amax(dim=-1) > 0.02).float().mean().item() > 0.1

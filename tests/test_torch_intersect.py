@@ -150,6 +150,6 @@ def test_render_vertex_grads_are_finite_on_the_stand_in_box():
     _, t_scene = scene_pair("mirror_box")
     verts = t_scene.vertices.detach().clone().requires_grad_(True)
     scene = dataclasses.replace(t_scene, vertices=verts)
-    img = trt.render(scene, trt.Camera.default(), trt.RenderConfig(width=24, height=24))
+    img = trt.render(scene, trt.Camera.default(device="cpu"), trt.RenderConfig(width=24, height=24))
     img.mean().backward()
     assert bool(torch.isfinite(verts.grad).all()) and verts.grad.abs().sum() > 0

@@ -43,12 +43,12 @@ def test_mesh_render_matches_jax(route):
     if route == "forward_only":
         shade = backend.shade
         backend = backend._replace(shade=lambda *a: calls.append(1) or shade(*a))
-    t_img = tw.render_image(t, trt.Camera.default(), cfg, backend=backend)
+    t_img = tw.render_image(t, trt.Camera.default(device="cpu"), cfg, backend=backend)
     assert len(calls) == (2 if route == "forward_only" else 0)
     assert_images_close(t_img.numpy(), j_img, msg=route)
-    assert_images_close(trt.render(t, trt.Camera.default(), cfg).numpy(), j_img, msg="render()")
+    assert_images_close(trt.render(t, trt.Camera.default(device="cpu"), cfg).numpy(), j_img, msg="render()")
     lit = j_img.max(axis=-1) > 0.02
     assert lit.mean() > 0.2
     # Depth 2 is live: the cup's reflections add light.
-    one = trt.render(t, trt.Camera.default(), dataclasses.replace(cfg, max_depth=1)).numpy()
+    one = trt.render(t, trt.Camera.default(device="cpu"), dataclasses.replace(cfg, max_depth=1)).numpy()
     assert (np.abs(t_img.numpy() - one).max(axis=-1) > 1e-3).mean() > 0.01

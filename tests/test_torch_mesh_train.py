@@ -61,7 +61,7 @@ def test_mesh_two_phase_render_and_grads_match_jax(rays):
 
     leaves = {k: v.requires_grad_(True) for k, v in params_from_numpy(params).items()}
     cfg = trt.RenderConfig(backend="cuda", **switches)
-    t_img = trt.render_image(_apply(t, leaves, tinv), trt.Camera.default(), cfg)
+    t_img = trt.render_image(_apply(t, leaves, tinv), trt.Camera.default(device="cpu"), cfg)
     assert_images_close(t_img.detach().numpy(), j_img, msg=f"mesh two-phase {rays}")
     assert (j_img.max(axis=-1) > 0.02).mean() > 0.2
 

@@ -47,7 +47,7 @@ def _box_problem():
     """The box, its 16^2 render as the target, and kd moved off it."""
     j, t = scene_pair("mirror_box")
     cfg = dict(width=SIZE, height=SIZE)
-    target = trt.render(t, trt.Camera.default(euler_deg=EULER), trt.RenderConfig(**cfg)).numpy()
+    target = trt.render(t, trt.Camera.default(euler_deg=EULER, device="cpu"), trt.RenderConfig(**cfg)).numpy()
     kd0 = t.materials.kd.numpy() * 0.5 + 0.2
     return j, t, cfg, target, kd0
 
@@ -58,7 +58,7 @@ def test_optimize_matches_jax_on_the_box():
                                 jrt.RenderConfig(**cfg), steps=3, learning_rate=1e-2,
                                 params={"kd": jnp.asarray(kd0)}, apply_params=_apply_kd,
                                 log_every=0)
-    params, losses = tinv.optimize(t, trt.Camera.default(euler_deg=EULER), target,
+    params, losses = tinv.optimize(t, trt.Camera.default(euler_deg=EULER, device="cpu"), target,
                                    trt.RenderConfig(**cfg),
                                    steps=3, learning_rate=1e-2,
                                    params={"kd": torch.from_numpy(kd0)}, apply_params=_apply_kd,
@@ -96,7 +96,7 @@ def test_resume_and_cadence_give_the_same_losses(tmp_path):
     _, t, cfg, target, kd0 = _box_problem()
     run = dict(learning_rate=5e-2, params={"kd": torch.from_numpy(kd0)}, apply_params=_apply_kd,
                log_every=0)
-    cam, rc = trt.Camera.default(euler_deg=EULER), trt.RenderConfig(**cfg)
+    cam, rc = trt.Camera.default(euler_deg=EULER, device="cpu"), trt.RenderConfig(**cfg)
     p_full, l_full = tinv.optimize(t, cam, target, rc, steps=6, **run)
     ck = str(tmp_path / "resume.npz")
     _, l_a = tinv.optimize(t, cam, target, rc, steps=3, checkpoint_path=ck, checkpoint_every=3,
@@ -115,7 +115,7 @@ def test_vertex_translation_on_the_cup_with_the_refit(monkeypatch):
     # tree is built once over the perturbed geometry and refit every step.
     j, t = cup_pair()
     cfg = dict(width=24, height=24, backend="bvh")
-    target = trt.render(t, trt.Camera.default(), trt.RenderConfig(**cfg)).numpy()
+    target = trt.render(t, trt.Camera.default(device="cpu"), trt.RenderConfig(**cfg)).numpy()
     shift = np.asarray([0.0, 0.0, 0.08], np.float32)
     v0 = np.asarray(j.vertices) + shift
     jp = dataclasses.replace(j, vertices=jnp.asarray(v0))
@@ -126,7 +126,7 @@ def test_vertex_translation_on_the_cup_with_the_refit(monkeypatch):
     refits = []
     real = refit.refit_accel
     monkeypatch.setattr(refit, "refit_accel", lambda *a, **k: refits.append(1) or real(*a, **k))
-    params, losses = tinv.optimize(tp, trt.Camera.default(), target, trt.RenderConfig(**cfg),
+    params, losses = tinv.optimize(tp, trt.Camera.default(device="cpu"), target, trt.RenderConfig(**cfg),
                                    steps=6, learning_rate=2e-3, params=tinv.vertex_params(tp),
                                    apply_params=tinv.apply_vertex_params, log_every=0)
     assert len(refits) == 6
@@ -144,7 +144,7 @@ def test_per_group_learning_rates_and_the_jsonl_log(tmp_path):
                                  {"params": [p["ks"], p["shininess"]], "lr": 0.0}])
 
     log = str(tmp_path / "steps.jsonl")
-    out, losses = tinv.optimize(t, trt.Camera.default(), target, trt.RenderConfig(**cfg),
+    out, losses = tinv.optimize(t, trt.Camera.default(device="cpu"), target, trt.RenderConfig(**cfg),
                                 steps=3, params=params, optimizer=groups, log_every=0,
                                 log_jsonl=log, apply_params=lambda s, p: dataclasses.replace(
                                     s, materials=dataclasses.replace(
@@ -159,7 +159,7 @@ def test_per_group_learning_rates_and_the_jsonl_log(tmp_path):
     assert {"step", "loss", "param_norm", "step_seconds", "rays_per_s"} <= set(lines[0])
     assert [r["loss"] for r in lines] == losses
     with pytest.raises(NotImplementedError, match="A11"):
-        tinv.optimize(t, trt.Camera.default(), target, trt.RenderConfig(**cfg), steps=1,
+        tinv.optimize(t, trt.Camera.default(device="cpu"), target, trt.RenderConfig(**cfg), steps=1,
                       mesh=object())
 
 

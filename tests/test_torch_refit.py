@@ -139,7 +139,7 @@ def test_vertex_gradient_through_a_refit_matches_jax():
 
     verts = torch.from_numpy(np.asarray(j2.vertices)).requires_grad_(True)
     s = dataclasses.replace(t, vertices=verts)
-    img = tw.render_image(s, trt.Camera.default(), cfg,
+    img = tw.render_image(s, trt.Camera.default(device="cpu"), cfg,
                           backend=tw.make_backend(s, cfg, accel=refit_accel(bvh0, s, plan)))
     want_img, vjp = jax.vjp(j_img, j2.vertices)
     want_img = np.asarray(want_img)

@@ -103,8 +103,8 @@ def test_routing_past_the_on_chip_tier(donut):
     accel = tw.build_accel(sph, on)
     assert isinstance(accel, tb4.BVH4) and accel is tw.build_accel(sph, on)
     assert tw.make_backend(sph, on, accel=accel).soft_vis is None
-    img = trt.render(sph, trt.Camera.default(), on, accel=accel)
-    off = trt.render(sph, trt.Camera.default(), dataclasses.replace(on, soft_shadow_kernel="off"),
+    img = trt.render(sph, trt.Camera.default(device="cpu"), on, accel=accel)
+    off = trt.render(sph, trt.Camera.default(device="cpu"), dataclasses.replace(on, soft_shadow_kernel="off"),
                      accel=accel)
     assert torch.equal(img, off) and bool(torch.isfinite(img).all()) and img.amax() > 0.02
     # Past both tiers the card raises, before any build (a stubbed count).
@@ -122,7 +122,7 @@ def test_donut_render_and_step_match_jax(donut):
     j, t, h4, tree = donut
     cfg = dict(width=SIZE, height=SIZE)
     j_img = np.asarray(jrt.render(j, jrt.Camera.default(), JConfig(backend="pallas", **cfg)))
-    t_img = trt.render(t, trt.Camera.default(), trt.RenderConfig(backend="cuda", **cfg),
+    t_img = trt.render(t, trt.Camera.default(device="cpu"), trt.RenderConfig(backend="cuda", **cfg),
                        accel=tree).numpy()
     assert_images_close(t_img, j_img, msg="donut render")
     assert (j_img.max(axis=-1) > 0.02).mean() > 0.1
@@ -142,7 +142,7 @@ def test_donut_render_and_step_match_jax(donut):
     j_img = np.asarray(j_img)
     leaves = {k: v.requires_grad_(True) for k, v in params_from_numpy(params).items()}
     scn, tcfg = _apply(t, leaves, tinv), trt.RenderConfig(backend="cuda", **switches)
-    t_img = tw.render_image(scn, trt.Camera.default(), tcfg,
+    t_img = tw.render_image(scn, trt.Camera.default(device="cpu"), tcfg,
                             backend=tw.make_backend(scn, tcfg, accel=tree))
     assert_images_close(t_img.detach().numpy(), j_img, msg="donut two-phase")
     mask = (np.abs(t_img.detach().numpy() - j_img).max(axis=-1) <= 1e-4).astype(np.float32)

@@ -77,14 +77,16 @@ def test_make_scene_matches_jax(name):
     j = jax_scene_named(name)
     if name == "mirror_box":
         t = trt.make_scene(standins.mirror_box_meshes(),
-                           point_lights=trt.PointLights.of(*standins.MIRROR_BOX_LIGHTS))
+                           point_lights=trt.PointLights.of(*standins.MIRROR_BOX_LIGHTS),
+                           device="cpu")
     elif name == "mixed":
         t = trt.make_scene(standins.mixed_meshes(),
                            spheres=trt.Spheres(**{k: torch.as_tensor(v) for k, v in
                                                   standins.mixed_spheres().items()}),
-                           point_lights=trt.PointLights.of(*standins.MIXED_LIGHTS))
+                           point_lights=trt.PointLights.of(*standins.MIXED_LIGHTS),
+                           device="cpu")
     else:
-        t = trt.load_scene(name)
+        t = trt.load_scene(name, device="cpu")
     assert_leaves_equal(jax_leaves(j), port_leaves(t))
     # interop builds the same scene from the JAX leaves
     assert_leaves_equal(port_leaves(scene_from_numpy(jax_leaves(j))), port_leaves(t))
@@ -92,7 +94,7 @@ def test_make_scene_matches_jax(name):
 
 def test_procedural_presets_match_jax():
     for name in ("teacup",):
-        assert_leaves_equal(jax_leaves(jrt.load_scene(name)), port_leaves(trt.load_scene(name)))
+        assert_leaves_equal(jax_leaves(jrt.load_scene(name)), port_leaves(trt.load_scene(name, device="cpu")))
 
 
 def test_empty_scene_and_merge_meshes_match_jax():
@@ -105,14 +107,14 @@ def test_empty_scene_and_merge_meshes_match_jax():
         for a, b in zip(jv[:4], tv[:4]):
             np.testing.assert_array_equal(a, b)
         assert_leaves_equal(jax_leaves(jv[4]), port_leaves(tv[4]))
-    assert_leaves_equal(jax_leaves(jrt.make_scene()), port_leaves(trt.make_scene()))
+    assert_leaves_equal(jax_leaves(jrt.make_scene()), port_leaves(trt.make_scene(device="cpu")))
 
 
 @pytest.mark.parametrize("kwargs", [{}, dict(euler_deg=(0, 35, 5), dist=2.5, fovy_deg=40.0,
                                              aspect=1.5, look_at=(0.5, -0.2, 0.1))])
 def test_camera_default_matches_jax(kwargs):
     j = jax_leaves(jrt.Camera.default(**kwargs))
-    assert_leaves_equal(j, port_leaves(trt.Camera.default(**kwargs)))
+    assert_leaves_equal(j, port_leaves(trt.Camera.default(**kwargs, device="cpu")))
     assert_leaves_equal(j, port_leaves(camera_from_numpy(j)))
 
 
@@ -127,7 +129,8 @@ def test_interop_rejects_wrong_leaf_count():
 
 def test_mirror_box_shape():
     scene = trt.make_scene(standins.mirror_box_meshes(),
-                           point_lights=trt.PointLights.of(*standins.MIRROR_BOX_LIGHTS))
+                           point_lights=trt.PointLights.of(*standins.MIRROR_BOX_LIGHTS),
+                           device="cpu")
     assert scene.num_triangles == 32
     ks = scene.materials.ks[scene.tri_material.long()]
     assert bool((ks > 0.01).any(dim=1).any())  # a live mirror: depth 2 matters
@@ -190,13 +193,13 @@ def test_obj_presets_raise_without_data(tmp_path, monkeypatch):
     monkeypatch.setenv("CGRT_DATA_DIR", str(tmp_path))
     for name in ("cornell_box", "cube", "monkey"):
         with pytest.raises(FileNotFoundError):
-            trt.load_scene(name)
+            trt.load_scene(name, device="cpu")
     with pytest.raises(ValueError):
-        trt.load_scene("no_such_scene")
+        trt.load_scene("no_such_scene", device="cpu")
 
 
 def test_scene_device_and_to():
-    scene = trt.load_scene("spheres")
+    scene = trt.load_scene("spheres", device="cpu")
     assert scene.device == torch.device("cpu")
     moved = scene.to("cpu")
     assert_leaves_equal(port_leaves(scene), port_leaves(moved))
@@ -240,3 +243,21 @@ def test_csrc_is_packaged():
     text = (REPO / "pyproject.toml").read_text()
     assert "cg_raytracer_tpu_torch" in text and "csrc/*.cu" in text
     assert os.path.exists(REPO / "cg_raytracer_tpu_torch" / "csrc" / "sweep.cuh")
+
+
+def test_entry_points_default_to_the_card():
+    # load_scene, load_standin, make_scene and Camera.default put their
+    # tensors on the card unless asked for the CPU; without a card they
+    # raise and do not fall back.
+    from cg_raytracer_tpu_torch.scene.presets import load_standin
+
+    calls = (lambda: trt.load_scene("spheres"), lambda: load_standin("mirror_box"),
+             lambda: trt.make_scene(standins.mirror_box_meshes()), trt.Camera.default)
+    for call in calls:
+        if torch.cuda.is_available():
+            obj = call()
+            assert obj.device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
+    assert trt.Camera.default(device="cpu").device.type == "cpu"

@@ -188,7 +188,7 @@ def check_slice(name, num):
         _, packed = jb4.build_packed_bvh4(j, max_leaf=14, builder="median")
         jbvh = jbvh_mod.build_bvh(j, builder="median")
         tree = tw.build_accel(t, trt.RenderConfig(backend="cuda"))
-    cam_j, cam_t = jrt.Camera.default(), trt.Camera.default()
+    cam_j, cam_t = jrt.Camera.default(), trt.Camera.default(device="cpu")
 
     # One phase, forward.
     jcfg = JConfig(width=SIZE, height=SIZE, backend=jbackend, soft_shadow_samples=num)
@@ -289,7 +289,7 @@ def test_prng_counts_agree_with_the_table_in_distribution():
 
 def test_render_stream_is_seeded_and_chunk_independent():
     _, t = spherical_pair("box")
-    cam = trt.Camera.default()
+    cam = trt.Camera.default(device="cpu")
     cfg = trt.RenderConfig(width=16, height=16, backend="cuda", soft_shadow_kernel="on",
                            soft_shadow_samples=S)
     gen = lambda s: torch.Generator().manual_seed(s)  # noqa: E731
@@ -323,8 +323,8 @@ def test_soft_config_errors_match_jax():
         assert str(t_err.value) == str(j_err.value), field
     with pytest.raises(ValueError, match="soft_bvh_max_leaf must be positive"):
         trt.RenderConfig(soft_bvh_max_leaf=-1).resolve_soft_bvh_max_leaf()
-    with pytest.raises(NotImplementedError, match="B12"):
-        trt.RenderConfig(soft_shadow_tile="sample").resolve_soft_shadow_tile()
+    assert (trt.RenderConfig(soft_shadow_tile="sample").resolve_soft_shadow_tile()
+            == JConfig(soft_shadow_tile="sample").resolve_soft_shadow_tile() == "sample")
     cfg = trt.RenderConfig()
     assert cfg.soft_shadow_samples == JConfig().soft_shadow_samples == 200
     assert cfg.soft_shadow_chunk == JConfig().soft_shadow_chunk == 20
@@ -335,3 +335,34 @@ def test_soft_config_errors_match_jax():
     # The soft tree's auto is the primary tree's: one tree, no second build.
     assert (cfg.resolve_soft_bvh_max_leaf(), cfg.resolve_soft_bvh_builder(48000, "cuda")) == \
         (cfg.resolve_bvh_max_leaf(), cfg.resolve_bvh_builder(48000, "cuda"))
+
+
+@pytest.mark.parametrize("tile,wide", [("sample", "4"), ("cone", "2"), ("cone", "8")])
+def test_sampler_routes_to_its_tree(tile, wide, monkeypatch):
+    # 'sample' walks the primary tree and makes it binary whatever bvh_wide
+    # says (whitted.py:977-984 of the JAX package); 'cone' walks the soft
+    # tree, at the primary tree's width.
+    _, t = spherical_pair("cup")
+    cfg = trt.RenderConfig(backend="cuda", soft_shadow_kernel="on", soft_shadow_tile=tile,
+                           bvh_wide=wide)
+    accel = tw.build_accel(t, cfg)
+    width = 2 if tile == "sample" else int(wide)
+    assert tw.tree_width(t, cfg) == width
+    if tile == "sample":
+        assert isinstance(accel, b4.BVH4) and accel.width == 2
+        primary = accel
+    else:
+        assert isinstance(accel, tw.AccelBundle) and accel.soft is accel.primary
+        primary = accel.primary
+    assert primary.width == width
+    seen = []
+    name = "soft_bvh_prng_plain" if tile == "sample" else "soft4_prng_plain"
+    monkeypatch.setattr(soft, name, lambda scene, tree, *a, **k: seen.append(tree))
+    backend = tw.make_backend(t, cfg, plain=True, accel=accel)
+    backend.soft_vis(t.spherical_lights.position[0], t.spherical_lights.radius[0],
+                     torch.zeros((4, 3)), soft.SampleKey(1, 2))
+    assert len(seen) == 1 and seen[0] is primary
+    # A tree of another width than the config's is refused.
+    other = b4.build_bvh4(t, max_leaf=4, builder="sah", width=4 if width != 4 else 8)[1]
+    with pytest.raises(ValueError, match="width"):
+        tw.make_backend(t, cfg, accel=other)

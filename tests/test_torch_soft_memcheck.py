@@ -69,9 +69,9 @@ def emulator(tmp_path_factory):
 
 def frame(name):
     """(scene, tree or None, hit positions [N, 3], marked points [N])."""
-    o, d = generate_rays(trt.Camera.default(), SIZE, SIZE)
+    o, d = generate_rays(trt.Camera.default(device="cpu"), SIZE, SIZE)
     if name == "box":
-        scene, tree = load_standin("spherical_box"), None
+        scene, tree = load_standin("spherical_box", device="cpu"), None
         assert scene.num_triangles == BOX_TRIS
         hit = ck.intersect_plain(scene, o, d)
     else:
@@ -100,7 +100,7 @@ def run_emulated(emulator, scene, tree, pos, marked, gauss_nsc, tag):
         arrays += [tris, tree.boxes, tree.meta, tree.nchild]
     if gauss_nsc is not None:
         arrays.append(gauss_nsc)
-    header = struct.pack("<10q", int(tree is not None), n, S, tris.shape[0], nodes, 1,
+    header = struct.pack("<10q", 0 if tree is None else tree.width, n, S, tris.shape[0], nodes, 1,
                          int(gauss_nsc is not None), KEY.k0, KEY.k1, KEY.offset)
     path = out / f"{tag}.in"
     with open(path, "wb") as f:

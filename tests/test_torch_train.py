@@ -72,7 +72,7 @@ def test_two_phase_render_and_grads_match_jax(rays):
     leaves = {k: v.requires_grad_(True) for k, v in params_from_numpy(params).items()}
     cfg = trt.RenderConfig(backend="cuda", **switches)
     scene = _apply(t, leaves, tinv)
-    t_img = trt.render_image(scene, trt.Camera.default(), cfg)
+    t_img = trt.render_image(scene, trt.Camera.default(device="cpu"), cfg)
     assert_images_close(t_img.detach().numpy(), j_img, msg=f"two-phase {rays}")
     assert (j_img.max(axis=-1) > 0.02).mean() > 0.2
 
@@ -92,7 +92,7 @@ def test_two_phase_matches_one_phase_on_the_stand_in_box():
     # one-phase gradients for every parameter, 'recorded' for materials and
     # lights.  Vertex gradients stay finite on both paths.
     _, t = scene_pair("mirror_box")
-    cam, jitter = trt.Camera.default(), torch.zeros(3)
+    cam, jitter = trt.Camera.default(device="cpu"), torch.zeros(3)
     params = tbench.training_params(t, include_vertex_params=True)
     one = trt.RenderConfig(width=SIZE, height=SIZE)
     _, g_one = tbench.fwd_bwd_step(t, cam, one, params, jitter)
@@ -131,7 +131,7 @@ def test_training_step_routes_through_records_and_the_shade_twin():
     assert tw.make_backend(mixed, cfg).record_trace is None
     calls = []
     wrapped = backend._replace(shade=lambda *a: calls.append(1) or shade.shade_fused_cuda(*a))
-    img = tw.render_image(t, trt.Camera.default(), cfg, backend=wrapped)
+    img = tw.render_image(t, trt.Camera.default(device="cpu"), cfg, backend=wrapped)
     assert len(calls) == 2 and img.shape == (8, 8, 3)
     assert ck.launch_counts()["record_trace_cuda"] == 0  # CPU tensors: the twins
 
