@@ -11,47 +11,76 @@
 //   cgrt_soft_bvh4, table  <- their table twins _soft4_cone_table_kernel,
 //                             _soft_bvh_table_kernel, _soft_bvh_cone_table_
 //                             kernel.
-// Wrappers, the sample stream and the plain twins: ops/soft.py.
+// Wrappers, the sample stream, the packed tables and the plain twins:
+// ops/soft.py.
 //
 // One body (sample_visible), templated on the sample source (Philox in the
 // kernel, or a table of Gaussians [N, S, 3]) and on the scene (the triangle
-// table in shared memory, or the W-wide tree of bvh4.cuh, W = 2, 4 or 8).
-// The JAX package's 'sample' tile (points on lanes, a loop over samples,
-// the binary primary tree) and 'cone' tile (128 pixels x all their samples
-// in one lockstep walk of the soft tree) are both this layout: on the card
-// they differ only in the tree the caller passes.  Layout: one
-// thread per (point, sample), point-major, so a point's 200 samples fill ~6
-// consecutive warps and a block's four warps sample one or two points.  The
-// Pallas cone sampler's coherence (one point's rays toward a sphere of
-// radius ~0.1 stop at the same blocker or walk nearly the same nodes) then
-// holds across the warps of a block as well as inside each.  A warp adds its
-// count per point with one atomicAdd (__popc of the ballot over the lanes of
-// that point).  A point marked invalid (a miss) does no work and counts 0.
-// One warp per point with one lane per sample was written first and
-// measured slower at 1024^2 (PERF.md, the samplers' layout runs): an SM's ~36
+// table in shared memory, or a W-wide tree, W = 2, 4 or 8).  The JAX
+// package's 'sample' tile (points on lanes, a loop over samples, the binary
+// primary tree) and 'cone' tile (128 pixels x all their samples in one
+// lockstep walk of the soft tree) are both this layout: on the card they
+// differ only in the tree the caller passes.  Layout: one thread per (point,
+// sample), point-major, so a point's 200 samples fill ~6 consecutive warps
+// and a block's four warps sample one or two points.  The cone sampler's
+// coherence (one point's rays toward a sphere of radius ~0.1 stop at the
+// same blocker or walk nearly the same nodes) then holds across the warps of
+// a block as well as inside each.  A warp adds its count per point with one
+// atomicAdd (__popc of the ballot over the lanes of that point).  Only the
+// points the wrapper marks (the hits) are sampled, compacted on the card
+// (order, count): the rest get no thread and count 0, and the grid strides
+// over the marked points' samples.  One warp per point with one lane per
+// sample was written first and measured 2.53x slower at 1024^2: an SM's ~36
 // resident warps then walk ~36 points at once, against ~9 here.
 //
 // Sample s of the point with global index g = offset + i: Philox4x32-10 at
 // counter (g, s, 0, 0) under the key (k0, k1), its four words turned into
 // three Gaussians by Box-Muller on 24-bit uniforms (_gauss3_from_bits; logf,
-// sqrtf, cosf, sinf, not the fast intrinsics).  The sample ray is
+// sqrtf, and sincosf / cosf, not the fast intrinsics).  The sample ray is
 // _soft_sample_ray op for op (the build's -fmad=false keeps each multiply
 // and add rounded as the twin's), so the table variant agrees with its twin
 // exactly and the PRNG variant up to the transcendental functions.
+//
+// The tree walk (occluded): an any-hit walk of its own, beside
+// bvh4.cuh::traverse (which bvh4.cu keeps), with the same slab test,
+// padding, sort network and visit order, so it tests the same nodes and
+// triangles as traverse<W, true> and as the twin:
+// - one record per node (ops/soft.py pack_nodes): the 6W box floats, then
+//   the 2W meta ints bit-cast, 32W bytes (one 128-byte line at W = 4), read
+//   with 2W 16-byte loads instead of 8W + 1 scalar loads from three arrays.
+//   The slots past nchild hold NaN boxes: a NaN entry fails tin <= tout +
+//   pad exactly as the slot that traverse skips, so nothing is pushed;
+// - NaN-propagating min/max in one instruction each (PTX min.NaN/max.NaN,
+//   sm_80+): the bits of bvh4.cuh's nan_min/nan_max, which cost two
+//   compares, fminf and a select;
+// - a stack of node ids only.  An any-hit walk's best stays t_max until it
+//   returns, and every entry was pushed with tin <= padded(t_max), so
+//   traverse's stale-entry test (its tstack) can never fire here.  The
+//   nearest child is walked at once instead of pushed and popped (the order
+//   of visits is traverse's).  The 64 ints stay in local memory (a 256-byte
+//   frame, half of traverse's): held in shared memory, [entry][thread] and
+//   sized per tree, they measured 4-6% slower (PERF.md, the samplers), the carve-out
+//   taking L1 from the node records;
+// - triangles as three 16-byte rows (v0, e1, e2, each padded) and the
+//   any-hit Moller-Trumbore of sweep.cuh (mt_blocks), which stops at the
+//   first failed condition: a point's lanes nearly always reject a
+//   triangle at the same step.
+// The brute sweep stages its triangles in shared memory in the same
+// three-row layout (three 16-byte broadcast loads per test) and runs the
+// same mt_blocks.
 //
 // What bounds it on an H100 (counts of utils/roofline.py): per sample ray,
 // 104 integer operations of Philox (at 16.7 Tops/s) and 65 FLOPs of
 // Box-Muller and sample ray, then the any-hit: up to T Moller-Trumbore tests
 // of 68 FLOPs (brute; the lane stops at its first blocker) or a walk of 159
 // FLOPs per 4-wide node visit (75 at W = 2, 345 at W = 8) and 68 per leaf
-// triangle (tree).  Bytes are 13
-// per point in and 4 out, so it is bound by operations: at 67 TFLOP/s
-// float32, the box's level 0 at 1024^2 (1M points x 200 samples, 32
-// triangles) is ~7 ms of float work if every sample swept every triangle.
-// The brute sweep reads each triangle as a shared-memory broadcast (all lanes
-// test the same triangle at a step); the tree walk's node loads are coherent
-// across a point's warps.  Lanes of a warp that finish early idle until its
-// last lane is done.
+// triangle (tree).  Bytes are 13 per point in and 4 out, so it is bound by
+// operations.  The walk's working set (the teacup's tree, ~0.9 MB at W = 4)
+// sits in L1 and L2, and its work is scalar float compares and selects per
+// lane: tensor cores, TMA and thread-block clusters have nothing to carry.
+// What is left is the issue rate of those instructions (under -fmad=false
+// no multiply pairs with an add) and the latency of each dependent node
+// load; lanes of a warp that finish early idle until its last lane is done.
 #include <cstdint>
 
 #include "bvh4.cuh"
@@ -59,12 +88,14 @@
 namespace cgrt {
 
 constexpr int kWarp = 32;
-constexpr long long kMaxBlocks = 1 << 24;  // the grid-stride loop takes the rest
+constexpr int kSoftThreads = 128;  // threads per block (four warps)
+constexpr long long kMaxBlocks = 65536;  // the grid-stride loop takes the rest
 constexpr float kTwoPi = 6.283185307179586f;
 
 struct SoftArgs {
-  const float* pos;      // [N, 3] shading points
-  const uint8_t* valid;  // [N] or null (all valid)
+  const float* pos;  // [N, 3] shading points
+  const int* order;  // [N + 1] the points to sample first (ops/soft.py _compact), or null (all N)
+  const int* count;  // [1] how many of order to sample (read on the card)
   int n;
   const float* light;  // [4] center, radius
   int num_samples;
@@ -73,13 +104,23 @@ struct SoftArgs {
   int* counts;              // [N]
 };
 
-// Philox4x32-10 (Salmon et al., SC'11), as curand_Philox4x32_10.
+// What the sampler sweeps or walks.
+struct SoftScene {
+  const float* __restrict__ tris;    // brute: [T, 9] v0, v1, v2
+  int num_tris;                      // brute
+  const float4* __restrict__ nodes;  // tree: [Nw, 2W] node records (pack_nodes)
+  const float4* __restrict__ rows;   // tree: [T, 3] v0, e1, e2 (pack_tris)
+};
+
+// Philox4x32-10 (Salmon et al., SC'11), as curand_Philox4x32_10; each
+// round's two 32 x 32 -> 64-bit products as one wide multiply each.
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned k0, unsigned k1) {
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
-    const unsigned hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
-    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+    const unsigned long long p0 = static_cast<unsigned long long>(c.x) * 0xD2511F53u;
+    const unsigned long long p1 = static_cast<unsigned long long>(c.z) * 0xCD9E8D57u;
+    c = make_uint4(static_cast<unsigned>(p1 >> 32) ^ c.y ^ k0, static_cast<unsigned>(p1),
+                   static_cast<unsigned>(p0 >> 32) ^ c.w ^ k1, static_cast<unsigned>(p0));
     k0 += 0x9E3779B9u;
     k1 += 0xBB67AE85u;
   }
@@ -90,12 +131,16 @@ __device__ __forceinline__ float u01(unsigned bits) {
   return static_cast<float>(bits & 0xFFFFFFu) * (1.0f / 16777216.0f) + (0.5f / 16777216.0f);
 }
 
+// Box-Muller.  sincosf gives the bits of sinf and cosf of the same argument
+// (chip_smoke.py checks every value u01 can take).
 __device__ __forceinline__ void gauss3(uint4 b, float& gx, float& gy, float& gz) {
   const float u1 = u01(b.x), u2 = u01(b.y), u3 = u01(b.z), u4 = u01(b.w);
   const float r1 = sqrtf(-2.0f * logf(u1));
   const float r2 = sqrtf(-2.0f * logf(u3));
-  gx = r1 * cosf(kTwoPi * u2);
-  gy = r1 * sinf(kTwoPi * u2);
+  float s2, c2;
+  sincosf(kTwoPi * u2, &s2, &c2);
+  gx = r1 * c2;
+  gy = r1 * s2;
   gz = r2 * cosf(kTwoPi * u4);
 }
 
@@ -115,13 +160,112 @@ __device__ __forceinline__ Ray sample_ray(float px, float py, float pz, float gx
   return Ray{ox, oy, oz, dx, dy, dz};
 }
 
+// Stage [T, 9] rows (v0, v1, v2) as three 16-byte rows each, (v0, 0), (e1,
+// 0), (e2, 0): stage_triangles's edges in pack_tris's layout.
+__device__ __forceinline__ void stage_rows3(const float* __restrict__ tris, int num_tris,
+                                            float4* s_rows) {
+  for (int k = threadIdx.x; k < num_tris; k += blockDim.x) {
+    const float* r = tris + 9 * k;
+    s_rows[3 * k] = make_float4(r[0], r[1], r[2], 0.0f);
+    s_rows[3 * k + 1] = make_float4(r[3] - r[0], r[4] - r[1], r[5] - r[2], 0.0f);
+    s_rows[3 * k + 2] = make_float4(r[6] - r[0], r[7] - r[1], r[8] - r[2], 0.0f);
+  }
+}
+
+// bvh4.cuh's nan_min / nan_max in one instruction each.
+__device__ __forceinline__ float min_nan(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  return nan_min(a, b);
+#endif
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  return nan_max(a, b);
+#endif
+}
+
+// Whether a triangle of the W-wide tree lies at t in [0, t_max) on the ray:
+// traverse<W, true>'s walk (see the note at the top).
+template <int W>
+__device__ __forceinline__ bool occluded(const SoftScene& sc, const Ray& r, float t_max) {
+  const float ix = 1.0f / r.dx, iy = 1.0f / r.dy, iz = 1.0f / r.dz;
+  const float bound = padded(t_max);
+  int stack[kStack];
+  int sp = 0, ref = 0;
+  for (;;) {
+    if (ref >= 0) {
+      float rec[8 * W];
+      const float4* node = sc.nodes + 2 * W * ref;
+#pragma unroll
+      for (int k = 0; k < 2 * W; ++k) {
+        const float4 q = __ldg(node + k);
+        rec[4 * k] = q.x;
+        rec[4 * k + 1] = q.y;
+        rec[4 * k + 2] = q.z;
+        rec[4 * k + 3] = q.w;
+      }
+      float ts[W];
+      int es[W];
+#pragma unroll
+      for (int c = 0; c < W; ++c) {
+        es[c] = __float_as_int(rec[7 * W + c]) > 0 ? ~(W * ref + c) : __float_as_int(rec[6 * W + c]);
+        const float t0x = (rec[c] - r.ox) * ix, t0y = (rec[W + c] - r.oy) * iy;
+        const float t0z = (rec[2 * W + c] - r.oz) * iz;
+        const float t1x = (rec[3 * W + c] - r.ox) * ix;
+        const float t1y = (rec[4 * W + c] - r.oy) * iy;
+        const float t1z = (rec[5 * W + c] - r.oz) * iz;
+        const float tin = max_nan(max_nan(min_nan(t0x, t1x), min_nan(t0y, t1y)),
+                                  min_nan(t0z, t1z));
+        const float tout = min_nan(min_nan(max_nan(t0x, t1x), max_nan(t0y, t1y)),
+                                   max_nan(t0z, t1z));
+        const float pad = kSlabEps * (1.0f + fabsf(tout));
+        ts[c] = (tin <= tout + pad && tout >= -pad && tin <= bound) ? tin : kBig;
+      }
+      // Descending: the children that missed (kBig) come first, the nearest
+      // last.  Push the others and walk the nearest now.
+      sort_children<W>(ts, es);
+#pragma unroll
+      for (int c = 0; c < W - 1; ++c) {
+        if (ts[c] < kBig) {
+          stack[sp] = es[c];
+          ++sp;
+        }
+      }
+      if (ts[W - 1] < kBig) {
+        ref = es[W - 1];
+        continue;
+      }
+    } else {
+      const unsigned s = static_cast<unsigned>(~ref);  // W * node + child slot
+      const float* m = reinterpret_cast<const float*>(sc.nodes + 2 * W * (s / W)) + 6 * W + s % W;
+      const int first = __float_as_int(__ldg(m)), end = first + __float_as_int(__ldg(m + W));
+      for (int k = first; k < end; ++k) {
+        const float4* row = sc.rows + 3 * k;
+        if (mt_blocks(__ldg(row), __ldg(row + 1), __ldg(row + 2), r, t_max)) return true;
+      }
+    }
+    if (sp == 0) return false;
+    --sp;
+    ref = stack[sp];
+  }
+}
+
 // Whether sample s of point i (at p) reaches the light l: its Gaussian from
 // the table or the stream, the sample ray, then an any-hit sweep of the
 // staged triangles or an any-hit walk of the tree.
 template <bool kTable, int W>
-__device__ __forceinline__ bool sample_visible(const SoftArgs& a, const Tree& tr,
-                                               const float* s_tri, int num_tris, const float* l,
-                                               int i, int s, float px, float py, float pz) {
+__device__ __forceinline__ bool sample_visible(const SoftArgs& a, const SoftScene& sc,
+                                               const float4* s_tri, int i, int s, float px,
+                                               float py, float pz) {
   float gx, gy, gz;
   if (kTable) {
     const float* g = a.gauss + 3 * (static_cast<size_t>(i) * a.num_samples + s);
@@ -132,13 +276,15 @@ __device__ __forceinline__ bool sample_visible(const SoftArgs& a, const Tree& tr
     gauss3(philox4x32_10(ctr, a.k0, a.k1), gx, gy, gz);
   }
   float tm;
-  const Ray r = sample_ray(px, py, pz, gx, gy, gz, l, tm);
+  const Ray r = sample_ray(px, py, pz, gx, gy, gz, a.light, tm);
   if (!(tm > 0.0f)) return true;
   if constexpr (W > 0) {
-    float t_best = tm, u = 0.0f, v = 0.0f;
-    return traverse<W, true>(tr, make_walk(r), t_best, u, v) < 0;
+    return !occluded<W>(sc, r, tm);
   } else {
-    return !any_hit_sweep(s_tri, num_tris, r, tm);
+    for (int k = 0; k < sc.num_tris; ++k) {
+      if (mt_blocks(s_tri[3 * k], s_tri[3 * k + 1], s_tri[3 * k + 2], r, tm)) return false;
+    }
+    return true;
   }
 }
 
@@ -146,24 +292,32 @@ __device__ __forceinline__ bool sample_visible(const SoftArgs& a, const Tree& tr
 // adds its visible count per point (__match_any_sync groups its lanes by
 // point, at most two points for S >= 32) into counts, which start at 0.
 // W: the tree's node width, 0 for the brute sweep of the staged table.
+// Dynamic shared memory: the brute sweep's triangles (three float4 rows
+// each).  With order, the grid strides over the count points it lists first
+// (the count is read here, so the wrapper never waits for the card), and no
+// thread is spent on a point that missed.
 template <bool kTable, int W>
-__global__ void __launch_bounds__(kThreads) soft_kernel(SoftArgs a, Tree tr, int num_tris) {
-  extern __shared__ float s_tri[];
+__global__ void __launch_bounds__(kSoftThreads) soft_kernel(SoftArgs a, SoftScene sc) {
+  extern __shared__ float4 s_mem[];
   if (W == 0) {
-    stage_triangles(tr.tris, num_tris, s_tri);
+    stage_rows3(sc.tris, sc.num_tris, s_mem);
     __syncthreads();
   }
-  const long long total = static_cast<long long>(a.n) * a.num_samples;
+  const long long points = a.order != nullptr ? *a.count : a.n;
+  const long long total = points * a.num_samples;
   // t0 is the same for the whole block, so every lane reaches the warp votes.
   for (long long t0 = static_cast<long long>(blockIdx.x) * blockDim.x; t0 < total;
        t0 += static_cast<long long>(gridDim.x) * blockDim.x) {
     const long long t = t0 + threadIdx.x;
-    const int i = t < total ? static_cast<int>(t / a.num_samples) : -1;
+    int i = -1;
+    if (t < total) {
+      const int j = static_cast<int>(t / a.num_samples);
+      i = a.order != nullptr ? a.order[j] : j;
+    }
     bool visible = false;
-    if (i >= 0 && (a.valid == nullptr || a.valid[i])) {
-      visible = sample_visible<kTable, W>(a, tr, s_tri, num_tris, a.light, i,
-                                              static_cast<int>(t % a.num_samples), a.pos[3 * i],
-                                              a.pos[3 * i + 1], a.pos[3 * i + 2]);
+    if (i >= 0) {
+      visible = sample_visible<kTable, W>(a, sc, s_mem, i, static_cast<int>(t % a.num_samples),
+                                          a.pos[3 * i], a.pos[3 * i + 1], a.pos[3 * i + 2]);
     }
     const unsigned same = __match_any_sync(0xFFFFFFFFu, i);
     const int count = __popc(__ballot_sync(0xFFFFFFFFu, visible) & same);
@@ -174,13 +328,13 @@ __global__ void __launch_bounds__(kThreads) soft_kernel(SoftArgs a, Tree tr, int
 }
 
 template <bool kTable, int W>
-int launch(const SoftArgs& a, const Tree& tr, int num_tris, cudaStream_t stream) {
+int launch(const SoftArgs& a, const SoftScene& sc, cudaStream_t stream) {
   if (a.n <= 0 || a.num_samples <= 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = W > 0 ? 0 : sizeof(float) * 9 * num_tris;
+  const size_t smem = W > 0 ? 0 : sizeof(float4) * 3 * sc.num_tris;
   const long long blocks =
-      (static_cast<long long>(a.n) * a.num_samples + kThreads - 1) / kThreads;
+      (static_cast<long long>(a.n) * a.num_samples + kSoftThreads - 1) / kSoftThreads;
   const unsigned grid = static_cast<unsigned>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
-  soft_kernel<kTable, W><<<grid, kThreads, smem, stream>>>(a, tr, num_tris);
+  soft_kernel<kTable, W><<<grid, kSoftThreads, smem, stream>>>(a, sc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -190,32 +344,38 @@ extern "C" {
 
 // counts[i] += visible samples of point i out of num_samples (the caller
 // zeroes counts); gauss null = the Philox stream of (k0, k1) at points
-// offset + i, else the table [N, num_samples, 3].  valid may be null (every
-// point sampled).
-int cgrt_soft_brute(const float* pos, const uint8_t* valid, int n, const float* light,
-                    const float* tris, int num_tris, int num_samples, unsigned k0, unsigned k1,
-                    unsigned offset, const float* gauss, int* counts, cudaStream_t stream) {
-  const cgrt::SoftArgs a{pos, valid, n, light, num_samples, k0, k1, offset, gauss, counts};
-  const cgrt::Tree tr{nullptr, nullptr, nullptr, tris};
-  return gauss != nullptr ? cgrt::launch<true, 0>(a, tr, num_tris, stream)
-                          : cgrt::launch<false, 0>(a, tr, num_tris, stream);
+// offset + i, else the table [N, num_samples, 3].  Only the count points
+// listed first in order are sampled (ops/soft.py _compact); order and count
+// null: every point.
+int cgrt_soft_brute(const float* pos, const int* order, const int* count, int n,
+                    const float* light, const float* tris, int num_tris, int num_samples,
+                    unsigned k0, unsigned k1, unsigned offset, const float* gauss, int* counts,
+                    cudaStream_t stream) {
+  const cgrt::SoftArgs a{pos, order, count, n, light, num_samples, k0, k1, offset, gauss, counts};
+  const cgrt::SoftScene sc{tris, num_tris, nullptr, nullptr};
+  return gauss != nullptr ? cgrt::launch<true, 0>(a, sc, stream)
+                          : cgrt::launch<false, 0>(a, sc, stream);
 }
 
-// The same over the width-wide tree (ops/bvh4.py layout; width 2, 4 or 8).
-int cgrt_soft_bvh4(const float* pos, const uint8_t* valid, int n, const float* light, int width,
-                   const float* boxes, const int* meta, const int* nchild, const float* tris,
-                   int num_samples, unsigned k0, unsigned k1, unsigned offset,
-                   const float* gauss, int* counts, cudaStream_t stream) {
-  const cgrt::SoftArgs a{pos, valid, n, light, num_samples, k0, k1, offset, gauss, counts};
-  const cgrt::Tree tr{boxes, meta, nchild, tris};
+// The same over a width-wide tree (2, 4 or 8) of at most 64 stack entries
+// ((width - 1) x levels + 1, ops/bvh4.py collapse_bvhw): nodes [Nw, 8 width]
+// (the records of ops/soft.py pack_nodes) and rows [T, 12] (pack_tris), both
+// 16-byte aligned.
+int cgrt_soft_bvh4(const float* pos, const int* order, const int* count, int n,
+                   const float* light, int width, const float* nodes, const float* rows,
+                   int num_samples, unsigned k0, unsigned k1, unsigned offset, const float* gauss,
+                   int* counts, cudaStream_t stream) {
+  const cgrt::SoftArgs a{pos, order, count, n, light, num_samples, k0, k1, offset, gauss, counts};
+  const cgrt::SoftScene sc{nullptr, 0, reinterpret_cast<const float4*>(nodes),
+                           reinterpret_cast<const float4*>(rows)};
   const bool table = gauss != nullptr;
   switch (width) {
-    case 2: return table ? cgrt::launch<true, 2>(a, tr, 0, stream)
-                         : cgrt::launch<false, 2>(a, tr, 0, stream);
-    case 4: return table ? cgrt::launch<true, 4>(a, tr, 0, stream)
-                         : cgrt::launch<false, 4>(a, tr, 0, stream);
-    case 8: return table ? cgrt::launch<true, 8>(a, tr, 0, stream)
-                         : cgrt::launch<false, 8>(a, tr, 0, stream);
+    case 2: return table ? cgrt::launch<true, 2>(a, sc, stream)
+                         : cgrt::launch<false, 2>(a, sc, stream);
+    case 4: return table ? cgrt::launch<true, 4>(a, sc, stream)
+                         : cgrt::launch<false, 4>(a, sc, stream);
+    case 8: return table ? cgrt::launch<true, 8>(a, sc, stream)
+                         : cgrt::launch<false, 8>(a, sc, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

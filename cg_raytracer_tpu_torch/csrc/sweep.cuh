@@ -1,6 +1,7 @@
 // Shared device code of the brute-force sweep kernels (oracle.cu, trace.cu,
-// record.cu, shade.cu) and of the 4-wide BVH kernels (bvh4.cu: the
-// Moller-Trumbore test and the shadow ray).
+// record.cu, shade.cu), of the 4-wide BVH kernels (bvh4.cu: the
+// Moller-Trumbore test and the shadow ray) and of the soft-shadow samplers
+// (soft.cu: the any-hit test mt_blocks).
 //
 // Counterpart of the helpers in cg_raytracer_tpu/ops/pallas_kernels.py:
 // _mt_tile (Moller-Trumbore with the same epsilons and the det_safe form),
@@ -81,6 +82,31 @@ __device__ __forceinline__ bool mt(const float* tri, const Ray& r, float& t, flo
   t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
   return ok_det && u >= -kBaryEps && v >= -kBaryEps && u + v <= 1.0f + kBaryEps &&
          t >= 0.0f;
+}
+
+// The any-hit decision mt(...) && t < t_max for the triangle (v0, e1, e2)
+// (the .w of each row unused): ok_det, then u >= -kBaryEps, v, u + v and 0
+// <= t < t_max, each quantity by mt's own operations and only as far as the
+// decision needs it.  Under -fmad=false nothing is contracted, so each value
+// is the float mt computes.
+__device__ __forceinline__ bool mt_blocks(const float4 v0, const float4 e1, const float4 e2,
+                                          const Ray& r, float t_max) {
+  const float px = r.dy * e2.z - r.dz * e2.y;
+  const float py = r.dz * e2.x - r.dx * e2.z;
+  const float pz = r.dx * e2.y - r.dy * e2.x;
+  const float det = e1.x * px + e1.y * py + e1.z * pz;
+  if (!(fabsf(det) > kMtEps)) return false;
+  const float inv_det = 1.0f / det;
+  const float tx = r.ox - v0.x, ty = r.oy - v0.y, tz = r.oz - v0.z;
+  const float u = (tx * px + ty * py + tz * pz) * inv_det;
+  if (!(u >= -kBaryEps)) return false;
+  const float qx = ty * e1.z - tz * e1.y;
+  const float qy = tz * e1.x - tx * e1.z;
+  const float qz = tx * e1.y - ty * e1.x;
+  const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+  if (!(v >= -kBaryEps) || !(u + v <= 1.0f + kBaryEps)) return false;
+  const float t = (e2.x * qx + e2.y * qy + e2.z * qz) * inv_det;
+  return t >= 0.0f && t < t_max;
 }
 
 // Closest triangle strictly nearer than t_best; the lowest index wins a tie.

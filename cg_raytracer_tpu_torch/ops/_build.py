@@ -117,8 +117,8 @@ def _declare(lib) -> None:
         "cgrt_bvh4_closest": [p, p, p, i, i] + [p] * 5 + [p] * 4 + [p],
         "cgrt_bvh4_anyhit": [p, p, p, i, i] + [p] * 5 + [p] + [p],
         "cgrt_bvh4_bounce": [p, p, p, i, i] + [p] * 5 + [p, i] + [p] * 5 + [p],
-        "cgrt_soft_brute": [p, p, i, p, p, i, i, u, u, u, p, p] + [p],
-        "cgrt_soft_bvh4": [p, p, i, p, i, p, p, p, p, i, u, u, u, p, p] + [p],
+        "cgrt_soft_brute": [p, p, p, i, p, p, i, i, u, u, u, p, p] + [p],
+        "cgrt_soft_bvh4": [p, p, p, i, p, i, p, p, i, u, u, u, p, p] + [p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -143,7 +143,8 @@ def load():
 
 
 def load_check():
-    """The library of ``CHECK_SOURCES`` (``cgrt_check_philox``), built first
+    """The library of ``CHECK_SOURCES`` (``cgrt_check_philox``,
+    ``cgrt_check_sincos``), built first
     if needed.  It has its own lock, so it builds beside ``load``'s build."""
     global _check_lib
     with _check_lock:
@@ -155,5 +156,7 @@ def load_check():
             lib.cgrt_check_philox.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                                               ctypes.c_void_p, ctypes.c_void_p]
             lib.cgrt_check_philox.restype = ctypes.c_int
+            lib.cgrt_check_sincos.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            lib.cgrt_check_sincos.restype = ctypes.c_int
             _check_lib = lib
     return _check_lib

@@ -37,6 +37,13 @@ parity.  ``valid`` ([N] bool) marks the points to sample: the rest do no work
 and count 0 (the JAX kernels sampled a miss at position 0 and the shading
 discarded it).
 
+On the card the tree samplers read the tree through their own tables,
+packed per launch from the ``BVH4`` (``pack_nodes``: one record per node,
+NaN boxes in the absent slots; ``pack_tris``: 16-byte triangle rows);
+``bvh4.cu`` keeps reading the ``BVH4`` as it is.  Every kernel launch gets
+the marked points compacted on the card (``_compact``), so a frame's
+misses cost it no threads.
+
 The sample stream (``SampleKey``): a render draws one key, two 32-bit
 words, from its ``torch.Generator`` on the host, and folds it per bounce
 level and per light on the host (``SampleKey.fold_in``: the first two words
@@ -243,12 +250,29 @@ def _tree_anyhit(tree, stats=None):
 # The kernels.
 # --------------------------------------------------------------------------
 
+def _compact(valid):
+    """The marked points first, without waiting for the card: (order [N + 1]
+    int32, the indices of the marked points in order, then the rest
+    unspecified; count [1] int32, how many are marked).  The kernels read
+    count on the card and spend no thread on the rest."""
+    n = valid.shape[0]
+    rank = torch.cumsum(valid, 0, dtype=torch.int32)
+    order = torch.empty((n + 1,), dtype=torch.int32, device=valid.device)
+    slot = torch.where(valid.bool(), rank - 1, n).to(torch.int64)
+    order.scatter_(0, slot, torch.arange(n, dtype=torch.int32, device=valid.device))
+    return order, rank[n - 1:]
+
+
 def _head(name, pos, light, valid, gauss_nsc):
+    """(pos, order, count, N, light) as the kernels take them, and the
+    tensors to keep alive until the launch is queued."""
     ck._check(name, pos, light, gauss_nsc, device=pos.device)
     ck._check(name, valid, device=pos.device, dtype=torch.uint8)
     if pos.ndim != 2 or pos.shape[1] != 3 or pos.shape[0] >= 2 ** 31:
         raise ValueError(f"{name}: positions must be [N, 3] with N < 2**31")
-    return ck._ptr(pos), ck._ptr(valid), pos.shape[0], ck._ptr(light)
+    order, count = _compact(valid) if valid is not None and pos.shape[0] > 0 else (None, None)
+    return (ck._ptr(pos), ck._ptr(order), ck._ptr(count), pos.shape[0], ck._ptr(light)), (
+        order, count)
 
 
 def _key_args(key, num_samples):
@@ -261,12 +285,36 @@ def _brute_kernel(tri, pos, light, num_samples, valid, key=None, gauss_nsc=None)
     """The brute sampler's launch."""
     counts = torch.zeros((pos.shape[0],), dtype=torch.int32, device=pos.device)
     ck._check("cgrt_soft_brute", tri, device=pos.device)
-    ck._launch("cgrt_soft_brute", pos.device, *_head("cgrt_soft_brute", pos, light, valid,
-                                                     gauss_nsc),
-               ck._ptr(tri), tri.shape[0], *_key_args(key, num_samples), ck._ptr(gauss_nsc),
-               ck._ptr(counts))
+    head, _keep = _head("cgrt_soft_brute", pos, light, valid, gauss_nsc)
+    ck._launch("cgrt_soft_brute", pos.device, *head, ck._ptr(tri), tri.shape[0],
+               *_key_args(key, num_samples), ck._ptr(gauss_nsc), ck._ptr(counts))
     (soft_prng_cuda if gauss_nsc is None else soft_table_cuda).launches += 1
     return counts
+
+
+_NAN_BITS = 0x7FC00000  # float32 quiet NaN
+
+
+def pack_nodes(tree: "b4.BVH4"):
+    """The tree samplers' node records [Nw, 8W] float32: each node's 6W box
+    floats as ``tree.boxes`` (lo.x of children 0..W-1, then lo.y, lo.z, hi.x,
+    hi.y, hi.z) with NaN in every slot past ``nchild``, then its 2W
+    ``tree.meta`` ints bit-cast: 32W bytes, one 128-byte line at W = 4, read
+    with 16-byte loads.  A NaN box fails every slab test, as the skipped slot
+    does, so ``nchild`` needs no column.  Built in integer space, so every
+    bit is kept.  The wrapper packs per launch: the record is a function of
+    the tree it is given (``ops/refit.py`` returns a new tree per step), a
+    few elementwise launches over <= 9 MB at the samplers' cap."""
+    w = tree.width
+    absent = torch.arange(w, device=tree.device)[None, :] >= tree.nchild[:, None]
+    bits = tree.boxes.view(torch.int32).view(-1, 6, w).masked_fill(absent[:, None, :], _NAN_BITS)
+    return torch.cat([bits.view(-1, 6 * w), tree.meta], dim=1).view(torch.float32).contiguous()
+
+
+def pack_tris(tris):
+    """[T, 9] (v0, e1, e2) -> [T, 12], each vertex or edge padded to a
+    16-byte row: the rows the tree samplers read with 16-byte loads."""
+    return torch.nn.functional.pad(tris.reshape(-1, 3, 3), (0, 1)).reshape(-1, 12).contiguous()
 
 
 def _tree_kernel(tree, pos, light, num_samples, valid, key=None, gauss_nsc=None,
@@ -274,11 +322,11 @@ def _tree_kernel(tree, pos, light, num_samples, valid, key=None, gauss_nsc=None,
     """A tree sampler's launch; ``route`` ('sample' or 'cone') names the
     wrapper whose count it adds to."""
     counts = torch.zeros((pos.shape[0],), dtype=torch.int32, device=pos.device)
-    width, boxes, meta, nchild, tris, _ = b4._tree_args("cgrt_soft_bvh4", tree, pos.device)
-    ck._launch("cgrt_soft_bvh4", pos.device, *_head("cgrt_soft_bvh4", pos, light, valid,
-                                                    gauss_nsc),
-               width, boxes, meta, nchild, tris, *_key_args(key, num_samples),
-               ck._ptr(gauss_nsc), ck._ptr(counts))
+    width = b4._tree_args("cgrt_soft_bvh4", tree, pos.device)[0]
+    nodes, rows = pack_nodes(tree), pack_tris(tree.tris)
+    head, _keep = _head("cgrt_soft_bvh4", pos, light, valid, gauss_nsc)
+    ck._launch("cgrt_soft_bvh4", pos.device, *head, width, ck._ptr(nodes), ck._ptr(rows),
+               *_key_args(key, num_samples), ck._ptr(gauss_nsc), ck._ptr(counts))
     prng, table = (soft_bvh_prng_cuda, soft_bvh_table_cuda) if route == "sample" else (
         soft4_prng_cuda, soft4_table_cuda)
     b4.count_launch(prng if gauss_nsc is None else table, width)

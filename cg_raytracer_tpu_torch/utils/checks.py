@@ -175,3 +175,21 @@ def philox_matches_curand(device, n: int = 4096, seed: int = 0) -> float:
         raise RuntimeError(f"cgrt_check_philox: CUDA error {err}")
     curand = out.to(torch.int64) & 0xFFFFFFFF
     return (twin == curand).all(dim=1).float().mean().item()
+
+
+def sincos_mismatches(device) -> int:
+    """How many of the 2**24 angles 2 pi u01(b) that ``csrc/soft.cu``'s
+    Box-Muller takes give a ``sincosf`` differing in any bit from ``sinf``
+    and ``cosf`` on the card (``csrc/philox_check.cu``)."""
+    import ctypes
+
+    from ..ops import _build
+
+    bad = torch.zeros((1,), dtype=torch.int32, device=device)
+    lib = _build.load_check()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.cgrt_check_sincos(ctypes.c_void_p(bad.data_ptr()), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"cgrt_check_sincos: CUDA error {err}")
+    return int(bad.item())

@@ -129,7 +129,19 @@ Phases, each printing its own lines:
 28. per width: closest-hit ms per million camera rays and bounce ms on the
     teacup, dragon, donut and torus, the default-route frame and the
     full-contract step at 1024x1024 (run_bench, two alternating rounds), and
-    the new rows' kernel times against their twins and bounds.
+    the new rows' kernel times against their twins and bounds;
+29. the samplers measured: each instantiation's registers, stack frame,
+    spills and occupancy (ptxas) and its SASS (cuobjdump, where the toolkit
+    has it; ncu is looked for), the table variant on every hit point of
+    each 1024x1024 frame against the PRNG variant on the same points (the
+    sample stage's cost beside the table's read time), sample rays/s and
+    the share of the bound; then the ablations: csrc/soft.cu rebuilt with
+    one lever of its design taken out again, or another block size, each
+    exact against the built kernel and timed beside it.  With ``--parent
+    DIR`` (an unpacked checkout of an earlier commit), that commit's soft.cu
+    takes part in the same turns, and its spherical frames and steps are
+    timed against this tree's (run_bench in a process per tree: parent,
+    this, this, parent).
 
 Every kernel's entry has its bound: the larger of its operations over 67
 TFLOP/s (integer ones over 16.7 Tops/s) and its bytes over 3.35 TB/s
@@ -258,7 +270,11 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="On-card check of the PyTorch + CUDA port.")
     parser.add_argument("--out", default=os.path.join(ROOT, "chip_smoke_out"),
                         help="directory for the renders and results.json")
-    out = parser.parse_args(argv).out
+    parser.add_argument("--parent", default=None,
+                        help="an unpacked checkout of an earlier commit whose samplers phase 29 "
+                             "times beside this tree's")
+    args = parser.parse_args(argv)
+    out = args.out
     import torch
 
     if not torch.cuda.is_available():
@@ -692,6 +708,7 @@ def main(argv=None) -> int:
     counts.update(soft_phases(out, device, check, note, kernels, e2e, results, scenes))
     counts.update(scale_phases(out, device, check, note, kernels, e2e, results, scenes))
     counts.update(width_phases(out, device, check, note, kernels, e2e, results, scenes))
+    sampler_phase(out, device, kernels, e2e, results, scenes, args.parent)
 
     results.update(card=smi, counts=counts, kernels=kernels, end_to_end=e2e)
     with open(os.path.join(out, "results.json"), "w") as f:
@@ -1124,6 +1141,10 @@ def soft_phases(out, device, check, note, kernels, e2e, results, scenes) -> dict
     print(f"  Philox4x32-10 words of the twin equal curand_Philox4x32_10 on {curand:.2%} of 4096 "
           f"random (counter, key) pairs")
     assert curand == 1.0
+    bad = checks.sincos_mismatches(device)
+    print(f"  soft.cu's sincosf against sinf and cosf on all 2^24 angles its Box-Muller takes: "
+          f"{bad} differ in any bit")
+    assert bad == 0, "sincosf is not bit-equal to sinf and cosf on the card"
     fracs, full = {}, {}
     for label, (scene, pos, valid, light, prim) in frames.items():
         full[label] = sampler[label][0](pos, scene.spherical_lights.position[0],
@@ -1239,7 +1260,7 @@ def soft_phases(out, device, check, note, kernels, e2e, results, scenes) -> dict
                                  params)
 
     phase("phase 18: soft-shadow kernel times at 1024^2, frames, steps and the soft tree")
-    print("  ms = one bare launch between CUDA events (median of 5: each runs 0.1-20 ms, so the "
+    print("  ms = one bare launch between CUDA events (median of 20: each runs 0.1-20 ms, so the "
           "launch's own microseconds do not count); plain_ms = the twin (events, one run); the "
           f"PRNG kernels on the frame's hit points, the table kernels on the {SOFT_SUB}-point "
           "subsample")
@@ -1261,7 +1282,7 @@ def soft_phases(out, device, check, note, kernels, e2e, results, scenes) -> dict
                  lambda: table_plain(p_sub, *lights, g), SOFT_SUB,
                  SOFT_SUB * num * (roofline.SAMPLE_FLOPS - 25 + work[label]), 0,
                  SOFT_SUB * (12 + 4 + 12 * num) + 16 + scene_bytes)):
-            ms = median(time_frames(kernel_fn, iters=5, warmup=1))
+            ms = median(time_frames(kernel_fn, iters=20, warmup=1))
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             torch.cuda.synchronize()
             start.record()
@@ -1337,7 +1358,8 @@ def soft_phases(out, device, check, note, kernels, e2e, results, scenes) -> dict
     results["soft_tree_ab"] = {k: {kk: vv for kk, vv in v.items() if kk != "counts"}
                                for k, v in soft_trees.items()}
     scenes.update(spherical_box=box, spherical_teacup=(cup, accel),
-                  soft=dict(frames=frames, subsample=subsample, full=full, key=key, num=num))
+                  soft=dict(frames=frames, subsample=subsample, full=full, key=key, num=num,
+                            work=work))
     return {w: counts[w] for w in SOFT_KERNELS}
 
 
@@ -2103,7 +2125,7 @@ def width_phases(out, device, check, note, kernels, e2e, results, scenes) -> dic
                                                     route),
                  table_plain, SOFT_SUB, SOFT_SUB * num * (roofline.SAMPLE_FLOPS - 25 + work), 0,
                  SOFT_SUB * (12 + 4 + 12 * num) + 16 + tbytes)):
-            ms = median(time_frames(fn, iters=5, warmup=1))
+            ms = median(time_frames(fn, iters=20, warmup=1))
             b_ms, b_by = roofline.bound_ms(flops, bytes_, int_ops)
             name, source, replaces = KERNELS[wrapper]
             print(f"  {name} ('{route}', width {w}, {points} points x {num} samples): ms {ms:.5f},"
@@ -2116,7 +2138,398 @@ def width_phases(out, device, check, note, kernels, e2e, results, scenes) -> dic
                             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                             "library_ms": None, "points": points, "plain_points": SOFT_SUB,
                             "samples": num, "width": w})
+    scenes.update(soft_trees=stree, soft_work=per_sample)
     return {k: width_counts[k] for k in WIDTH_KERNELS}
+
+
+SOFT_SRC = os.path.join("cg_raytracer_tpu_torch", "csrc", "soft.cu")
+_MT_FULL = """__device__ __forceinline__ bool mt_full(const float4 v0, const float4 e1, const float4 e2,
+                                        const Ray& r, float t_max) {
+  const float tri[9] = {v0.x, v0.y, v0.z, e1.x, e1.y, e1.z, e2.x, e2.y, e2.z};
+  float t, u, v;
+  return mt(tri, r, t, u, v) && t < t_max;
+}
+"""
+# Phase 29's variants of csrc/soft.cu: each takes one lever of the samplers'
+# design out again, or tries another block size or grid cap, by
+# substitutions on the source (old text, new text, how often the old text
+# occurs).  Only this script builds them; the port has one body.
+SOFT_ABLATIONS = {
+    "min/max by compares": [("#ifdef __CUDA_ARCH__", "#if 0", 2)],
+    "full Moller-Trumbore": [("mt_blocks(", "mt_full(", 2),
+                             ("namespace cgrt {\n", "namespace cgrt {\n" + _MT_FULL, 1)],
+    "sinf and cosf": [("sincosf(kTwoPi * u2, &s2, &c2);",
+                       "s2 = sinf(kTwoPi * u2);\n  c2 = cosf(kTwoPi * u2);", 1)],
+    "64 threads per block": [("kSoftThreads = 128;", "kSoftThreads = 64;", 1)],
+    "256 threads per block": [("kSoftThreads = 128;", "kSoftThreads = 256;", 1)],
+    "16,384-block grid": [("kMaxBlocks = 65536;", "kMaxBlocks = 16384;", 1)],
+    "262,144-block grid": [("kMaxBlocks = 65536;", "kMaxBlocks = 262144;", 1)],
+}
+E2E_SNIPPET = """
+import json, sys
+sys.path.insert(0, ".")
+from cg_raytracer_tpu_torch.utils.bench import run_bench
+out = {}
+for scene in ("spherical_box", "spherical_teacup"):
+    f = run_bench(scene, width=1024, height=1024, iters=5)
+    full = run_bench(scene, width=1024, height=1024, include_bwd=True, iters=3,
+                     include_vertex_params=True)
+    mat = run_bench(scene, width=1024, height=1024, include_bwd=True, iters=3)
+    out[scene] = [x["seconds_per_frame"] * 1e3 for x in (f, full, mat)]
+print(json.dumps(out))
+"""
+
+
+NCU_SNIPPET = """
+import sys, torch
+sys.path.insert(0, ".")
+from cg_raytracer_tpu_torch.models.whitted import build_accel
+from cg_raytracer_tpu_torch.ops import bvh4 as b4, cuda_kernels as ck, soft
+from cg_raytracer_tpu_torch.ops.camera import generate_rays
+from cg_raytracer_tpu_torch.scene.presets import load_standin
+from cg_raytracer_tpu_torch.scene.types import Camera
+from cg_raytracer_tpu_torch.utils.config import RenderConfig
+dev = torch.device("cuda")
+o, d = generate_rays(Camera.default(device=dev), 1024, 1024)
+key = soft.SampleKey(2026, 16)
+for name in ("spherical_box", "spherical_teacup"):
+    scene = load_standin(name, dev)
+    accel = build_accel(scene, RenderConfig()) if name == "spherical_teacup" else None
+    hit = (ck.intersect_cuda(scene, o, d) if accel is None
+           else b4.intersect_bvh4_cuda(scene, accel.primary, o, d))
+    valid = hit.prim_id >= 0
+    pos = torch.where(valid[:, None], o + d * torch.where(valid, hit.t, 0.0)[:, None], 0.0)
+    light = (scene.spherical_lights.position[0], scene.spherical_lights.radius[0])
+    if accel is None:
+        soft.soft_prng_cuda(scene, pos.contiguous(), *light, key, 200, valid=valid)
+    else:
+        soft.soft4_prng_cuda(scene, accel.soft, pos.contiguous(), *light, key, 200, valid=valid)
+torch.cuda.synchronize()
+"""
+NCU_METRICS = ("smsp__inst_executed.sum", "smsp__thread_inst_executed.sum",
+               "smsp__thread_inst_executed_per_inst_executed.ratio",
+               "smsp__issue_active.avg.pct_of_peak_sustained_active",
+               "sm__warps_active.avg.pct_of_peak_sustained_active",
+               "l1tex__t_sector_hit_rate.pct", "gpu__time_duration.sum")
+
+
+def soft_variant_source(subs) -> str:
+    with open(os.path.join(ROOT, SOFT_SRC)) as f:
+        text = f.read()
+    for old, new, n in subs:
+        assert text.count(old) == n, f"soft.cu: {old!r} occurs {text.count(old)} times, not {n}"
+        text = text.replace(old, new)
+    return text
+
+
+def build_soft_variants(parent=None) -> dict:
+    """name -> (ctypes library, parent's interface?, ptxas log) for each of
+    SOFT_ABLATIONS and, given ``parent``, that checkout's soft.cu; one nvcc
+    each, all started together, into the build directory."""
+    import ctypes
+
+    from cg_raytracer_tpu_torch.ops import _build
+
+    root = os.path.join(_build.build_dir(), "soft_variants")
+    jobs = {}
+    for k, (name, subs) in enumerate(SOFT_ABLATIONS.items()):
+        os.makedirs(os.path.join(root, f"v{k}"), exist_ok=True)
+        src = os.path.join(root, f"v{k}", "soft.cu")
+        with open(src, "w") as f:
+            f.write(soft_variant_source(subs))
+        jobs[name] = (src, ["-I", _build.CSRC_DIR], os.path.join(root, f"v{k}.so"), False)
+    if parent is not None:
+        jobs["parent"] = (os.path.join(parent, SOFT_SRC), [], os.path.join(root, "parent.so"),
+                          True)
+    procs = {}
+    for name, (src, inc, so, old_api) in jobs.items():
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", *inc, "-o", so, src]
+        procs[name] = (cmd, so, old_api, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                          stderr=subprocess.PIPE, text=True))
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+    libs = {}
+    for name, (cmd, so, old_api, proc) in procs.items():
+        stdout, stderr = proc.communicate()
+        assert proc.returncode == 0, f"{name}: {' '.join(cmd)}\n{stdout}{stderr}"
+        lib = ctypes.CDLL(so)
+        lib.cgrt_soft_brute.argtypes = ([p, p, i, p, p, i, i, u, u, u, p, p, p] if old_api else
+                                        [p, p, p, i, p, p, i, i, u, u, u, p, p, p])
+        lib.cgrt_soft_bvh4.argtypes = ([p, p, i, p, i, p, p, p, p, i, u, u, u, p, p, p] if old_api
+                                       else [p, p, p, i, p, i, p, p, i, u, u, u, p, p, p])
+        libs[name] = (lib, old_api, stdout + stderr)
+    return libs
+
+
+def soft_launch(lib, old_api, target, packed, pos, light, num, valid, key, gauss_nsc):
+    """counts [N] int32 of one launch of ``lib``'s sampler: ``target`` is the
+    brute sampler's triangle table [T, 9] or a BVH4; ``packed`` its
+    (records, rows) for this tree's interface (the parent's reads the BVH4
+    and takes the hit mask, not the compacted points)."""
+    import ctypes
+
+    import torch
+
+    from cg_raytracer_tpu_torch.ops import bvh4 as b4
+    from cg_raytracer_tpu_torch.ops import cuda_kernels as ck
+    from cg_raytracer_tpu_torch.ops import soft
+
+    counts = torch.zeros((pos.shape[0],), dtype=torch.int32, device=pos.device)
+    head, _keep = soft._head("soft variant", pos, light, valid, gauss_nsc)
+    if old_api:
+        head = (ck._ptr(pos), ck._ptr(valid), pos.shape[0], ck._ptr(light))
+    tail = (*soft._key_args(key, num), ck._ptr(gauss_nsc), ck._ptr(counts),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if isinstance(target, b4.BVH4):
+        tree = (ck._ptr(target.boxes), ck._ptr(target.meta), ck._ptr(target.nchild),
+                ck._ptr(target.tris)) if old_api else (ck._ptr(packed[0]), ck._ptr(packed[1]))
+        err = lib.cgrt_soft_bvh4(*head, target.width, *tree, *tail)
+    else:
+        err = lib.cgrt_soft_brute(*head, ck._ptr(target), target.shape[0], *tail)
+    assert err == 0, f"soft variant launch: CUDA error {err}"
+    return counts
+
+
+def ptxas_soft(log: str) -> dict:
+    """(table?, W) -> registers, stack frame and spill bytes of soft_kernel's
+    instantiations in a ``-Xptxas=-v`` log."""
+    import re
+
+    info, cur = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line or "Compiling entry function" in line:
+            m = re.search(r"soft_kernelILb([01])ELi(\d)E", line)
+            cur = (m.group(1) == "1", int(m.group(2))) if m else None
+            if cur is not None:
+                info.setdefault(cur, {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            info[cur].update(frame=int(m.group(1)), spill_st=int(m.group(2)),
+                             spill_ld=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            info[cur]["regs"] = int(m.group(1))
+    return info
+
+
+def occupancy_warps(regs: int, smem: int, threads: int = 128) -> int:
+    """Resident warps per SM of a kernel at ``regs`` registers and ``smem``
+    bytes of shared memory per block on an H100 (65,536 registers allocated
+    per warp in steps of 256, 228 KB of shared memory with 1 KB reserved per
+    block, at most 32 blocks and 64 warps)."""
+    warps = threads // 32
+    by_regs = 65536 // (-(-regs * 32 // 256) * 256) // warps
+    by_smem = 233472 // (smem + 1024)
+    return min(by_regs, by_smem, 32, 64 // warps) * warps
+
+
+def sass_soft(lib_path: str):
+    """(table?, W) -> {'total': SASS instructions, opcode: count} of
+    soft_kernel's instantiations (cuobjdump), or None without cuobjdump."""
+    import re
+
+    from cg_raytracer_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            m = re.search(r"soft_kernelILb([01])ELi(\d)E", line)
+            cur = (m.group(1) == "1", int(m.group(2))) if m else None
+            if cur is not None:
+                out[cur] = {"total": 0}
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if cur is None or not m or m.group(1) == "NOP":
+            continue
+        op = m.group(1)
+        out[cur]["total"] += 1
+        for key in ("IMAD.WIDE.U32", "IMAD.HI.U32", "MUFU", "FMNMX", "LDG", "LDS", "STS", "LDL",
+                    "STL", "CALL", "FSETP", "FADD", "FMUL", "FFMA"):
+            if op.startswith(key):
+                out[cur][key] = out[cur].get(key, 0) + 1
+    return out
+
+
+def sampler_phase(out, device, kernels, e2e, results, scenes, parent=None) -> None:
+    """Phase 29: the samplers measured (ptxas, SASS, the sample stage against
+    the table read, rays/s and the bound) and their ablations, with
+    ``parent``'s samplers and spherical frames and steps beside them."""
+    import shutil
+
+    import torch
+
+    from cg_raytracer_tpu_torch.ops import _build
+    from cg_raytracer_tpu_torch.ops import cuda_kernels as ck
+    from cg_raytracer_tpu_torch.ops import soft
+    from cg_raytracer_tpu_torch.utils import roofline
+    from cg_raytracer_tpu_torch.utils.bench import median, time_frames
+
+    phase("phase 29: the samplers measured: registers, SASS, sample stage, ablations"
+          + (f", against {parent}" if parent else ""))
+    sd_ = scenes["soft"]
+    frames, subsample, key, num = sd_["frames"], sd_["subsample"], sd_["key"], sd_["num"]
+    stree, work = scenes["soft_trees"], dict(sd_["work"])
+    work.update({f"teacup w{w}": scenes["soft_work"][("teacup", w)] for w in (2, 8)})
+    work["teacup w4"] = work.pop("teacup")
+    tri = ck._tri_table(scenes["spherical_box"]).detach()
+    # label: (frame, brute table or tree, per-sample work of this run's twin count)
+    targets = {"brute": ("box", tri, work["box"])}
+    targets.update({f"w{w}": ("teacup", stree[("teacup", w)], work[f"teacup w{w}"])
+                    for w in (2, 4, 8)})
+    packed = {k: (soft.pack_nodes(t), soft.pack_tris(t.tris)) if k != "brute" else None
+              for k, (_, t, _) in targets.items()}
+    t0 = time.perf_counter()
+    variants = build_soft_variants(parent)
+    print(f"  {len(variants)} variants of soft.cu built in {time.perf_counter() - t0:.1f} s")
+    with open(_build.library_path()[:-3] + ".log") as f:
+        logs = {"this tree": f.read()}
+    logs.update({k: v[2] for k, v in variants.items()})
+    info = {name: ptxas_soft(log) for name, log in logs.items()}
+    print("  ptxas, per instantiation (table?, W): registers, stack frame / spill store / spill "
+          "load bytes, resident warps per SM (from registers and shared memory)")
+    smem = {0: 48 * tri.shape[0], 2: 0, 4: 0, 8: 0}
+    occ = {}
+    for name in ("this tree", *(["parent"] if parent else [])):
+        for (table, w), r in sorted(info[name].items(), key=lambda kv: (kv[0][1], kv[0][0])):
+            sm = smem[w] if name == "this tree" else (36 * tri.shape[0] if w == 0 else 0)
+            occ[(name, table, w)] = occupancy_warps(r["regs"], sm)
+            print(f"    {name}: ({'table' if table else 'PRNG'}, W = {w}): {r['regs']} registers, "
+                  f"{r['frame']} / {r['spill_st']} / {r['spill_ld']} bytes, {sm} B shared per "
+                  f"block, {occ[(name, table, w)]} warps per SM")
+    sass = sass_soft(_build.library_path())
+    if sass is None:
+        print("  SASS: no cuobjdump beside nvcc")
+    else:
+        for (table, w), c in sorted(sass.items(), key=lambda kv: (kv[0][1], kv[0][0])):
+            print(f"  SASS ({'table' if table else 'PRNG'}, W = {w}): {c}")
+        for w in (0, 2, 4, 8):
+            if (False, w) in sass and (True, w) in sass:
+                print(f"  SASS, W = {w}: the PRNG instantiation has "
+                      f"{sass[(False, w)]['total'] - sass[(True, w)]['total']} more instructions "
+                      "than the table one (Philox and Box-Muller, straight-line code: issued once "
+                      "per sample ray)")
+    ncu = shutil.which("ncu") or ("/usr/local/cuda/bin/ncu"
+                                 if os.path.exists("/usr/local/cuda/bin/ncu") else None)
+    print(f"  ncu: {ncu or 'not on this machine'}")
+    if ncu:
+        # One launch of each PRNG sampler on its 1024^2 frame (the brute on
+        # the box, the 4-wide cone on the teacup), in a process of its own.
+        try:
+            r = subprocess.run([ncu, "--target-processes", "all", "-k", "regex:soft_kernel",
+                                "-c", "2", "--metrics", ",".join(NCU_METRICS), sys.executable,
+                                "-c", NCU_SNIPPET], capture_output=True, text=True, cwd=ROOT,
+                               timeout=180)
+            lines = [ln for ln in (r.stdout + r.stderr).splitlines()
+                     if "soft_kernel" in ln or any(m in ln for m in NCU_METRICS) or "ERR" in ln
+                     or "==" in ln]
+            print(f"    ncu exit {r.returncode}:")
+            print("\n".join(f"    {ln.strip()[:200]}" for ln in lines[-40:]))
+        except subprocess.TimeoutExpired:
+            print("    ncu did not finish in 180 s")
+
+    # The table variant on every hit point of the frame against the PRNG
+    # variant on the same points: the difference is the sample stage.
+    stage = {}
+    print("  every hit point of the 1024^2 frame, compacted (ms: median of 20 bare launches)")
+    for k, (label, target, per_ray) in targets.items():
+        _, pos, valid, light, _ = frames[label]
+        pts = pos[valid].contiguous()
+        m = pts.shape[0]
+        table = torch.empty((m, num, 3), device=device)
+        samples = torch.arange(num, device=device)
+        for s0 in range(0, m, 16384):
+            rows = torch.arange(s0, min(m, s0 + 16384), device=device)
+            table[s0:s0 + rows.numel()] = soft.philox_gauss(key, rows, samples)
+        lib = _build.load()
+        prng_fn = lambda: soft_launch(lib, False, target, packed[k], pts, light, num, None,  # noqa: E731,B023
+                                      key, None)
+        table_fn = lambda: soft_launch(lib, False, target, packed[k], pts, light, num, None,  # noqa: E731,B023
+                                       None, table)
+        same = (prng_fn() == table_fn()).float().mean().item()
+        ms_p, ms_t = (median(time_frames(fn, iters=20)) for fn in (prng_fn, table_fn))
+        read_ms = table.numel() * 4 / roofline.HBM_BYTES_PER_S * 1e3
+        scene_bytes = roofline.table_bytes(target) if k == "brute" else roofline.tree_bytes(target)
+        b_ms, b_by = roofline.bound_ms(m * num * (roofline.SAMPLE_FLOPS + per_ray),
+                                       m * (12 + 4) + 16 + scene_bytes,
+                                       m * num * roofline.PHILOX_INT_OPS)
+        stage[k] = {"points": m, "prng_ms": ms_p, "table_ms": ms_t, "table_read_ms": read_ms,
+                    "counts_agree": same, "bound_ms": b_ms, "rays_per_s": m * num / ms_p * 1e3}
+        print(f"    {k} ({label}, {m} points x {num}): PRNG {ms_p:.5f} ms, table {ms_t:.5f} ms "
+              f"(its {table.numel() * 4 / 1e9:.2f} GB read at 3.35 TB/s: {read_ms:.5f} ms); the "
+              f"sample stage {ms_p - ms_t:.5f} ms; counts agree on {same:.5%} of points; "
+              f"{m * num / ms_p / 1e6:.5g} G sample rays/s, bound {b_ms:.5f} ms by {b_by} "
+              f"({b_ms / ms_p:.1%} of it)")
+        del table
+    results["sampler_stage"] = stage
+    for k, (_, target, _) in targets.items():
+        if k != "brute":
+            ms = median(time_frames(lambda: (soft.pack_nodes(target), soft.pack_tris(target.tris)),  # noqa: B023
+                                    iters=20))
+            print(f"  {k}: the wrapper's packing (pack_nodes + pack_tris, {target.num_nodes} "
+                  f"nodes) {ms:.5f} ms per launch")
+
+    # The ablations (and the parent) in turns with this tree's kernel, on the
+    # inputs phases 18 and 28 time: PRNG on the frame's hit points, table on
+    # the subsample; each variant's counts exact against this tree's.
+    print("  ablations: ms, median of 20 bare launches, two rounds in opposite orders")
+    names = ["this tree", *variants]
+    libs = {"this tree": (_build.load(), False), **{k: v[:2] for k, v in variants.items()}}
+    ab = {}
+    for k, (label, target, _) in targets.items():
+        _, pos, valid, light, _ = frames[label]
+        v8 = valid.to(torch.uint8).contiguous()
+        p_sub, g = subsample[label]
+        g_nsc = g.permute(1, 0, 2).contiguous()
+        for kind, args in (("prng", (pos, light, num, v8, key, None)),
+                           ("table", (p_sub, light, num, None, None, g_nsc))):
+            calls = {n: partial(soft_launch, *libs[n], target, packed[k], *args) for n in names}
+            ref = calls["this tree"]()
+            for n, fn in calls.items():
+                assert torch.equal(fn(), ref), f"{n}: {k} {kind} counts differ from this tree's"
+            times = {n: [] for n in names}
+            for order in (names, names[::-1]):
+                for n in order:
+                    times[n].append(median(time_frames(calls[n], iters=20)))
+            ab[(k, kind)] = times
+            base = sum(times["this tree"]) / 2
+            print(f"    {k} {kind}: this tree {times['this tree'][0]:.5f}, "
+                  f"{times['this tree'][1]:.5f}; "
+                  + "; ".join(f"{n} {t[0]:.5f}, {t[1]:.5f} (x{sum(t) / 2 / base:.3f})"
+                              for n, t in times.items() if n != "this tree"))
+    results["sampler_ablations"] = {f"{k} {kind}": t for (k, kind), t in ab.items()}
+    if parent:
+        rows = {("brute", "prng"): ("soft_prng",), ("brute", "table"): ("soft_table",),
+                ("w2", "prng"): ("soft_bvh_prng", "soft_bvh_cone_prng"),
+                ("w2", "table"): ("soft_bvh_table", "soft_bvh_cone_table"),
+                ("w4", "prng"): ("soft4_prng",), ("w4", "table"): ("soft4_table",),
+                ("w8", "prng"): ("soft4_prng_w8",), ("w8", "table"): ("soft4_table_w8",)}
+        for key_, names_ in rows.items():
+            t = ab[key_]
+            for entry in kernels:
+                if entry["name"] in names_:
+                    entry.update(parent_ms=sum(t["parent"]) / 2, ab_ms=sum(t["this tree"]) / 2)
+        # End to end: the spherical frames and steps, a process per tree.
+        runs = {"parent": [], "this tree": []}
+        for who in ("parent", "this tree", "this tree", "parent"):
+            r = subprocess.run([sys.executable, "-c", E2E_SNIPPET], capture_output=True,
+                               text=True, cwd=parent if who == "parent" else ROOT, timeout=600)
+            assert r.returncode == 0, f"{who}: {r.stderr[-3000:]}"
+            runs[who].append(json.loads(r.stdout.strip().splitlines()[-1]))
+        for scene in ("spherical_box", "spherical_teacup"):
+            for j, what in enumerate(("default-route frame", "full-contract step",
+                                      "materials step")):
+                vals = {who: [run[scene][j] for run in rs] for who, rs in runs.items()}
+                print(f"  {scene} 1024^2 {what}: parent {[round(x, 5) for x in vals['parent']]} "
+                      f"ms, this tree {[round(x, 5) for x in vals['this tree']]} ms")
+                e2e[f"{scene} {what} parent vs this tree"] = vals
 
 
 if __name__ == "__main__":

@@ -8,11 +8,17 @@
 // same total.  __syncthreads is empty: a block's shared memory is filled by
 // its threads in turn, so the first launch over a shared table may read
 // entries not yet staged (the test launches twice and keeps the second).
+// Dynamic shared memory that a test reaches through emu_dynamic_shared (it
+// rewrites the kernel's `extern __shared__ T name[];` to a call) is a heap
+// buffer of exactly the launch's bytes, kept while the next launch asks for
+// as many, so AddressSanitizer sees an access past the end.
 #pragma once
 
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
+#include <new>
 
 #define __global__
 #define __device__
@@ -32,6 +38,19 @@ struct uint4 {
 };
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
   return uint4{a, b, c, d};
+}
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float a, float b, float c, float d) { return float4{a, b, c, d}; }
+template <class T>
+T __ldg(const T* p) {
+  return *p;
+}
+inline int __float_as_int(float f) {
+  int i;
+  std::memcpy(&i, &f, sizeof(i));
+  return i;
 }
 inline unsigned __umulhi(unsigned a, unsigned b) {
   return static_cast<unsigned>((static_cast<unsigned long long>(a) * b) >> 32);
@@ -55,8 +74,20 @@ typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
+inline void* emu_smem = nullptr;
+inline size_t emu_smem_bytes = 0;
+template <class T>
+T* emu_dynamic_shared() {
+  return static_cast<T*>(emu_smem);
+}
+
 template <class F, class... A>
-void emu_launch(unsigned grid, unsigned block, size_t, cudaStream_t, F kernel, A... args) {
+void emu_launch(unsigned grid, unsigned block, size_t smem, cudaStream_t, F kernel, A... args) {
+  if (emu_smem == nullptr || smem != emu_smem_bytes) {
+    ::operator delete(emu_smem, std::align_val_t(16));
+    emu_smem = ::operator new(smem, std::align_val_t(16));
+    emu_smem_bytes = smem;
+  }
   gridDim.x = grid;
   blockDim.x = block;
   for (blockIdx.x = 0; blockIdx.x < grid; ++blockIdx.x)
