@@ -1,7 +1,8 @@
 // Wide BVH traversal shared by the kernels that walk the tree: bvh4.cu
 // (closest hit, any hit, the fused bounce) and soft.cu (the soft-shadow
-// samplers over a tree).  A template on the node width W (2, 4 or 8); the
-// layout is ops/bvh4.py's; the walk is documented in bvh4.cu.
+// samplers over a tree).  Templates on the node width W (2, 4 or 8); the
+// record is ops/bvh4.py's (pack_nodes, pack_tris); the two walks, closest
+// and any hit, are documented in bvh4.cu.
 #pragma once
 
 #include <cstdint>
@@ -14,19 +15,46 @@ constexpr int kStack = 64;  // ops/bvh4.py MAX_STACK (collapse_bvhw checks the b
 constexpr float kSlabEps = 1e-5f;
 constexpr float kBig = 3.4e38f;
 
+// The tree as the walks read it, both built once per tree (BVH4.nodes,
+// BVH4.rows): per node one record of 2W 16-byte words, the 6W child box
+// floats (lo.x of children 0..W-1, then lo.y, lo.z, hi.x, hi.y, hi.z; NaN in
+// the slots past the node's child count) then the 2W meta ints bit-cast
+// (meta[c]: child c's node id, or its first triangle row where meta[W + c],
+// its triangle count, is > 0); per triangle three 16-byte rows (v0, 0), (e1,
+// 0), (e2, 0) in leaf order.
 struct Tree {
-  const float* __restrict__ boxes;  // [Nw, 6W]
-  const int* __restrict__ meta;     // [Nw, 2W]
-  const int* __restrict__ nchild;   // [Nw]
-  const float* __restrict__ tris;   // [T, 9]
+  const float4* __restrict__ nodes;  // [Nw, 2W]
+  const float4* __restrict__ rows;   // [T, 3]
 };
 
-// min/max that return NaN when either side is NaN (jnp.minimum, torch.minimum).
+// min/max that return NaN when either side is NaN (jnp.minimum,
+// torch.minimum), by compares: the host's version of min_nan / max_nan.
 __device__ __forceinline__ float nan_min(float a, float b) {
   return (a != a || b != b) ? CUDART_NAN_F : fminf(a, b);
 }
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || b != b) ? CUDART_NAN_F : fmaxf(a, b);
+}
+
+// The same in one instruction each (PTX min.NaN / max.NaN, sm_80+).
+__device__ __forceinline__ float min_nan(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  return nan_min(a, b);
+#endif
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  return nan_max(a, b);
+#endif
 }
 
 __device__ __forceinline__ float padded(float t) { return t + kSlabEps * (1.0f + fabsf(t)); }
@@ -73,54 +101,101 @@ __device__ __forceinline__ void sort_children<8>(float (&ts)[8], int (&es)[8]) {
   for (int k = 0; k < 19; ++k) cswap<8>(ts, es, kNet[k][0], kNet[k][1]);
 }
 
-// Ray, its reciprocal direction and its running best.
-struct Walk {
-  Ray r;
-  float ix, iy, iz;
-};
+// Node ref's children against the ray (reciprocal direction ix, iy, iz):
+// the padded slab test of _slab, pruned past bound; ts the entry t of each
+// child (kBig where it is not entered; a NaN box fails the test as the slot
+// it stands for), es its stack entry (node id, or ~(W * ref + c) for leaf
+// child c), sorted descending, so the nearest child comes last.
+template <int W>
+__device__ __forceinline__ void expand(const Tree& tr, int ref, const Ray& r, float ix, float iy,
+                                       float iz, float bound, float (&ts)[W], int (&es)[W]) {
+  float rec[8 * W];
+  const float4* node = tr.nodes + 2 * W * ref;
+#pragma unroll
+  for (int k = 0; k < 2 * W; ++k) {
+    const float4 q = __ldg(node + k);
+    rec[4 * k] = q.x;
+    rec[4 * k + 1] = q.y;
+    rec[4 * k + 2] = q.z;
+    rec[4 * k + 3] = q.w;
+  }
+#pragma unroll
+  for (int c = 0; c < W; ++c) {
+    es[c] = __float_as_int(rec[7 * W + c]) > 0 ? ~(W * ref + c) : __float_as_int(rec[6 * W + c]);
+    const float t0x = (rec[c] - r.ox) * ix, t0y = (rec[W + c] - r.oy) * iy;
+    const float t0z = (rec[2 * W + c] - r.oz) * iz;
+    const float t1x = (rec[3 * W + c] - r.ox) * ix;
+    const float t1y = (rec[4 * W + c] - r.oy) * iy;
+    const float t1z = (rec[5 * W + c] - r.oz) * iz;
+    const float tin = max_nan(max_nan(min_nan(t0x, t1x), min_nan(t0y, t1y)), min_nan(t0z, t1z));
+    const float tout = min_nan(min_nan(max_nan(t0x, t1x), max_nan(t0y, t1y)), max_nan(t0z, t1z));
+    const float pad = kSlabEps * (1.0f + fabsf(tout));
+    ts[c] = (tin <= tout + pad && tout >= -pad && tin <= bound) ? tin : kBig;
+  }
+  sort_children<W>(ts, es);
+}
 
-// Traverse the W-wide tree from the root.  Closest: returns the slot
-// (leaf-order row) of the nearest triangle at t < t_best and updates t_best,
-// u, v; -1 if none.  Any-hit: returns the first slot found at t < t_best, -1
-// if none.
-template <int W, bool kAnyHit>
-__device__ int traverse(const Tree& tr, const Walk& w, float& t_best, float& u, float& v) {
+// The triangle rows [first, end) of leaf entry ref = ~(W * node + c).
+template <int W>
+__device__ __forceinline__ void leaf_rows(const Tree& tr, int ref, int& first, int& end) {
+  const unsigned s = static_cast<unsigned>(~ref);
+  const float* m = reinterpret_cast<const float*>(tr.nodes + 2 * W * (s / W)) + 6 * W + s % W;
+  first = __float_as_int(__ldg(m));
+  end = first + __float_as_int(__ldg(m + W));
+}
+
+// Whether a triangle lies at t in [0, t_max) on the ray: the any-hit walk.
+template <int W>
+__device__ __forceinline__ bool occluded(const Tree& tr, const Ray& r, float t_max) {
+  const float ix = 1.0f / r.dx, iy = 1.0f / r.dy, iz = 1.0f / r.dz;
+  const float bound = padded(t_max);
   int stack[kStack];
-  float tstack[kStack];
-  stack[0] = 0;
-  tstack[0] = -kBig;
-  int sp = 1, slot = -1;
-  while (sp > 0) {
-    --sp;
-    const int ref = stack[sp];
-    const float bound = padded(t_best);
-    if (tstack[sp] > bound) continue;  // stale: pushed before t_best improved
+  int sp = 0, ref = 0;
+  for (;;) {
     if (ref >= 0) {
-      const float* b = tr.boxes + 6 * W * ref;
-      const int* m = tr.meta + 2 * W * ref;
-      const int nc = tr.nchild[ref];
       float ts[W];
       int es[W];
+      expand<W>(tr, ref, r, ix, iy, iz, bound, ts, es);
+      // Push the others and walk the nearest now.
 #pragma unroll
-      for (int c = 0; c < W; ++c) {
-        ts[c] = kBig;
-        es[c] = m[W + c] > 0 ? ~(W * ref + c) : m[c];
-        if (c < nc) {
-          const float t0x = (b[c] - w.r.ox) * w.ix, t0y = (b[W + c] - w.r.oy) * w.iy;
-          const float t0z = (b[2 * W + c] - w.r.oz) * w.iz;
-          const float t1x = (b[3 * W + c] - w.r.ox) * w.ix;
-          const float t1y = (b[4 * W + c] - w.r.oy) * w.iy;
-          const float t1z = (b[5 * W + c] - w.r.oz) * w.iz;
-          const float tin = nan_max(nan_max(nan_min(t0x, t1x), nan_min(t0y, t1y)),
-                                    nan_min(t0z, t1z));
-          const float tout = nan_min(nan_min(nan_max(t0x, t1x), nan_max(t0y, t1y)),
-                                     nan_max(t0z, t1z));
-          const float pad = kSlabEps * (1.0f + fabsf(tout));
-          if (tin <= tout + pad && tout >= -pad && tin <= bound) ts[c] = tin;
+      for (int c = 0; c < W - 1; ++c) {
+        if (ts[c] < kBig) {
+          stack[sp] = es[c];
+          ++sp;
         }
       }
-      // Descending sort: the nearest child is pushed last and popped first.
-      sort_children<W>(ts, es);
+      if (ts[W - 1] < kBig) {
+        ref = es[W - 1];
+        continue;
+      }
+    } else {
+      int first, end;
+      leaf_rows<W>(tr, ref, first, end);
+      for (int k = first; k < end; ++k) {
+        const float4* row = tr.rows + 3 * k;
+        if (mt_blocks(__ldg(row), __ldg(row + 1), __ldg(row + 2), r, t_max)) return true;
+      }
+    }
+    if (sp == 0) return false;
+    --sp;
+    ref = stack[sp];
+  }
+}
+
+// The closest triangle at t in [0, t_best): its row (leaf order), with
+// t_best, u and v updated; -1 if none.  The closest walk.
+template <int W>
+__device__ __forceinline__ int closest(const Tree& tr, const Ray& r, float& t_best, float& u,
+                                       float& v) {
+  const float ix = 1.0f / r.dx, iy = 1.0f / r.dy, iz = 1.0f / r.dz;
+  int stack[kStack];
+  float tstack[kStack];
+  int sp = 0, ref = 0, slot = -1;
+  for (;;) {
+    if (ref >= 0) {
+      float ts[W];
+      int es[W];
+      expand<W>(tr, ref, r, ix, iy, iz, padded(t_best), ts, es);
 #pragma unroll
       for (int c = 0; c < W; ++c) {
         if (ts[c] < kBig) {
@@ -130,26 +205,28 @@ __device__ int traverse(const Tree& tr, const Walk& w, float& t_best, float& u, 
         }
       }
     } else {
-      const unsigned s = static_cast<unsigned>(~ref);  // W * node + child slot
-      const int* m = tr.meta + 2 * W * (s / W);
-      const int first = m[s % W], end = first + m[W + s % W];
+      int first, end;
+      leaf_rows<W>(tr, ref, first, end);
       for (int k = first; k < end; ++k) {
+        const float4* row = tr.rows + 3 * k;
+        const float4 v0 = __ldg(row), e1 = __ldg(row + 1), e2 = __ldg(row + 2);
+        const float tri[9] = {v0.x, v0.y, v0.z, e1.x, e1.y, e1.z, e2.x, e2.y, e2.z};
         float t, uu, vv;
-        if (mt(tr.tris + 9 * k, w.r, t, uu, vv) && t < t_best) {
+        if (mt(tri, r, t, uu, vv) && t < t_best) {
           t_best = t;
           slot = k;
           u = uu;
           v = vv;
-          if (kAnyHit) return slot;
         }
       }
     }
+    // The next entry that is not stale (pushed before t_best improved).
+    do {
+      if (sp == 0) return slot;
+      --sp;
+    } while (tstack[sp] > padded(t_best));
+    ref = stack[sp];
   }
-  return slot;
-}
-
-__device__ __forceinline__ Walk make_walk(const Ray& r) {
-  return Walk{r, 1.0f / r.dx, 1.0f / r.dy, 1.0f / r.dz};
 }
 
 }  // namespace cgrt

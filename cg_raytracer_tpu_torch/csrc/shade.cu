@@ -48,25 +48,35 @@
 // Backward: the same forward recomputed in registers, then the reverse pass
 // written out by hand (the Pallas kernel traced jax.vjp inside its body); a
 // spherical light's terms reverse as a point light's with the direct
-// cotangent scaled by its fraction.
-// The derivation is csrc/SHADE_BWD.md.  Per-ray cotangents d_o, d_d [N, 3]
-// are stored; table cotangents are summed per block into a shared-memory
-// copy of the tables with atomicAdd, then added once per block to d_tri,
-// d_aux (or d_mats), d_lights, d_spheres in device memory with atomicAdd
-// (the wrapper zeroes them); the pregathered backward adds the payload
-// row's cotangents straight into d_payload [T, 19] in device memory.  The
-// grid is one wave of blocks that stride over the rays, so each block
-// flushes once.  fp32 atomics sum in an order that changes from
-// run to run: the table gradients are not bitwise reproducible (they vary in
-// the last bits), and the on-card checks compare them to their twin with a
-// tolerance that covers float32 summation (utils/checks.py).
+// cotangent scaled by its fraction.  The derivation is csrc/SHADE_BWD.md.
+// Per-ray cotangents d_o, d_d [N, 3] are stored, each lane's own arithmetic,
+// without atomics.  The table cotangents are summed within the warp before
+// any atomic (SHADE_BWD.md, "Summation"): the lanes that add into one row
+// form a group by a warp vote (__ballot_sync on "the light is not blocked"
+// for a light row, which every such lane of the warp shares;
+// __match_any_sync on the hit's slot for its triangle or sphere row, and on
+// the material row in the pregathered kernel), each group's values are
+// summed by a tree of shuffles within its mask, and its lowest lane adds
+// the sums once.  Those adds go into a shared-memory copy of the
+// tables, added once per block to d_tri, d_aux (or d_mats), d_lights,
+// d_spheres, d_sph in device memory with atomicAdd (the wrapper zeroes
+// them); the pregathered backward adds the payload row's sums straight into
+// d_payload [T, 19] in device memory.  The grid is one wave of blocks that
+// stride over the rays a block at a time, so every lane of a warp reaches
+// the votes and each block flushes once.  fp32 atomics sum in an order that
+// changes from run to run: the table gradients are not bitwise reproducible
+// (they vary in the last bits), and the on-card checks compare them to
+// their twin with a tolerance that covers float32 summation
+// (utils/checks.py).
 //
 // What bounds it on an H100: the forward is ~100 FLOPs per ray and light
 // against 56 bytes of ray I/O in and 48 out, so neither roof at these sizes:
 // latency of the branchy per-thread program.  The backward adds ~3x the
-// FLOPs and, per live ray, 28 + 6 L shared-memory atomics.  Coherent rays
-// that hit one wall all add into the same table row, so those atomics
-// serialise: that contention is its expected bound (PERF.md measures it).
+// FLOPs and, per live ray, 25 + 6 L table cotangents.  Added lane by lane,
+// coherent rays that hit one wall all add into the same rows, so those
+// shared-memory atomics serialise up to 32-fold (the parent design, PERF.md
+// rows 25-26); summed in the warp first, a row takes one atomic per group
+// and ~5 shuffles per value.
 #include <cstdint>
 
 #include "sweep.cuh"
@@ -386,6 +396,77 @@ __device__ __forceinline__ void normalize_bwd(float x0, float x1, float x2, floa
   }
 }
 
+// Warp aggregation of the table cotangents (SHADE_BWD.md, "Summation").
+constexpr unsigned kFullWarp = 0xFFFFFFFFu;
+
+// A lane's group: the lanes of its warp that add into the same table row
+// (mask, from a warp vote), the lane's rank among them, their count, and per
+// step of the reduction the lane whose partial sum it reads.
+struct Group {
+  unsigned mask;
+  int rank, size;
+  int src[5];
+};
+
+__device__ __forceinline__ unsigned lane_bit() { return 1u << (threadIdx.x % 32); }
+
+__device__ __forceinline__ Group group_of(unsigned mask) {
+  Group g;
+  g.mask = mask;
+  g.rank = __popc(mask & (lane_bit() - 1u));
+  g.size = __popc(mask);
+#pragma unroll
+  for (int s = 0; s < 5; ++s) {
+    // The lane of rank + 2^s (its rank + 2^s + 1-th set bit), where there is one.
+    g.src[s] = g.rank + (1 << s) < g.size ? static_cast<int>(__fns(mask, 0, g.rank + (1 << s) + 1))
+                                          : static_cast<int>(threadIdx.x % 32);
+  }
+  return g;
+}
+
+// v[0..N) summed over the group into its rank-0 lane: a tree over ranks,
+// step s adding the partial sum of rank + 2^s, each shuffle within the
+// group's mask.  A group of one lane does no step.
+template <int N>
+__device__ __forceinline__ void group_sum(const Group& g, float* v) {
+#pragma unroll
+  for (int s = 0; s < 5; ++s) {
+    if ((1 << s) >= g.size) break;
+    const bool take = g.rank + (1 << s) < g.size;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const float other = __shfl_sync(g.mask, v[k], g.src[s]);
+      if (take) v[k] += other;
+    }
+  }
+}
+
+// The group of the lanes whose key matches this lane's (key -1: no row).
+// Every lane of the warp calls it.  A warp whose lanes hit many distinct
+// rows forms many small groups, each adding its own sums: lane by lane
+// past a threshold of distinct rows measured slower for every threshold
+// (PERF.md, the shade backward).
+__device__ __forceinline__ Group row_group(bool live, int key) {
+  return group_of(__match_any_sync(kFullWarp, live ? key : -1));
+}
+
+template <int N>
+__device__ __forceinline__ void add_row(float* dst, const float* v) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) atomicAdd(&dst[k], v[k]);
+}
+
+// One light row's six cotangents (position, color) from the lanes where act
+// holds, all of which add into that row: summed over them and added once.
+// Every lane of the warp calls it.
+__device__ __forceinline__ void add_light_row(bool act, float* row, float* acc_row) {
+  const unsigned mask = __ballot_sync(kFullWarp, act);
+  if (!act) return;
+  const Group g = group_of(mask);
+  group_sum<6>(g, row);
+  if (g.rank == 0) add_row<6>(acc_row, row);
+}
+
 template <bool kPre>
 __global__ void __launch_bounds__(kThreads) shade_bwd_kernel(ShadeArgs a, ShadeGrads g) {
   extern __shared__ float smem[];
@@ -402,70 +483,89 @@ __global__ void __launch_bounds__(kThreads) shade_bwd_kernel(ShadeArgs a, ShadeG
   for (int k = threadIdx.x; k < floats; k += blockDim.x) acc[k] = 0.0f;
   __syncthreads();
 
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.n; i += gridDim.x * blockDim.x) {
-    const int slot = a.prim[i];
+  // base is the same for the whole block, so every lane of a warp reaches
+  // the warp votes, live or not.
+  for (int base = blockIdx.x * blockDim.x; base < a.n; base += gridDim.x * blockDim.x) {
+    const int i = base + threadIdx.x;
+    const int slot = i < a.n ? a.prim[i] : -1;
+    const bool live = live_slot(slot, tb);
     float go[3] = {0.0f, 0.0f, 0.0f}, gd[3] = {0.0f, 0.0f, 0.0f};
-    if (live_slot(slot, tb)) {
-      const Ray r = load_ray(a.o, a.d, i);
-      Fwd f;
+    // The surface row's cotangents: a triangle's vertices (9), normals (9)
+    // and material (kd, ks, shininess: 7), or a sphere's row (11).
+    float gs[25];
+#pragma unroll
+    for (int k = 0; k < 25; ++k) gs[k] = 0.0f;
+    Ray r;
+    Fwd f;
+    int bits = 0;
+    float gD[3] = {0.0f, 0.0f, 0.0f};
+    // Cotangents of the surface: position and normal, kd, ks, shininess,
+    // and of the unit reflection.
+    float gpx = 0.0f, gpy = 0.0f, gpz = 0.0f, gnx = 0.0f, gny = 0.0f, gnz = 0.0f;
+    float gkd[3] = {0.0f, 0.0f, 0.0f}, gks[3] = {0.0f, 0.0f, 0.0f};
+    float gshin = 0.0f, grx = 0.0f, gry = 0.0f, grz = 0.0f;
+    if (live) {
+      r = load_ray(a.o, a.d, i);
       shade_surface<kPre>(tb, r, slot, f);
-      const int bits = a.bits[i];
-      const float gD[3] = {g.g_direct[3 * i], g.g_direct[3 * i + 1], g.g_direct[3 * i + 2]};
-      // Cotangents of the surface: position and normal, kd, ks, shininess,
-      // and of the unit reflection.
-      float gpx = g.g_position[3 * i], gpy = g.g_position[3 * i + 1];
-      float gpz = g.g_position[3 * i + 2];
-      float gnx = g.g_normal[3 * i], gny = g.g_normal[3 * i + 1], gnz = g.g_normal[3 * i + 2];
-      float gkd[3] = {0.0f, 0.0f, 0.0f};
-      float gks[3] = {g.g_ks[3 * i], g.g_ks[3 * i + 1], g.g_ks[3 * i + 2]};
-      float gshin = 0.0f, grx = 0.0f, gry = 0.0f, grz = 0.0f;
+      bits = a.bits[i];
+      gD[0] = g.g_direct[3 * i], gD[1] = g.g_direct[3 * i + 1], gD[2] = g.g_direct[3 * i + 2];
+      gpx = g.g_position[3 * i], gpy = g.g_position[3 * i + 1], gpz = g.g_position[3 * i + 2];
+      gnx = g.g_normal[3 * i], gny = g.g_normal[3 * i + 1], gnz = g.g_normal[3 * i + 2];
+      gks[0] = g.g_ks[3 * i], gks[1] = g.g_ks[3 * i + 1], gks[2] = g.g_ks[3 * i + 2];
+    }
 
-      // Lights (SHADE_BWD.md, "Lights"): one light row's reverse, for the
-      // direct cotangent gL (gD, or gD times a spherical light's fraction),
-      // adding the row's cotangents into acc_row.
+    // Lights (SHADE_BWD.md, "Lights"): one light row's reverse, for the
+    // direct cotangent gL (gD, or gD times a spherical light's fraction),
+    // writing the row's cotangents (position, then color) to row.
+    auto light_bwd = [&](const float* lrow, const float* gL, float* row) {
+      const LightTerms L = light_terms(f, lrow);
       const float kd[3] = {f.kdx, f.kdy, f.kdz}, ks[3] = {f.ksx, f.ksy, f.ksz};
-      auto light_bwd = [&](const float* lrow, const float* gL, float* acc_row) {
-        const LightTerms L = light_terms(f, lrow);
-        float g_dcos = 0.0f, g_spec = 0.0f;
-        for (int c = 0; c < 3; ++c) {
-          const float gA = gL[c] * lrow[3 + c];
-          atomicAdd(&acc_row[3 + c], gL[c] * (kd[c] * L.dcos + ks[c] * L.spec));
-          gkd[c] += gA * L.dcos;
-          gks[c] += gA * L.spec;
-          g_dcos += gA * kd[c];
-          g_spec += gA * ks[c];
-        }
-        float g_scos = 0.0f;
-        if (L.scos > 0.0f) {
-          gshin += g_spec * L.spec * logf(L.b);
-          g_scos = g_spec * f.shin * powf(L.b, f.shin - 1.0f) * max_weight(L.scos, kSpecEps);
-        }
-        const float g_x = g_dcos * max_weight(L.x, 0.0f);
-        // scos = r . ld, x = ld . n
-        grx += g_scos * L.ldx, gry += g_scos * L.ldy, grz += g_scos * L.ldz;
-        const float gldx = g_scos * f.rx + g_x * f.nx;
-        const float gldy = g_scos * f.ry + g_x * f.ny;
-        const float gldz = g_scos * f.rz + g_x * f.nz;
-        gnx += g_x * L.ldx, gny += g_x * L.ldy, gnz += g_x * L.ldz;
-        // ld = normalize(to), to = light - p
-        float gtx = 0.0f, gty = 0.0f, gtz = 0.0f;
-        normalize_bwd(L.tox, L.toy, L.toz, L.ls, L.linv, gldx, gldy, gldz, gtx, gty, gtz);
-        atomicAdd(&acc_row[0], gtx);
-        atomicAdd(&acc_row[1], gty);
-        atomicAdd(&acc_row[2], gtz);
-        gpx -= gtx, gpy -= gty, gpz -= gtz;
-      };
-      for (int l = 0; l < tb.num_lights; ++l) {
-        if (!((bits >> l) & 1)) light_bwd(tb.light + 6 * l, gD, a_light + 6 * l);
+      float g_dcos = 0.0f, g_spec = 0.0f;
+      for (int c = 0; c < 3; ++c) {
+        const float gA = gL[c] * lrow[3 + c];
+        row[3 + c] = gL[c] * (kd[c] * L.dcos + ks[c] * L.spec);
+        gkd[c] += gA * L.dcos;
+        gks[c] += gA * L.spec;
+        g_dcos += gA * kd[c];
+        g_spec += gA * ks[c];
       }
-      // Spherical lights (SHADE_BWD.md, "Spherical lights").
-      for (int l = 0; l < tb.num_sphl; ++l) {
-        const float w = a.fracs[static_cast<size_t>(l) * a.n + i];
-        if (w == 0.0f) continue;
+      float g_scos = 0.0f;
+      if (L.scos > 0.0f) {
+        gshin += g_spec * L.spec * logf(L.b);
+        g_scos = g_spec * f.shin * powf(L.b, f.shin - 1.0f) * max_weight(L.scos, kSpecEps);
+      }
+      const float g_x = g_dcos * max_weight(L.x, 0.0f);
+      // scos = r . ld, x = ld . n
+      grx += g_scos * L.ldx, gry += g_scos * L.ldy, grz += g_scos * L.ldz;
+      const float gldx = g_scos * f.rx + g_x * f.nx;
+      const float gldy = g_scos * f.ry + g_x * f.ny;
+      const float gldz = g_scos * f.rz + g_x * f.nz;
+      gnx += g_x * L.ldx, gny += g_x * L.ldy, gnz += g_x * L.ldz;
+      // ld = normalize(to), to = light - p
+      float gtx = 0.0f, gty = 0.0f, gtz = 0.0f;
+      normalize_bwd(L.tox, L.toy, L.toz, L.ls, L.linv, gldx, gldy, gldz, gtx, gty, gtz);
+      row[0] = gtx, row[1] = gty, row[2] = gtz;
+      gpx -= gtx, gpy -= gty, gpz -= gtz;
+    };
+    for (int l = 0; l < tb.num_lights; ++l) {
+      const bool act = live && !((bits >> l) & 1);
+      float row[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      if (act) light_bwd(tb.light + 6 * l, gD, row);
+      add_light_row(act, row, a_light + 6 * l);
+    }
+    // Spherical lights (SHADE_BWD.md, "Spherical lights").
+    for (int l = 0; l < tb.num_sphl; ++l) {
+      const float w = live ? a.fracs[static_cast<size_t>(l) * a.n + i] : 0.0f;
+      const bool act = w != 0.0f;
+      float row[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      if (act) {
         const float gW[3] = {gD[0] * w, gD[1] * w, gD[2] * w};
-        light_bwd(tb.sphl + 6 * l, gW, a_sphl + 6 * l);
+        light_bwd(tb.sphl + 6 * l, gW, row);
       }
+      add_light_row(act, row, a_sphl + 6 * l);
+    }
 
+    if (live) {
       // Reflection: r = normalize(rt), rt = d - 2 (d . n) n (SHADE_BWD.md, "Reflection").
       float grtx = 0.0f, grty = 0.0f, grtz = 0.0f;
       normalize_bwd(f.rtx, f.rty, f.rtz, f.rs, f.rinv, grx, gry, grz, grtx, grty, grtz);
@@ -479,7 +579,6 @@ __global__ void __launch_bounds__(kThreads) shade_bwd_kernel(ShadeArgs a, ShadeG
 
       if (f.sphere) {
         // Sphere (SHADE_BWD.md, "Sphere").
-        float* as = a_sph + 11 * f.row;
         const float* s = tb.sph + 11 * f.row;
         float gsx = gpx, gsy = gpy, gsz = gpz;  // cotangent of the point sp
         float gcx = 0.0f, gcy = 0.0f, gcz = 0.0f;
@@ -514,22 +613,11 @@ __global__ void __launch_bounds__(kThreads) shade_bwd_kernel(ShadeArgs a, ShadeG
           gcx -= gocx, gcy -= gocy, gcz -= gocz;
           grad = -2.0f * rad * g_qc;
         }
-        atomicAdd(&as[0], gcx);
-        atomicAdd(&as[1], gcy);
-        atomicAdd(&as[2], gcz);
-        atomicAdd(&as[3], grad);
-        for (int c = 0; c < 3; ++c) {
-          atomicAdd(&as[4 + c], gkd[c]);
-          atomicAdd(&as[7 + c], gks[c]);
-        }
-        atomicAdd(&as[10], gshin);
+        gs[0] = gcx, gs[1] = gcy, gs[2] = gcz, gs[3] = grad;
+        for (int c = 0; c < 3; ++c) gs[4 + c] = gkd[c], gs[7 + c] = gks[c];
+        gs[10] = gshin;
       } else {
-        // Triangle (SHADE_BWD.md, "Normal" and "Moller-Trumbore").  Vertex
-        // and normal cotangents go to the shared tri/aux copies, or straight
-        // to the device payload; material ones to aux columns 12-18 or mats.
-        float* at = kPre ? g.d_payload + 19 * f.row : a_tri + 9 * f.row;
-        float* an = kPre ? g.d_payload + 19 * f.row + 9 : a_aux + 19 * f.row;
-        float* am = kPre ? a_mat + 7 * f.ta.mat_row : a_aux + 19 * f.row + 12;
+        // Triangle (SHADE_BWD.md, "Normal" and "Moller-Trumbore").
         const float* nv = f.ta.n;
         float gntx = 0.0f, gnty = 0.0f, gntz = 0.0f;
         normalize_bwd(f.ntx, f.nty, f.ntz, f.ns, f.ninv, gnx * f.flip, gny * f.flip,
@@ -537,20 +625,11 @@ __global__ void __launch_bounds__(kThreads) shade_bwd_kernel(ShadeArgs a, ShadeG
         const float g_w0 = gntx * nv[0] + gnty * nv[1] + gntz * nv[2];
         const float g_u = gntx * nv[3] + gnty * nv[4] + gntz * nv[5] - g_w0;
         const float g_v = gntx * nv[6] + gnty * nv[7] + gntz * nv[8] - g_w0;
-        atomicAdd(&an[0], f.w0 * gntx);
-        atomicAdd(&an[1], f.w0 * gnty);
-        atomicAdd(&an[2], f.w0 * gntz);
-        atomicAdd(&an[3], f.u * gntx);
-        atomicAdd(&an[4], f.u * gnty);
-        atomicAdd(&an[5], f.u * gntz);
-        atomicAdd(&an[6], f.v * gntx);
-        atomicAdd(&an[7], f.v * gnty);
-        atomicAdd(&an[8], f.v * gntz);
-        for (int c = 0; c < 3; ++c) {
-          atomicAdd(&am[c], gkd[c]);
-          atomicAdd(&am[3 + c], gks[c]);
-        }
-        atomicAdd(&am[6], gshin);
+        gs[9] = f.w0 * gntx, gs[10] = f.w0 * gnty, gs[11] = f.w0 * gntz;
+        gs[12] = f.u * gntx, gs[13] = f.u * gnty, gs[14] = f.u * gntz;
+        gs[15] = f.v * gntx, gs[16] = f.v * gnty, gs[17] = f.v * gntz;
+        for (int c = 0; c < 3; ++c) gs[18 + c] = gkd[c], gs[21 + c] = gks[c];
+        gs[24] = gshin;
         // p = o + d t
         go[0] += gpx, go[1] += gpy, go[2] += gpz;
         gd[0] += gpx * f.t, gd[1] += gpy * f.t, gd[2] += gpz * f.t;
@@ -587,20 +666,44 @@ __global__ void __launch_bounds__(kThreads) shade_bwd_kernel(ShadeArgs a, ShadeG
         ge2y += gpvz * r.dx - gpvx * r.dz;
         ge2z += gpvx * r.dy - gpvy * r.dx;
         // e1 = v1 - v0, e2 = v2 - v0, tv = o - v0
-        atomicAdd(&at[0], -gtvx - ge1x - ge2x);
-        atomicAdd(&at[1], -gtvy - ge1y - ge2y);
-        atomicAdd(&at[2], -gtvz - ge1z - ge2z);
-        atomicAdd(&at[3], ge1x);
-        atomicAdd(&at[4], ge1y);
-        atomicAdd(&at[5], ge1z);
-        atomicAdd(&at[6], ge2x);
-        atomicAdd(&at[7], ge2y);
-        atomicAdd(&at[8], ge2z);
+        gs[0] = -gtvx - ge1x - ge2x, gs[1] = -gtvy - ge1y - ge2y, gs[2] = -gtvz - ge1z - ge2z;
+        gs[3] = ge1x, gs[4] = ge1y, gs[5] = ge1z;
+        gs[6] = ge2x, gs[7] = ge2y, gs[8] = ge2z;
       }
     }
-    for (int c = 0; c < 3; ++c) {
-      g.d_o[3 * i + c] = go[c];
-      g.d_d[3 * i + c] = gd[c];
+
+    // The surface rows, grouped by the hit's slot (a triangle or a sphere,
+    // never both in one group).  Vertex and normal cotangents go to the
+    // shared tri/aux copies, or straight to the device payload; material
+    // ones to aux columns 12-18, or to mats grouped by material row.
+    const Group gr = row_group(live, slot);
+    if (live) {
+      group_sum<kPre ? 18 : 25>(gr, gs);
+      if (gr.rank == 0) {
+        if (f.sphere) {
+          add_row<11>(a_sph + 11 * f.row, gs);
+        } else if (kPre) {
+          add_row<18>(g.d_payload + 19 * f.row, gs);
+        } else {
+          add_row<9>(a_tri + 9 * f.row, gs);
+          add_row<9>(a_aux + 19 * f.row, gs + 9);
+          add_row<7>(a_aux + 19 * f.row + 12, gs + 18);
+        }
+      }
+    }
+    if (kPre) {
+      const bool tri_hit = live && !f.sphere;
+      const Group gm = row_group(tri_hit, tri_hit ? f.ta.mat_row : -1);
+      if (tri_hit) {
+        group_sum<7>(gm, gs + 18);
+        if (gm.rank == 0) add_row<7>(a_mat + 7 * f.ta.mat_row, gs + 18);
+      }
+    }
+    if (i < a.n) {
+      for (int c = 0; c < 3; ++c) {
+        g.d_o[3 * i + c] = go[c];
+        g.d_d[3 * i + c] = gd[c];
+      }
     }
   }
 

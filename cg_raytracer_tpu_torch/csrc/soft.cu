@@ -11,8 +11,7 @@
 //   cgrt_soft_bvh4, table  <- their table twins _soft4_cone_table_kernel,
 //                             _soft_bvh_table_kernel, _soft_bvh_cone_table_
 //                             kernel.
-// Wrappers, the sample stream, the packed tables and the plain twins:
-// ops/soft.py.
+// Wrappers, the sample stream and the plain twins: ops/soft.py.
 //
 // One body (sample_visible), templated on the sample source (Philox in the
 // kernel, or a table of Gaussians [N, S, 3]) and on the scene (the triangle
@@ -41,30 +40,16 @@
 // and add rounded as the twin's), so the table variant agrees with its twin
 // exactly and the PRNG variant up to the transcendental functions.
 //
-// The tree walk (occluded): an any-hit walk of its own, beside
-// bvh4.cuh::traverse (which bvh4.cu keeps), with the same slab test,
-// padding, sort network and visit order, so it tests the same nodes and
-// triangles as traverse<W, true> and as the twin:
-// - one record per node (ops/soft.py pack_nodes): the 6W box floats, then
-//   the 2W meta ints bit-cast, 32W bytes (one 128-byte line at W = 4), read
-//   with 2W 16-byte loads instead of 8W + 1 scalar loads from three arrays.
-//   The slots past nchild hold NaN boxes: a NaN entry fails tin <= tout +
-//   pad exactly as the slot that traverse skips, so nothing is pushed;
-// - NaN-propagating min/max in one instruction each (PTX min.NaN/max.NaN,
-//   sm_80+): the bits of bvh4.cuh's nan_min/nan_max, which cost two
-//   compares, fminf and a select;
-// - a stack of node ids only.  An any-hit walk's best stays t_max until it
-//   returns, and every entry was pushed with tin <= padded(t_max), so
-//   traverse's stale-entry test (its tstack) can never fire here.  The
-//   nearest child is walked at once instead of pushed and popped (the order
-//   of visits is traverse's).  The 64 ints stay in local memory (a 256-byte
-//   frame, half of traverse's): held in shared memory, [entry][thread] and
-//   sized per tree, they measured 4-6% slower (PERF.md, the samplers), the carve-out
-//   taking L1 from the node records;
-// - triangles as three 16-byte rows (v0, e1, e2, each padded) and the
-//   any-hit Moller-Trumbore of sweep.cuh (mt_blocks), which stops at the
-//   first failed condition: a point's lanes nearly always reject a
-//   triangle at the same step.
+// The tree walk is bvh4.cuh's any-hit walk (occluded<W>), the one that
+// bvh4.cu's any-hit and bounce kernels run, over the tree's records built
+// once per tree (ops/bvh4.py BVH4.nodes, BVH4.rows): one 32W-byte record
+// per node read with 16-byte loads, NaN boxes in the absent slots, PTX
+// min.NaN/max.NaN, a stack of node ids in local memory (held in shared
+// memory, [entry][thread], it measured 4-6% slower: PERF.md, the
+// samplers), the nearest child walked at once, and the any-hit
+// Moller-Trumbore of sweep.cuh (mt_blocks), which stops at the first failed
+// condition: a point's lanes nearly always reject a triangle at the same
+// step.
 // The brute sweep stages its triangles in shared memory in the same
 // three-row layout (three 16-byte broadcast loads per test) and runs the
 // same mt_blocks.
@@ -106,10 +91,9 @@ struct SoftArgs {
 
 // What the sampler sweeps or walks.
 struct SoftScene {
-  const float* __restrict__ tris;    // brute: [T, 9] v0, v1, v2
-  int num_tris;                      // brute
-  const float4* __restrict__ nodes;  // tree: [Nw, 2W] node records (pack_nodes)
-  const float4* __restrict__ rows;   // tree: [T, 3] v0, e1, e2 (pack_tris)
+  const float* __restrict__ tris;  // brute: [T, 9] v0, v1, v2
+  int num_tris;                    // brute
+  Tree tree;                       // tree: its records (bvh4.cuh)
 };
 
 // Philox4x32-10 (Salmon et al., SC'11), as curand_Philox4x32_10; each
@@ -172,93 +156,6 @@ __device__ __forceinline__ void stage_rows3(const float* __restrict__ tris, int 
   }
 }
 
-// bvh4.cuh's nan_min / nan_max in one instruction each.
-__device__ __forceinline__ float min_nan(float a, float b) {
-#ifdef __CUDA_ARCH__
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-#else
-  return nan_min(a, b);
-#endif
-}
-
-__device__ __forceinline__ float max_nan(float a, float b) {
-#ifdef __CUDA_ARCH__
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-#else
-  return nan_max(a, b);
-#endif
-}
-
-// Whether a triangle of the W-wide tree lies at t in [0, t_max) on the ray:
-// traverse<W, true>'s walk (see the note at the top).
-template <int W>
-__device__ __forceinline__ bool occluded(const SoftScene& sc, const Ray& r, float t_max) {
-  const float ix = 1.0f / r.dx, iy = 1.0f / r.dy, iz = 1.0f / r.dz;
-  const float bound = padded(t_max);
-  int stack[kStack];
-  int sp = 0, ref = 0;
-  for (;;) {
-    if (ref >= 0) {
-      float rec[8 * W];
-      const float4* node = sc.nodes + 2 * W * ref;
-#pragma unroll
-      for (int k = 0; k < 2 * W; ++k) {
-        const float4 q = __ldg(node + k);
-        rec[4 * k] = q.x;
-        rec[4 * k + 1] = q.y;
-        rec[4 * k + 2] = q.z;
-        rec[4 * k + 3] = q.w;
-      }
-      float ts[W];
-      int es[W];
-#pragma unroll
-      for (int c = 0; c < W; ++c) {
-        es[c] = __float_as_int(rec[7 * W + c]) > 0 ? ~(W * ref + c) : __float_as_int(rec[6 * W + c]);
-        const float t0x = (rec[c] - r.ox) * ix, t0y = (rec[W + c] - r.oy) * iy;
-        const float t0z = (rec[2 * W + c] - r.oz) * iz;
-        const float t1x = (rec[3 * W + c] - r.ox) * ix;
-        const float t1y = (rec[4 * W + c] - r.oy) * iy;
-        const float t1z = (rec[5 * W + c] - r.oz) * iz;
-        const float tin = max_nan(max_nan(min_nan(t0x, t1x), min_nan(t0y, t1y)),
-                                  min_nan(t0z, t1z));
-        const float tout = min_nan(min_nan(max_nan(t0x, t1x), max_nan(t0y, t1y)),
-                                   max_nan(t0z, t1z));
-        const float pad = kSlabEps * (1.0f + fabsf(tout));
-        ts[c] = (tin <= tout + pad && tout >= -pad && tin <= bound) ? tin : kBig;
-      }
-      // Descending: the children that missed (kBig) come first, the nearest
-      // last.  Push the others and walk the nearest now.
-      sort_children<W>(ts, es);
-#pragma unroll
-      for (int c = 0; c < W - 1; ++c) {
-        if (ts[c] < kBig) {
-          stack[sp] = es[c];
-          ++sp;
-        }
-      }
-      if (ts[W - 1] < kBig) {
-        ref = es[W - 1];
-        continue;
-      }
-    } else {
-      const unsigned s = static_cast<unsigned>(~ref);  // W * node + child slot
-      const float* m = reinterpret_cast<const float*>(sc.nodes + 2 * W * (s / W)) + 6 * W + s % W;
-      const int first = __float_as_int(__ldg(m)), end = first + __float_as_int(__ldg(m + W));
-      for (int k = first; k < end; ++k) {
-        const float4* row = sc.rows + 3 * k;
-        if (mt_blocks(__ldg(row), __ldg(row + 1), __ldg(row + 2), r, t_max)) return true;
-      }
-    }
-    if (sp == 0) return false;
-    --sp;
-    ref = stack[sp];
-  }
-}
-
 // Whether sample s of point i (at p) reaches the light l: its Gaussian from
 // the table or the stream, the sample ray, then an any-hit sweep of the
 // staged triangles or an any-hit walk of the tree.
@@ -279,7 +176,7 @@ __device__ __forceinline__ bool sample_visible(const SoftArgs& a, const SoftScen
   const Ray r = sample_ray(px, py, pz, gx, gy, gz, a.light, tm);
   if (!(tm > 0.0f)) return true;
   if constexpr (W > 0) {
-    return !occluded<W>(sc, r, tm);
+    return !occluded<W>(sc.tree, r, tm);
   } else {
     for (int k = 0; k < sc.num_tris; ++k) {
       if (mt_blocks(s_tri[3 * k], s_tri[3 * k + 1], s_tri[3 * k + 2], r, tm)) return false;
@@ -352,22 +249,23 @@ int cgrt_soft_brute(const float* pos, const int* order, const int* count, int n,
                     unsigned k0, unsigned k1, unsigned offset, const float* gauss, int* counts,
                     cudaStream_t stream) {
   const cgrt::SoftArgs a{pos, order, count, n, light, num_samples, k0, k1, offset, gauss, counts};
-  const cgrt::SoftScene sc{tris, num_tris, nullptr, nullptr};
+  const cgrt::SoftScene sc{tris, num_tris, cgrt::Tree{nullptr, nullptr}};
   return gauss != nullptr ? cgrt::launch<true, 0>(a, sc, stream)
                           : cgrt::launch<false, 0>(a, sc, stream);
 }
 
 // The same over a width-wide tree (2, 4 or 8) of at most 64 stack entries
 // ((width - 1) x levels + 1, ops/bvh4.py collapse_bvhw): nodes [Nw, 8 width]
-// (the records of ops/soft.py pack_nodes) and rows [T, 12] (pack_tris), both
-// 16-byte aligned.
+// and rows [T, 12], the tree's records (ops/bvh4.py pack_nodes, pack_tris),
+// both 16-byte aligned.
 int cgrt_soft_bvh4(const float* pos, const int* order, const int* count, int n,
                    const float* light, int width, const float* nodes, const float* rows,
                    int num_samples, unsigned k0, unsigned k1, unsigned offset, const float* gauss,
                    int* counts, cudaStream_t stream) {
   const cgrt::SoftArgs a{pos, order, count, n, light, num_samples, k0, k1, offset, gauss, counts};
-  const cgrt::SoftScene sc{nullptr, 0, reinterpret_cast<const float4*>(nodes),
-                           reinterpret_cast<const float4*>(rows)};
+  const cgrt::SoftScene sc{nullptr, 0,
+                           cgrt::Tree{reinterpret_cast<const float4*>(nodes),
+                                      reinterpret_cast<const float4*>(rows)}};
   const bool table = gauss != nullptr;
   switch (width) {
     case 2: return table ? cgrt::launch<true, 2>(a, sc, stream)

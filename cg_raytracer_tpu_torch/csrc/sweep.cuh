@@ -1,7 +1,7 @@
 // Shared device code of the brute-force sweep kernels (oracle.cu, trace.cu,
 // record.cu, shade.cu), of the 4-wide BVH kernels (bvh4.cu: the
 // Moller-Trumbore test and the shadow ray) and of the soft-shadow samplers
-// (soft.cu: the any-hit test mt_blocks).
+// (soft.cu and bvh4.cuh's any-hit walk: the any-hit test mt_blocks).
 //
 // Counterpart of the helpers in cg_raytracer_tpu/ops/pallas_kernels.py:
 // _mt_tile (Moller-Trumbore with the same epsilons and the det_safe form),

@@ -114,9 +114,9 @@ def _declare(lib) -> None:
         "cgrt_shade_bwd": [p, p, p, p, i, p, p, i, i, p, i, p, i, p, i, p] + [p] * 11 + [p],
         "cgrt_shade_pre_fwd": [p, p, p, p, i, p, i, p, i, p, i, p, i, p, i, p] + [p] * 4 + [p],
         "cgrt_shade_pre_bwd": [p, p, p, p, i, p, i, p, i, p, i, p, i, p, i, p] + [p] * 11 + [p],
-        "cgrt_bvh4_closest": [p, p, p, i, i] + [p] * 5 + [p] * 4 + [p],
-        "cgrt_bvh4_anyhit": [p, p, p, i, i] + [p] * 5 + [p] + [p],
-        "cgrt_bvh4_bounce": [p, p, p, i, i] + [p] * 5 + [p, i] + [p] * 5 + [p],
+        "cgrt_bvh4_closest": [p, p, p, i, i] + [p] * 3 + [p] * 4 + [p],
+        "cgrt_bvh4_anyhit": [p, p, p, i, i] + [p] * 3 + [p] + [p],
+        "cgrt_bvh4_bounce": [p, p, p, i, i] + [p] * 3 + [p, i] + [p] * 5 + [p],
         "cgrt_soft_brute": [p, p, p, i, p, p, i, i, u, u, u, p, p] + [p],
         "cgrt_soft_bvh4": [p, p, p, i, p, i, p, p, i, u, u, u, p, p] + [p],
     }

@@ -19,9 +19,11 @@ they replace, by node width W:
   (B8); W = 2 ``_bvh_bounce_kernel`` (B13) and ``_bvh_hbm_bounce_kernel``
   (B14); W = 8 B6 at width 8 (B15).
 
-One walk (``csrc/bvh4.cuh``, a template on the node width W) serves every
-row: the width is a field of the tree (``BVH4.width``), as it is of the JAX
-package's ``PackedBVH4``, and the wrappers launch the instantiation for it.
+Two walks (``csrc/bvh4.cuh``, templates on the node width W), closest hit
+and any hit, serve every row, and the any-hit walk the tree samplers of
+``ops/soft.py`` too: the width is a field of the tree (``BVH4.width``), as
+it is of the JAX package's ``PackedBVH4``, and the wrappers launch the
+instantiation for it.
 One kernel body also serves both of the JAX package's tiers: its kernels
 kept the nodes and triangle rows in VMEM up to ``VMEM_MAX_TRIS`` triangles
 (B5, B6, B13) and streamed each leaf's rows from HBM past it, up to
@@ -40,20 +42,26 @@ boxes; nothing is rebuilt):
 - ``meta`` [Nw, 2W] i32: ``meta[c]`` is child c's node id when
   ``meta[W + c] == 0``, else child c is a leaf of ``meta[W + c]`` triangles
   from ``meta[c]`` on;
-- ``nchild`` [Nw] i32: children sit in slots 0..nchild-1 and no other slot
-  is read.  (The Pallas table filled empty slots with NaN boxes and relied on
-  every comparison being false; CUDA's ``fminf`` drops a NaN, so the count
-  replaces them.)
+- ``nchild`` [Nw] i32: children sit in slots 0..nchild-1;
 - ``tris`` [T, 9] f32: v0, e1 = v1 - v0, e2 = v2 - v0 of each triangle in
   leaf order, and ``slot_to_prim`` [T] i32 maps a row to its triangle id.
-  The Pallas rows of 14 triangles with padding were a VMEM artefact.
+  The Pallas rows of 14 triangles with padding were a VMEM artefact;
+- ``nodes`` [Nw, 8W] f32 and ``rows`` [T, 12] f32, what the kernels read,
+  built from the above once per tree (``pack_nodes``, ``pack_tris``; in
+  ``collapse_bvhw`` and in the refit): per node one record of the 6W box
+  floats with NaN in every slot past ``nchild`` (as the Pallas table filled
+  its empty slots: a NaN box fails every slab test of the NaN-propagating
+  min/max), then the 2W meta ints bit-cast, 32W bytes read with 16-byte
+  loads; per triangle its three vectors, each padded to 16 bytes.  The
+  twins and the refit read ``boxes``, ``meta`` and ``nchild``.
 
-Traversal, one ray at a time (the kernels run one thread per ray; the twins
-step every ray at once, one stack entry per ray per step, with the same
-child order and tie rule, so each kernel is held to its twin exactly): a
-stack of entries (node id >= 0, or ``~(W * node + c)`` for leaf child c)
-and their entry t.  A popped entry whose entry t exceeds the padded current
-best is skipped.  A node's child boxes get the padded slab test (``_slab``:
+Traversal, one ray at a time (the kernels run one thread per ray, and the
+any-hit walk takes the nearest child at once instead of pushing and popping
+it; the twins step every ray at once, one stack entry per ray per step, with
+the same child order and tie rule, so each kernel visits the twin's nodes
+and triangles and is held to it exactly): a stack of entries (node id >= 0,
+or ``~(W * node + c)`` for leaf child c) and their entry t.  A popped entry
+whose entry t exceeds the padded current best is skipped.  A node's child boxes get the padded slab test (``_slab``:
 pad 1e-5 (1 + |t_out|), NaN-propagating min/max) and are pruned past the
 padded best; the hit children are sorted by entry t with the JAX package's
 compare-exchange network for W (``SORT_NET``, descending) and pushed, so the
@@ -104,13 +112,16 @@ SORT_NET = {
 
 
 class BVH4(NamedTuple):
-    """The wide tree in the kernels' layout (see the module docstring)."""
+    """The wide tree in the kernels' layout (see the module docstring); make
+    one with ``make_bvh4``, which packs ``nodes`` and ``rows``."""
 
     boxes: torch.Tensor  # [Nw, 6W] f32
     meta: torch.Tensor  # [Nw, 2W] i32
     nchild: torch.Tensor  # [Nw] i32
     tris: torch.Tensor  # [T, 9] f32, leaf order
     slot_to_prim: torch.Tensor  # [T] i32
+    nodes: torch.Tensor  # [Nw, 8W] f32, pack_nodes of boxes, meta, nchild
+    rows: torch.Tensor  # [T, 12] f32, pack_tris of tris
     depth: int  # levels of W-wide nodes
     width: int = 4
 
@@ -127,7 +138,36 @@ class BVH4(NamedTuple):
         return self.boxes.device
 
     def to(self, device) -> "BVH4":
-        return BVH4(*(x.to(device) for x in self[:5]), depth=self.depth, width=self.width)
+        return BVH4(*(x.to(device) for x in self[:7]), depth=self.depth, width=self.width)
+
+
+_NAN_BITS = 0x7FC00000  # float32 quiet NaN
+
+
+def pack_nodes(boxes, meta, nchild):
+    """The kernels' node records [Nw, 8W] float32: each node's 6W box floats
+    as ``boxes`` (lo.x of children 0..W-1, then lo.y, lo.z, hi.x, hi.y, hi.z)
+    with NaN in every slot past ``nchild``, then its 2W ``meta`` ints
+    bit-cast: 32W bytes, one 128-byte line at W = 4, read with 16-byte
+    loads.  A NaN box fails every slab test, as the skipped slot does, so
+    ``nchild`` needs no column.  Built in integer space, so every bit is
+    kept."""
+    w = meta.shape[1] // 2
+    absent = torch.arange(w, device=boxes.device)[None, :] >= nchild[:, None]
+    bits = boxes.view(torch.int32).view(-1, 6, w).masked_fill(absent[:, None, :], _NAN_BITS)
+    return torch.cat([bits.view(-1, 6 * w), meta], dim=1).view(torch.float32).contiguous()
+
+
+def pack_tris(tris):
+    """[T, 9] (v0, e1, e2) -> [T, 12], each vertex or edge padded to a
+    16-byte row: the rows the kernels read with 16-byte loads."""
+    return torch.nn.functional.pad(tris.reshape(-1, 3, 3), (0, 1)).reshape(-1, 12).contiguous()
+
+
+def make_bvh4(boxes, meta, nchild, tris, slot_to_prim, depth: int, width: int) -> BVH4:
+    """The tree with its records packed (on the tensors' device)."""
+    return BVH4(boxes, meta, nchild, tris, slot_to_prim, pack_nodes(boxes, meta, nchild),
+                pack_tris(tris), depth=depth, width=width)
 
 
 def _expand(par, ch, left, right, is_leaf):
@@ -197,10 +237,9 @@ def collapse_bvhw(bvh: BVH, width: int = 4) -> BVH4:
     tv0, tv1, tv2 = (x.cpu().numpy() for x in (bvh.tv0, bvh.tv1, bvh.tv2))
     tris = np.concatenate([tv0, tv1 - tv0, tv2 - tv0], axis=1).astype(np.float32)
     t = torch.from_numpy
-    return BVH4(boxes=t(boxes), meta=t(meta),
-                nchild=t(np.bincount(ws, minlength=nw).astype(np.int32)),
-                tris=t(np.ascontiguousarray(tris)), slot_to_prim=bvh.tri_order.cpu().clone(),
-                depth=max_depth + 1, width=width)
+    return make_bvh4(t(boxes), t(meta), t(np.bincount(ws, minlength=nw).astype(np.int32)),
+                     t(np.ascontiguousarray(tris)), bvh.tri_order.cpu().clone(),
+                     depth=max_depth + 1, width=width)
 
 
 def collapse_bvh4(bvh: BVH) -> BVH4:
@@ -235,20 +274,22 @@ def supports_fused_bounce_bvh4(scene: Scene) -> bool:
 # --------------------------------------------------------------------------
 
 def _tree_args(name, tree: BVH4, device):
-    """(width, boxes, meta, nchild, tris, slot_to_prim) as the kernels take them."""
+    """(width, nodes, rows, slot_to_prim) as the kernels take them."""
     if tree.num_tris > HBM_MAX_TRIS:
         raise NotImplementedError(
             f"{tree.num_tris} triangles exceed the wide kernels' cap of {HBM_MAX_TRIS} "
             f"(HBM_MAX_TRIS; ROADMAP A13)")
     w = tree.width
-    if (w not in WIDTHS or tree.boxes.shape[1:] != (6 * w,) or tree.meta.shape[1:] != (2 * w,)
-            or tree.nchild.shape != (tree.num_nodes,) or tree.tris.shape[1:] != (9,)):
-        raise ValueError(f"{name}: not a width-{w} tree (boxes {tuple(tree.boxes.shape)}, meta "
-                         f"{tuple(tree.meta.shape)}, nchild {tuple(tree.nchild.shape)})")
-    ck._check(name, tree.boxes, tree.tris, device=device)
-    ck._check(name, tree.meta, tree.nchild, tree.slot_to_prim, device=device, dtype=torch.int32)
-    return (w, ck._ptr(tree.boxes), ck._ptr(tree.meta), ck._ptr(tree.nchild), ck._ptr(tree.tris),
-            ck._ptr(tree.slot_to_prim))
+    if (w not in WIDTHS or tree.nodes.shape != (tree.num_nodes, 8 * w)
+            or tree.rows.shape != (tree.num_tris, 12)):
+        raise ValueError(f"{name}: not a width-{w} tree (nodes {tuple(tree.nodes.shape)}, rows "
+                         f"{tuple(tree.rows.shape)})")
+    ck._check(name, tree.nodes, tree.rows, device=device)
+    ck._check(name, tree.slot_to_prim, device=device, dtype=torch.int32)
+    for x in (tree.nodes, tree.rows):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: the tree's records must be 16-byte aligned")
+    return w, ck._ptr(tree.nodes), ck._ptr(tree.rows), ck._ptr(tree.slot_to_prim)
 
 
 def count_launch(wrapper, width: int) -> None:

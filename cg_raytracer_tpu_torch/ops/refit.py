@@ -14,7 +14,9 @@ refit keeps the topology and recomputes, from the current vertices:
 2. the leaf boxes, a segment min/max over each leaf's rows
    (``scatter_reduce`` amin/amax);
 3. the internal boxes bottom-up, one gather and min/max per level, as the
-   union of the child's boxes.
+   union of the child's boxes;
+4. a ``BVH4``'s records, which its kernels read (``pack_nodes``,
+   ``pack_tris``), packed again from the new boxes and rows.
 
 ``make_refit_plan`` extracts the static part on the host once per tree (the
 leaf segment of every row, the internal links grouped by level, deepest
@@ -42,7 +44,7 @@ import torch
 
 from ..scene.types import Scene
 from .bvh import BVH
-from .bvh4 import BVH4
+from .bvh4 import BVH4, make_bvh4
 
 
 class RefitPlan(NamedTuple):
@@ -200,7 +202,7 @@ def _refit_bvh4(tree: BVH4, plan: RefitPlan4, scene: Scene) -> BVH4:
         boxes[parents[:, None], lo_cols + slots[:, None]] = lo
         boxes[parents[:, None], hi_cols + slots[:, None]] = hi
     tris = torch.cat([p0, p1 - p0, p2 - p0], dim=1).contiguous()
-    return tree._replace(boxes=boxes, tris=tris)
+    return make_bvh4(boxes, tree.meta, tree.nchild, tris, tree.slot_to_prim, tree.depth, w)
 
 
 @torch.no_grad()

@@ -4,7 +4,8 @@ training path, the mesh slice (the 4-wide BVH and the pregathered shade),
 the soft-shadow slice (spherical lights: the brute and cone samplers, and
 the shade kernels' spherical fractions), the scale slice (the 4-wide
 kernels past 200,000 triangles, ``optimize()`` with the refit) and the
-tree-width slice (the walk and the samplers at node widths 2 and 8).
+tree-width slice (the walk and the samplers at node widths 2 and 8), and
+the redesigned kernels measured against their earlier versions.
 
 Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
@@ -138,10 +139,26 @@ Phases, each printing its own lines:
     the share of the bound; then the ablations: csrc/soft.cu rebuilt with
     one lever of its design taken out again, or another block size, each
     exact against the built kernel and timed beside it.  With ``--parent
-    DIR`` (an unpacked checkout of an earlier commit), that commit's soft.cu
+    DIR`` (an unpacked checkout of an earlier commit whose samplers take
+    the compacted points and the packed records), that commit's soft.cu
     takes part in the same turns, and its spherical frames and steps are
     timed against this tree's (run_bench in a process per tree: parent,
-    this, this, parent).
+    this, this, parent);
+30. the shade backward and the walk measured: each instantiation's
+    registers, stack frame and spills (ptxas); csrc/bvh4.cu rebuilt with one
+    lever of the walk taken out again (or another block size or a register
+    cap) and csrc/shade.cu with the warp aggregation taken out (or another
+    threshold, or vector atomics), each timed in turns with this tree's
+    kernel on the same inputs: the walk's closest hit, any hit and bounce at
+    widths 2, 4 and 8 on the teacup, 2 and 4 on the donut and the torus, all
+    exactly equal to this tree's; the shade backward on the stand-in box's
+    and the teacup's 1024x1024 records, d_o and d_d bit-equal to this
+    tree's and the tables within utils/checks.py's rule; each row's time
+    against its bound.  With ``--parent DIR``, that commit's bvh4.cu and
+    shade.cu take part in the same turns under the same checks, and the
+    box's fwd+bwd steps (both contracts), the teacup's and the donut's
+    default-route frames and full steps, and the box step's busy share run
+    in a process per tree (parent, this, this, parent).
 
 Every kernel's entry has its bound: the larger of its operations over 67
 TFLOP/s (integer ones over 16.7 Tops/s) and its bytes over 3.35 TB/s
@@ -271,8 +288,8 @@ def main(argv=None) -> int:
     parser.add_argument("--out", default=os.path.join(ROOT, "chip_smoke_out"),
                         help="directory for the renders and results.json")
     parser.add_argument("--parent", default=None,
-                        help="an unpacked checkout of an earlier commit whose samplers phase 29 "
-                             "times beside this tree's")
+                        help="an unpacked checkout of an earlier commit whose samplers, walk "
+                             "and shade backward phases 29 and 30 time beside this tree's")
     args = parser.parse_args(argv)
     out = args.out
     import torch
@@ -709,6 +726,8 @@ def main(argv=None) -> int:
     counts.update(scale_phases(out, device, check, note, kernels, e2e, results, scenes))
     counts.update(width_phases(out, device, check, note, kernels, e2e, results, scenes))
     sampler_phase(out, device, kernels, e2e, results, scenes, args.parent)
+    scenes["box"] = box
+    walk_shade_phase(out, device, kernels, e2e, results, scenes, args.parent)
 
     results.update(card=smi, counts=counts, kernels=kernels, end_to_end=e2e)
     with open(os.path.join(out, "results.json"), "w") as f:
@@ -2138,32 +2157,35 @@ def width_phases(out, device, check, note, kernels, e2e, results, scenes) -> dic
                             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                             "library_ms": None, "points": points, "plain_points": SOFT_SUB,
                             "samples": num, "width": w})
-    scenes.update(soft_trees=stree, soft_work=per_sample)
+    scenes.update(soft_trees=stree, soft_work=per_sample, walk_trees=trees)
     return {k: width_counts[k] for k in WIDTH_KERNELS}
 
 
-SOFT_SRC = os.path.join("cg_raytracer_tpu_torch", "csrc", "soft.cu")
-_MT_FULL = """__device__ __forceinline__ bool mt_full(const float4 v0, const float4 e1, const float4 e2,
-                                        const Ray& r, float t_max) {
-  const float tri[9] = {v0.x, v0.y, v0.z, e1.x, e1.y, e1.z, e2.x, e2.y, e2.z};
-  float t, u, v;
-  return mt(tri, r, t, u, v) && t < t_max;
-}
-"""
-# Phase 29's variants of csrc/soft.cu: each takes one lever of the samplers'
-# design out again, or tries another block size or grid cap, by
-# substitutions on the source (old text, new text, how often the old text
-# occurs).  Only this script builds them; the port has one body.
+CSRC = os.path.join("cg_raytracer_tpu_torch", "csrc")
+# Moller-Trumbore in full (sweep.cuh mt) in place of mt_blocks's early
+# exits: the any-hit walk's and the brute sampler's triangle test.
+_MT_BLOCKS = ("__device__ __forceinline__ bool mt_blocks(const float4 v0, const float4 e1, "
+              "const float4 e2,\n" + " " * 42 + "const Ray& r, float t_max) {\n")
+_MT_FULL = ("sweep.cuh", _MT_BLOCKS, _MT_BLOCKS + """  {
+    const float tri[9] = {v0.x, v0.y, v0.z, e1.x, e1.y, e1.z, e2.x, e2.y, e2.z};
+    float t, u, v;
+    return mt(tri, r, t, u, v) && t < t_max;
+  }
+""", 1)
+_MINMAX_COMPARES = ("bvh4.cuh", "#ifdef __CUDA_ARCH__", "#if 0", 2)
+# Phase 29's variants of csrc/: each takes one lever of the samplers' design
+# out again, or tries another block size or grid cap, by substitutions on
+# the sources (file, old text, new text, how often the old text occurs).
+# Only this script builds them; the port has one body.
 SOFT_ABLATIONS = {
-    "min/max by compares": [("#ifdef __CUDA_ARCH__", "#if 0", 2)],
-    "full Moller-Trumbore": [("mt_blocks(", "mt_full(", 2),
-                             ("namespace cgrt {\n", "namespace cgrt {\n" + _MT_FULL, 1)],
-    "sinf and cosf": [("sincosf(kTwoPi * u2, &s2, &c2);",
+    "min/max by compares": [_MINMAX_COMPARES],
+    "full Moller-Trumbore": [_MT_FULL],
+    "sinf and cosf": [("soft.cu", "sincosf(kTwoPi * u2, &s2, &c2);",
                        "s2 = sinf(kTwoPi * u2);\n  c2 = cosf(kTwoPi * u2);", 1)],
-    "64 threads per block": [("kSoftThreads = 128;", "kSoftThreads = 64;", 1)],
-    "256 threads per block": [("kSoftThreads = 128;", "kSoftThreads = 256;", 1)],
-    "16,384-block grid": [("kMaxBlocks = 65536;", "kMaxBlocks = 16384;", 1)],
-    "262,144-block grid": [("kMaxBlocks = 65536;", "kMaxBlocks = 262144;", 1)],
+    "64 threads per block": [("soft.cu", "kSoftThreads = 128;", "kSoftThreads = 64;", 1)],
+    "256 threads per block": [("soft.cu", "kSoftThreads = 128;", "kSoftThreads = 256;", 1)],
+    "16,384-block grid": [("soft.cu", "kMaxBlocks = 65536;", "kMaxBlocks = 16384;", 1)],
+    "262,144-block grid": [("soft.cu", "kMaxBlocks = 65536;", "kMaxBlocks = 262144;", 1)],
 }
 E2E_SNIPPET = """
 import json, sys
@@ -2213,58 +2235,72 @@ NCU_METRICS = ("smsp__inst_executed.sum", "smsp__thread_inst_executed.sum",
                "l1tex__t_sector_hit_rate.pct", "gpu__time_duration.sum")
 
 
-def soft_variant_source(subs) -> str:
-    with open(os.path.join(ROOT, SOFT_SRC)) as f:
-        text = f.read()
-    for old, new, n in subs:
-        assert text.count(old) == n, f"soft.cu: {old!r} occurs {text.count(old)} times, not {n}"
-        text = text.replace(old, new)
-    return text
+def variant_dir(root, subs) -> str:
+    """A copy of csrc/ in ``root`` with the substitutions ``subs`` made."""
+    os.makedirs(root, exist_ok=True)
+    src_dir = os.path.join(ROOT, CSRC)
+    texts = {}
+    for name in os.listdir(src_dir):
+        if name.endswith((".cu", ".cuh")):
+            with open(os.path.join(src_dir, name)) as f:
+                texts[name] = f.read()
+    for name, old, new, n in subs:
+        assert texts[name].count(old) == n, f"{name}: {old!r} occurs {texts[name].count(old)} " \
+                                            f"times, not {n}"
+        texts[name] = texts[name].replace(old, new)
+    for name, text in texts.items():
+        with open(os.path.join(root, name), "w") as f:
+            f.write(text)
+    return root
 
 
-def build_soft_variants(parent=None) -> dict:
-    """name -> (ctypes library, parent's interface?, ptxas log) for each of
-    SOFT_ABLATIONS and, given ``parent``, that checkout's soft.cu; one nvcc
-    each, all started together, into the build directory."""
+def build_variants(source, ablations, signatures, parent=None, parent_signatures=None) -> dict:
+    """name -> (ctypes library, ptxas log): csrc/``source`` compiled alone
+    with each of ``ablations``' substitutions and, given ``parent`` (an
+    unpacked checkout), that checkout's ``source``; one nvcc each, all
+    started together, into the build directory.  ``signatures``: the
+    argtypes of the entry points to declare (``parent_signatures`` the
+    parent's)."""
     import ctypes
 
     from cg_raytracer_tpu_torch.ops import _build
 
-    root = os.path.join(_build.build_dir(), "soft_variants")
+    root = os.path.join(_build.build_dir(), f"variants_{source.split('.')[0]}")
     jobs = {}
-    for k, (name, subs) in enumerate(SOFT_ABLATIONS.items()):
-        os.makedirs(os.path.join(root, f"v{k}"), exist_ok=True)
-        src = os.path.join(root, f"v{k}", "soft.cu")
-        with open(src, "w") as f:
-            f.write(soft_variant_source(subs))
-        jobs[name] = (src, ["-I", _build.CSRC_DIR], os.path.join(root, f"v{k}.so"), False)
+    for k, (name, subs) in enumerate(ablations.items()):
+        src_dir = variant_dir(os.path.join(root, f"v{k}"), subs)
+        jobs[name] = (os.path.join(src_dir, source), os.path.join(root, f"v{k}.so"), signatures)
     if parent is not None:
-        jobs["parent"] = (os.path.join(parent, SOFT_SRC), [], os.path.join(root, "parent.so"),
-                          True)
+        jobs["parent"] = (os.path.join(parent, CSRC, source), os.path.join(root, "parent.so"),
+                          parent_signatures or signatures)
     procs = {}
-    for name, (src, inc, so, old_api) in jobs.items():
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", *inc, "-o", so, src]
-        procs[name] = (cmd, so, old_api, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                          stderr=subprocess.PIPE, text=True))
-    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+    for name, (src, so, sig) in jobs.items():
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", so, src]
+        procs[name] = (cmd, so, sig, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                      stderr=subprocess.PIPE, text=True))
     libs = {}
-    for name, (cmd, so, old_api, proc) in procs.items():
+    for name, (cmd, so, sig, proc) in procs.items():
         stdout, stderr = proc.communicate()
         assert proc.returncode == 0, f"{name}: {' '.join(cmd)}\n{stdout}{stderr}"
         lib = ctypes.CDLL(so)
-        lib.cgrt_soft_brute.argtypes = ([p, p, i, p, p, i, i, u, u, u, p, p, p] if old_api else
-                                        [p, p, p, i, p, p, i, i, u, u, u, p, p, p])
-        lib.cgrt_soft_bvh4.argtypes = ([p, p, i, p, i, p, p, p, p, i, u, u, u, p, p, p] if old_api
-                                       else [p, p, p, i, p, i, p, p, i, u, u, u, p, p, p])
-        libs[name] = (lib, old_api, stdout + stderr)
+        for fn, argtypes in sig.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = (lib, stdout + stderr)
     return libs
 
 
-def soft_launch(lib, old_api, target, packed, pos, light, num, valid, key, gauss_nsc):
+def soft_signatures():
+    import ctypes
+
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+    return {"cgrt_soft_brute": [p, p, p, i, p, p, i, i, u, u, u, p, p, p],
+            "cgrt_soft_bvh4": [p, p, p, i, p, i, p, p, i, u, u, u, p, p, p]}
+
+
+def soft_launch(lib, target, pos, light, num, valid, key, gauss_nsc):
     """counts [N] int32 of one launch of ``lib``'s sampler: ``target`` is the
-    brute sampler's triangle table [T, 9] or a BVH4; ``packed`` its
-    (records, rows) for this tree's interface (the parent's reads the BVH4
-    and takes the hit mask, not the compacted points)."""
+    brute sampler's triangle table [T, 9] or a BVH4 (its records)."""
     import ctypes
 
     import torch
@@ -2275,14 +2311,11 @@ def soft_launch(lib, old_api, target, packed, pos, light, num, valid, key, gauss
 
     counts = torch.zeros((pos.shape[0],), dtype=torch.int32, device=pos.device)
     head, _keep = soft._head("soft variant", pos, light, valid, gauss_nsc)
-    if old_api:
-        head = (ck._ptr(pos), ck._ptr(valid), pos.shape[0], ck._ptr(light))
     tail = (*soft._key_args(key, num), ck._ptr(gauss_nsc), ck._ptr(counts),
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if isinstance(target, b4.BVH4):
-        tree = (ck._ptr(target.boxes), ck._ptr(target.meta), ck._ptr(target.nchild),
-                ck._ptr(target.tris)) if old_api else (ck._ptr(packed[0]), ck._ptr(packed[1]))
-        err = lib.cgrt_soft_bvh4(*head, target.width, *tree, *tail)
+        err = lib.cgrt_soft_bvh4(*head, target.width, ck._ptr(target.nodes),
+                                 ck._ptr(target.rows), *tail)
     else:
         err = lib.cgrt_soft_brute(*head, ck._ptr(target), target.shape[0], *tail)
     assert err == 0, f"soft variant launch: CUDA error {err}"
@@ -2384,14 +2417,12 @@ def sampler_phase(out, device, kernels, e2e, results, scenes, parent=None) -> No
     targets = {"brute": ("box", tri, work["box"])}
     targets.update({f"w{w}": ("teacup", stree[("teacup", w)], work[f"teacup w{w}"])
                     for w in (2, 4, 8)})
-    packed = {k: (soft.pack_nodes(t), soft.pack_tris(t.tris)) if k != "brute" else None
-              for k, (_, t, _) in targets.items()}
     t0 = time.perf_counter()
-    variants = build_soft_variants(parent)
+    variants = build_variants("soft.cu", SOFT_ABLATIONS, soft_signatures(), parent)
     print(f"  {len(variants)} variants of soft.cu built in {time.perf_counter() - t0:.1f} s")
     with open(_build.library_path()[:-3] + ".log") as f:
         logs = {"this tree": f.read()}
-    logs.update({k: v[2] for k, v in variants.items()})
+    logs.update({k: v[1] for k, v in variants.items()})
     info = {name: ptxas_soft(log) for name, log in logs.items()}
     print("  ptxas, per instantiation (table?, W): registers, stack frame / spill store / spill "
           "load bytes, resident warps per SM (from registers and shared memory)")
@@ -2399,7 +2430,7 @@ def sampler_phase(out, device, kernels, e2e, results, scenes, parent=None) -> No
     occ = {}
     for name in ("this tree", *(["parent"] if parent else [])):
         for (table, w), r in sorted(info[name].items(), key=lambda kv: (kv[0][1], kv[0][0])):
-            sm = smem[w] if name == "this tree" else (36 * tri.shape[0] if w == 0 else 0)
+            sm = smem[w]
             occ[(name, table, w)] = occupancy_warps(r["regs"], sm)
             print(f"    {name}: ({'table' if table else 'PRNG'}, W = {w}): {r['regs']} registers, "
                   f"{r['frame']} / {r['spill_st']} / {r['spill_ld']} bytes, {sm} B shared per "
@@ -2449,10 +2480,8 @@ def sampler_phase(out, device, kernels, e2e, results, scenes, parent=None) -> No
             rows = torch.arange(s0, min(m, s0 + 16384), device=device)
             table[s0:s0 + rows.numel()] = soft.philox_gauss(key, rows, samples)
         lib = _build.load()
-        prng_fn = lambda: soft_launch(lib, False, target, packed[k], pts, light, num, None,  # noqa: E731,B023
-                                      key, None)
-        table_fn = lambda: soft_launch(lib, False, target, packed[k], pts, light, num, None,  # noqa: E731,B023
-                                       None, table)
+        prng_fn = partial(soft_launch, lib, target, pts, light, num, None, key, None)
+        table_fn = partial(soft_launch, lib, target, pts, light, num, None, None, table)
         same = (prng_fn() == table_fn()).float().mean().item()
         ms_p, ms_t = (median(time_frames(fn, iters=20)) for fn in (prng_fn, table_fn))
         read_ms = table.numel() * 4 / roofline.HBM_BYTES_PER_S * 1e3
@@ -2469,19 +2498,13 @@ def sampler_phase(out, device, kernels, e2e, results, scenes, parent=None) -> No
               f"({b_ms / ms_p:.1%} of it)")
         del table
     results["sampler_stage"] = stage
-    for k, (_, target, _) in targets.items():
-        if k != "brute":
-            ms = median(time_frames(lambda: (soft.pack_nodes(target), soft.pack_tris(target.tris)),  # noqa: B023
-                                    iters=20))
-            print(f"  {k}: the wrapper's packing (pack_nodes + pack_tris, {target.num_nodes} "
-                  f"nodes) {ms:.5f} ms per launch")
 
     # The ablations (and the parent) in turns with this tree's kernel, on the
     # inputs phases 18 and 28 time: PRNG on the frame's hit points, table on
     # the subsample; each variant's counts exact against this tree's.
     print("  ablations: ms, median of 20 bare launches, two rounds in opposite orders")
     names = ["this tree", *variants]
-    libs = {"this tree": (_build.load(), False), **{k: v[:2] for k, v in variants.items()}}
+    libs = {"this tree": _build.load(), **{k: v[0] for k, v in variants.items()}}
     ab = {}
     for k, (label, target, _) in targets.items():
         _, pos, valid, light, _ = frames[label]
@@ -2490,7 +2513,7 @@ def sampler_phase(out, device, kernels, e2e, results, scenes, parent=None) -> No
         g_nsc = g.permute(1, 0, 2).contiguous()
         for kind, args in (("prng", (pos, light, num, v8, key, None)),
                            ("table", (p_sub, light, num, None, None, g_nsc))):
-            calls = {n: partial(soft_launch, *libs[n], target, packed[k], *args) for n in names}
+            calls = {n: partial(soft_launch, libs[n], target, *args) for n in names}
             ref = calls["this tree"]()
             for n, fn in calls.items():
                 assert torch.equal(fn(), ref), f"{n}: {k} {kind} counts differ from this tree's"
@@ -2530,6 +2553,500 @@ def sampler_phase(out, device, kernels, e2e, results, scenes, parent=None) -> No
                 print(f"  {scene} 1024^2 {what}: parent {[round(x, 5) for x in vals['parent']]} "
                       f"ms, this tree {[round(x, 5) for x in vals['this tree']]} ms")
                 e2e[f"{scene} {what} parent vs this tree"] = vals
+
+
+
+_SHARED_STACK = """
+// (chip_smoke.py phase 30's variant) the walks' node stack in shared memory,
+// [entry][thread]; the closest walk's entry t stay in local memory.
+__shared__ int g_walk_stack[kStack][128];
+struct SharedStack {
+  __device__ __forceinline__ int& operator[](int k) { return g_walk_stack[k][threadIdx.x]; }
+};
+"""
+_MT_EARLY = """// (chip_smoke.py phase 30's variant) mt(...) && t < t_max with mt_blocks's
+// early exits, t, u and v by mt's operations.
+__device__ __forceinline__ bool mt_early(const float4 v0, const float4 e1, const float4 e2,
+                                         const Ray& r, float t_max, float& t, float& u,
+                                         float& v) {
+  const float px = r.dy * e2.z - r.dz * e2.y;
+  const float py = r.dz * e2.x - r.dx * e2.z;
+  const float pz = r.dx * e2.y - r.dy * e2.x;
+  const float det = e1.x * px + e1.y * py + e1.z * pz;
+  if (!(fabsf(det) > kMtEps)) return false;
+  const float inv_det = 1.0f / det;
+  const float tx = r.ox - v0.x, ty = r.oy - v0.y, tz = r.oz - v0.z;
+  u = (tx * px + ty * py + tz * pz) * inv_det;
+  if (!(u >= -kBaryEps)) return false;
+  const float qx = ty * e1.z - tz * e1.y;
+  const float qy = tz * e1.x - tx * e1.z;
+  const float qz = tx * e1.y - ty * e1.x;
+  v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+  if (!(v >= -kBaryEps) || !(u + v <= 1.0f + kBaryEps)) return false;
+  t = (e2.x * qx + e2.y * qy + e2.z * qz) * inv_det;
+  return t >= 0.0f && t < t_max;
+}
+
+"""
+_CLOSEST_PUSH = """          tstack[sp] = ts[c];
+          ++sp;
+        }
+      }
+"""
+# Phase 30's variants of the walk: each takes one lever of the design out
+# again, or tries on one walk a lever the other takes (the parent's kernel
+# has none of them), or another block size or a register cap.
+WALK_ABLATIONS = {
+    "min/max by compares": [_MINMAX_COMPARES],
+    "any hit: full Moller-Trumbore": [_MT_FULL],
+    "any hit: nearest child pushed": [("bvh4.cuh", "for (int c = 0; c < W - 1; ++c) {",
+                                       "for (int c = 0; c < W; ++c) {", 1),
+                                      ("bvh4.cuh", "if (ts[W - 1] < kBig) {", "if (false) {", 1)],
+    "closest: nearest child walked at once": [
+        ("bvh4.cuh", "      for (int c = 0; c < W; ++c) {\n        if (ts[c] < kBig) {\n"
+                     "          stack[sp] = es[c];\n          tstack",
+         "      for (int c = 0; c < W - 1; ++c) {\n        if (ts[c] < kBig) {\n"
+         "          stack[sp] = es[c];\n          tstack", 1),
+        ("bvh4.cuh", _CLOSEST_PUSH, _CLOSEST_PUSH + "      if (ts[W - 1] < kBig) {\n"
+                                                   "        ref = es[W - 1];\n"
+                                                   "        continue;\n      }\n", 1)],
+    "closest: early-exit Moller-Trumbore": [
+        ("bvh4.cuh", "if (mt(tri, r, t, uu, vv) && t < t_best) {",
+         "if (mt_early(v0, e1, e2, r, t_best, t, uu, vv)) {", 1),
+        ("sweep.cuh", "// Closest triangle strictly nearer than t_best;",
+         _MT_EARLY + "// Closest triangle strictly nearer than t_best;", 1)],
+    "stack in shared memory": [("bvh4.cuh", "  int stack[kStack];\n", "  SharedStack stack;\n", 2),
+                               ("bvh4.cuh", "constexpr float kBig = 3.4e38f;\n",
+                                "constexpr float kBig = 3.4e38f;\n" + _SHARED_STACK, 1)],
+    "64 threads per block": [("bvh4.cu", "kWalkThreads = 128;", "kWalkThreads = 64;", 1)],
+    "256 threads per block": [("bvh4.cu", "kWalkThreads = 128;", "kWalkThreads = 256;", 1)],
+    "40-register cap": [("bvh4.cu", "__launch_bounds__(kWalkThreads)",
+                         "__launch_bounds__(kWalkThreads, 12)", 2)],
+}
+_PAYLOAD_VEC = """// (chip_smoke.py phase 30's variant) the 18 payload floats with sm_90's
+// 16-byte atomicAdd from the first 16-byte boundary of the row on.
+template <int P>
+__device__ __forceinline__ void add_payload_at(float* dst, const float* v) {
+#pragma unroll
+  for (int k = 0; k < P; ++k) atomicAdd(dst + k, v[k]);
+#pragma unroll
+  for (int k = P; k + 4 <= 18; k += 4) {
+    atomicAdd(reinterpret_cast<float4*>(dst + k), make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]));
+  }
+#pragma unroll
+  for (int k = P + (18 - P) / 4 * 4; k < 18; ++k) atomicAdd(dst + k, v[k]);
+}
+
+__device__ __forceinline__ void add_payload_vec(float* dst, const float* v) {
+  switch ((4u - (reinterpret_cast<uintptr_t>(dst) >> 2) % 4u) % 4u) {
+    case 0: add_payload_at<0>(dst, v); break;
+    case 1: add_payload_at<1>(dst, v); break;
+    case 2: add_payload_at<2>(dst, v); break;
+    default: add_payload_at<3>(dst, v); break;
+  }
+}
+
+"""
+_ROW_GROUP = "  return group_of(__match_any_sync(kFullWarp, live ? key : -1));"
+# Phase 30's variants of the shade backward: the warp aggregation taken out
+# (every lane adds its own values, as the parent did), a warp adding lane by
+# lane past a number of distinct surface rows, and vector atomics for the
+# pregathered payload rows.
+SHADE_ABLATIONS = {
+    "per-lane atomics": [("shade.cu", _ROW_GROUP, "  return group_of(lane_bit());", 1),
+                         ("shade.cu", "  const Group g = group_of(mask);",
+                          "  const Group g = group_of(lane_bit());", 1)],
+    **{f"lane by lane past {k} rows": [
+        ("shade.cu", _ROW_GROUP,
+         "  const unsigned same = __match_any_sync(kFullWarp, live ? key : -1);\n"
+         "  const bool lead = (same & (lane_bit() - 1u)) == 0u;\n"
+         "  const int rows = __popc(__ballot_sync(kFullWarp, live && lead));\n"
+         f"  return group_of(rows <= {k} ? same : lane_bit());", 1)] for k in (4, 16)},
+    "float4 atomics on d_payload": [
+        ("shade.cu", "add_row<18>(g.d_payload + 19 * f.row, gs);",
+         "add_payload_vec(g.d_payload + 19 * f.row, gs);", 1),
+        ("shade.cu", "template <bool kPre>\n__global__ void __launch_bounds__(kThreads) "
+                     "shade_bwd_kernel", _PAYLOAD_VEC + "template <bool kPre>\n__global__ void "
+                     "__launch_bounds__(kThreads) shade_bwd_kernel", 1)],
+}
+WALK_E2E_SNIPPET = """
+import dataclasses, json, sys, torch
+sys.path.insert(0, ".")
+from cg_raytracer_tpu_torch.models.whitted import (build_accel, effective_max_depth, needs_bvh,
+                                                   resolve_fwd_shade_kernel)
+from cg_raytracer_tpu_torch.scene.presets import load_scene, load_standin
+from cg_raytracer_tpu_torch.scene.types import Camera
+from cg_raytracer_tpu_torch.utils import bench
+from cg_raytracer_tpu_torch.utils.bench import run_bench
+from cg_raytracer_tpu_torch.utils.config import RenderConfig
+from cg_raytracer_tpu_torch.utils.profiling import device_breakdown
+ms = lambda r: r["seconds_per_frame"] * 1e3
+out = {"mirror_box materials step": ms(run_bench("mirror_box", include_bwd=True, iters=10))}
+for name in ("mirror_box", "teacup", "donut"):
+    if name != "mirror_box":
+        out[name + " frame"] = ms(run_bench(name, iters=5, cfg_overrides={"forward_only": False}))
+    out[name + " full step"] = ms(run_bench(name, include_bwd=True, include_vertex_params=True,
+                                            iters=5))
+    # The same step under the profiler: the card's time and its busy share.
+    scn = (load_standin(name, device="cuda") if name == "mirror_box"
+           else load_scene(name, device="cuda"))
+    cfg = RenderConfig(width=1024, height=1024, forward_only=False)
+    cfg = resolve_fwd_shade_kernel(scn, dataclasses.replace(
+        cfg, max_depth=effective_max_depth(scn, cfg)))
+    accel = (build_accel(scn, cfg) if needs_bvh(cfg, scn.num_triangles, torch.device("cuda"))
+             else None)
+    cfg = bench.training_config(cfg, True)
+    params = bench.training_params(scn, True)
+    jitter = bench.camera_jitter(torch.Generator("cuda").manual_seed(9), "cuda")
+    prof = device_breakdown(lambda: bench.fwd_bwd_step(scn, Camera.default(device="cuda"), cfg,
+                                                       params, jitter, accel=accel), iters=5)
+    out[name + " full step device ms"] = prof["device_ms"]
+    out[name + " full step busy"] = prof["busy"]
+print(json.dumps(out))
+"""
+
+
+def walk_signatures(old: bool = False):
+    """The walk's entry points' argtypes (``old``: the parent's, which took
+    boxes, meta, nchild and tris where this tree takes its records)."""
+    import ctypes
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    tree = [p] * (5 if old else 3)
+    return {"cgrt_bvh4_closest": [p, p, p, i, i, *tree, p, p, p, p, p],
+            "cgrt_bvh4_anyhit": [p, p, p, i, i, *tree, p, p],
+            "cgrt_bvh4_bounce": [p, p, p, i, i, *tree, p, i, p, p, p, p, p, p]}
+
+
+def shade_signatures():
+    import ctypes
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return {"cgrt_shade_bwd": [p, p, p, p, i, p, p, i, i, p, i, p, i, p, i, p] + [p] * 12,
+            "cgrt_shade_pre_bwd": [p, p, p, p, i, p, i, p, i, p, i, p, i, p, i, p] + [p] * 12}
+
+
+def walk_launch(lib, old, kind, tree, o, d, tm, lights):
+    """One launch of ``lib``'s walk ``kind`` ('closest', 'anyhit', 'bounce')
+    -> its outputs (t, prim, u, v[, bits]) or (hit,)."""
+    import ctypes
+
+    import torch
+
+    from cg_raytracer_tpu_torch.ops import cuda_kernels as ck
+
+    n, dev = o.shape[0], o.device
+    f32 = lambda: torch.empty((n,), dtype=torch.float32, device=dev)  # noqa: E731
+    i32 = lambda: torch.empty((n,), dtype=torch.int32, device=dev)  # noqa: E731
+    tr = ((tree.boxes, tree.meta, tree.nchild, tree.tris) if old else (tree.nodes, tree.rows))
+    head = (ck._ptr(o), ck._ptr(d), ck._ptr(tm), n, tree.width, *(ck._ptr(x) for x in tr),
+            ck._ptr(tree.slot_to_prim))
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    if kind == "anyhit":
+        outs = (torch.empty((n,), dtype=torch.uint8, device=dev),)
+        err = lib.cgrt_bvh4_anyhit(*head, ck._ptr(outs[0]), stream)
+    elif kind == "closest":
+        outs = (f32(), i32(), f32(), f32())
+        err = lib.cgrt_bvh4_closest(*head, *(ck._ptr(x) for x in outs), stream)
+    else:
+        outs = (f32(), i32(), f32(), f32(), i32())
+        err = lib.cgrt_bvh4_bounce(*head, ck._ptr(lights), lights.shape[0],
+                                   *(ck._ptr(x) for x in outs), stream)
+    assert err == 0, f"walk variant {kind}: CUDA error {err}"
+    return outs
+
+
+def shade_bwd_launch(lib, pre, tables, o, d, prim, bits, cts):
+    """One launch of ``lib``'s shade backward (point lights only) -> (d
+    tables..., d_o, d_d, d_sph), as ``shade_bwd_cuda`` / ``shade_pre_bwd_cuda``
+    return them."""
+    import ctypes
+
+    import torch
+
+    from cg_raytracer_tpu_torch.ops import cuda_kernels as ck
+
+    n = o.shape[0]
+    sph = torch.zeros((0, 6), dtype=torch.float32, device=o.device)
+    fracs = torch.zeros((0, n), dtype=torch.float32, device=o.device)
+    d_tables = [torch.zeros_like(x) for x in tables]
+    d_o, d_d, d_sph = torch.empty_like(o), torch.empty_like(d), torch.zeros_like(sph)
+    t0, t1, lights, spheres = tables
+    head = (ck._ptr(o), ck._ptr(d), ck._ptr(prim), ck._ptr(bits), n)
+    if pre:
+        head += (ck._ptr(t0), t0.shape[0], ck._ptr(t1), t1.shape[0])
+    else:
+        head += (ck._ptr(t0), ck._ptr(t1), t0.shape[0], t0.shape[0])
+    args = (*head, ck._ptr(lights), lights.shape[0], ck._ptr(spheres), spheres.shape[0],
+            ck._ptr(sph), 0, ck._ptr(fracs), *(ck._ptr(c) for c in cts), ck._ptr(d_o),
+            ck._ptr(d_d), *(ck._ptr(x) for x in d_tables), ck._ptr(d_sph),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    err = (lib.cgrt_shade_pre_bwd if pre else lib.cgrt_shade_bwd)(*args)
+    assert err == 0, f"shade variant: CUDA error {err}"
+    return (*d_tables, d_o, d_d, d_sph)
+
+
+def ptxas_kernels(log: str, patterns) -> dict:
+    """label -> registers, stack frame and spill bytes of the entry functions
+    of a ``-Xptxas=-v`` log whose mangled names match one of ``patterns``
+    ((regex, label function of its groups), ...)."""
+    import re
+
+    info, cur = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line or "Compiling entry function" in line:
+            cur = None
+            for pat, label in patterns:
+                m = re.search(pat, line)
+                if m:
+                    cur = label(*m.groups())
+                    info.setdefault(cur, {})
+                    break
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            info[cur].update(frame=int(m.group(1)), spill_st=int(m.group(2)),
+                             spill_ld=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            info[cur]["regs"] = int(m.group(1))
+    return info
+
+
+WALK_PTXAS = ((r"bvh_kernelILi(\d)ELb([01])E",
+               lambda w, a: f"{'any hit' if a == '1' else 'closest'}, W = {w}"),
+              (r"bvh_bounce_kernelILi(\d)E", lambda w: f"bounce, W = {w}"),
+              (r"shade_bwd_kernelILb([01])E",
+               lambda p: f"shade backward, {'pregathered' if p == '1' else 'select'}"))
+# (scene, width) -> the rows of PERF.md's table that the case stands for: the
+# kernels JSON entry names of its closest (with any hit) and bounce walks.
+WALK_ROWS = {("teacup", 2): ("bvh_w2", "bvh_bounce_w2"), ("teacup", 4): ("bvh4", "bvh4_bounce"),
+             ("teacup", 8): ("bvh4_w8", "bvh4_bounce_w8"),
+             ("donut", 2): ("bvh_w2_large", "bvh_bounce_w2_large"),
+             ("donut", 4): ("bvh4_large", "bvh4_bounce_large"),
+             ("torus", 2): (None, None), ("torus", 4): (None, None)}
+
+
+SLEEP_CYCLES = 40_000_000  # ~20 ms of torch.cuda._sleep on an H100's ~2 GHz SM clock
+
+
+def batched_ms(fn, iters=20) -> float:
+    """Device ms per call of ``fn``: CUDA events around ``iters`` calls that
+    the host enqueues while a sleep kernel holds the card, so they run back
+    to back and the host's per-call overhead (allocation, ctypes; as long as
+    a ~0.1-0.3 ms launch) stays out of the time.  Asserts that the host
+    finished enqueueing before the card did."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    sleep_ms = _sleep_ms()
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    assert host_ms < sleep_ms, (f"the host took {host_ms:.2f} ms to enqueue {iters} calls, "
+                                f"past the {sleep_ms:.2f}-ms sleep; raise SLEEP_CYCLES")
+    return start.elapsed_time(end) / iters
+
+
+_SLEEP = {}
+
+
+def _sleep_ms() -> float:
+    """How long SLEEP_CYCLES of torch.cuda._sleep hold the card (measured once)."""
+    import torch
+
+    if "ms" not in _SLEEP:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        b.record()
+        torch.cuda.synchronize()
+        _SLEEP["ms"] = a.elapsed_time(b)
+    return _SLEEP["ms"]
+
+
+def in_turns(calls, iters=20):
+    """name -> [device ms per call (batched_ms) of each call], two rounds in
+    opposite orders after an untimed one."""
+    names = list(calls)
+    for n in names:
+        batched_ms(calls[n], iters=5)
+    times = {n: [] for n in names}
+    for order in (names, names[::-1]):
+        for n in order:
+            times[n].append(batched_ms(calls[n], iters=iters))
+    return times
+
+
+def turns_line(times, base="this tree") -> str:
+    b = sum(times[base]) / 2
+    return f"{base} {times[base][0]:.5f}, {times[base][1]:.5f}; " + "; ".join(
+        f"{n} {t[0]:.5f}, {t[1]:.5f} (x{sum(t) / 2 / b:.3f})" for n, t in times.items()
+        if n != base)
+
+
+def walk_shade_phase(out, device, kernels, e2e, results, scenes, parent=None) -> None:
+    """Phase 30: the shade backward and the walk measured.  ptxas for each
+    instantiation; this tree's csrc/bvh4.cu and shade.cu against each lever
+    taken out again and, given ``parent``, that checkout's, in turns on the
+    same inputs (every walk exact against this tree's, every shade backward's
+    d_o and d_d bit-equal to it and its tables within checks' rule); each
+    row's time against its bound; and, given ``parent``, the headline
+    frames and steps in a process per tree, three pairs in alternating order."""
+    import torch
+
+    from cg_raytracer_tpu_torch.ops import _build
+    from cg_raytracer_tpu_torch.ops import bvh4 as b4
+    from cg_raytracer_tpu_torch.ops import cuda_kernels as ck
+    from cg_raytracer_tpu_torch.ops import shade
+    from cg_raytracer_tpu_torch.ops.camera import generate_rays
+    from cg_raytracer_tpu_torch.ops.intersect import reconstruct_hit
+    from cg_raytracer_tpu_torch.ops.linalg import norm, safe_normalize
+    from cg_raytracer_tpu_torch.scene.types import Camera
+    from cg_raytracer_tpu_torch.utils import checks
+
+    phase("phase 30: the shade backward and the walk measured: registers, ablations"
+          + (f", against {parent}" if parent else ""))
+    t0 = time.perf_counter()
+    walk_vars = build_variants("bvh4.cu", WALK_ABLATIONS, walk_signatures(), parent,
+                               walk_signatures(old=True))
+    shade_vars = build_variants("shade.cu", SHADE_ABLATIONS, shade_signatures(), parent)
+    print(f"  {len(walk_vars)} variants of bvh4.cu and {len(shade_vars)} of shade.cu built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    with open(_build.library_path()[:-3] + ".log") as f:
+        logs = {"this tree": f.read()}
+    print("  ptxas, per instantiation: registers, stack frame / spill store / spill load bytes")
+    for name in ("this tree", *(["parent"] if parent else [])):
+        log = logs["this tree"] if name == "this tree" else (walk_vars["parent"][1]
+                                                            + shade_vars["parent"][1])
+        for label, r in sorted(ptxas_kernels(log, WALK_PTXAS).items()):
+            print(f"    {name}: {label}: {r.get('regs')} registers, {r.get('frame')} / "
+                  f"{r.get('spill_st')} / {r.get('spill_ld')} bytes")
+    lib = _build.load()
+
+    # The walk on the 1024^2 camera rays (closest), shadow rays toward light 0
+    # from their hits with a random t_max (any hit), and the camera rays with
+    # every fifth one dead (bounce).
+    cam = Camera.default(device=device)
+    gen = torch.Generator(device).manual_seed(30)
+    o1, d1 = generate_rays(cam, 1024, 1024)
+    trees = scenes["walk_trees"]
+    libs = {"this tree": (lib, False), **{k: (v[0], k == "parent") for k, v in walk_vars.items()}}
+    walk_t = {}
+    print(f"  the walk: device ms per launch, 20 launches enqueued behind a "
+          f"{_sleep_ms():.1f}-ms sleep kernel (batched_ms), two rounds in opposite orders; "
+          "every variant's outputs equal to this tree's")
+    for (label, w), rows in WALK_ROWS.items():
+        scene = scenes[label] if label != "torus" else scenes["torus"][0]
+        tree = trees[(label, w)]
+        lp = scene.point_lights.position.contiguous()
+        surf = reconstruct_hit(scene, o1, d1, b4._closest_kernel(tree, o1, d1, None))
+        to_light = lp[0] - surf.position
+        sd = safe_normalize(to_light).contiguous()
+        so = (surf.position + 1e-3 * sd).contiguous()
+        st = torch.where(surf.valid, norm(to_light) - 1e-3, -1.0)
+        st = (st * torch.rand(st.shape, device=device, generator=gen) * 1.5).contiguous()
+        tml = torch.where(torch.arange(o1.shape[0], device=device) % 5 != 0, float("inf"),
+                          -1.0).contiguous()
+        for kind, args in (("closest", (o1, d1, None)), ("anyhit", (so, sd, st)),
+                           ("bounce", (o1, d1, tml))):
+            calls = {n: partial(walk_launch, lb, old, kind, tree, *args, lp)
+                     for n, (lb, old) in libs.items()}
+            ref = calls["this tree"]()
+            for n, fn in calls.items():
+                assert all(torch.equal(a, b) for a, b in zip(fn(), ref)), (
+                    f"{n}: {label} W = {w} {kind} differs from this tree's")
+            times = in_turns(calls)
+            walk_t[(label, w, kind)] = times
+            print(f"    {label} W = {w} {kind}: {turns_line(times)}")
+    results["walk_ablations"] = {f"{k[0]} w{k[1]} {k[2]}": t for k, t in walk_t.items()}
+    by_name = {e["name"]: e for e in kernels}
+    print("  each row's time in these turns against its bound (the entry's, utils/roofline.py)")
+    for (label, w), (closest_row, bounce_row) in WALK_ROWS.items():
+        for row, kinds in ((closest_row, ("closest", "anyhit")), (bounce_row, ("bounce",))):
+            if row is None or row not in by_name:
+                continue
+            e = by_name[row]
+            for kind in kinds:
+                t = walk_t[(label, w, kind)]
+                ms = sum(t["this tree"]) / 2
+                bound = e["anyhit_bound_ms"] if kind == "anyhit" else e["bound_ms"]
+                pre = "anyhit_" if kind == "anyhit" else ""
+                e[pre + "ab_ms"] = ms
+                if parent:
+                    e[pre + "parent_ms"] = sum(t["parent"]) / 2
+                print(f"    {row} ({label}, W = {w}, {kind}): {ms:.5f} ms"
+                      + (f", parent {sum(t['parent']) / 2:.5f}" if parent else "")
+                      + f"; bound {bound:.5f} ms ({bound / ms:.1%} of it)")
+
+    # The shade backward on the stand-in box's level-0 records (select path,
+    # row 25) and the teacup's (pregathered, row 26).
+    box, teacup = scenes["box"], scenes["teacup"]
+    recs = ck.record_trace_cuda(box, o1, d1, 2)
+    bo, bd, bhit, bbits, _ = recs[0]
+    hit, tbits = b4.bounce_bvh4_cuda(teacup, trees[("teacup", 4)], o1, d1)
+    cases = {
+        "box": (False, tuple(x.detach().contiguous() for x in shade._shade_tables(box)[:4]),
+                bo.contiguous(), bd.contiguous(), bhit.prim_id.contiguous(), bbits,
+                box.num_triangles, "shade_bwd"),
+        "teacup": (True, tuple(x.detach().contiguous() for x in shade._pre_tables(teacup)[:4]),
+                   o1, d1, hit.prim_id.contiguous(), tbits, teacup.num_triangles,
+                   "shade_pre_bwd"),
+    }
+    libs = {"this tree": lib, **{k: v[0] for k, v in shade_vars.items()}}
+    print("  the shade backward: device ms per launch (batched_ms, the tables' zeroing "
+          "included), two rounds in opposite orders; d_o and d_d bit-equal to this tree's, "
+          "tables within utils/checks.py's rule")
+    shade_t = {}
+    for label, (pre, tables, o, d, prim, bits, num_t, row) in cases.items():
+        cts = [torch.randn(o.shape, device=device, generator=gen) for _ in range(4)]
+        twin, exact = checks.twin_grads(tables, o, d, prim, bits, num_t, cts,
+                                        plain=shade.shade_plain_pre if pre else shade.shade_plain)
+        names = checks.PRE_GRAD_NAMES if pre else checks.GRAD_NAMES
+        calls = {n: partial(shade_bwd_launch, lb, pre, tables, o, d, prim, bits, cts)
+                 for n, lb in libs.items()}
+        ref = calls["this tree"]()
+        for n, fn in calls.items():
+            got = fn()
+            assert torch.equal(got[4], ref[4]) and torch.equal(got[5], ref[5]), (
+                f"{n}: {label} d_o or d_d differs from this tree's")
+            report = checks.shade_grads_close(got, twin, exact, o.shape[0], names=names)
+            if n in ("this tree", "parent"):
+                print(f"    {n} {label}: d_o, d_d bit-equal; tables at most "
+                      f"{max(r[0] for r in report.values()):.3g} of the tolerance")
+        times = in_turns(calls)
+        shade_t[label] = times
+        print(f"    {label} ({row}, {int((prim >= 0).sum())} live rays): {turns_line(times)}")
+        if row in by_name:
+            e, ms = by_name[row], sum(times["this tree"]) / 2
+            e["ab_ms"] = ms
+            if parent:
+                e["parent_ms"] = sum(times["parent"]) / 2
+            print(f"    {row}: {ms:.5f} ms; bound {e['bound_ms']:.5f} ms "
+                  f"({e['bound_ms'] / ms:.1%} of it)")
+    results["shade_ablations"] = shade_t
+    if parent:
+        runs = {"parent": [], "this tree": []}
+        for who in ("parent", "this tree", "this tree", "parent", "parent", "this tree"):
+            r = subprocess.run([sys.executable, "-c", WALK_E2E_SNIPPET], capture_output=True,
+                               text=True, cwd=parent if who == "parent" else ROOT, timeout=600)
+            assert r.returncode == 0, f"{who}: {r.stderr[-3000:]}"
+            runs[who].append(json.loads(r.stdout.strip().splitlines()[-1]))
+        for key in runs["parent"][0]:
+            vals = {who: [run[key] for run in rs] for who, rs in runs.items()}
+            print(f"  {key} (1024^2): parent {[round(x, 5) for x in vals['parent']]}, this "
+                  f"tree {[round(x, 5) for x in vals['this tree']]}")
+            e2e[f"{key} parent vs this tree"] = vals
 
 
 if __name__ == "__main__":

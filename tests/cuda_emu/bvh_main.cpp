@@ -7,11 +7,11 @@
 //
 // Input: int64 kind (0 closest, 1 any hit, 2 bounce), n, width, num_nodes,
 // num_tris, has_t_max, num_lights, 0; then float32 o [n, 3], d [n, 3], t_max
-// [n] (if has_t_max), the tree's float32 boxes [num_nodes, 6 width], int32
-// meta [num_nodes, 2 width], int32 nchild [num_nodes], float32 tris
-// [num_tris, 9], int32 slot_to_prim [num_tris], float32 lights [num_lights,
-// 3] (kind 2).  Output: float32 t, int32 prim, float32 u, float32 v, int32
-// bits (kind 2), each [n]; or uint8 hit [n] (kind 1).
+// [n] (if has_t_max), the tree's float32 node records [num_nodes, 8 width]
+// and triangle rows [num_tris, 12] (read as 16-byte words, as the kernels
+// read them), int32 slot_to_prim [num_tris], float32 lights [num_lights, 3]
+// (kind 2).  Output: float32 t, int32 prim, float32 u, float32 v, int32 bits
+// (kind 2), each [n]; or uint8 hit [n] (kind 1).
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
@@ -20,16 +20,15 @@
 
 extern "C" {
 int cgrt_bvh4_closest(const float* o, const float* d, const float* t_max, int n, int width,
-                      const float* boxes, const int* meta, const int* nchild, const float* tris,
-                      const int* slot_to_prim, float* t, int* prim, float* u, float* v,
-                      cudaStream_t stream);
+                      const float* nodes, const float* rows, const int* slot_to_prim, float* t,
+                      int* prim, float* u, float* v, cudaStream_t stream);
 int cgrt_bvh4_anyhit(const float* o, const float* d, const float* t_max, int n, int width,
-                     const float* boxes, const int* meta, const int* nchild, const float* tris,
-                     const int* slot_to_prim, uint8_t* hit, cudaStream_t stream);
+                     const float* nodes, const float* rows, const int* slot_to_prim, uint8_t* hit,
+                     cudaStream_t stream);
 int cgrt_bvh4_bounce(const float* o, const float* d, const float* t_max, int n, int width,
-                     const float* boxes, const int* meta, const int* nchild, const float* tris,
-                     const int* slot_to_prim, const float* lights, int num_lights, float* t,
-                     int* prim, float* u, float* v, int* bits, cudaStream_t stream);
+                     const float* nodes, const float* rows, const int* slot_to_prim,
+                     const float* lights, int num_lights, float* t, int* prim, float* u, float* v,
+                     int* bits, cudaStream_t stream);
 }
 
 // The bounce kernel's dynamic shared memory: the staged light positions.
@@ -64,10 +63,8 @@ int main(int argc, char** argv) {
   const float* o = read_array<float>(f, 3 * n);
   const float* d = read_array<float>(f, 3 * n);
   const float* t_max = read_array<float>(f, h[5] ? n : 0);
-  const float* boxes = read_array<float>(f, 6 * w * nodes);
-  const int* meta = read_array<int>(f, 2 * w * nodes);
-  const int* nchild = read_array<int>(f, nodes);
-  const float* tris = read_array<float>(f, 9 * num_tris);
+  const float* records = reinterpret_cast<const float*>(read_array<float4>(f, 2 * w * nodes));
+  const float* rows = reinterpret_cast<const float*>(read_array<float4>(f, 3 * num_tris));
   const int* slot_to_prim = read_array<int>(f, num_tris);
   const float* lights = read_array<float>(f, kind == 2 ? 3 * num_lights : 0);
   fclose(f);
@@ -82,13 +79,13 @@ int main(int argc, char** argv) {
   for (int pass = 0; pass < 2; ++pass) {
     int err;
     if (kind == 0) {
-      err = cgrt_bvh4_closest(o, d, t_max, n, width, boxes, meta, nchild, tris, slot_to_prim, t,
-                              prim, u, v, nullptr);
+      err = cgrt_bvh4_closest(o, d, t_max, n, width, records, rows, slot_to_prim, t, prim, u,
+                              v, nullptr);
     } else if (kind == 1) {
-      err = cgrt_bvh4_anyhit(o, d, t_max, n, width, boxes, meta, nchild, tris, slot_to_prim, hit,
+      err = cgrt_bvh4_anyhit(o, d, t_max, n, width, records, rows, slot_to_prim, hit,
                              nullptr);
     } else {
-      err = cgrt_bvh4_bounce(o, d, t_max, n, width, boxes, meta, nchild, tris, slot_to_prim,
+      err = cgrt_bvh4_bounce(o, d, t_max, n, width, records, rows, slot_to_prim,
                              lights, static_cast<int>(num_lights), t, prim, u, v, bits, nullptr);
     }
     if (err != 0) return 3;

@@ -85,7 +85,7 @@ def run_emulated(exe, out, kind, tree, o, d, t_max, lights, tag):
     path = out / f"{tag}.in"
     with open(path, "wb") as f:
         f.write(header)
-        for a in (o, d, t_max, tree.boxes, tree.meta, tree.nchild, tree.tris, tree.slot_to_prim):
+        for a in (o, d, t_max, tree.nodes, tree.rows, tree.slot_to_prim):
             f.write(a.contiguous().numpy().tobytes())
         if kind == "bounce":
             f.write(lights.contiguous().numpy().tobytes())

@@ -1,6 +1,7 @@
 """PyTorch port, the soft-shadow samplers' memory safety, on the CPU.
 
-The CUDA source ``csrc/soft.cu`` (with ``bvh4.cuh`` and ``sweep.cuh``) is
+The CUDA source ``csrc/soft.cu`` (with ``bvh4.cuh``, whose any-hit walk
+the tree samplers run, and ``sweep.cuh``) is
 compiled as host C++ against the stand-in CUDA header of ``tests/cuda_emu``
 with AddressSanitizer and UBSan, and ``soft_kernel`` runs one thread at a
 time on small frames of the spherical box (brute sampler) and of the
@@ -15,10 +16,10 @@ differ from PyTorch's in the last bit now and then, so on >= 99% of points
 and within 2 samples elsewhere.  Every launch has unmarked points, a stream
 that does not start at point 0, and a tail of threads past the last sample.
 
-The kernel takes the marked points compacted (``ops/soft.py::_compact``),
-as the wrappers pass them.  A planted fault proves the harness sees the
-walk's stack: the same build with the sampler's stack cut from 64 entries
-to 4 must abort.
+The kernel takes the marked points compacted (``ops/soft.py::_compact``)
+and the tree's records (``BVH4.nodes``, ``BVH4.rows``), as the wrappers
+pass them.  A planted fault proves the harness sees the walk's stack: the
+same build with the walk's stack cut from 64 entries to 4 must abort.
 """
 import functools
 import dataclasses
@@ -124,7 +125,7 @@ def run_emulated(emulator, scene, tree, pos, marked, gauss_nsc, tag, check=True)
         arrays.append(tris)
     else:
         tris, nodes = tree.tris, tree.num_nodes
-        arrays += [soft.pack_nodes(tree), soft.pack_tris(tree.tris)]
+        arrays += [tree.nodes, tree.rows]
     if gauss_nsc is not None:
         arrays.append(gauss_nsc)
     header = struct.pack("<10q", 0 if tree is None else tree.width, n, S, tris.shape[0], nodes, 1,
@@ -187,16 +188,17 @@ def test_soft_tree_widths_memcheck(emulator, width):
 
 
 def test_planted_stack_overflow_is_caught(tmp_path):
-    """The sampler's stack cut to 4 entries, below the 4-wide cup tree's
-    bound: a walk's fifth push writes past its stack array."""
+    """The any-hit walk's stack cut to 4 entries, below the 4-wide cup
+    tree's bound: a walk's fifth push writes past its stack array."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the host emulation")
     csrc = tmp_path / "csrc"
     shutil.copytree(CSRC, csrc)
-    src = csrc / "soft.cu"
-    text, planted = re.subn(r"int stack\[kStack\];", "int stack[4];", src.read_text())
+    header = csrc / "bvh4.cuh"
+    text, planted = re.subn(r"constexpr int kStack = 64;", "constexpr int kStack = 4;",
+                            header.read_text())
     assert planted == 1
-    src.write_text(text)
+    header.write_text(text)
     exe = build(str(tmp_path), str(csrc))
     scene, tree, pos, marked = frame("cup", 4)
     assert 3 * tree.depth + 1 > 4
