@@ -210,9 +210,8 @@ __device__ __forceinline__ int closest(const Tree& tr, const Ray& r, float& t_be
       for (int k = first; k < end; ++k) {
         const float4* row = tr.rows + 3 * k;
         const float4 v0 = __ldg(row), e1 = __ldg(row + 1), e2 = __ldg(row + 2);
-        const float tri[9] = {v0.x, v0.y, v0.z, e1.x, e1.y, e1.z, e2.x, e2.y, e2.z};
         float t, uu, vv;
-        if (mt(tri, r, t, uu, vv) && t < t_best) {
+        if (mt(v0, e1, e2, r, t, uu, vv) && t < t_best) {
           t_best = t;
           slot = k;
           u = uu;

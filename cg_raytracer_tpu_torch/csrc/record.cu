@@ -14,8 +14,10 @@
 // Design: one thread per ray carries its ray through max_depth levels in
 // registers and writes, per level, t (inf on a miss), slot, u, v, bits, then
 // for each level >= 1 the ray it starts from (o, d) and whether it is active.
-// The triangle table (as v0, e1, e2), the attribute table [T, 19] and the
-// light positions [L, 3] are staged in shared memory (<= 28.7 KB at T = 256).
+// The triangle table (as v0, e1, e2: three 16-byte rows per triangle), the
+// attribute table [T, 19] and the light positions [L, 3] are staged in
+// shared memory (<= 31.4 KB at T = 256, L = 30) by each block of 128 rays
+// (sweep.cuh: the sweep and its grid).
 // A dead ray (t_max < 0) writes the dead record (t = inf, slot -1, u = v = 0,
 // bits 0, position and reflection 0, not reflective) without sweeping; a
 // live ray that misses records its origin as the position and its unit
@@ -23,10 +25,13 @@
 // the Pallas kernels skipped whole dead tiles, a dead ray here just exits.
 //
 // What bounds it on an H100: per level about (1 + L) * T Moller-Trumbore
-// tests of ~30 FLOPs each (the sweeps of trace.cu) against (5 + 7) * 4
-// bytes written per ray: compute- and issue-bound like the other sweeps,
-// not memory-bound.  The records are written level-major, so the stores of
-// a warp are coalesced.
+// tests of 64 operations each (the sweeps of trace.cu) against (5 + 7) * 4
+// bytes written per ray: bound by operations, not memory.  The sweep's
+// instruction rate sets the pace (sweep.cuh): on the box at 1024^2, depth
+// 2, a launch takes ~0.136 ms, 36% of its bound (PERF.md, the brute
+// sweeps).  3.9% of the warps are partly active at level 1, so the rays
+// that stop are not compacted.  The records are written level-major, so the
+// stores of a warp are coalesced.
 #include <cstdint>
 
 #include "sweep.cuh"
@@ -40,7 +45,7 @@ struct Level {
   bool reflective;
 };
 
-__device__ __forceinline__ Level record_level(const Ray& r, float tm, const float* s_tri,
+__device__ __forceinline__ Level record_level(const Ray& r, float tm, const float4* s_tri,
                                               int num_tris, const float* s_aux,
                                               const float* s_light, int num_lights,
                                               int quirk_ks_z) {
@@ -67,13 +72,25 @@ __device__ __forceinline__ Level record_level(const Ray& r, float tm, const floa
   return L;
 }
 
-__device__ __forceinline__ void stage_record_tables(const float* tris, int num_tris,
-                                                    const float* aux, const float* lights,
-                                                    int num_lights, float* smem) {
-  stage_triangles(tris, num_tris, smem);
-  stage_rows(aux, 19 * num_tris, smem + 9 * num_tris);
-  stage_rows(lights, 3 * num_lights, smem + 28 * num_tris);
+// The staged tables: triangles (3 T float4), then aux [T, 19] and the light
+// positions [L, 3] as floats.
+struct RecordTables {
+  const float4* tri;
+  const float* aux;
+  const float* light;
+};
+
+__device__ __forceinline__ RecordTables stage_record_tables(const float* tris, int num_tris,
+                                                            const float* aux,
+                                                            const float* lights,
+                                                            int num_lights, float4* smem) {
+  float* s_aux = reinterpret_cast<float*>(smem + 3 * num_tris);
+  float* s_light = s_aux + 19 * num_tris;
+  stage_rows3(tris, num_tris, smem);
+  stage_rows(aux, 19 * num_tris, s_aux);
+  stage_rows(lights, 3 * num_lights, s_light);
   __syncthreads();
+  return RecordTables{smem, s_aux, s_light};
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -85,33 +102,35 @@ __global__ void __launch_bounds__(kThreads)
                         float* __restrict__ u_out, float* __restrict__ v_out,
                         int* __restrict__ bits_out, float* __restrict__ o_out,
                         float* __restrict__ d_out, uint8_t* __restrict__ active_out) {
-  extern __shared__ float smem[];
-  stage_record_tables(tris, num_tris, aux, lights, num_lights, smem);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Ray r = load_ray(o, d, i);
-  float tm = CUDART_INF_F;
-  for (int level = 0; level < max_depth; ++level) {
-    const Level L = record_level(r, tm, smem, num_tris, smem + 9 * num_tris,
-                                 smem + 28 * num_tris, num_lights, quirk_ks_z);
-    const size_t k = static_cast<size_t>(level) * n + i;
-    t_out[k] = L.t;
-    slot_out[k] = L.slot;
-    u_out[k] = L.u;
-    v_out[k] = L.v;
-    bits_out[k] = L.bits;
-    if (level + 1 >= max_depth) break;
-    const bool active = L.reflective;  // false for dead and missed rays
-    r = Ray{L.px + kReflectEps * L.rx, L.py + kReflectEps * L.ry, L.pz + kReflectEps * L.rz,
-            active ? L.rx : r.dx, active ? L.ry : r.dy, active ? L.rz : r.dz};
-    tm = active ? CUDART_INF_F : -1.0f;
-    o_out[3 * k] = r.ox;
-    o_out[3 * k + 1] = r.oy;
-    o_out[3 * k + 2] = r.oz;
-    d_out[3 * k] = r.dx;
-    d_out[3 * k + 1] = r.dy;
-    d_out[3 * k + 2] = r.dz;
-    active_out[k] = active;
+  extern __shared__ float4 smem[];
+  const RecordTables s = stage_record_tables(tris, num_tris, aux, lights, num_lights, smem);
+  for (long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; j < n;
+       j += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int i = static_cast<int>(j);
+    Ray r = load_ray(o, d, i);
+    float tm = CUDART_INF_F;
+    for (int level = 0; level < max_depth; ++level) {
+      const Level L =
+          record_level(r, tm, s.tri, num_tris, s.aux, s.light, num_lights, quirk_ks_z);
+      const size_t k = static_cast<size_t>(level) * n + i;
+      t_out[k] = L.t;
+      slot_out[k] = L.slot;
+      u_out[k] = L.u;
+      v_out[k] = L.v;
+      bits_out[k] = L.bits;
+      if (level + 1 >= max_depth) break;
+      const bool active = L.reflective;  // false for dead and missed rays
+      r = Ray{L.px + kReflectEps * L.rx, L.py + kReflectEps * L.ry, L.pz + kReflectEps * L.rz,
+              active ? L.rx : r.dx, active ? L.ry : r.dy, active ? L.rz : r.dz};
+      tm = active ? CUDART_INF_F : -1.0f;
+      o_out[3 * k] = r.ox;
+      o_out[3 * k + 1] = r.oy;
+      o_out[3 * k + 2] = r.oz;
+      d_out[3 * k] = r.dx;
+      d_out[3 * k + 1] = r.dy;
+      d_out[3 * k + 2] = r.dz;
+      active_out[k] = active;
+    }
   }
 }
 
@@ -124,29 +143,31 @@ __global__ void __launch_bounds__(kThreads)
                        float* __restrict__ u_out, float* __restrict__ v_out,
                        int* __restrict__ bits_out, float* __restrict__ pos_out,
                        float* __restrict__ refl_out, uint8_t* __restrict__ reflective_out) {
-  extern __shared__ float smem[];
-  stage_record_tables(tris, num_tris, aux, lights, num_lights, smem);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Level L = record_level(load_ray(o, d, i), t_max != nullptr ? t_max[i] : CUDART_INF_F,
-                               smem, num_tris, smem + 9 * num_tris, smem + 28 * num_tris,
-                               num_lights, quirk_ks_z);
-  t_out[i] = L.t;
-  slot_out[i] = L.slot;
-  u_out[i] = L.u;
-  v_out[i] = L.v;
-  bits_out[i] = L.bits;
-  pos_out[3 * i] = L.px;
-  pos_out[3 * i + 1] = L.py;
-  pos_out[3 * i + 2] = L.pz;
-  refl_out[3 * i] = L.rx;
-  refl_out[3 * i + 1] = L.ry;
-  refl_out[3 * i + 2] = L.rz;
-  reflective_out[i] = L.reflective;
+  extern __shared__ float4 smem[];
+  const RecordTables s = stage_record_tables(tris, num_tris, aux, lights, num_lights, smem);
+  for (long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; j < n;
+       j += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int i = static_cast<int>(j);
+    const Level L = record_level(load_ray(o, d, i),
+                                 t_max != nullptr ? t_max[i] : CUDART_INF_F, s.tri, num_tris,
+                                 s.aux, s.light, num_lights, quirk_ks_z);
+    t_out[i] = L.t;
+    slot_out[i] = L.slot;
+    u_out[i] = L.u;
+    v_out[i] = L.v;
+    bits_out[i] = L.bits;
+    pos_out[3 * i] = L.px;
+    pos_out[3 * i + 1] = L.py;
+    pos_out[3 * i + 2] = L.pz;
+    refl_out[3 * i] = L.rx;
+    refl_out[3 * i + 1] = L.ry;
+    refl_out[3 * i + 2] = L.rz;
+    reflective_out[i] = L.reflective;
+  }
 }
 
 size_t record_smem(int num_tris, int num_lights) {
-  return sizeof(float) * (28 * num_tris + 3 * num_lights);
+  return sizeof(float4) * 3 * num_tris + sizeof(float) * (19 * num_tris + 3 * num_lights);
 }
 
 }  // namespace cgrt
@@ -159,12 +180,11 @@ int cgrt_record_trace(const float* o, const float* d, int n, const float* tris, 
                       const float* aux, const float* lights, int num_lights, int max_depth,
                       int quirk_ks_z, float* t, int* slot, float* u, float* v, int* bits,
                       float* o_next, float* d_next, uint8_t* active, cudaStream_t stream) {
-  if (n > 0) {
-    cgrt::record_trace_kernel<<<cgrt::num_blocks(n), cgrt::kThreads,
-                                cgrt::record_smem(num_tris, num_lights), stream>>>(
-        o, d, n, tris, num_tris, aux, lights, num_lights, max_depth, quirk_ks_z, t, slot, u,
-        v, bits, o_next, d_next, active);
-  }
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const size_t smem = cgrt::record_smem(num_tris, num_lights);
+  cgrt::record_trace_kernel<<<cgrt::num_blocks(n), cgrt::kThreads, smem, stream>>>(
+      o, d, n, tris, num_tris, aux, lights, num_lights, max_depth, quirk_ks_z, t, slot, u, v,
+      bits, o_next, d_next, active);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -175,12 +195,11 @@ int cgrt_bounce_refl(const float* o, const float* d, const float* t_max, int n,
                      int num_lights, int quirk_ks_z, float* t, int* slot, float* u, float* v,
                      int* bits, float* position, float* refl, uint8_t* reflective,
                      cudaStream_t stream) {
-  if (n > 0) {
-    cgrt::bounce_refl_kernel<<<cgrt::num_blocks(n), cgrt::kThreads,
-                               cgrt::record_smem(num_tris, num_lights), stream>>>(
-        o, d, t_max, n, tris, num_tris, aux, lights, num_lights, quirk_ks_z, t, slot, u, v,
-        bits, position, refl, reflective);
-  }
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const size_t smem = cgrt::record_smem(num_tris, num_lights);
+  cgrt::bounce_refl_kernel<<<cgrt::num_blocks(n), cgrt::kThreads, smem, stream>>>(
+      o, d, t_max, n, tris, num_tris, aux, lights, num_lights, quirk_ks_z, t, slot, u, v, bits,
+      position, refl, reflective);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -749,16 +749,9 @@ int launch_bwd(const ShadeArgs& a, const ShadeGrads& g, cudaStream_t stream) {
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return static_cast<int>(err);
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
-      cudaSuccess)
+  int blocks = 0;
+  if ((err = wave_grid(shade_bwd_kernel<kPre>, a.n, smem, blocks)) != cudaSuccess)
     return static_cast<int>(err);
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, shade_bwd_kernel<kPre>,
-                                                           kThreads, smem)) != cudaSuccess)
-    return static_cast<int>(err);
-  const int wave = sms * (per_sm > 0 ? per_sm : 1);
-  const int blocks = num_blocks(a.n) < wave ? num_blocks(a.n) : wave;
   shade_bwd_kernel<kPre><<<blocks, kThreads, smem, stream>>>(a, g);
   return static_cast<int>(cudaGetLastError());
 }

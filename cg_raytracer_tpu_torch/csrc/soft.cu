@@ -50,9 +50,9 @@
 // Moller-Trumbore of sweep.cuh (mt_blocks), which stops at the first failed
 // condition: a point's lanes nearly always reject a triangle at the same
 // step.
-// The brute sweep stages its triangles in shared memory in the same
-// three-row layout (three 16-byte broadcast loads per test) and runs the
-// same mt_blocks.
+// The brute sweep is sweep.cuh's any_hit_sweep over the triangles staged in
+// shared memory in the same three-row layout (stage_rows3: three 16-byte
+// broadcast loads per test), the same mt_blocks.
 //
 // What bounds it on an H100 (counts of utils/roofline.py): per sample ray,
 // 104 integer operations of Philox (at 16.7 Tops/s) and 65 FLOPs of
@@ -144,18 +144,6 @@ __device__ __forceinline__ Ray sample_ray(float px, float py, float pz, float gx
   return Ray{ox, oy, oz, dx, dy, dz};
 }
 
-// Stage [T, 9] rows (v0, v1, v2) as three 16-byte rows each, (v0, 0), (e1,
-// 0), (e2, 0): stage_triangles's edges in pack_tris's layout.
-__device__ __forceinline__ void stage_rows3(const float* __restrict__ tris, int num_tris,
-                                            float4* s_rows) {
-  for (int k = threadIdx.x; k < num_tris; k += blockDim.x) {
-    const float* r = tris + 9 * k;
-    s_rows[3 * k] = make_float4(r[0], r[1], r[2], 0.0f);
-    s_rows[3 * k + 1] = make_float4(r[3] - r[0], r[4] - r[1], r[5] - r[2], 0.0f);
-    s_rows[3 * k + 2] = make_float4(r[6] - r[0], r[7] - r[1], r[8] - r[2], 0.0f);
-  }
-}
-
 // Whether sample s of point i (at p) reaches the light l: its Gaussian from
 // the table or the stream, the sample ray, then an any-hit sweep of the
 // staged triangles or an any-hit walk of the tree.
@@ -178,10 +166,7 @@ __device__ __forceinline__ bool sample_visible(const SoftArgs& a, const SoftScen
   if constexpr (W > 0) {
     return !occluded<W>(sc.tree, r, tm);
   } else {
-    for (int k = 0; k < sc.num_tris; ++k) {
-      if (mt_blocks(s_tri[3 * k], s_tri[3 * k + 1], s_tri[3 * k + 2], r, tm)) return false;
-    }
-    return true;
+    return !any_hit_sweep(s_tri, sc.num_tris, r, tm);
   }
 }
 

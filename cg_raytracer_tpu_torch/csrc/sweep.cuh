@@ -7,11 +7,28 @@
 // _mt_tile (Moller-Trumbore with the same epsilons and the det_safe form),
 // _sphere_tile (the ray-sphere quadratic), the per-light shadow sweeps, and
 // the attribute fetch, facing normal, reflection and continue-test that
-// _trace_kernel and _bounce_refl_tile share.  One thread owns one ray and walks
-// the triangle table, which every block stages in shared memory: all threads
-// of a warp read the same triangle at the same step, so each read is a
-// shared-memory broadcast.  The loop over triangles runs at run time, so one
-// build serves every scene (the Pallas kernels unrolled it per triangle count).
+// _trace_kernel and _bounce_refl_tile share.
+//
+// The sweep: one thread owns one ray and walks the triangle table, which each
+// block of kThreads rays stages in shared memory as three 16-byte rows per
+// triangle (v0, e1, e2; stage_rows3).  All threads of a warp read the same
+// triangle at the same step, so each row is one 16-byte broadcast load:
+// three per test where nine scalar loads were.  Both sweeps run mt_early,
+// which stops at the first failed condition (the closest sweep with t <
+// t_best last), one test at a time.  The kernels loop over their rays with
+// the grid's stride, so any grid is right; they launch one block per
+// kThreads rays.  The loop over triangles runs at run time, so one build
+// serves every scene (the Pallas kernels unrolled it per triangle count).
+//
+// What bounds it on an H100: a test is 64 operations (utils/roofline.py)
+// against a few bytes per ray, so operations.  Under -fmad=false no
+// multiply pairs with an add, so each counted operation is one instruction
+// and a sweep reaches at most half the float rate the bound assumes; the
+// reciprocal's exactness check, the loads, the select and the loop add ~30
+// instructions to a full test's ~55 float ones (SASS, chip_smoke.py phase
+// 31).  On the box at 1024^2 the sweeps run at 30-46% of their bound; the
+// 16-byte rows, the early exits and one block per kThreads rays each
+// measured faster than their alternative (PERF.md, the brute sweeps).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -35,24 +52,26 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
   return Ray{o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i], d[3 * i + 1], d[3 * i + 2]};
 }
 
-// Stage [T, 9] rows (v0, v1, v2) as (v0, e1 = v1 - v0, e2 = v2 - v0).  The
-// edge subtraction is the one Moller-Trumbore does per ray, done once per
-// block: the same float either way.
-__device__ __forceinline__ void stage_triangles(const float* __restrict__ tris,
-                                                int num_tris, float* s_tri) {
+// Stage [T, 9] rows (v0, v1, v2) as three 16-byte rows each, (v0, 0), (e1 =
+// v1 - v0, 0), (e2 = v2 - v0, 0).  The edge subtraction is the one
+// Moller-Trumbore does per ray, done once per block: the same float either
+// way.  The layout of the tree kernels' rows (ops/bvh4.py pack_tris).
+__device__ __forceinline__ void stage_rows3(const float* __restrict__ tris, int num_tris,
+                                            float4* s_rows) {
   for (int k = threadIdx.x; k < num_tris; k += blockDim.x) {
     const float* r = tris + 9 * k;
-    float* s = s_tri + 9 * k;
-    s[0] = r[0];
-    s[1] = r[1];
-    s[2] = r[2];
-    s[3] = r[3] - r[0];
-    s[4] = r[4] - r[1];
-    s[5] = r[5] - r[2];
-    s[6] = r[6] - r[0];
-    s[7] = r[7] - r[1];
-    s[8] = r[8] - r[2];
+    s_rows[3 * k] = make_float4(r[0], r[1], r[2], 0.0f);
+    s_rows[3 * k + 1] = make_float4(r[3] - r[0], r[4] - r[1], r[5] - r[2], 0.0f);
+    s_rows[3 * k + 2] = make_float4(r[6] - r[0], r[7] - r[1], r[8] - r[2], 0.0f);
   }
+}
+
+// Triangle k of a table staged by stage_rows3.
+__device__ __forceinline__ void tri_rows(const float4* s_tri, int k, float4& v0, float4& e1,
+                                         float4& e2) {
+  v0 = s_tri[3 * k];
+  e1 = s_tri[3 * k + 1];
+  e2 = s_tri[3 * k + 2];
 }
 
 __device__ __forceinline__ void stage_rows(const float* __restrict__ src, int count,
@@ -60,37 +79,37 @@ __device__ __forceinline__ void stage_rows(const float* __restrict__ src, int co
   for (int k = threadIdx.x; k < count; k += blockDim.x) dst[k] = src[k];
 }
 
-// Moller-Trumbore against one staged triangle; true when the hit is valid.
-__device__ __forceinline__ bool mt(const float* tri, const Ray& r, float& t, float& u,
-                                   float& v) {
-  const float v0x = tri[0], v0y = tri[1], v0z = tri[2];
-  const float e1x = tri[3], e1y = tri[4], e1z = tri[5];
-  const float e2x = tri[6], e2y = tri[7], e2z = tri[8];
-  const float px = r.dy * e2z - r.dz * e2y;
-  const float py = r.dz * e2x - r.dx * e2z;
-  const float pz = r.dx * e2y - r.dy * e2x;
-  const float det = e1x * px + e1y * py + e1z * pz;
+// Moller-Trumbore against the triangle (v0, e1, e2) (the .w of each row
+// unused); true when the hit is valid.
+__device__ __forceinline__ bool mt(const float4 v0, const float4 e1, const float4 e2,
+                                   const Ray& r, float& t, float& u, float& v) {
+  const float px = r.dy * e2.z - r.dz * e2.y;
+  const float py = r.dz * e2.x - r.dx * e2.z;
+  const float pz = r.dx * e2.y - r.dy * e2.x;
+  const float det = e1.x * px + e1.y * py + e1.z * pz;
   const bool ok_det = fabsf(det) > kMtEps;
   const float det_safe = ok_det ? det : 1.0f;
   const float inv_det = ok_det ? 1.0f / det_safe : 0.0f;
-  const float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
+  const float tx = r.ox - v0.x, ty = r.oy - v0.y, tz = r.oz - v0.z;
   u = (tx * px + ty * py + tz * pz) * inv_det;
-  const float qx = ty * e1z - tz * e1y;
-  const float qy = tz * e1x - tx * e1z;
-  const float qz = tx * e1y - ty * e1x;
+  const float qx = ty * e1.z - tz * e1.y;
+  const float qy = tz * e1.x - tx * e1.z;
+  const float qz = tx * e1.y - ty * e1.x;
   v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-  t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+  t = (e2.x * qx + e2.y * qy + e2.z * qz) * inv_det;
   return ok_det && u >= -kBaryEps && v >= -kBaryEps && u + v <= 1.0f + kBaryEps &&
          t >= 0.0f;
 }
 
-// The any-hit decision mt(...) && t < t_max for the triangle (v0, e1, e2)
-// (the .w of each row unused): ok_det, then u >= -kBaryEps, v, u + v and 0
-// <= t < t_max, each quantity by mt's own operations and only as far as the
+// mt(...) && t < t_max for the triangle (v0, e1, e2), stopping at the first
+// condition that fails: ok_det, then u >= -kBaryEps, v, u + v and 0 <= t <
+// t_max, each quantity by mt's own operations and only as far as the
 // decision needs it.  Under -fmad=false nothing is contracted, so each value
-// is the float mt computes.
-__device__ __forceinline__ bool mt_blocks(const float4 v0, const float4 e1, const float4 e2,
-                                          const Ray& r, float t_max) {
+// is the float mt computes, and t, u and v are mt's where it returns true.
+// A warp's lanes nearly always reject a triangle at the same step.
+__device__ __forceinline__ bool mt_early(const float4 v0, const float4 e1, const float4 e2,
+                                         const Ray& r, float t_max, float& t, float& u,
+                                         float& v) {
   const float px = r.dy * e2.z - r.dz * e2.y;
   const float py = r.dz * e2.x - r.dx * e2.z;
   const float pz = r.dx * e2.y - r.dy * e2.x;
@@ -98,24 +117,36 @@ __device__ __forceinline__ bool mt_blocks(const float4 v0, const float4 e1, cons
   if (!(fabsf(det) > kMtEps)) return false;
   const float inv_det = 1.0f / det;
   const float tx = r.ox - v0.x, ty = r.oy - v0.y, tz = r.oz - v0.z;
-  const float u = (tx * px + ty * py + tz * pz) * inv_det;
+  u = (tx * px + ty * py + tz * pz) * inv_det;
   if (!(u >= -kBaryEps)) return false;
   const float qx = ty * e1.z - tz * e1.y;
   const float qy = tz * e1.x - tx * e1.z;
   const float qz = tx * e1.y - ty * e1.x;
-  const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+  v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
   if (!(v >= -kBaryEps) || !(u + v <= 1.0f + kBaryEps)) return false;
-  const float t = (e2.x * qx + e2.y * qy + e2.z * qz) * inv_det;
+  t = (e2.x * qx + e2.y * qy + e2.z * qz) * inv_det;
   return t >= 0.0f && t < t_max;
 }
 
+// The any-hit decision mt(...) && t < t_max (mt_early's).
+__device__ __forceinline__ bool mt_blocks(const float4 v0, const float4 e1, const float4 e2,
+                                          const Ray& r, float t_max) {
+  float t, u, v;
+  return mt_early(v0, e1, e2, r, t_max, t, u, v);
+}
+
 // Closest triangle strictly nearer than t_best; the lowest index wins a tie.
-__device__ __forceinline__ void closest_sweep(const float* s_tri, int num_tris,
+// One test at a time with mt_early's exits: four full tests in flight
+// measured slower (PERF.md, the brute sweeps).
+__device__ __forceinline__ void closest_sweep(const float4* s_tri, int num_tris,
                                               const Ray& r, float& t_best, int& slot,
                                               float& u_best, float& v_best) {
+#pragma unroll 1
   for (int k = 0; k < num_tris; ++k) {
+    float4 v0, e1, e2;
+    tri_rows(s_tri, k, v0, e1, e2);
     float t, u, v;
-    if (mt(s_tri + 9 * k, r, t, u, v) && t < t_best) {
+    if (mt_early(v0, e1, e2, r, t_best, t, u, v)) {
       t_best = t;
       slot = k;
       u_best = u;
@@ -125,11 +156,12 @@ __device__ __forceinline__ void closest_sweep(const float* s_tri, int num_tris,
 }
 
 // Any triangle at t in [0, t_max); stops at the first one.
-__device__ __forceinline__ bool any_hit_sweep(const float* s_tri, int num_tris,
-                                              const Ray& r, float t_max) {
+__device__ __forceinline__ bool any_hit_sweep(const float4* s_tri, int num_tris, const Ray& r,
+                                              float t_max) {
   for (int k = 0; k < num_tris; ++k) {
-    float t, u, v;
-    if (mt(s_tri + 9 * k, r, t, u, v) && t < t_max) return true;
+    float4 v0, e1, e2;
+    tri_rows(s_tri, k, v0, e1, e2);
+    if (mt_blocks(v0, e1, e2, r, t_max)) return true;
   }
   return false;
 }
@@ -152,7 +184,7 @@ __device__ __forceinline__ Ray light_ray(const float* lpos, float px, float py, 
 
 // Shadow bits from a hit point: bit l set where light l (s_light [L, 3]
 // positions) is occluded.
-__device__ __forceinline__ int shadow_bits(const float* s_tri, int num_tris,
+__device__ __forceinline__ int shadow_bits(const float4* s_tri, int num_tris,
                                            const float* s_light, int num_lights, float px,
                                            float py, float pz) {
   int bits = 0;
@@ -247,5 +279,25 @@ __device__ __forceinline__ bool sphere_hit(const Ray& r, float a2, float cx, flo
 }
 
 __host__ __forceinline__ int num_blocks(int n) { return (n + kThreads - 1) / kThreads; }
+
+// One wave of blocks of kThreads for `kernel` at `smem` bytes of dynamic
+// shared memory (the SMs times the blocks of it that fit on one), or fewer
+// where n rays need fewer: the grid of the shade backward, whose blocks
+// stride over the rays and flush their sums once.
+template <class K>
+__host__ cudaError_t wave_grid(K kernel, int n, size_t smem, int& blocks) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+      cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
+      cudaSuccess)
+    return err;
+  const int wave = sms * (per_sm > 0 ? per_sm : 1);
+  blocks = num_blocks(n) < wave ? num_blocks(n) : wave;
+  return cudaSuccess;
+}
 
 }  // namespace cgrt

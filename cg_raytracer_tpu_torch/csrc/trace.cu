@@ -6,46 +6,36 @@
 // colors stream out as [N, 3]; nothing else touches device memory.
 //
 // Design: one thread per ray carries its color, throughput and current ray
-// through up to max_depth levels.  The triangle table [T, 9], the attribute
-// table [T, 19] (n0 n1 n2, face normal, kd, ks, shininess), the sphere table
-// [S, 11] (center, radius, kd, ks, shininess) and the lights [L, 6]
-// (position, color) are staged in shared memory (at most ~29.6 KB at the
-// caps T = 256, S = 16, L = 8).  Where the Pallas kernel selected attributes
-// with one masked select per triangle (a TPU artefact), a thread here indexes
-// the hit's row directly.  A ray that misses, or stops reflecting, exits;
-// shadow sweeps stop at the first occluder.  The arithmetic follows
-// trace_rays + reconstruct_hit + direct_point_lights op for op: the
-// interpolated camera-facing normal, geometric sphere normals, the pow
-// clamp, REFLECT_EPS / SHADOW_EPS = 1e-3 and the ks.z-only continue-test of
-// the reference (main.cpp:246) under quirk_ks_z.
+// through up to max_depth levels.  The triangle table (as v0, e1, e2: three
+// 16-byte rows per triangle), the attribute table [T, 19] (n0 n1 n2, face
+// normal, kd, ks, shininess), the sphere table [S, 11] (center, radius, kd,
+// ks, shininess) and the lights [L, 6] (position, color) are staged in
+// shared memory by each block of 128 rays (at most ~31.9 KB at the caps
+// T = 256, S = 16, L = 8; sweep.cuh: the sweep and its grid).  Where the Pallas kernel selected
+// attributes with one masked select per triangle (a TPU artefact), a thread
+// here indexes the hit's row directly.  A ray that misses, or stops
+// reflecting, exits; shadow sweeps stop at the first occluder.  The
+// arithmetic follows trace_rays + reconstruct_hit + direct_point_lights op
+// for op: the interpolated camera-facing normal, geometric sphere normals,
+// the pow clamp, REFLECT_EPS / SHADOW_EPS = 1e-3 and the ks.z-only
+// continue-test of the reference (main.cpp:246) under quirk_ks_z.
 //
-// What bounds it on an H100: per level a ray runs (1 + L) sweeps of ~30
-// FLOPs per triangle against ~40 bytes of ray I/O in total, far above the
-// ridge, so not device memory; measured, its sweeps share oracle.cu's
-// limits (the serial loop and scalar shared-memory loads, PERF.md).
+// What bounds it on an H100: per level a ray runs (1 + L) sweeps of 64
+// operations per triangle against ~40 bytes of ray I/O in total, far above
+// the ridge, so not device memory: the sweep's instruction rate sets the
+// pace (sweep.cuh).  On the box at 1024^2, depth 2, a launch takes ~0.134
+// ms, 37% of its bound (PERF.md, the brute sweeps).
 #include "sweep.cuh"
 
 namespace cgrt {
 
-__global__ void __launch_bounds__(kThreads)
-    trace_kernel(const float* __restrict__ o, const float* __restrict__ d, int n,
-                 const float* __restrict__ tris, int num_tris, const float* __restrict__ aux,
-                 const float* __restrict__ spheres, int num_spheres,
-                 const float* __restrict__ lights, int num_lights, int max_depth,
-                 int quirk_ks_z, float* __restrict__ rgb) {
-  extern __shared__ float smem[];
-  float* s_tri = smem;
-  float* s_aux = s_tri + 9 * num_tris;
-  float* s_sph = s_aux + 19 * num_tris;
-  float* s_light = s_sph + 11 * num_spheres;
-  stage_triangles(tris, num_tris, s_tri);
-  stage_rows(aux, 19 * num_tris, s_aux);
-  stage_rows(spheres, 11 * num_spheres, s_sph);
-  stage_rows(lights, 6 * num_lights, s_light);
-  __syncthreads();
-
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+// One ray's whole trace: its color into rgb[3 i ...].
+__device__ __forceinline__ void trace_ray(int i, const float* __restrict__ o,
+                                          const float* __restrict__ d, const float4* s_tri,
+                                          int num_tris, const float* s_aux, const float* s_sph,
+                                          int num_spheres, const float* s_light,
+                                          int num_lights, int max_depth, int quirk_ks_z,
+                                          float* __restrict__ rgb) {
   Ray r = load_ray(o, d, i);
   float cr = 0.0f, cg = 0.0f, cb = 0.0f;
   float tpr = 1.0f, tpg = 1.0f, tpb = 1.0f;
@@ -111,18 +101,40 @@ __global__ void __launch_bounds__(kThreads)
   rgb[3 * i + 2] = cb;
 }
 
+__global__ void __launch_bounds__(kThreads)
+    trace_kernel(const float* __restrict__ o, const float* __restrict__ d, int n,
+                 const float* __restrict__ tris, int num_tris, const float* __restrict__ aux,
+                 const float* __restrict__ spheres, int num_spheres,
+                 const float* __restrict__ lights, int num_lights, int max_depth,
+                 int quirk_ks_z, float* __restrict__ rgb) {
+  extern __shared__ float4 smem[];
+  float* s_aux = reinterpret_cast<float*>(smem + 3 * num_tris);
+  float* s_sph = s_aux + 19 * num_tris;
+  float* s_light = s_sph + 11 * num_spheres;
+  stage_rows3(tris, num_tris, smem);
+  stage_rows(aux, 19 * num_tris, s_aux);
+  stage_rows(spheres, 11 * num_spheres, s_sph);
+  stage_rows(lights, 6 * num_lights, s_light);
+  __syncthreads();
+
+  for (long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; j < n;
+       j += static_cast<long long>(gridDim.x) * blockDim.x) {
+    trace_ray(static_cast<int>(j), o, d, smem, num_tris, s_aux, s_sph, num_spheres, s_light,
+              num_lights, max_depth, quirk_ks_z, rgb);
+  }
+}
+
 }  // namespace cgrt
 
 extern "C" int cgrt_trace(const float* o, const float* d, int n, const float* tris,
                           int num_tris, const float* aux, const float* spheres,
                           int num_spheres, const float* lights, int num_lights, int max_depth,
                           int quirk_ks_z, float* rgb, cudaStream_t stream) {
-  if (n > 0) {
-    const size_t smem =
-        sizeof(float) * (28 * num_tris + 11 * num_spheres + 6 * num_lights);
-    cgrt::trace_kernel<<<cgrt::num_blocks(n), cgrt::kThreads, smem, stream>>>(
-        o, d, n, tris, num_tris, aux, spheres, num_spheres, lights, num_lights, max_depth,
-        quirk_ks_z, rgb);
-  }
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const size_t smem = sizeof(float4) * 3 * num_tris +
+                      sizeof(float) * (19 * num_tris + 11 * num_spheres + 6 * num_lights);
+  cgrt::trace_kernel<<<cgrt::num_blocks(n), cgrt::kThreads, smem, stream>>>(
+      o, d, n, tris, num_tris, aux, spheres, num_spheres, lights, num_lights, max_depth,
+      quirk_ks_z, rgb);
   return static_cast<int>(cudaGetLastError());
 }

@@ -101,31 +101,37 @@ def _compile(path: str, sources=SOURCES) -> None:
     os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
 
 
-def _declare(lib) -> None:
-    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-    signatures = {
-        "cgrt_closest": [p, p, p, i, p, i, p, p, p, p, p],
-        "cgrt_anyhit": [p, p, p, i, p, i, p, p],
-        "cgrt_bounce": [p, p, p, i, p, i, p, i, p, p, p, p, p, p],
-        "cgrt_trace": [p, p, i, p, i, p, p, i, p, i, i, i, p, p],
-        "cgrt_record_trace": [p, p, i, p, i, p, p, i, i, i] + [p] * 8 + [p],
-        "cgrt_bounce_refl": [p, p, p, i, p, i, p, p, i, i] + [p] * 8 + [p],
-        "cgrt_shade_fwd": [p, p, p, p, i, p, p, i, i, p, i, p, i, p, i, p] + [p] * 4 + [p],
-        "cgrt_shade_bwd": [p, p, p, p, i, p, p, i, i, p, i, p, i, p, i, p] + [p] * 11 + [p],
-        "cgrt_shade_pre_fwd": [p, p, p, p, i, p, i, p, i, p, i, p, i, p, i, p] + [p] * 4 + [p],
-        "cgrt_shade_pre_bwd": [p, p, p, p, i, p, i, p, i, p, i, p, i, p, i, p] + [p] * 11 + [p],
-        "cgrt_bvh4_closest": [p, p, p, i, i] + [p] * 3 + [p] * 4 + [p],
-        "cgrt_bvh4_anyhit": [p, p, p, i, i] + [p] * 3 + [p] + [p],
-        "cgrt_bvh4_bounce": [p, p, p, i, i] + [p] * 3 + [p, i] + [p] * 5 + [p],
-        "cgrt_soft_brute": [p, p, p, i, p, p, i, i, u, u, u, p, p] + [p],
-        "cgrt_soft_bvh4": [p, p, p, i, p, i, p, p, i, u, u, u, p, p] + [p],
-    }
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+# The entry points' argtypes (pointers and the stream as c_void_p; all return int).
+SIGNATURES = {
+    "cgrt_closest": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P],
+    "cgrt_anyhit": [_P, _P, _P, _I, _P, _I, _P, _P],
+    "cgrt_bounce": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P],
+    "cgrt_trace": [_P, _P, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _P, _P],
+    "cgrt_record_trace": [_P, _P, _I, _P, _I, _P, _P, _I, _I, _I] + [_P] * 8 + [_P],
+    "cgrt_bounce_refl": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _I] + [_P] * 8 + [_P],
+    "cgrt_shade_fwd": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _I, _P, _I, _P, _I, _P]
+    + [_P] * 4 + [_P],
+    "cgrt_shade_bwd": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _I, _P, _I, _P, _I, _P]
+    + [_P] * 11 + [_P],
+    "cgrt_shade_pre_fwd": [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P]
+    + [_P] * 4 + [_P],
+    "cgrt_shade_pre_bwd": [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P]
+    + [_P] * 11 + [_P],
+    "cgrt_bvh4_closest": [_P, _P, _P, _I, _I] + [_P] * 3 + [_P] * 4 + [_P],
+    "cgrt_bvh4_anyhit": [_P, _P, _P, _I, _I] + [_P] * 3 + [_P] + [_P],
+    "cgrt_bvh4_bounce": [_P, _P, _P, _I, _I] + [_P] * 3 + [_P, _I] + [_P] * 5 + [_P],
+    "cgrt_soft_brute": [_P, _P, _P, _I, _P, _P, _I, _I, _U, _U, _U, _P, _P] + [_P],
+    "cgrt_soft_bvh4": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _U, _U, _U, _P, _P] + [_P],
+}
+
+
+def declare(lib, signatures=SIGNATURES) -> None:
+    """Set the argtypes and int return type of ``lib``'s entry points."""
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.cgrt_error_string.argtypes = [i]
-    lib.cgrt_error_string.restype = ctypes.c_char_p
 
 
 def load():
@@ -137,7 +143,9 @@ def load():
             if not os.path.exists(path):
                 _compile(path)
             lib = ctypes.CDLL(path)
-            _declare(lib)
+            declare(lib)
+            lib.cgrt_error_string.argtypes = [ctypes.c_int]
+            lib.cgrt_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
 

@@ -159,9 +159,17 @@ def _empty_hit(n, device):
                torch.full((n,), MISS, dtype=torch.int32, device=device), z, z.clone())
 
 
+def _check_tris(name, tri):
+    """The sweeps stage the table in shared memory: 1..UNROLL_MAX_TRIS rows."""
+    if not 0 < tri.shape[0] <= UNROLL_MAX_TRIS:
+        raise ValueError(f"{name}: the kernel takes 1..{UNROLL_MAX_TRIS} triangles, "
+                         f"got {tri.shape[0]}")
+
+
 def _closest_kernel(tri, o, d, tm):
     n = o.shape[0]
     _check("cgrt_closest", o, d, tm, tri, device=o.device)
+    _check_tris("cgrt_closest", tri)
     t = torch.empty((n,), dtype=torch.float32, device=o.device)
     slot = torch.empty((n,), dtype=torch.int32, device=o.device)
     u, v = torch.empty_like(t), torch.empty_like(t)
@@ -174,6 +182,7 @@ def _closest_kernel(tri, o, d, tm):
 def _anyhit_kernel(tri, o, d, tm):
     n = o.shape[0]
     _check("cgrt_anyhit", o, d, tm, tri, device=o.device)
+    _check_tris("cgrt_anyhit", tri)
     hit = torch.empty((n,), dtype=torch.uint8, device=o.device)
     _launch("cgrt_anyhit", o.device, _ptr(o), _ptr(d), _ptr(tm), n, _ptr(tri),
             tri.shape[0], _ptr(hit))

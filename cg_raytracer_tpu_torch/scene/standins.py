@@ -9,7 +9,9 @@ in place of its point light it stands in for ``cornell_box_spherical_light``;
 the procedural teacup with ``SPHERICAL_CUP_LIGHTS`` stands in for
 ``monkey_spherical_light`` (both lights as the presets have them).  ``mixed_meshes`` and
 ``mixed_spheres`` make a small triangles + spheres scene (12 triangles, two
-spheres, one of them glossy).
+spheres, one of them glossy).  ``dense_mirror_box_meshes`` with
+``DENSE_BOX_LIGHTS`` is the mirror box at the brute kernels' caps: 256
+triangles, 8 point lights.
 
 Everything here is numpy and plain tuples, so both packages' ``make_scene``
 accept it.
@@ -88,6 +90,37 @@ def mirror_box_meshes() -> list:
         m["vertices"] = _rotate(m["vertices"], (20.0, 20.0, 0.0))
         m["normals"] = _rotate(m["normals"], (20.0, 20.0, 0.0))
     return meshes
+
+
+def split_quad(mesh: dict, rows: int, cols: int) -> dict:
+    """A ``quad`` mesh (p0 p1 p2 p3) cut into rows x cols quads on the
+    bilinear grid of its corners: 2 rows cols triangles, the same face
+    normal and material."""
+    p0, p1, p2, p3 = np.asarray(mesh["vertices"], np.float64)
+    a = np.linspace(0.0, 1.0, cols + 1)[None, :, None]
+    b = np.linspace(0.0, 1.0, rows + 1)[:, None, None]
+    grid = ((1 - b) * ((1 - a) * p0 + a * p1) + b * ((1 - a) * p3 + a * p2)).reshape(-1, 3)
+    k = np.arange(rows * cols)
+    c00 = k // cols * (cols + 1) + k % cols
+    c01, c10 = c00 + 1, c00 + cols + 1
+    tris = np.stack([np.stack([c00, c01, c10 + 1], 1), np.stack([c00, c10 + 1, c10], 1)],
+                    1).reshape(-1, 3)
+    return {"vertices": grid.astype(np.float32),
+            "normals": np.tile(np.asarray(mesh["normals"][0], np.float32), (len(grid), 1)),
+            "triangles": tris.astype(np.int32), "material": dict(mesh["material"])}
+
+
+def dense_mirror_box_meshes() -> list:
+    """``mirror_box_meshes`` with each of its 16 quads cut into 2 x 4: 256
+    triangles, the brute kernels' cap, in the same box."""
+    return [split_quad(m, 2, 4) for m in mirror_box_meshes()]
+
+
+# Eight point lights inside the (turned) mirror box, above both blocks.
+DENSE_BOX_LIGHTS = tuple(
+    (tuple(float(c) for c in _rotate(np.asarray([x, y, z], np.float32), (20.0, 20.0, 0.0))),
+     (0.15, 0.15, 0.15))
+    for y in (0.5, 0.25) for x in (-0.3, 0.3) for z in (-0.3, 0.3))
 
 
 def mixed_meshes() -> list:

@@ -158,7 +158,21 @@ Phases, each printing its own lines:
     shade.cu take part in the same turns under the same checks, and the
     box's fwd+bwd steps (both contracts), the teacup's and the donut's
     default-route frames and full steps, and the box step's busy share run
-    in a process per tree (parent, this, this, parent).
+    in a process per tree (parent, this, this, parent), the box's
+    forward-only frame (the trace kernel's route) with them;
+31. the brute sweeps measured: registers, stack frame and spills of the six
+    brute kernels (ptxas; none may spill), their SASS per triangle test
+    (cuobjdump: shared loads and float instructions in the hottest loop),
+    and csrc/oracle.cu, trace.cu and record.cu rebuilt with one lever of
+    the sweep taken out again (16-byte rows, the any-hit early exits, the
+    unrolled closest sweep, the one-wave grid), with the closest sweep's
+    early exits, or another block size: each variant's outputs bit-equal to
+    this tree's and timed in turns with it on the stand-in box (phase 3's
+    and phase 8's rays) and on the box cut to 256 triangles with 8 lights;
+    each row's time against its bound on these rays, and the share of
+    record-trace's warps partly active at level 1.  With ``--parent DIR``,
+    that commit's three sources take part in the same turns under the same
+    check.
 
 Every kernel's entry has its bound: the larger of its operations over 67
 TFLOP/s (integer ones over 16.7 Tops/s) and its bytes over 3.35 TB/s
@@ -288,8 +302,9 @@ def main(argv=None) -> int:
     parser.add_argument("--out", default=os.path.join(ROOT, "chip_smoke_out"),
                         help="directory for the renders and results.json")
     parser.add_argument("--parent", default=None,
-                        help="an unpacked checkout of an earlier commit whose samplers, walk "
-                             "and shade backward phases 29 and 30 time beside this tree's")
+                        help="an unpacked checkout of an earlier commit whose samplers, walk, "
+                             "shade backward and brute sweeps phases 29-31 time beside this "
+                             "tree's")
     args = parser.parse_args(argv)
     out = args.out
     import torch
@@ -306,8 +321,6 @@ def main(argv=None) -> int:
     from cg_raytracer_tpu_torch.ops import cuda_kernels as ck
     from cg_raytracer_tpu_torch.ops import shade
     from cg_raytracer_tpu_torch.ops.camera import generate_rays
-    from cg_raytracer_tpu_torch.ops.intersect import reconstruct_hit
-    from cg_raytracer_tpu_torch.ops.linalg import norm, reflect, safe_normalize
     from cg_raytracer_tpu_torch.scene import standins
     from cg_raytracer_tpu_torch.scene.types import Camera, PointLights, Spheres, make_scene
     from cg_raytracer_tpu_torch.utils import bench, checks, roofline
@@ -352,17 +365,6 @@ def main(argv=None) -> int:
     phase("phase 3: kernels against their plain twins, 1024^2 primary + secondary rays")
     o1, d1 = generate_rays(cam, 1024, 1024)
 
-    def ray_sets(scene):
-        """Primary rays + their reflections, and shadow rays toward light 0."""
-        surf = reconstruct_hit(scene, o1, d1, ck.intersect_plain(scene, o1, d1))
-        refl = safe_normalize(reflect(d1, surf.normal))
-        o2 = surf.position + 1e-3 * refl
-        d2 = torch.where(surf.valid[:, None], refl, d1)
-        to_light = scene.point_lights.position[0] - surf.position
-        ldir = safe_normalize(to_light)
-        shadow = (surf.position + 1e-3 * ldir, ldir, norm(to_light) - 1e-3)
-        return torch.cat([o1, o2]), torch.cat([d1, d2]), surf.valid, shadow
-
     def hit_diff(got, want):
         same = got.prim_id == want.prim_id
         match = same.float().mean().item()
@@ -382,7 +384,7 @@ def main(argv=None) -> int:
 
     sets = {}
     for label, scene in (("box", box), ("mixed", mixed)):
-        o, d, valid1, shadow = sets[label] = ray_sets(scene)
+        o, d, valid1, shadow = sets[label] = ray_sets(scene, o1, d1)
         match, err = hit_diff(ck.intersect_cuda(scene, o, d), ck.intersect_plain(scene, o, d))
         print(f"  closest {label}: prim ids agree on {match:.5%}, max |dt|,|du|,|dv| {err:.3g}")
         note("intersect_cuda", 1 - match, err)
@@ -728,6 +730,7 @@ def main(argv=None) -> int:
     sampler_phase(out, device, kernels, e2e, results, scenes, args.parent)
     scenes["box"] = box
     walk_shade_phase(out, device, kernels, e2e, results, scenes, args.parent)
+    sweep_phase(out, device, kernels, e2e, results, scenes, args.parent)
 
     results.update(card=smi, counts=counts, kernels=kernels, end_to_end=e2e)
     with open(os.path.join(out, "results.json"), "w") as f:
@@ -739,6 +742,24 @@ def main(argv=None) -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def ray_sets(scene, o1, d1):
+    """Primary rays + their reflections, and shadow rays toward light 0."""
+    import torch
+
+    from cg_raytracer_tpu_torch.ops import cuda_kernels as ck
+    from cg_raytracer_tpu_torch.ops.intersect import reconstruct_hit
+    from cg_raytracer_tpu_torch.ops.linalg import norm, reflect, safe_normalize
+
+    surf = reconstruct_hit(scene, o1, d1, ck.intersect_plain(scene, o1, d1))
+    refl = safe_normalize(reflect(d1, surf.normal))
+    o2 = surf.position + 1e-3 * refl
+    d2 = torch.where(surf.valid[:, None], refl, d1)
+    to_light = scene.point_lights.position[0] - surf.position
+    ldir = safe_normalize(to_light)
+    shadow = (surf.position + 1e-3 * ldir, ldir, norm(to_light) - 1e-3)
+    return torch.cat([o1, o2]), torch.cat([d1, d2]), surf.valid, shadow
 
 
 def two_spheres(device):
@@ -2167,9 +2188,8 @@ CSRC = os.path.join("cg_raytracer_tpu_torch", "csrc")
 _MT_BLOCKS = ("__device__ __forceinline__ bool mt_blocks(const float4 v0, const float4 e1, "
               "const float4 e2,\n" + " " * 42 + "const Ray& r, float t_max) {\n")
 _MT_FULL = ("sweep.cuh", _MT_BLOCKS, _MT_BLOCKS + """  {
-    const float tri[9] = {v0.x, v0.y, v0.z, e1.x, e1.y, e1.z, e2.x, e2.y, e2.z};
     float t, u, v;
-    return mt(tri, r, t, u, v) && t < t_max;
+    return mt(v0, e1, e2, r, t, u, v) && t < t_max;
   }
 """, 1)
 _MINMAX_COMPARES = ("bvh4.cuh", "#ifdef __CUDA_ARCH__", "#if 0", 2)
@@ -2255,27 +2275,30 @@ def variant_dir(root, subs) -> str:
 
 
 def build_variants(source, ablations, signatures, parent=None, parent_signatures=None) -> dict:
-    """name -> (ctypes library, ptxas log): csrc/``source`` compiled alone
-    with each of ``ablations``' substitutions and, given ``parent`` (an
-    unpacked checkout), that checkout's ``source``; one nvcc each, all
-    started together, into the build directory.  ``signatures``: the
-    argtypes of the entry points to declare (``parent_signatures`` the
-    parent's)."""
+    """name -> (ctypes library, ptxas log): csrc/``source`` (a file name, or
+    a tuple of them linked into one library) compiled with each of
+    ``ablations``' substitutions and, given ``parent`` (an unpacked
+    checkout), that checkout's ``source``; one nvcc each, all started
+    together, into the build directory.  ``signatures``: the argtypes of the
+    entry points to declare (``parent_signatures`` the parent's)."""
     import ctypes
 
     from cg_raytracer_tpu_torch.ops import _build
 
-    root = os.path.join(_build.build_dir(), f"variants_{source.split('.')[0]}")
+    sources = (source,) if isinstance(source, str) else tuple(source)
+    root = os.path.join(_build.build_dir(),
+                        "variants_" + "_".join(x.split(".")[0] for x in sources))
     jobs = {}
     for k, (name, subs) in enumerate(ablations.items()):
         src_dir = variant_dir(os.path.join(root, f"v{k}"), subs)
-        jobs[name] = (os.path.join(src_dir, source), os.path.join(root, f"v{k}.so"), signatures)
+        jobs[name] = ([os.path.join(src_dir, x) for x in sources],
+                      os.path.join(root, f"v{k}.so"), signatures)
     if parent is not None:
-        jobs["parent"] = (os.path.join(parent, CSRC, source), os.path.join(root, "parent.so"),
-                          parent_signatures or signatures)
+        jobs["parent"] = ([os.path.join(parent, CSRC, x) for x in sources],
+                          os.path.join(root, "parent.so"), parent_signatures or signatures)
     procs = {}
-    for name, (src, so, sig) in jobs.items():
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", so, src]
+    for name, (srcs, so, sig) in jobs.items():
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", so, *srcs]
         procs[name] = (cmd, so, sig, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                       stderr=subprocess.PIPE, text=True))
     libs = {}
@@ -2283,9 +2306,7 @@ def build_variants(source, ablations, signatures, parent=None, parent_signatures
         stdout, stderr = proc.communicate()
         assert proc.returncode == 0, f"{name}: {' '.join(cmd)}\n{stdout}{stderr}"
         lib = ctypes.CDLL(so)
-        for fn, argtypes in sig.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+        _build.declare(lib, sig)
         libs[name] = (lib, stdout + stderr)
     return libs
 
@@ -2564,30 +2585,6 @@ struct SharedStack {
   __device__ __forceinline__ int& operator[](int k) { return g_walk_stack[k][threadIdx.x]; }
 };
 """
-_MT_EARLY = """// (chip_smoke.py phase 30's variant) mt(...) && t < t_max with mt_blocks's
-// early exits, t, u and v by mt's operations.
-__device__ __forceinline__ bool mt_early(const float4 v0, const float4 e1, const float4 e2,
-                                         const Ray& r, float t_max, float& t, float& u,
-                                         float& v) {
-  const float px = r.dy * e2.z - r.dz * e2.y;
-  const float py = r.dz * e2.x - r.dx * e2.z;
-  const float pz = r.dx * e2.y - r.dy * e2.x;
-  const float det = e1.x * px + e1.y * py + e1.z * pz;
-  if (!(fabsf(det) > kMtEps)) return false;
-  const float inv_det = 1.0f / det;
-  const float tx = r.ox - v0.x, ty = r.oy - v0.y, tz = r.oz - v0.z;
-  u = (tx * px + ty * py + tz * pz) * inv_det;
-  if (!(u >= -kBaryEps)) return false;
-  const float qx = ty * e1.z - tz * e1.y;
-  const float qy = tz * e1.x - tx * e1.z;
-  const float qz = tx * e1.y - ty * e1.x;
-  v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-  if (!(v >= -kBaryEps) || !(u + v <= 1.0f + kBaryEps)) return false;
-  t = (e2.x * qx + e2.y * qy + e2.z * qz) * inv_det;
-  return t >= 0.0f && t < t_max;
-}
-
-"""
 _CLOSEST_PUSH = """          tstack[sp] = ts[c];
           ++sp;
         }
@@ -2611,10 +2608,8 @@ WALK_ABLATIONS = {
                                                    "        ref = es[W - 1];\n"
                                                    "        continue;\n      }\n", 1)],
     "closest: early-exit Moller-Trumbore": [
-        ("bvh4.cuh", "if (mt(tri, r, t, uu, vv) && t < t_best) {",
-         "if (mt_early(v0, e1, e2, r, t_best, t, uu, vv)) {", 1),
-        ("sweep.cuh", "// Closest triangle strictly nearer than t_best;",
-         _MT_EARLY + "// Closest triangle strictly nearer than t_best;", 1)],
+        ("bvh4.cuh", "if (mt(v0, e1, e2, r, t, uu, vv) && t < t_best) {",
+         "if (mt_early(v0, e1, e2, r, t_best, t, uu, vv)) {", 1)],
     "stack in shared memory": [("bvh4.cuh", "  int stack[kStack];\n", "  SharedStack stack;\n", 2),
                                ("bvh4.cuh", "constexpr float kBig = 3.4e38f;\n",
                                 "constexpr float kBig = 3.4e38f;\n" + _SHARED_STACK, 1)],
@@ -2681,7 +2676,9 @@ from cg_raytracer_tpu_torch.utils.bench import run_bench
 from cg_raytracer_tpu_torch.utils.config import RenderConfig
 from cg_raytracer_tpu_torch.utils.profiling import device_breakdown
 ms = lambda r: r["seconds_per_frame"] * 1e3
-out = {"mirror_box materials step": ms(run_bench("mirror_box", include_bwd=True, iters=10))}
+out = {"mirror_box materials step": ms(run_bench("mirror_box", include_bwd=True, iters=10)),
+       "mirror_box forward-only frame": ms(run_bench("mirror_box", iters=10,
+                                                    cfg_overrides={"forward_only": True}))}
 for name in ("mirror_box", "teacup", "donut"):
     if name != "mirror_box":
         out[name + " frame"] = ms(run_bench(name, iters=5, cfg_overrides={"forward_only": False}))
@@ -2707,8 +2704,9 @@ print(json.dumps(out))
 
 
 def walk_signatures(old: bool = False):
-    """The walk's entry points' argtypes (``old``: the parent's, which took
-    boxes, meta, nchild and tris where this tree takes its records)."""
+    """The walk's entry points' argtypes (``old``: a parent from before the
+    packed node records, which took boxes, meta, nchild and tris where this
+    tree takes the records)."""
     import ctypes
 
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -2918,8 +2916,11 @@ def walk_shade_phase(out, device, kernels, e2e, results, scenes, parent=None) ->
     phase("phase 30: the shade backward and the walk measured: registers, ablations"
           + (f", against {parent}" if parent else ""))
     t0 = time.perf_counter()
+    # A parent from before the packed records takes the tree's arrays.
+    old = parent is not None and "const float* boxes" in open(
+        os.path.join(parent, CSRC, "bvh4.cu")).read()
     walk_vars = build_variants("bvh4.cu", WALK_ABLATIONS, walk_signatures(), parent,
-                               walk_signatures(old=True))
+                               walk_signatures(old=old))
     shade_vars = build_variants("shade.cu", SHADE_ABLATIONS, shade_signatures(), parent)
     print(f"  {len(walk_vars)} variants of bvh4.cu and {len(shade_vars)} of shade.cu built in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -2941,7 +2942,8 @@ def walk_shade_phase(out, device, kernels, e2e, results, scenes, parent=None) ->
     gen = torch.Generator(device).manual_seed(30)
     o1, d1 = generate_rays(cam, 1024, 1024)
     trees = scenes["walk_trees"]
-    libs = {"this tree": (lib, False), **{k: (v[0], k == "parent") for k, v in walk_vars.items()}}
+    libs = {"this tree": (lib, False),
+            **{k: (v[0], k == "parent" and old) for k, v in walk_vars.items()}}
     walk_t = {}
     print(f"  the walk: device ms per launch, 20 launches enqueued behind a "
           f"{_sleep_ms():.1f}-ms sleep kernel (batched_ms), two rounds in opposite orders; "
@@ -3047,6 +3049,393 @@ def walk_shade_phase(out, device, kernels, e2e, results, scenes, parent=None) ->
             print(f"  {key} (1024^2): parent {[round(x, 5) for x in vals['parent']]}, this "
                   f"tree {[round(x, 5) for x in vals['this tree']]}")
             e2e[f"{key} parent vs this tree"] = vals
+
+
+# Phase 31's variants of the brute sweep (csrc/sweep.cuh, built into
+# oracle.cu, trace.cu and record.cu): each takes one lever of the design out
+# again (the parent's kernels have none of them), or tries the closest sweep
+# first written for this card (four full tests in flight), u's sign before
+# the reciprocal, a one-wave grid or another block size.
+_STAGE_ROWS3 = """    s_rows[3 * k] = make_float4(r[0], r[1], r[2], 0.0f);
+    s_rows[3 * k + 1] = make_float4(r[3] - r[0], r[4] - r[1], r[5] - r[2], 0.0f);
+    s_rows[3 * k + 2] = make_float4(r[6] - r[0], r[7] - r[1], r[8] - r[2], 0.0f);
+"""
+_STAGE_NINE = """    float* s = reinterpret_cast<float*>(s_rows) + 9 * k;
+    s[0] = r[0];
+    s[1] = r[1];
+    s[2] = r[2];
+    s[3] = r[3] - r[0];
+    s[4] = r[4] - r[1];
+    s[5] = r[5] - r[2];
+    s[6] = r[6] - r[0];
+    s[7] = r[7] - r[1];
+    s[8] = r[8] - r[2];
+"""
+_TRI_ROWS = """  v0 = s_tri[3 * k];
+  e1 = s_tri[3 * k + 1];
+  e2 = s_tri[3 * k + 2];
+"""
+_TRI_NINE = """  const float* t = reinterpret_cast<const float*>(s_tri) + 9 * k;
+  v0 = make_float4(t[0], t[1], t[2], 0.0f);
+  e1 = make_float4(t[3], t[4], t[5], 0.0f);
+  e2 = make_float4(t[6], t[7], t[8], 0.0f);
+"""
+_WAVE_BLOCKS = """// (chip_smoke.py phase 31's variant) one wave of blocks striding over the rays.
+template <class K>
+__host__ int wave_blocks(K kernel, int n, size_t smem) {
+  int blocks = num_blocks(n);
+  wave_grid(kernel, n, smem, blocks);
+  return blocks;
+}
+
+"""
+_CLOSEST_TEST = "    if (mt_early(v0, e1, e2, r, t_best, t, u, v)) {\n"
+_CLOSEST_LOOP = """#pragma unroll 1
+  for (int k = 0; k < num_tris; ++k) {
+    float4 v0, e1, e2;
+    tri_rows(s_tri, k, v0, e1, e2);
+    float t, u, v;
+""" + _CLOSEST_TEST + """      t_best = t;
+      slot = k;
+      u_best = u;
+      v_best = v;
+    }
+  }
+"""
+# The closest sweep first written for this card: four full tests, then
+# their selects in index order.
+_CLOSEST_UNROLLED = """  int k = 0;
+#pragma unroll 1
+  for (; k + 4 <= num_tris; k += 4) {
+    float t[4], u[4], v[4];
+    bool ok[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float4 v0, e1, e2;
+      tri_rows(s_tri, k + j, v0, e1, e2);
+      ok[j] = mt(v0, e1, e2, r, t[j], u[j], v[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (ok[j] && t[j] < t_best) {
+        t_best = t[j];
+        slot = k + j;
+        u_best = u[j];
+        v_best = v[j];
+      }
+    }
+  }
+#pragma unroll 1
+  for (; k < num_tris; ++k) {
+    float4 v0, e1, e2;
+    tri_rows(s_tri, k, v0, e1, e2);
+    float t, u, v;
+    if (mt(v0, e1, e2, r, t, u, v) && t < t_best) {
+      t_best = t;
+      slot = k;
+      u_best = u;
+      v_best = v;
+    }
+  }
+"""
+_U_BEFORE_RCP = """  const float inv_det = 1.0f / det;
+  const float tx = r.ox - v0.x, ty = r.oy - v0.y, tz = r.oz - v0.z;
+  u = (tx * px + ty * py + tz * pz) * inv_det;
+"""
+# u's numerator against det before the reciprocal: where their signs differ
+# and |un| > 2 kBaryEps |det|, u = un * (1 / det) < -kBaryEps after any
+# rounding, so the test can stop without dividing (same outputs).
+_U_SIGN_FIRST = """  const float tx = r.ox - v0.x, ty = r.oy - v0.y, tz = r.oz - v0.z;
+  const float un = tx * px + ty * py + tz * pz;
+  if ((un < 0.0f) != (det < 0.0f) && fabsf(un) > 2.0f * kBaryEps * fabsf(det)) return false;
+  const float inv_det = 1.0f / det;
+  u = un * inv_det;
+"""
+SWEEP_ABLATIONS = {
+    "9-float rows": [("sweep.cuh", _STAGE_ROWS3, _STAGE_NINE, 1),
+                     ("sweep.cuh", _TRI_ROWS, _TRI_NINE, 1)],
+    "any hit: full Moller-Trumbore": [_MT_FULL],
+    "closest: full Moller-Trumbore": [
+        ("sweep.cuh", _CLOSEST_TEST, "    if (mt(v0, e1, e2, r, t, u, v) && t < t_best) {\n", 1)],
+    "closest: full, unrolled by 4": [("sweep.cuh", _CLOSEST_LOOP, _CLOSEST_UNROLLED, 1)],
+    "u's sign before 1/det": [("sweep.cuh", _U_BEFORE_RCP, _U_SIGN_FIRST, 1)],
+    "one wave of blocks": [
+        ("sweep.cuh", "}  // namespace cgrt\n", _WAVE_BLOCKS + "}  // namespace cgrt\n", 1),
+        ("oracle.cu", "oracle_kernel<M><<<num_blocks(n),",
+         "oracle_kernel<M><<<wave_blocks(oracle_kernel<M>, n, smem),", 1),
+        *(("record.cu" if k != "trace" else "trace.cu", f"cgrt::{k}_kernel<<<cgrt::num_blocks(n),",
+           f"cgrt::{k}_kernel<<<cgrt::wave_blocks(cgrt::{k}_kernel, n, smem),", 1)
+          for k in ("trace", "record_trace", "bounce_refl"))],
+    "64 threads per block": [("sweep.cuh", "constexpr int kThreads = 128;",
+                              "constexpr int kThreads = 64;", 1)],
+    "256 threads per block": [("sweep.cuh", "constexpr int kThreads = 128;",
+                               "constexpr int kThreads = 256;", 1)],
+}
+SWEEP_SOURCES = ("oracle.cu", "trace.cu", "record.cu")
+SWEEP_PTXAS = ((r"13oracle_kernelIL\w*ModeE(\d)E",
+                lambda m: ("closest", "any hit", "bounce")[int(m)]),
+               (r"12trace_kernel", lambda: "trace"),
+               (r"19record_trace_kernel", lambda: "record trace"),
+               (r"18bounce_refl_kernel", lambda: "bounce-refl"))
+# The six kernels: the entry names of their rows in the kernels JSON line.
+SWEEP_ROWS = {"closest": "closest", "anyhit": "anyhit", "bounce": "bounce", "trace": "trace",
+              "record": "record_trace", "bounce_refl": "bounce_refl"}
+
+
+def sweep_launch(lib, kind, tables, o, d, tm):
+    """One launch of ``lib``'s brute kernel ``kind`` (a key of SWEEP_ROWS;
+    trace and record at depth 2) on ``tables`` (tri [T, 9], aux [T, 19],
+    light positions [L, 3], light rows [L, 6], spheres [S, 11]) -> its
+    outputs."""
+    import ctypes
+
+    import torch
+
+    from cg_raytracer_tpu_torch.ops import cuda_kernels as ck
+
+    tri, aux, lpos, lrows, sph = tables
+    n, dev = o.shape[0], o.device
+    p = ck._ptr
+    f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
+    i32 = lambda *s: torch.empty(s, dtype=torch.int32, device=dev)  # noqa: E731
+    u8 = lambda *s: torch.empty(s, dtype=torch.uint8, device=dev)  # noqa: E731
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    T, L = tri.shape[0], lpos.shape[0]
+    if kind == "closest":
+        outs = (f32(n), i32(n), f32(n), f32(n))
+        err = lib.cgrt_closest(p(o), p(d), p(tm), n, p(tri), T, *map(p, outs), stream)
+    elif kind == "anyhit":
+        outs = (u8(n),)
+        err = lib.cgrt_anyhit(p(o), p(d), p(tm), n, p(tri), T, p(outs[0]), stream)
+    elif kind == "bounce":
+        outs = (f32(n), i32(n), f32(n), f32(n), i32(n))
+        err = lib.cgrt_bounce(p(o), p(d), p(tm), n, p(tri), T, p(lpos), L, *map(p, outs),
+                              stream)
+    elif kind == "trace":
+        outs = (f32(n, 3),)
+        err = lib.cgrt_trace(p(o), p(d), n, p(tri), T, p(aux), p(sph), sph.shape[0], p(lrows),
+                             L, 2, 0, p(outs[0]), stream)
+    elif kind == "record":
+        outs = (f32(2, n), i32(2, n), f32(2, n), f32(2, n), i32(2, n), f32(1, n, 3),
+                f32(1, n, 3), u8(1, n))
+        err = lib.cgrt_record_trace(p(o), p(d), n, p(tri), T, p(aux), p(lpos), L, 2, 0,
+                                    *map(p, outs), stream)
+    else:
+        outs = (f32(n), i32(n), f32(n), f32(n), i32(n), f32(n, 3), f32(n, 3), u8(n))
+        err = lib.cgrt_bounce_refl(p(o), p(d), p(tm), n, p(tri), T, p(aux), p(lpos), L, 0,
+                                   *map(p, outs), stream)
+    assert err == 0, f"sweep variant {kind}: CUDA error {err}"
+    return outs
+
+
+def same_bits(a, b) -> bool:
+    """Equal bit for bit (floats compared as their int32 words)."""
+    import torch
+
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def sass_sweep(lib_path: str, patterns):
+    """label -> SASS counts of the kernels matching ``patterns`` (ptxas_kernels'
+    form): the whole kernel's, and each sweep loop's, one triangle test per
+    iteration (a backward branch whose body holds one reciprocal, the test's
+    MUFU.RCP, and its three or more shared loads).  None without cuobjdump."""
+    import re
+
+    from cg_raytracer_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            cur = None
+            for pat, label in patterns:
+                m = re.search(pat, line)
+                if m:
+                    cur = label(*m.groups())
+                    funcs[cur] = []
+                    break
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)(.*?);",
+                      line)
+        if cur is not None and m and m.group(2) != "NOP":
+            funcs[cur].append((int(m.group(1), 16), m.group(2), m.group(3)))
+
+    def counts(ins):
+        return {"total": len(ins), "LDS": sum(op.startswith("LDS") for _, op, _ in ins),
+                "LDS.128": sum(op.startswith("LDS.128") for _, op, _ in ins),
+                "float": sum(op.startswith(("FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX",
+                                            "MUFU", "FCHK")) for _, op, _ in ins),
+                "MUFU.RCP": sum(op.startswith("MUFU.RCP") for _, op, _ in ins)}
+
+    out = {}
+    for label, ins in funcs.items():
+        spans = []
+        for addr, op, rest in ins:
+            m = re.search(r"0x([0-9a-f]+)", rest)
+            if op.startswith("BRA") and m and int(m.group(1), 16) < addr:
+                c = counts([x for x in ins if int(m.group(1), 16) <= x[0] <= addr])
+                if c["MUFU.RCP"] == 1 and c["LDS"] >= 3:
+                    spans.append((int(m.group(1), 16), addr, c))
+        # The innermost ones (a ray loop around a sweep also holds one test).
+        loops = [c for a, b, c in spans
+                 if not any(a <= a2 and b2 <= b and (a2, b2) != (a, b) for a2, b2, _ in spans)]
+        out[label] = {"kernel": counts(ins), "loops": loops}
+    return out
+
+
+def dense_box(device):
+    """The mirror box at the kernels' caps: 256 triangles (each quad cut into
+    2 x 4), 8 point lights."""
+    from cg_raytracer_tpu_torch.scene import standins
+    from cg_raytracer_tpu_torch.scene.types import PointLights, make_scene
+
+    return make_scene(standins.dense_mirror_box_meshes(),
+                      point_lights=PointLights.of(*standins.DENSE_BOX_LIGHTS), device=device)
+
+
+def sweep_cases(scene, o1, d1):
+    """kind -> (o, d, t_max or None, (flops, bytes) of the work): phase 3's
+    and phase 8's inputs (closest and bounce on the 1024^2 camera rays and
+    their reflections, the bounce's reflections dead where the camera ray
+    missed; any hit on the shadow rays toward light 0; trace and record from
+    the camera rays, depth 2; bounce-refl on the camera rays, every fifth
+    dead), with their work counted on these rays (utils/roofline.py)."""
+    import torch
+
+    from cg_raytracer_tpu_torch.ops import cuda_kernels as ck
+    from cg_raytracer_tpu_torch.utils import roofline as rf
+
+    o2, d2, valid1, (so, sd, st) = ray_sets(scene, o1, d1)
+    tri, aux, sph, lrows = (ck._tri_table(scene), ck._aux_table(scene), ck._sphere_table(scene),
+                            ck._light_table(scene))
+    lpos = scene.point_lights.position.contiguous()
+    tb, n1, n2, n_l = rf.table_bytes, o1.shape[0], o2.shape[0], lpos.shape[0]
+    inf = lambda live: torch.where(live, float("inf"), -1.0).contiguous()  # noqa: E731
+    live2 = torch.cat([torch.ones_like(valid1), valid1])
+    live5 = torch.arange(n1, device=o1.device) % 5 != 0
+    closest_f, _ = rf.brute_bounce_flops(tri, lpos[:0], o2, d2)
+    bounce_f, _ = rf.brute_bounce_flops(tri, lpos, o2, d2, live2)
+    level0_f, hit0 = rf.brute_bounce_flops(tri, lpos, o1, d1)
+    refl_f, hit_r = rf.brute_bounce_flops(tri, lpos, o1, d1, live5)
+    _, _, _, _, _, o_next, d_next, active = ck._record_plain(tri, aux, lpos, o1, d1, 2, False)
+    level1_f, hit1 = rf.brute_bounce_flops(tri, lpos, o_next[0], d_next[0], active[0])
+    hits = int(hit0.sum()) + int(hit1.sum())
+    tables = (tri, aux, lpos, lrows, sph)
+    st = st.contiguous()
+    return tables, active[0], {
+        "closest": (o2, d2, None, (closest_f, n2 * (24 + 16) + tb(tri))),
+        "anyhit": (so.contiguous(), sd.contiguous(), st,
+                   (float(rf.anyhit_tests(tri, so, sd, st).sum()) * (rf.MT_FLOPS
+                                                                    + rf.ANYHIT_UPDATE),
+                    n1 * (28 + 1) + tb(tri))),
+        "bounce": (o2, d2, inf(live2), (bounce_f, n2 * (28 + 20) + tb(tri, lpos))),
+        "trace": (o1, d1, None, (level0_f + level1_f
+                                 + hits * (rf.RECON_FLOPS + n_l * rf.SHADE_FLOPS
+                                           + rf.BOUNCE_MISC_FLOPS),
+                                 n1 * (24 + 12) + tb(tri, aux, sph, lrows))),
+        "record": (o1, d1, None, (level0_f + level1_f + hits * rf.RECON_FLOPS,
+                                  n1 * (24 + 2 * 20 + 24 + 1) + tb(tri, aux, lpos))),
+        "bounce_refl": (o1, d1, inf(live5), (refl_f + int(hit_r.sum()) * rf.RECON_FLOPS,
+                                             n1 * (28 + 20 + 24 + 1) + tb(tri, aux, lpos))),
+    }
+
+
+def sweep_phase(out, device, kernels, e2e, results, scenes, parent=None) -> None:
+    """Phase 31: the brute sweeps measured.  ptxas for the six kernels
+    (none may spill), SASS counts per triangle test (static, each sweep
+    loop's body) against the parent's, the six kernels on the box and on
+    the 256-triangle, 8-light box: each variant's (and the parent's) outputs
+    bit-equal to this tree's, device ms in turns (batched_ms), the share of
+    the bound, and the share of record-trace's warps that are partly active
+    at level 1."""
+    from cg_raytracer_tpu_torch.ops import _build
+    from cg_raytracer_tpu_torch.ops.camera import generate_rays
+    from cg_raytracer_tpu_torch.scene.types import Camera
+    from cg_raytracer_tpu_torch.utils import roofline
+
+    phase("phase 31: the brute sweeps measured: registers, SASS, ablations"
+          + (f", against {parent}" if parent else ""))
+    t0 = time.perf_counter()
+    sig = {k: _build.SIGNATURES[k] for k in ("cgrt_closest", "cgrt_anyhit", "cgrt_bounce",
+                                            "cgrt_trace", "cgrt_record_trace",
+                                            "cgrt_bounce_refl")}
+    variants = build_variants(SWEEP_SOURCES, SWEEP_ABLATIONS, sig, parent)
+    print(f"  {len(variants)} variants of oracle.cu, trace.cu and record.cu built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    with open(_build.library_path()[:-3] + ".log") as f:
+        logs = {"this tree": f.read()}
+    logs.update({k: v[1] for k, v in variants.items()})
+    print("  ptxas: registers, stack frame / spill store / spill load bytes")
+    for name, log in logs.items():
+        info = ptxas_kernels(log, SWEEP_PTXAS)
+        print(f"    {name}: " + "; ".join(
+            f"{label} {r.get('regs')}, {r.get('frame')}/{r.get('spill_st')}/{r.get('spill_ld')}"
+            for label, r in sorted(info.items())))
+        if name == "this tree":
+            assert len(info) == 6 and all(r["spill_st"] == r["spill_ld"] == 0
+                                          for r in info.values()), f"spills: {info}"
+    paths = {"this tree": _build.library_path()}
+    if parent:
+        paths["parent"] = os.path.join(_build.build_dir(), "variants_oracle_trace_record",
+                                       "parent.so")
+    for name, path in paths.items():
+        sass = sass_sweep(path, SWEEP_PTXAS)
+        if sass is None:
+            print("  SASS: no cuobjdump beside nvcc")
+            break
+        for label, c in sorted(sass.items()):
+            loops = "; ".join(", ".join(f"{k} {v}" for k, v in x.items() if k != "MUFU.RCP")
+                              for x in c["loops"]) or "none found"
+            print(f"  SASS {name}, {label}: kernel {c['kernel']}; per test, each sweep "
+                  f"loop: {loops}")
+        results.setdefault("sweep_sass", {})[name] = sass
+
+    cam = Camera.default(device=device)
+    o1, d1 = generate_rays(cam, 1024, 1024)
+    libs = {"this tree": _build.load(), **{k: v[0] for k, v in variants.items()}}
+    by_name = {e["name"]: e for e in kernels}
+    print(f"  device ms per launch, 20 launches enqueued behind a {_sleep_ms():.1f}-ms sleep "
+          "kernel (batched_ms), two rounds in opposite orders; every variant's outputs "
+          "bit-equal to this tree's")
+    times_all = {}
+    for label, scene in (("box", scenes["box"]), ("256 triangles, 8 lights",
+                                                  dense_box(device))):
+        tables, active1, cases = sweep_cases(scene, o1, d1)
+        warps = active1.reshape(-1, 32).sum(dim=1)
+        partly = ((warps > 0) & (warps < 32)).float().mean().item()
+        print(f"  {label}: record-trace level 1: {active1.float().mean().item():.3%} of rays "
+              f"active, {(warps > 0).float().mean().item():.3%} of warps with an active ray, "
+              f"{partly:.3%} of warps partly active")
+        results.setdefault("sweep_level1", {})[label] = {"active": active1.float().mean().item(),
+                                                         "partly_active_warps": partly}
+        for kind, (o, d, tm, work) in cases.items():
+            calls = {n: partial(sweep_launch, lb, kind, tables, o, d, tm)
+                     for n, lb in libs.items()}
+            ref = calls["this tree"]()
+            for n, fn in calls.items():
+                assert all(same_bits(a, b) for a, b in zip(fn(), ref)), (
+                    f"{n}: {label} {kind} differs from this tree's")
+            times = in_turns(calls)
+            times_all[(label, kind)] = times
+            ms = sum(times["this tree"]) / 2
+            b_ms, b_by = roofline.bound_ms(*work)
+            print(f"    {label} {kind}: {turns_line(times)}; bound {b_ms:.5f} ms by {b_by} "
+                  f"({b_ms / ms:.1%} of it)")
+            row = SWEEP_ROWS[kind]
+            if label == "box" and row in by_name:
+                e = by_name[row]
+                e.update(ab_ms=ms, ab_bound_ms=b_ms)
+                if parent:
+                    e["parent_ms"] = sum(times["parent"]) / 2
+    results["sweep_ablations"] = {f"{k[0]} {k[1]}": t for k, t in times_all.items()}
+
 
 
 if __name__ == "__main__":

@@ -17,7 +17,8 @@
 // exactly the launch's bytes, kept while the next launch asks for as many,
 // so AddressSanitizer sees an access past the end.  The device queries of
 // a launch (cudaDeviceGetAttribute, cudaOccupancy...) answer with emu_sms
-// SMs of one block each, so a one-wave grid is small and strides.
+// SMs of one block each, so a one-wave grid is small and strides;
+// emu_max_grid caps any grid of emu_launch_threads the same way.
 #pragma once
 
 #include <cmath>
@@ -124,6 +125,9 @@ inline void __syncthreads() {
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline const char* cudaGetErrorString(cudaError_t err) {
+  return err == cudaSuccess ? "no error" : "invalid argument";
+}
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 inline int emu_sms = 2;
@@ -169,10 +173,15 @@ void emu_launch(unsigned grid, unsigned block, size_t smem, cudaStream_t, F kern
     for (threadIdx.x = 0; threadIdx.x < block; ++threadIdx.x) kernel(args...);
 }
 
+// Caps emu_launch_threads's grid where not 0, so that a kernel whose blocks
+// stride over their work runs its loop more than once.
+inline unsigned emu_max_grid = 0;
+
 // One block at a time, its threads at once, __syncthreads a barrier.
 template <class F, class... A>
 void emu_launch_threads(unsigned grid, unsigned block, size_t smem, cudaStream_t, F kernel,
                         A... args) {
+  if (emu_max_grid != 0 && grid > emu_max_grid) grid = emu_max_grid;
   emu_shared(smem);
   gridDim.x = grid;
   blockDim.x = block;

@@ -2,13 +2,14 @@
 
 ``csrc/sweep.cuh::mt_blocks`` stops at the first condition that fails
 (|det|, then u, v, u + v, then 0 <= t < t_max); it must decide exactly as
-the full test ``mt(...) && t < t_max`` that the other kernels run.  Both are
-compiled as host C++ against the stand-in CUDA header of ``tests/cuda_emu``
-(``-ffp-contract=off``, as the card's ``-fmad=false``) and run on the same
-cases, made with numpy from a seed: random rays and triangles, rays nearly
-parallel to the triangle (|det| around ``kMtEps``), rays that graze an edge
-or a vertex (barycentrics within a few ``kBaryEps`` of the bound), and hits
-at t near 0 and near ``t_max``.
+the full test ``mt(...) && t < t_max``.  It wraps ``mt_early``, the brute
+closest sweeps' test, which must also return mt's t, u and v bit for bit
+where it hits.  All are compiled as host C++ against the stand-in CUDA
+header of ``tests/cuda_emu`` (``-ffp-contract=off``, as the card's
+``-fmad=false``) and run on the same cases, made with numpy from a seed:
+random rays and triangles, rays nearly parallel to the triangle (|det|
+around ``kMtEps``), rays that graze an edge or a vertex (barycentrics within
+a few ``kBaryEps`` of the bound), and hits at t near 0 and near ``t_max``.
 """
 import os
 import shutil
@@ -119,14 +120,14 @@ def run(harness, rays, tris, t_max, tag):
     r = subprocess.run([exe, str(path), str(out / f"{tag}.out")], capture_output=True, text=True,
                        env=env)
     assert r.returncode == 0, r.stderr[-4000:]
-    return np.fromfile(out / f"{tag}.out", dtype=np.uint8).reshape(3, n).astype(bool)
+    return np.fromfile(out / f"{tag}.out", dtype=np.uint8).reshape(4, n).astype(bool)
 
 
 @pytest.mark.parametrize("group", ["random", "near_parallel", "edge_graze", "t_near_0",
                                    "t_near_t_max"])
 def test_mt_blocks_decides_as_mt(harness, group):
     rays, tris, t_max = cases()[group]
-    full, early, det_ok = run(harness, rays, tris, t_max, group)
+    full, early, det_ok, _ = run(harness, rays, tris, t_max, group)
     bad = np.nonzero(full != early)[0]
     assert bad.size == 0, f"{group}: {bad.size} cases differ, first {bad[:5]}"
     # Each group reaches both decisions; the near-parallel rays fall on both
@@ -134,3 +135,16 @@ def test_mt_blocks_decides_as_mt(harness, group):
     assert full.any() and not full.all(), (group, full.mean())
     if group == "near_parallel":
         assert det_ok.any() and not det_ok.all(), det_ok.mean()
+
+
+@pytest.mark.parametrize("group", ["random", "near_parallel", "edge_graze", "t_near_0",
+                                   "t_near_t_max"])
+def test_mt_early_gives_mt_t_u_v(harness, group):
+    """The closest sweeps' test (``mt_early``, t_max the best t so far)
+    decides as the full test and, where it hits, returns mt's t, u and v
+    bit for bit."""
+    rays, tris, t_max = cases()[group]
+    full, _, _, closer = run(harness, rays, tris, t_max, group)
+    bad = np.nonzero(~closer)[0]
+    assert bad.size == 0, f"{group}: {bad.size} cases differ, first {bad[:5]}"
+    assert full.any(), group
