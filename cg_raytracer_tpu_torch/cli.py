@@ -5,7 +5,9 @@
 ``render`` writes the image and prints the wall-clock time like the
 reference's "Time to render image: ... milliseconds" (main.cpp:796), after a
 warm-up render (kernel build and first launches excluded, like the
-reference's BVH build; a mesh scene's tree is built once, in the warm-up).
+reference's BVH build; a mesh scene's tree is built once, in the warm-up);
+``--aa``, ``--bloom`` and ``--motion-blur`` turn on the effects, and
+``--profile DIR`` writes a Chrome trace of the timed render into DIR.
 ``optimize`` fits the scene's materials and point lights to a target image
 (``optim/inverse.py::optimize``, npz checkpoint and resume with
 ``--checkpoint``) and prints the final loss; ``--output`` renders the
@@ -36,9 +38,13 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--backend", default="auto", choices=["auto", "brute", "bvh", "cuda"])
     p.add_argument("--spp", type=int, default=200,
                    help="soft-shadow samples per spherical-light shading")
-    p.add_argument("--aa", action="store_true", help="2x2 supersampling (ROADMAP A9)")
-    p.add_argument("--bloom", action="store_true", help="(ROADMAP A9)")
-    p.add_argument("--motion-blur", action="store_true", help="(ROADMAP A9)")
+    p.add_argument("--soft-shadow-kernel", default="auto", choices=["auto", "on", "off"],
+                   help="spherical-light samplers as kernels ('auto' = on the card; 'on' on "
+                        "the CPU runs their plain twins, 'off' the scan over the any-hit "
+                        "oracle)")
+    p.add_argument("--aa", action="store_true", help="2x2 supersampling")
+    p.add_argument("--bloom", action="store_true")
+    p.add_argument("--motion-blur", action="store_true")
     p.add_argument("--reference-quirks", action="store_true",
                    help="reproduce documented reference bugs for pixel parity")
     p.add_argument("--seed", type=int, default=0, help="seed of the torch.Generator")
@@ -94,7 +100,7 @@ def _build(args):
     cfg = RenderConfig(width=args.width, height=args.height, max_depth=args.max_bounces,
                        anti_aliasing=args.aa, bloom=args.bloom, motion_blur=args.motion_blur,
                        backend=args.backend, reference_quirks=args.reference_quirks,
-                       soft_shadow_samples=args.spp)
+                       soft_shadow_samples=args.spp, soft_shadow_kernel=args.soft_shadow_kernel)
     # A CPU generator: each render draws its sample key on the host.
     generator = torch.Generator().manual_seed(args.seed)
     return scene, camera, cfg, generator
@@ -105,6 +111,7 @@ def cmd_render(args) -> int:
 
     from .models.whitted import render
     from .utils.image import write_bmp, write_png
+    from .utils.profiling import profiler_trace
 
     scene, camera, cfg, generator = _build(args)
     # A CLI render never differentiates: allow the forward-only trace kernel.
@@ -112,10 +119,11 @@ def cmd_render(args) -> int:
     sync = torch.cuda.synchronize if scene.device.type == "cuda" else (lambda: None)
     img = render(scene, camera, cfg, generator=generator)
     sync()
-    t0 = time.perf_counter()
-    img = render(scene, camera, cfg, generator=generator)
-    sync()
-    ms = (time.perf_counter() - t0) * 1e3
+    with profiler_trace(args.profile):
+        t0 = time.perf_counter()
+        img = render(scene, camera, cfg, generator=generator)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
     print(f"Time to render image: {ms:.2f} milliseconds")
     print(f"{cfg.width * cfg.height / (ms / 1e3):.3e} primary rays/s")
     if args.output.lower().endswith(".bmp"):
@@ -168,6 +176,8 @@ def main(argv=None) -> int:
     p_render = sub.add_parser("render", help="render a scene to an image file")
     _add_common(p_render)
     p_render.add_argument("--output", "-o", default="render.png")
+    p_render.add_argument("--profile", default=None, metavar="DIR",
+                          help="write a torch.profiler Chrome trace of the timed render into DIR")
     p_render.set_defaults(fn=cmd_render)
     p_opt = sub.add_parser("optimize", help="inverse rendering against a target image")
     _add_common(p_opt)

@@ -42,6 +42,7 @@ import torch
 from ..ops import bvh4 as b4
 from ..ops import camera as cam_ops
 from ..ops import cuda_kernels as ck
+from ..ops import effects
 from ..ops import shade as shade_ops
 from ..ops import shading
 from ..ops import soft
@@ -502,35 +503,95 @@ def _trace_two_phase(scene: Scene, origins, dirs, cfg: RenderConfig, backend: Ba
 
 
 def _render_flat(scene: Scene, camera: Camera, cfg: RenderConfig, backend: Backend,
-                 generator=None):
-    """Primary rays in raster order, traced (in ``ray_chunk`` slices if set).
-    With spherical lights one sample key is drawn for the frame and each
-    slice samples its rays' part of its stream, so the slicing leaves the
-    image as it is."""
-    origins, dirs = cam_ops.generate_rays(camera, cfg.height, cfg.width)
-    num = origins.shape[0]
+                 key: Optional[soft.SampleKey] = None, offset=(0.0, 0.0), rows=None):
+    """Primary rays of image rows ``rows`` = (start, stop) (every row when
+    None) in raster order, each shifted by ``offset`` pixels, traced (in
+    ``ray_chunk`` slices if set) -> [stop - start, W, 3].  ``key``: the
+    frame's sample key (spherical lights), whose stream is indexed by each
+    pixel's raster index in the whole frame, so neither the slicing nor the
+    rows change a pixel's samples."""
+    start, stop = (0, cfg.height) if rows is None else rows
+    ndc = cam_ops.pixel_ndc(cfg.height, cfg.width, offset, device=camera.device)[start:stop]
+    origin, dirs = cam_ops.generate_ray(camera, ndc.reshape(-1, 2))
+    origins = origin.expand_as(dirs).contiguous()
+    num = dirs.shape[0]
     chunk = cfg.ray_chunk if 0 < cfg.ray_chunk < num else num
-    key = (soft.as_key(generator) if scene.spherical_lights.position.shape[0] > 0
-           else None)
+    first = start * cfg.width
     color = torch.cat([trace_rays(scene, origins[s:s + chunk], dirs[s:s + chunk], cfg,
-                                  backend, key.at(s) if key is not None else None)
+                                  backend, key.at(first + s) if key is not None else None)
                        for s in range(0, num, chunk)])
-    return color.reshape(cfg.height, cfg.width, 3)
+    return color.reshape(stop - start, cfg.width, 3)
+
+
+def _frame_key(scene: Scene, generator) -> Optional[soft.SampleKey]:
+    """The one sample key of a frame with spherical lights (drawn from
+    ``generator`` unless it is a key), which every sub-render of the
+    effects takes, as the JAX package hands its one PRNG key to each."""
+    return soft.as_key(generator) if scene.spherical_lights.position.shape[0] > 0 else None
+
+
+def _with_effects(camera: Camera, cfg: RenderConfig, render_fn):
+    """``render_fn(camera, offset)`` under motion blur over a base render
+    that supersamples inside it (``anti_aliasing``)."""
+    def base(cam):
+        if cfg.anti_aliasing:
+            return effects.supersample_render(lambda off: render_fn(cam, off), cfg)
+        return render_fn(cam, (0.0, 0.0))
+
+    return effects.motion_blur(base, camera, cfg) if cfg.motion_blur else base(camera)
 
 
 def render_image(scene: Scene, camera: Camera, cfg: RenderConfig,
                  backend: Optional[Backend] = None, generator=None):
     """[H, W, 3] float32 on the scene's device, image-row order (row 0 = top),
-    linear values (clamp/quantize happens at write time).  Without a
-    ``backend``, ``make_backend`` builds one (and its tree, memoized)."""
-    if cfg.anti_aliasing or cfg.bloom or cfg.motion_blur:
-        raise NotImplementedError(
-            "anti-aliasing, bloom and motion blur are not ported yet (ROADMAP A9)")
+    linear values (clamp/quantize happens at write time): the render with
+    AA, motion blur and bloom (``render_image`` of the JAX package,
+    whitted.py:800-846; the reference's renderRayTracing, main.cpp:648-720).
+    Without a ``backend``, ``make_backend`` builds one (and its tree,
+    memoized).  ``generator``: a ``torch.Generator`` or a ``SampleKey``; a
+    frame with spherical lights draws one key from it, whatever the
+    effects."""
     if camera.device != scene.device:
         raise ValueError(f"camera on {camera.device} but scene on {scene.device}")
     if backend is None:
         backend = make_backend(scene, cfg)
-    return _render_flat(scene, camera, cfg, backend, generator)
+    key = _frame_key(scene, generator)
+
+    def flat(cam, off):
+        return _render_flat(scene, cam, cfg, backend, key, off)
+
+    if cfg.bloom and cfg.reference_quirks and cfg.anti_aliasing and not cfg.motion_blur:
+        # The reference's AA + bloom path thresholds the running subsample
+        # sum and replaces the AA average (main.cpp:663-705): no post-pass.
+        return effects.bloom_quirk_aa(lambda off: flat(camera, off), cfg)
+    img = _with_effects(camera, cfg, flat)
+    return effects.bloom(img, cfg) if cfg.bloom else img
+
+
+def render_rows(scene: Scene, camera: Camera, cfg: RenderConfig, rows: slice,
+                backend: Optional[Backend] = None, generator=None):
+    """Image rows [rows.start, rows.stop) of ``render_image`` -> [k, W, 3]
+    (``render_rows`` of the JAX package, whitted.py:849-891): the row tile
+    of multi-host output and of failure recovery.  AA and motion blur are
+    per pixel and compose within the rows; bloom gathers a 21x21
+    neighbourhood across tile boundaries and raises, as does a slice with a
+    step or no rows.  With spherical lights each pixel samples its place in the frame's
+    stream (the key at ``start * W``), so the tiles of a frame put together
+    are the frame."""
+    if cfg.bloom:
+        raise ValueError("render_rows cannot apply bloom: it gathers a 21x21 pixel "
+                         "neighborhood across row-tile boundaries; apply ops.effects.bloom "
+                         "on the assembled frame")
+    start, stop, step = rows.indices(cfg.height)
+    if step != 1 or stop <= start:
+        raise ValueError(f"render_rows requires a contiguous, non-empty row slice, got {rows}")
+    if camera.device != scene.device:
+        raise ValueError(f"camera on {camera.device} but scene on {scene.device}")
+    if backend is None:
+        backend = make_backend(scene, cfg)
+    key = _frame_key(scene, generator)
+    return _with_effects(camera, cfg, lambda cam, off: _render_flat(
+        scene, cam, cfg, backend, key, off, rows=(start, stop)))
 
 
 def effective_max_depth(scene: Scene, cfg: RenderConfig) -> int:

@@ -4,8 +4,9 @@
   reference's longest-axis centroid-median split (``_build_numpy``,
   bounding_volume_hierarchy.cpp:42-464) or binned SAH (``_build_numpy_sah``).
   Leaves are index ranges into one globally reordered triangle buffer.  The
-  same inputs give the same arrays as the JAX package's numpy builders (its
-  native C++ builder is not ported: ROADMAP A1).
+  median split runs in C++ where the host library builds (``native.py``),
+  as in the JAX package.  The same inputs give the same arrays as the JAX
+  package's builders of the same kind (numpy, or native).
 - Traversal (``backend='bvh'`` on the CPU): the ordered near-to-far descent
   with the current closest ``t`` as the bound (bvh.cpp:535-881), one node per
   ray per step over the whole ray batch, with the JAX package's per-ray
@@ -21,6 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import native
 from ..scene.types import Scene
 from .intersect import (INF, MISS, Hit, merge_spheres_closest, moller_trumbore,
                         spheres_occluded)
@@ -192,11 +194,16 @@ def _build_numpy_sah(tri_lo, tri_hi, centroids, max_depth, max_leaf, bins=16):
 
 
 def build_bvh(scene: Scene, max_depth: int = DEFAULT_MAX_DEPTH,
-              max_leaf: int = DEFAULT_MAX_LEAF, builder: str = "median") -> BVH:
+              max_leaf: int = DEFAULT_MAX_LEAF, builder: str = "median",
+              use_native: bool = True) -> BVH:
     """The flat BVH of a scene's triangles, built on the host (one-time cost)
     and returned on the CPU.  ``builder``: 'median' (the reference's split
-    rule) or 'sah'.  Leaves past ``max_depth`` may hold more than ``max_leaf``
-    triangles; the traversals handle any leaf size."""
+    rule) or 'sah'.  ``use_native``: the median build in C++
+    (``native.native_build_bvh``) where the library builds, else numpy; its
+    ``nth_element`` may order the triangles of a leaf, and break ties of
+    equal centroids, unlike numpy's ``argpartition``.  Leaves past
+    ``max_depth`` may hold more than ``max_leaf`` triangles; the traversals
+    handle any leaf size."""
     if builder not in ("median", "sah"):
         raise ValueError(f"builder must be 'median' | 'sah', got {builder!r}")
     verts = scene.vertices.detach().cpu().numpy()
@@ -207,7 +214,10 @@ def build_bvh(scene: Scene, max_depth: int = DEFAULT_MAX_DEPTH,
     tri_lo = np.minimum(np.minimum(p0, p1), p2)
     tri_hi = np.maximum(np.maximum(p0, p1), p2)
     centroids = (p0 + p1 + p2) / 3.0
-    build = _build_numpy_sah if builder == "sah" else _build_numpy
+    if builder == "median" and use_native and native.available():
+        build = native.native_build_bvh
+    else:
+        build = _build_numpy_sah if builder == "sah" else _build_numpy
     node_lo, node_hi, left, right, first, count, order = build(
         tri_lo, tri_hi, centroids, max_depth, max_leaf)
     t = torch.from_numpy
@@ -217,8 +227,8 @@ def build_bvh(scene: Scene, max_depth: int = DEFAULT_MAX_DEPTH,
                tv2=t(np.ascontiguousarray(p2[order])), max_leaf=int(max_leaf))
 
 
-def bvh_num_levels(bvh: BVH) -> int:
-    """Tree depth (numLevels, bvh.cpp:214-224)."""
+def node_depths(bvh: BVH) -> np.ndarray:
+    """Each node's level, the root's 0 ([Nn] int32)."""
     left, right = bvh.left.cpu().numpy(), bvh.right.cpu().numpy()
     depth = np.zeros(left.shape[0], np.int32)
     # Nodes are appended parent before child, so one forward sweep suffices.
@@ -226,7 +236,12 @@ def bvh_num_levels(bvh: BVH) -> int:
         for c in (left[i], right[i]):
             if c >= 0:
                 depth[c] = depth[i] + 1
-    return int(depth.max()) + 1
+    return depth
+
+
+def bvh_num_levels(bvh: BVH) -> int:
+    """Tree depth (numLevels, bvh.cpp:214-224)."""
+    return int(node_depths(bvh).max()) + 1
 
 
 def _slab(o, inv_d, lo, hi):

@@ -68,6 +68,32 @@ def moller_trumbore_edges(origins, dirs, v0, e1, e2, eps: float = 1e-9):
     return t, u, v, valid
 
 
+def intersect_plane(origins, dirs, normal, d):
+    """Ray-plane intersection (the reference's intersectRayWithPlane,
+    ray_tracing.cpp:40-72): the plane dot(x, normal) == d -> (t, valid),
+    t = inf where invalid; hits behind the origin and parallel rays are
+    invalid, an origin on the plane hits at t = 0."""
+    denom = dot(dirs, normal)
+    num = d - dot(origins, normal)
+    on_plane = num == 0.0
+    t = torch.where(torch.abs(denom) > 0.0, num / torch.where(denom == 0.0, 1.0, denom), -1.0)
+    t = torch.where(on_plane, 0.0, t)
+    valid = on_plane | ((denom != 0.0) & (t >= 0.0))
+    return torch.where(valid, t, INF), valid
+
+
+def intersect_aabb(origins, inv_dirs, lo, hi):
+    """Slab test (ray_tracing.cpp:162-200) -> (t_entry, hit): hit where the
+    ray's [0, inf) overlaps the box, an origin inside included (t_entry <=
+    0).  Axis-parallel rays take IEEE infinities, as the reference's float
+    division does."""
+    t0 = (lo - origins) * inv_dirs
+    t1 = (hi - origins) * inv_dirs
+    t_in = torch.amax(torch.minimum(t0, t1), dim=-1)
+    t_out = torch.amin(torch.maximum(t0, t1), dim=-1)
+    return t_in, (t_in <= t_out) & (t_out >= 0.0)
+
+
 def intersect_spheres_one(origins, dirs, center, radius):
     """Ray-sphere quadratic (ray_tracing.cpp:118-158) -> (t, valid): the
     smaller root if >= 0, else the bigger one (origin inside), else a miss."""

@@ -1,5 +1,6 @@
-"""Pure-Python OBJ/MTL loader (numpy only; re-homed from cg_raytracer_tpu/scene/loader.py
-without the native-parser branch).
+"""OBJ/MTL loader, as cg_raytracer_tpu/scene/loader.py: the C++ parser of
+``native/obj_loader.cpp`` (``native.py``) where the host library builds, and
+this module's Python parser, its specification, on a machine without a compiler.
 
 Reference capability: assimp import with ``aiProcess_GenNormals | aiProcess_Triangulate``
 (``src/mesh.cpp:58-141``).  This loader reproduces the semantics the
@@ -23,6 +24,8 @@ import os
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from .. import native
 
 DEFAULT_MATERIAL = {
     "kd": (0.6, 0.6, 0.6),
@@ -97,14 +100,29 @@ class _MeshGroup:
         }
 
 
-def load_obj(path: str, normalize: bool = False) -> List[dict]:
+def load_obj(path: str, normalize: bool = False,
+             use_native: Optional[bool] = None) -> List[dict]:
     """Load an OBJ file into a list of mesh dicts (one per material group).
 
     Mirrors ``loadMesh(path, normalize)`` (``src/mesh.cpp:58``).
     Returns list of {vertices, normals, triangles, material}.
+
+    ``use_native``: True parses in C++ (``native.native_load_obj``), False
+    in Python, None (default) in C++ where the library builds, else in
+    Python; a file the C++ parser refuses (unreadable, no triangles) then
+    goes to the Python parser, which raises saying why.
     """
     if not os.path.exists(path):
         raise FileNotFoundError(f"Mesh file {path} does not exist.")
+    if use_native or (use_native is None and native.available()):
+        try:
+            meshes = native.native_load_obj(path)
+            if normalize:
+                center_and_scale_to_unit(meshes)
+            return meshes
+        except RuntimeError:
+            if use_native:
+                raise
 
     positions: List[tuple] = []
     file_normals: List[tuple] = []

@@ -3,9 +3,12 @@
 training path, the mesh slice (the 4-wide BVH and the pregathered shade),
 the soft-shadow slice (spherical lights: the brute and cone samplers, and
 the shade kernels' spherical fractions), the scale slice (the 4-wide
-kernels past 200,000 triangles, ``optimize()`` with the refit) and the
-tree-width slice (the walk and the samplers at node widths 2 and 8), and
-the redesigned kernels measured against their earlier versions.
+kernels past 200,000 triangles, ``optimize()`` with the refit), the
+tree-width slice (the walk and the samplers at node widths 2 and 8), the
+redesigned kernels measured against their earlier versions, and the
+effects and front-end slice (AA, bloom, motion blur, ``render_rows``, the
+CLI's effects and ``--profile``, the debug front ends, the native host
+builds).
 
 Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
@@ -172,7 +175,27 @@ Phases, each printing its own lines:
     each row's time against its bound on these rays, and the share of
     record-trace's warps partly active at level 1.  With ``--parent DIR``,
     that commit's three sources take part in the same turns under the same
-    check.
+    check;
+32. the effects and front ends: ``render`` of the stand-in box (the CLI's
+    route: the trace kernel) and the spherical box at 800x800 and
+    1024x1024 and of the teacup at 800x800 under AA, bloom, motion blur,
+    AA + bloom, all three, and each quirk path (``EFFECTS``), each with
+    exactly 4, 16, 64 (15, 60 under quirks) times a plain frame's kernel
+    launches, timed beside a plain frame (ms and cost factor), and held to
+    the plain twins at 128x128 (all on the box, the box also at 800x800
+    without motion blur; those without motion blur on the spherical box;
+    AA + bloom and its quirk path on the teacup); the clean and the quirk
+    bloom post-pass alone; ``render_rows``
+    tiles of the box and the spherical box equal to the frame bit for bit;
+    ``cgrt-torch render --aa --bloom --motion-blur --profile DIR`` (an
+    image, a trace with the card's kernels); ``debug_trace`` and
+    ``hit_statistics`` on the box and the teacup through the kernels, prim
+    ids and shadow bits equal to the twin backend's; a training step with
+    AA + bloom on the box and the teacup against the plain path, and one
+    ``optimize()`` step; the native median builds of the teacup, the donut
+    and the torus against numpy (seconds), their arrays equal to the same
+    sources built with native/Makefile's flags, their hits through the
+    4-wide walk equal to the numpy tree's.
 
 Every kernel's entry has its bound: the larger of its operations over 67
 TFLOP/s (integer ones over 16.7 Tops/s) and its bytes over 3.35 TB/s
@@ -289,11 +312,11 @@ def phase(title):
     print(f"{title}  [{now - _CLOCK['start']:.1f} s{took}]")
 
 
-def images_close(a, b, what):
+def images_close(a, b, what, max_bad=IMG_MAX_BAD):
     bad = ((a - b).abs().amax(dim=-1) > IMG_ATOL).float().mean().item()
     err = (a - b).abs().max().item()
     print(f"  {what}: {bad:.5%} of pixels off by > {IMG_ATOL}, max abs diff {err:.3g}")
-    assert bad <= IMG_MAX_BAD, f"{what}: {bad:.4%} of pixels differ"
+    assert bad <= max_bad, f"{what}: {bad:.4%} of pixels differ"
     return bad, err
 
 
@@ -731,6 +754,7 @@ def main(argv=None) -> int:
     scenes["box"] = box
     walk_shade_phase(out, device, kernels, e2e, results, scenes, args.parent)
     sweep_phase(out, device, kernels, e2e, results, scenes, args.parent)
+    effects_phase(out, device, e2e, results, scenes)
 
     results.update(card=smi, counts=counts, kernels=kernels, end_to_end=e2e)
     with open(os.path.join(out, "results.json"), "w") as f:
@@ -3436,6 +3460,346 @@ def sweep_phase(out, device, kernels, e2e, results, scenes, parent=None) -> None
                     e["parent_ms"] = sum(times["parent"]) / 2
     results["sweep_ablations"] = {f"{k[0]} {k[1]}": t for k, t in times_all.items()}
 
+
+
+EFFECTS = {  # label -> the effect flags of RenderConfig
+    "aa": dict(anti_aliasing=True),
+    "bloom": dict(bloom=True),
+    "motion blur": dict(motion_blur=True),
+    "aa+bloom": dict(anti_aliasing=True, bloom=True),
+    "aa+bloom+motion blur": dict(anti_aliasing=True, bloom=True, motion_blur=True),
+    "quirks aa": dict(anti_aliasing=True, reference_quirks=True),
+    "quirks bloom": dict(bloom=True, reference_quirks=True),
+    "quirks aa+bloom": dict(anti_aliasing=True, bloom=True, reference_quirks=True),
+    "quirks motion blur": dict(motion_blur=True, reference_quirks=True),
+}
+# Phase 32's sizes: each scene's renders (the last one timed), the plain
+# twins' check of every effect (and the box's at 800^2), render_rows, the
+# CLI, the debug hit buffers and the training steps.
+EFFECT_SIZES = {"box": (800, 1024), "spherical box": (800, 1024), "teacup": (800,)}
+FX = dict(plain=128, box_plain=800, rows=1024, cli=800, debug=800, step=256)
+
+
+def sub_renders(flags) -> int:
+    """The frames one render with ``flags`` traces: 4 under AA (also on the
+    reference's AA + bloom path), 16 under motion blur (15 under quirks)."""
+    aa = 4 if flags.get("anti_aliasing") else 1
+    if not flags.get("motion_blur"):
+        return aa
+    return aa * (15 if flags.get("reference_quirks") else 16)
+
+
+def makefile_build(out) -> str:
+    """native/'s library built with its Makefile's CXXFLAGS (the JAX
+    package's build of the same sources), into ``out``."""
+    import re
+
+    from cg_raytracer_tpu_torch import native
+
+    with open(os.path.join(native.NATIVE_DIR, "Makefile")) as f:
+        flags = re.search(r"^CXXFLAGS \?= (.*)$", f.read(), re.M).group(1).split()
+    path = os.path.join(out, "libcgrt_makefile.so")
+    subprocess.run(["g++", *flags, "-shared", "-o", path,
+                    *(os.path.join(native.NATIVE_DIR, n) for n in native.SOURCES)],
+                   check=True, capture_output=True, text=True)
+    return path
+
+
+def tree_inputs(scene):
+    """(tri_lo, tri_hi, centroids) of ``ops/bvh.py::build_bvh``."""
+    verts = scene.vertices.detach().cpu().numpy()
+    tris = scene.triangles.detach().cpu().numpy()
+    p0, p1, p2 = verts[tris[:, 0]], verts[tris[:, 1]], verts[tris[:, 2]]
+    import numpy as np
+
+    return (np.minimum(np.minimum(p0, p1), p2), np.maximum(np.maximum(p0, p1), p2),
+            (p0 + p1 + p2) / 3.0)
+
+
+def effects_phase(out, device, e2e, results, scenes) -> None:
+    """Phase 32: the effects (AA, bloom, motion blur, their quirks),
+    ``render_rows``, the CLI's effects and ``--profile``, the debug front
+    ends, a training step with AA + bloom, and the native host builds."""
+    import ctypes
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from cg_raytracer_tpu_torch import cli, native
+    from cg_raytracer_tpu_torch.models.whitted import (build_accel, effective_max_depth,
+                                                       make_backend, render, render_image,
+                                                       render_rows, resolve_fwd_shade_kernel)
+    from cg_raytracer_tpu_torch.ops import bvh as tbvh
+    from cg_raytracer_tpu_torch.ops import bvh4 as b4
+    from cg_raytracer_tpu_torch.ops import cuda_kernels as ck
+    from cg_raytracer_tpu_torch.ops import effects, shade, soft
+    from cg_raytracer_tpu_torch.ops.camera import generate_rays
+    from cg_raytracer_tpu_torch.optim import inverse
+    from cg_raytracer_tpu_torch.scene.types import Camera
+    from cg_raytracer_tpu_torch.utils import bench, checks
+    from cg_raytracer_tpu_torch.utils.bench import median, time_frames
+    from cg_raytracer_tpu_torch.utils.config import RenderConfig
+    from cg_raytracer_tpu_torch.utils.debug import debug_trace, hit_statistics
+    from cg_raytracer_tpu_torch.utils.image import read_image, write_png
+
+    phase("phase 32: effects and front ends on the card")
+    start = time.perf_counter()
+
+    def lap(what):
+        print(f"  [{what}: {time.perf_counter() - start:.1f} s into phase 32]")
+    cam = Camera.default(device=device)
+    modules = (ck, shade, b4, soft)
+
+    def reset():
+        for module in modules:
+            module.reset_launch_counts()
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: v for m in modules for k, v in m.launch_counts().items() if v}
+
+    def resolved(scene, cfg):
+        cfg = dataclasses.replace(cfg, max_depth=effective_max_depth(scene, cfg))
+        return resolve_fwd_shade_kernel(scene, cfg)
+
+    box, sbox = scenes["box"], scenes["spherical_box"]
+    teacup = scenes["teacup"]
+    cases = {  # label -> (scene, route); the box on the CLI's route
+        "box": (box, dict(forward_only=True)),
+        "spherical box": (sbox, {}),
+        "teacup": (teacup, {}),
+    }
+    timed = {label: sizes[-1] for label, sizes in EFFECT_SIZES.items()}
+    fx = {}
+    for label, (scene, route) in cases.items():
+        accel = build_accel(scene, RenderConfig(**route))
+        for size in EFFECT_SIZES[label]:
+            base = RenderConfig(width=size, height=size, **route)
+            reset()
+            plain_img = render(scene, cam, base, accel=accel)
+            per_frame = counts()
+            assert per_frame, f"{label}: no kernel launched"
+            row = fx.setdefault(f"{label} {size}^2", {"launches per frame": per_frame})
+            times = {}
+            if size == timed[label]:
+                lap(f"{label} renders at {EFFECT_SIZES[label][:-1]}")
+                times["plain frame"] = median(time_frames(
+                    lambda: render(scene, cam, base, accel=accel), iters=3, warmup=0))
+            for name, flags in EFFECTS.items():
+                cfg = dataclasses.replace(base, **flags)
+                reset()
+                img = render(scene, cam, cfg, accel=accel)
+                got, n = counts(), sub_renders(flags)
+                want = {k: n * v for k, v in per_frame.items()}
+                assert got == want, f"{label} {size}^2 {name}: launches {got}, {n} x a frame {want}"
+                assert img.shape == (size, size, 3) and bool(torch.isfinite(img).all())
+                lit = (img.amax(dim=-1) > 0.02).float().mean().item()
+                assert lit > 0.1, (label, size, name, lit)
+                if flags.get("bloom"):
+                    assert (img - plain_img).amax().item() > 1e-3 or flags.get("anti_aliasing")
+                if size == timed[label]:
+                    # The quirk blur takes most of a second: one timed call.
+                    iters = 1 if flags.get("bloom") and flags.get("reference_quirks") else 2
+                    times[name] = median(time_frames(
+                        lambda: render(scene, cam, cfg, accel=accel), iters=iters, warmup=0))
+                    write_png(os.path.join(out, f"effects_{label.replace(' ', '_')}_"
+                                                f"{name.replace(' ', '_').replace('+', '_')}.png"),
+                              img)
+                print(f"  {label} {size}^2 {name}: {n} frames' launches ({sum(got.values())}), "
+                      f"lit {lit:.3f}, mean {img.mean().item():.4f}")
+            if times:
+                frame = times["plain frame"]
+                row["ms"] = times
+                row["x plain frame"] = {k: v / frame for k, v in times.items()}
+                print(f"  {label} {size}^2 ms per frame (CUDA events): " + ", ".join(
+                    f"{k} {v:.3f} (x{v / frame:.2f})" for k, v in times.items()))
+                lap(f"{label} {size}^2 renders and times")
+        # The effects against the plain twins, on the card, at FX["plain"]^2:
+        # every one on the box, those without motion blur on the spherical
+        # box, AA + bloom and its quirk path on the teacup (the 4-wide twin
+        # walk takes seconds per frame); the allowance of n frames is n times
+        # a frame's.
+        small = RenderConfig(width=FX["plain"], height=FX["plain"], **route)
+        for name, flags in EFFECTS.items():
+            if ((label == "spherical box" and flags.get("motion_blur"))
+                    or (label == "teacup" and name not in ("aa+bloom", "quirks aa+bloom"))):
+                continue
+            cfg = resolved(scene, dataclasses.replace(small, **flags))
+            img = render(scene, cam, cfg, accel=accel)
+            plain = render_image(scene, cam, cfg, backend=make_backend(scene, cfg, plain=True,
+                                                                       accel=accel))
+            images_close(img, plain, f"{label} {FX['plain']}^2 {name} vs the plain twins",
+                         max_bad=min(1.0, IMG_MAX_BAD * sub_renders(flags)))
+        lap(f"{label} against the plain twins")
+    # The box's effects without motion blur at 800^2 against the plain twins too.
+    size = FX["box_plain"]
+    for name, flags in EFFECTS.items():
+        if flags.get("motion_blur"):
+            continue
+        cfg = resolved(box, RenderConfig(width=size, height=size, forward_only=True, **flags))
+        images_close(render(box, cam, cfg), render_image(
+            box, cam, cfg, backend=make_backend(box, cfg, plain=True)),
+            f"box {size}^2 {name} vs the plain twins", max_bad=IMG_MAX_BAD * sub_renders(flags))
+    # The post-passes alone on the box's frame.
+    size = timed["box"]
+    frame = render(box, cam, RenderConfig(width=size, height=size, forward_only=True))
+    post = {}
+    for name, cfg in (("clean bloom", RenderConfig(bloom=True)),
+                      ("quirk bloom", RenderConfig(bloom=True, reference_quirks=True))):
+        post[name] = median(time_frames(lambda: effects.bloom(frame, cfg), iters=3, warmup=1))
+    print(f"  bloom post-pass on the box's {size}^2 frame: clean {post['clean bloom']:.3f} ms, "
+          f"quirk (11 (H-1) + W = {11 * (size - 1) + size} wavefronts) "
+          f"{post['quirk bloom']:.3f} ms")
+    fx[f"bloom post-pass {size}^2 ms"] = post
+    lap("the box at 800^2 against the twins, the post-passes")
+    results["effects"] = fx
+    e2e["effects"] = {k: v.get("ms") for k, v in fx.items() if isinstance(v, dict) and "ms" in v}
+
+    # render_rows: three tiles put together are the frame, bit for bit.
+    size = FX["rows"]
+    for label, scene, route in (("box", box, dict(forward_only=True)), ("spherical box", sbox, {})):
+        for flags in ({}, dict(anti_aliasing=True)):
+            cfg = RenderConfig(width=size, height=size, **route, **flags)
+            backend = make_backend(scene, cfg)
+            full = render_image(scene, cam, cfg, backend=backend)
+            tiles = [render_rows(scene, cam, cfg, rows, backend=backend)
+                     for rows in (slice(0, size // 3), slice(size // 3, 2 * size // 3 + 1),
+                                  slice(2 * size // 3 + 1, size))]
+            assert torch.equal(torch.cat(tiles), full), (label, flags)
+            print(f"  render_rows {label} {size}^2 {flags or 'plain'}: 3 tiles equal the frame")
+    lap("render_rows")
+
+    # The CLI with every effect and a trace.
+    png, trace_dir = os.path.join(out, "cli_effects.png"), os.path.join(out, "cli_trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    reset()
+    size = str(FX["cli"])
+    assert cli.main(["render", "--scene", "mirror_box", "--device", device.type, "--aa",
+                     "--bloom", "--motion-blur", "--profile", trace_dir, "--width", size,
+                     "--height", size, "-o", png]) == 0
+    cli_counts = counts()
+    assert cli_counts == {"trace_cuda": 2 * 64}, cli_counts  # warm-up and timed, 64 frames each
+    img = read_image(png)
+    assert img.shape == (FX["cli"], FX["cli"], 3) and (img.max(axis=-1) > 0.02).mean() > 0.1
+    traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+    assert len(traces) == 1 and os.path.getsize(traces[0]) > 0
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    on_card = sum(1 for e in events if e.get("cat") == "kernel")
+    print(f"  cgrt-torch render --aa --bloom --motion-blur --profile: {cli_counts}, trace "
+          f"{os.path.getsize(traces[0])} bytes, {on_card} kernel events of {len(events)}")
+    assert on_card > 0, "the trace holds no kernel of the card"
+    os.remove(traces[0])  # tens of MB
+    lap("the CLI")
+
+    # The debug front ends: the kernels against the twin backend.
+    ndc = torch.stack(torch.meshgrid(torch.linspace(-0.9, 0.9, 16), torch.linspace(-0.9, 0.9, 16),
+                                     indexing="ij"), -1).reshape(-1, 2)
+    for label, scene in (("box", box), ("teacup", teacup)):
+        cfg = RenderConfig(width=FX["debug"], height=FX["debug"])
+        accel = build_accel(scene, cfg)
+        reset()
+        got = debug_trace(scene, cam, ndc, cfg, backend=make_backend(scene, cfg, accel=accel))
+        stats = hit_statistics(scene, cam, cfg, backend=make_backend(scene, cfg, accel=accel))
+        debug_counts = counts()
+        twin = make_backend(scene, cfg, plain=True, accel=accel)
+        want = debug_trace(scene, cam, ndc, cfg, backend=twin)
+        want_stats = hit_statistics(scene, cam, cfg, backend=twin)
+        for level, (g, w) in enumerate(zip(got["levels"], want["levels"])):
+            assert np.array_equal(g["prim_id"], w["prim_id"]), (label, level)
+            for a, b in zip(g["shadowed_by_light"], w["shadowed_by_light"]):
+                assert np.array_equal(a, b), (label, level)
+        same = (stats["prim_id"] == want_stats["prim_id"]).mean()
+        assert same >= MIN_MATCH, (label, same)
+        wrappers = (("intersect_cuda", "occluded_cuda") if label == "box"
+                    else ("intersect_bvh4_cuda", "occluded_bvh4_cuda"))
+        assert all(debug_counts.get(w, 0) > 0 for w in wrappers), debug_counts
+        print(f"  debug {label}: debug_trace prim ids and shadow bits equal to the twins' on "
+              f"{ndc.shape[0]} rays x {len(got['levels'])} levels; hit_statistics {cfg.width}^2 "
+              f"prim ids equal on {same:.5%} ({stats['hit'].mean():.2%} hit); launches "
+              f"{debug_counts}")
+    lap("debug")
+
+    # Training with AA + bloom: a step's gradients against the plain path,
+    # and optimize() running its kernels.
+    jitter = bench.camera_jitter(torch.Generator(device).manual_seed(32), device)
+    for label, scene in (("box", box), ("teacup", teacup)):
+        cfg = bench.training_config(RenderConfig(width=FX["step"], height=FX["step"],
+                                                 anti_aliasing=True, bloom=True), True)
+        params = bench.training_params(scene, True)
+        accel = build_accel(scene, cfg)
+        reset()
+        (lk, gk), (lp, gp) = (bench.fwd_bwd_step(scene, cam, cfg, params, jitter, plain=plain,
+                                                 accel=accel) for plain in (False, True))
+        step_counts = counts()
+        print(f"  {label} AA + bloom step {cfg.width}^2: loss {lk.item():.8g} (plain "
+              f"{lp.item():.8g}); launches {step_counts}")
+        torch.testing.assert_close(lk, lp, rtol=1e-5, atol=1e-7)
+        for name in gk:
+            assert bool(torch.isfinite(gk[name]).all()), name
+            tol = dict(checks.TABLE_GRAD, atol=2e-5) if name == "vertices" else checks.TABLE_GRAD
+            torch.testing.assert_close(gk[name], gp[name], **tol, msg=f"{label} d/d{name}")
+        needed = (("record_trace_cuda", "shade_fwd_cuda", "shade_bwd_cuda") if label == "box"
+                  else ("bounce_bvh4_cuda", "shade_pre_fwd_cuda", "shade_pre_bwd_cuda"))
+        assert all(step_counts.get(w, 0) > 0 for w in needed), step_counts
+        target = 0.9 * render(scene, cam, cfg).detach()
+        reset()
+        _, losses = inverse.optimize(scene, cam, target, cfg, steps=1, log_fn=lambda *a: None)
+        opt_counts = counts()
+        assert len(losses) == 1 and np.isfinite(losses[0])
+        assert all(opt_counts.get(w, 0) > 0 for w in needed), opt_counts
+        print(f"  {label} optimize(), one AA + bloom step: loss {losses[0]:.6g}, launches "
+              f"{opt_counts}")
+    lap("training")
+
+    # The native host builds: the median tree in C++ against numpy.
+    assert native.available(), "the host library did not build"
+    lib = ctypes.CDLL(makefile_build(out))
+    native._declare(lib)
+    o1, d1 = generate_rays(cam, 1024, 1024)
+    builds = {}
+    for label, scene in (("teacup", teacup), ("donut", scenes["donut"]),
+                         ("torus", scenes["torus"][0])):
+        t0 = time.perf_counter()
+        nat = tbvh.build_bvh(scene, max_leaf=4)
+        nat_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = tbvh.build_bvh(scene, max_leaf=4, use_native=False)
+        np_s = time.perf_counter() - t0
+        # The same sources built with the Makefile's flags give the same arrays.
+        n, m = scene.num_triangles, 2 * scene.num_triangles + 1
+        arrays = (np.zeros((m, 3), np.float32), np.zeros((m, 3), np.float32),
+                  *(np.zeros(m, np.int32) for _ in range(4)), np.arange(n, dtype=np.int32))
+        nodes = lib.cgrt_build_bvh(*(np.ascontiguousarray(x, np.float32)
+                                     for x in tree_inputs(scene)),
+                                   n, tbvh.DEFAULT_MAX_DEPTH, 4, *arrays)
+        fields = ("node_lo", "node_hi", "left", "right", "first", "count", "tri_order")
+        for name, arr in zip(fields, arrays):
+            mine = getattr(nat, name).numpy()
+            assert np.array_equal(mine, arr[:nodes] if name != "tri_order" else arr), (label, name)
+        differ = [f for f in fields if not torch.equal(getattr(nat, f), getattr(ref, f))]
+        boxes = (nat.node_lo != ref.node_lo).any(dim=1) | (nat.node_hi != ref.node_hi).any(dim=1)
+        # Hits through the card's 4-wide walk over each tree.
+        step = 16 if label == "torus" else 1
+        o, d = o1[::step].contiguous(), d1[::step].contiguous()
+        hn = b4.intersect_bvh4_cuda(scene, b4.collapse_bvh4(nat).to(device), o, d)
+        hr = b4.intersect_bvh4_cuda(scene, b4.collapse_bvh4(ref).to(device), o, d)
+        same = (hn.prim_id == hr.prim_id).float().mean().item()
+        both = (hn.prim_id == hr.prim_id) & (hn.prim_id >= 0)
+        t_err = (hn.t[both] - hr.t[both]).abs().max().item() if both.any() else 0.0
+        assert same >= MIN_MATCH and t_err <= TOL, (label, same, t_err)
+        builds[label] = {"triangles": n, "native_s": nat_s, "numpy_s": np_s,
+                         "x": np_s / nat_s, "fields_differing_from_numpy": differ,
+                         "nodes_whose_box_differs": boxes.float().mean().item(),
+                         "prim_ids_equal": same}
+        print(f"  {label} ({n} triangles) median leaf 4: native {nat_s:.3f} s, numpy "
+              f"{np_s:.3f} s (x{np_s / nat_s:.1f}); native arrays equal the Makefile build's; "
+              f"against numpy: {differ or 'every array equal'} differ "
+              f"({boxes.float().mean().item():.2%} of node boxes), prim ids through the "
+              f"4-wide walk equal on {same:.5%} of {o.shape[0]} rays, max |dt| {t_err:.3g}")
+    results["native_builds"] = builds
+    lap("native builds")
 
 
 if __name__ == "__main__":

@@ -88,7 +88,7 @@ def assert_hits_agree(got, want, what):
 def test_build_bvh_matches_jax(builder, leaf):
     j, t = cup_pair()
     want = jbvh.build_bvh(j, max_leaf=leaf, use_native=False, builder=builder)
-    got = tbvh.build_bvh(t, max_leaf=leaf, builder=builder)
+    got = tbvh.build_bvh(t, max_leaf=leaf, builder=builder, use_native=False)
     for name in BVH_LEAVES:
         a, b = getattr(got, name).numpy(), np.asarray(getattr(want, name))
         assert a.dtype == b.dtype and a.shape == b.shape, name
@@ -152,7 +152,7 @@ def test_axis_aligned_rays_match_jax():
     # in both packages, so both give the same hits.
     j, t = cup_pair()
     jt = jbvh.build_bvh(j, use_native=False)
-    tree = tbvh.build_bvh(t)
+    tree = tbvh.build_bvh(t, use_native=False)
     lo = np.asarray(jt.node_lo)
     o = np.asarray([[0.0, 0.0, -3.0], [0.1, -0.3, -3.0], [lo[1, 0], 0.1, -3.0], [0.2, 0.2, 3.0],
                     [-3.0, 0.0, 0.0], [0.0, 3.0, 0.1], [lo[0, 0], lo[0, 1], -3.0]], np.float32)

@@ -1,8 +1,11 @@
 """PyTorch port: the ``cgrt-torch`` command line on the CPU."""
+import argparse
+
 import numpy as np
 import pytest
 import torch
 
+import cg_raytracer_tpu as jrt
 from cg_raytracer_tpu_torch import cli
 from cg_raytracer_tpu_torch.scene.presets import SCENE_NAMES
 from cg_raytracer_tpu_torch.utils.image import read_image
@@ -34,8 +37,21 @@ def test_list_scenes(capsys):
 
 
 def test_unported_flags_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="A9"):
-        cli.main(["render", *SMALL, "--aa", "-o", str(tmp_path / "x.png")])
+    # The effects are ported (ROADMAP A9): --aa --bloom --motion-blur write
+    # the image JAX renders (8-bit PNGs: within one step on 99.5% of pixels),
+    # and --profile a Chrome trace of the timed render.
+    out, trace = tmp_path / "x.png", tmp_path / "trace"
+    assert cli.main(["render", *SMALL, "--aa", "--bloom", "--motion-blur", "--profile",
+                     str(trace), "-o", str(out)]) == 0
+    img = read_image(str(out))
+    assert img.shape == (20, 24, 3)
+    jcfg = jrt.RenderConfig(width=24, height=20, anti_aliasing=True, bloom=True,
+                            motion_blur=True, backend="brute")
+    ref = np.clip(np.asarray(jrt.render(jrt.load_scene("spheres"),
+                                        jrt.Camera.default(aspect=24 / 20), jcfg)), 0, 1)
+    assert (np.abs(img - ref).max(axis=-1) <= 1.5 / 255).mean() >= 0.995
+    traces = list(trace.glob("*.json"))
+    assert len(traces) == 1 and traces[0].stat().st_size > 0
     # Spherical lights are ported (ROADMAP A8): --add-spherical-light renders
     # with --spp samples and lights the scene.
     plain, lit = tmp_path / "y0.png", tmp_path / "y.png"
@@ -43,6 +59,27 @@ def test_unported_flags_raise(tmp_path):
     assert cli.main(["render", *SMALL, "--add-spherical-light", "0", "1", "0", "0.1", "1", "1",
                      "1", "--spp", "8", "-o", str(lit)]) == 0
     assert read_image(str(lit)).sum() > read_image(str(plain)).sum()
+
+
+def test_soft_shadow_kernel_flag(tmp_path):
+    # 'on' samples the spherical light through the kernels' plain twins on the
+    # CPU, 'off' through the scan over the any-hit oracle: one sample stream.
+    box = ["--scene", "mirror_box", "--device", "cpu", "--width", "24", "--height", "20",
+           "--backend", "cuda", "--add-spherical-light", "0", "0.4", "0", "0.1", "1", "1", "1",
+           "--spp", "8"]
+    parser = argparse.ArgumentParser()
+    cli._add_common(parser)
+    imgs = []
+    for kernel in ("on", "off"):
+        args = parser.parse_args([*box, "--soft-shadow-kernel", kernel])
+        assert cli._build(args)[2].soft_shadow_kernel == kernel
+        out = tmp_path / f"{kernel}.png"
+        assert cli.main(["render", *box, "--soft-shadow-kernel", kernel, "-o", str(out)]) == 0
+        imgs.append(read_image(str(out)))
+    np.testing.assert_array_equal(imgs[0], imgs[1])
+    assert imgs[0].max() > 0.1
+    with pytest.raises(SystemExit):
+        parser.parse_args([*box, "--soft-shadow-kernel", "maybe"])
 
 
 def test_cuda_device_has_no_cpu_fallback(tmp_path):

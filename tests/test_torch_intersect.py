@@ -153,3 +153,47 @@ def test_render_vertex_grads_are_finite_on_the_stand_in_box():
     img = trt.render(scene, trt.Camera.default(device="cpu"), trt.RenderConfig(width=24, height=24))
     img.mean().backward()
     assert bool(torch.isfinite(verts.grad).all()) and verts.grad.abs().sum() > 0
+
+
+def test_plane_intersector_matches_jax():
+    # tests/test_intersect.py:136-144: a hit from above at t = 1 (the plane
+    # y = 1), a ray pointing away (rejected), the origin on the plane (t =
+    # 0), a parallel ray off the plane (rejected); then random rays.
+    n = np.asarray([0.0, 1.0, 0.0], np.float32)
+    o = np.asarray([[0, 2, 0], [0, 2, 0], [0, 1, 0], [0, 2, 0]], np.float32)
+    d = np.asarray([[0, -1, 0], [0, 1, 0], [1, 0, 0], [1, 0, 0]], np.float32)
+    ro, rd = rays(5, n=256, camera=False)
+    o, d = np.concatenate([o, ro]), np.concatenate([d, rd])
+    t, ok = tint.intersect_plane(torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(n),
+                                 torch.tensor(1.0))
+    jt, jok = jint.intersect_plane(jnp.asarray(o), jnp.asarray(d), jnp.asarray(n),
+                                   jnp.float32(1.0))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(jok))
+    np.testing.assert_allclose(t.numpy(), np.asarray(jt), rtol=1e-6)
+    assert ok[:4].tolist() == [True, False, True, False]
+    assert float(t[0]) == 1.0 and float(t[2]) == 0.0 and np.isinf(float(t[1]))
+    assert 0.2 < ok.float().mean().item() < 0.8
+
+
+def test_aabb_slab_matches_jax():
+    # tests/test_intersect.py:69-96: in front (t = 2), origin inside, behind,
+    # and a parallel ray outside the slab (IEEE infinities); then random rays
+    # against random boxes.
+    lo, hi = np.zeros(3, np.float32), np.ones(3, np.float32)
+    o = np.asarray([[0.5, 0.5, -2], [0.5, 0.5, 0.5], [0.5, 0.5, 2], [2, 0.5, -2]], np.float32)
+    with np.errstate(divide="ignore"):
+        inv = np.broadcast_to(1.0 / np.asarray([0, 0, 1], np.float32), o.shape).copy()
+    t, hit = tint.intersect_aabb(*(torch.from_numpy(x) for x in (o, inv, lo, hi)))
+    jt, jhit = jint.intersect_aabb(*(jnp.asarray(x) for x in (o, inv, lo, hi)))
+    assert hit.tolist() == np.asarray(jhit).tolist() == [True, True, False, False]
+    assert float(t[0]) == 2.0
+    np.testing.assert_array_equal(t.numpy(), np.asarray(jt))
+    ro, rd = rays(6, n=512, camera=False)
+    rinv = (1.0 / rd).astype(np.float32)
+    blo = np.random.default_rng(6).uniform(-1, 0, (512, 3)).astype(np.float32)
+    bhi = blo + np.random.default_rng(7).uniform(0.1, 1, (512, 3)).astype(np.float32)
+    t, hit = tint.intersect_aabb(*(torch.from_numpy(x) for x in (ro, rinv, blo, bhi)))
+    jt, jhit = jint.intersect_aabb(*(jnp.asarray(x) for x in (ro, rinv, blo, bhi)))
+    np.testing.assert_array_equal(hit.numpy(), np.asarray(jhit))
+    np.testing.assert_array_equal(t.numpy(), np.asarray(jt))
+    assert 0.1 < hit.float().mean().item() < 0.9

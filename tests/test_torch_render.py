@@ -134,9 +134,15 @@ def test_unported_features_raise():
     _, t = scene_pair("mirror_box")
     _, tc = cameras()
     small = dict(width=8, height=8)
-    for flag in ("anti_aliasing", "bloom", "motion_blur"):
-        with pytest.raises(NotImplementedError, match="A9"):
-            trt.render(t, tc, trt.RenderConfig(**small, **{flag: True}))
+    # The effects are ported (ROADMAP A9): each flag renders and matches JAX
+    # on the triangles + spheres scene (no tie pixel there, so bloom keeps
+    # the contract's allowance; an average of n renders n times it).
+    jm, tm = scene_pair("mixed")
+    for flag, renders in (("anti_aliasing", 4), ("bloom", 1), ("motion_blur", 16)):
+        jcfg = jrt.RenderConfig(width=24, height=24, backend="brute", **{flag: True})
+        ref = np.asarray(jrt.render(jm, jrt.Camera.default(), jcfg))
+        img = trt.render(tm, tc, trt.RenderConfig(width=24, height=24, **{flag: True}))
+        assert_images_close(img.numpy(), ref, max_bad_fraction=0.005 * renders, msg=flag)
     # The two-phase structure is ported (it renders the one-phase image).
     torch.testing.assert_close(trt.render(t, tc, trt.RenderConfig(**small, grad_two_phase="on")),
                                trt.render(t, tc, trt.RenderConfig(**small)))

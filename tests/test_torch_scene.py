@@ -179,7 +179,7 @@ def test_load_obj_matches_jax(tmp_path):
     path = str(tmp_path / "box.obj")
     for normalize in (False, True):
         jm = jload(path, normalize=normalize, use_native=False)
-        tm = tload(path, normalize=normalize)
+        tm = tload(path, normalize=normalize, use_native=False)
         assert len(jm) == len(tm) == 2
         for a, b in zip(jm, tm):
             for key in ("vertices", "normals", "triangles"):
