@@ -3,13 +3,14 @@
 The forward render with anti-aliasing, bloom and motion blur
 (``ops/effects.py``), the training step (render, loss, backward through the
 two-phase gradient structure) and inverse rendering (``optim/inverse.py``)
-of scenes up to 2,752,512 triangles (a 4-wide BVH past 256, refit when
-vertices move), point and spherical lights and up to 16 spheres run end to
+of scenes up to 113,025,455 triangles (a 4-wide BVH past 256, refit when
+vertices move; ``ops/bvh4.py::MAX_TRIS``), point and spherical lights and up to 16 spheres run end to
 end on an NVIDIA Hopper card through hand-written CUDA kernels (``csrc/``,
 wrapped in ``ops/``).  The debug front ends (``utils/debug.py``: debug rays,
 hit buffers, BVH levels) and the profiling helpers (``utils/profiling.py``)
 sit beside them; trees and OBJ files are built and parsed on the host in C++
-(``native.py``).  Public layouts follow the JAX package: rays are [N, 3]
+(``native.py``).  ``parallel/`` spreads renders and training over ranks of
+``torch.distributed`` (rows, soft-shadow samples, or the triangles).  Public layouts follow the JAX package: rays are [N, 3]
 float32, a ``Hit`` is (t, prim_id, u, v), images are [H, W, 3] float32.
 This package imports no JAX.
 """

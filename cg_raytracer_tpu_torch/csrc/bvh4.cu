@@ -18,9 +18,10 @@
 // VMEM (to 200,000 triangles), B8/B14 streamed each leaf's triangle rows from
 // HBM (to HBM_MAX_TRIS = 2,752,512).  Here every table is read from global
 // memory either way; a tree past the 50 MB L2 simply streams from HBM.
-// Checked at that cap: the int32 index arithmetic (2 W * ref records of 16
-// bytes with ref < Nw <= T, 3 * k rows and slot_to_prim[k] with k < T, ~(W
-// * ref + c)) stays below 16 * T = 4.4e7, far from 2^31.  The stack: build_bvh's binary
+// Past that cap the same walks run, up to ops/bvh4.py MAX_TRIS: the int32
+// index arithmetic (2 W * ref records of 16 bytes with ref < Nw <= T, 3 * k
+// rows and slot_to_prim[k] with k < T, ~(W * ref + c)) stays below 16 * T <
+// 2^31 there (the derivation sits beside the constant).  The stack: build_bvh's binary
 // depth cap of 20 leaves internal nodes at depth <= 19, so a collapsed tree
 // has at most 20 levels at W = 2, 10 at W = 4 and 7 at W = 8, and a walk at
 // most (W - 1) * levels + 1 live entries: 21, 31 and 50 of kStack = 64,

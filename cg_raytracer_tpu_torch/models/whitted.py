@@ -89,20 +89,15 @@ class Backend(NamedTuple):
     # The soft-shadow sampler kernel: (light_pos [3], light_radius, positions
     # [N, 3], soft.SampleKey, valid [N] bool) -> visible-sample counts [N] f32.
     soft_vis: Optional[Callable] = None
+    # This rank's share of the soft-shadow scan (shading.SampleSplit; set by
+    # parallel/sharding.py::sample_sharded_render, with soft_vis None).
+    sample_split: Optional[shading.SampleSplit] = None
 
 
 def needs_bvh(cfg: RenderConfig, num_tris: int, device) -> bool:
     """Whether the resolved backend traverses a prebuilt tree (built on the host)."""
     kind = cfg.resolve_backend(num_tris, device)
     return kind == "bvh" or (kind == "cuda" and num_tris > cfg.pallas_brute_max_tris)
-
-
-def _check_bvh4_cap(num_tris: int) -> None:
-    if num_tris > b4.HBM_MAX_TRIS:
-        raise NotImplementedError(
-            f"{num_tris} triangles exceed the 4-wide BVH kernels' cap (HBM_MAX_TRIS = "
-            f"{b4.HBM_MAX_TRIS}); the JAX package leaves its kernels there for its XLA "
-            f"traversal (backend='bvh'), which has no counterpart on the card (ROADMAP A13)")
 
 
 def _soft_route(scene: Scene, cfg: RenderConfig) -> Optional[str]:
@@ -143,7 +138,7 @@ def build_accel(scene: Scene, cfg: RenderConfig):
     if kind == "bvh":
         return _cached_accel(scene, ("bvh", builder), lambda: build_bvh(scene, builder=builder))
     if kind == "cuda" and num_tris > cfg.pallas_brute_max_tris:
-        _check_bvh4_cap(num_tris)
+        b4.check_max_tris(num_tris)
         primary = _wide_tree(scene, cfg.resolve_bvh_max_leaf(), builder, tree_width(scene, cfg))
         if _soft_route(scene, cfg) != "cone":
             return primary
@@ -258,7 +253,7 @@ def _bvh4_backend(scene: Scene, cfg: RenderConfig, plain: bool, accel, shade) ->
     tree sampler, 'cone' over ``AccelBundle.soft`` or 'sample' over the
     primary tree (whitted.py:276-306, 341-360).  There is no record or trace
     kernel over the tree: phase 1 runs level by level on the bounce."""
-    _check_bvh4_cap(scene.num_triangles)
+    b4.check_max_tris(scene.num_triangles)
     tree = accel if accel is not None else build_accel(scene, cfg)
     soft_tree = None
     if isinstance(tree, AccelBundle):
@@ -360,7 +355,8 @@ def trace_rays(scene: Scene, origins, dirs, cfg: RenderConfig, backend: Backend,
 
 def _soft_args(cfg: RenderConfig, backend: Backend) -> dict:
     return dict(soft_shadow_samples=cfg.soft_shadow_samples,
-                sample_chunk=cfg.soft_shadow_chunk, soft_vis_fn=backend.soft_vis)
+                sample_chunk=cfg.soft_shadow_chunk, soft_vis_fn=backend.soft_vis,
+                sample_split=backend.sample_split)
 
 
 def _detached(obj):
@@ -474,7 +470,7 @@ def _trace_two_phase(scene: Scene, origins, dirs, cfg: RenderConfig, backend: Ba
             fracs[level] = shading.spherical_fracs(
                 sg_scene, pos_l, backend.occluded, key.fold_in(level),
                 num_samples=cfg.soft_shadow_samples, sample_chunk=cfg.soft_shadow_chunk,
-                soft_vis_fn=backend.soft_vis, valid=valid_l)
+                soft_vis_fn=backend.soft_vis, valid=valid_l, sample_split=backend.sample_split)
 
     exact_rays = cfg.resolve_two_phase_rays() == "exact" and not cfg.forward_only
     color = torch.zeros_like(origins)
@@ -560,7 +556,7 @@ def render_image(scene: Scene, camera: Camera, cfg: RenderConfig,
     def flat(cam, off):
         return _render_flat(scene, cam, cfg, backend, key, off)
 
-    if cfg.bloom and cfg.reference_quirks and cfg.anti_aliasing and not cfg.motion_blur:
+    if effects.is_bloom_quirk_aa(cfg):
         # The reference's AA + bloom path thresholds the running subsample
         # sum and replaces the AA average (main.cpp:663-705): no post-pass.
         return effects.bloom_quirk_aa(lambda off: flat(camera, off), cfg)

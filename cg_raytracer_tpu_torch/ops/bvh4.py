@@ -30,7 +30,8 @@ kept the nodes and triangle rows in VMEM up to ``VMEM_MAX_TRIS`` triangles
 ``HBM_MAX_TRIS`` (B8, B14).  On the card every table sits in global memory
 either way (cached in L2 where it fits), so the tiers differ only in the
 tree's size.  Past ``HBM_MAX_TRIS`` the JAX package leaves its kernels for
-its XLA traversal; the card raises there (``models/whitted.py``).
+its XLA traversal; the card keeps walking the same kernels, up to
+``MAX_TRIS``, the limit of their int32 indexing, and raises past it.
 
 Layout (``BVH4``), built on the host by collapsing the binary tree of
 ``ops/bvh.py`` log2(W) levels per node, as ``collapse_bvhw`` does (W = 2 is
@@ -94,8 +95,28 @@ from .intersect import (INF, MISS, Hit, merge_spheres_closest, moller_trumbore_e
 # samplers' gate (ops/soft.py), as in the JAX package.
 VMEM_MAX_TRIS = 200_000
 # A 6 MB VMEM node budget at 512 B per node, half of the nodes leaves, each
-# leaf at most 32 rows of 14 triangles: 2,752,512.
+# leaf at most 32 rows of 14 triangles: 2,752,512.  A TPU limit: the card
+# routes nothing by it.
 HBM_MAX_TRIS = (6 * 1024 * 1024 // 512 // 2) * 32 * 14
+# The card's limit: the kernels index a triangle's table rows and the tree's
+# node records with int32 arithmetic, and each product must stay <= 2^31 - 1.
+# For T triangles (a collapsed tree has Nw <= max(1, T - 1) nodes: every
+# node has >= 2 children and every leaf >= 1 triangle):
+#   csrc/shade.cu, the pregathered payload rows ``payload + 19 * slot``
+#     (slot < T): 19 T <= 2^31 - 1                    T <= 113,025,455  <- binds
+#   csrc/bvh4.cuh, node records ``nodes + 2 * W * ref`` (ref < Nw), W = 8:
+#     16 T < 2^31                                     T < 134,217,728
+#   csrc/bvh4.cuh, leaf entries ``~(W * ref + c)``: 8 T < 2^31
+#                                                     T < 268,435,456
+#   csrc/bvh4.cuh, triangle rows ``rows + 3 * k`` (k < T): 3 T < 2^31
+#                                                     T < 715,827,883
+#   slot_to_prim and prim ids (int32), leaf ``first + count``: T < 2^31
+# The samplers (csrc/soft.cu) index points and samples, not triangles, in
+# 64 bits, and the brute kernels stop at 256 triangles.  The walk's stack is
+# checked per tree by ``collapse_bvhw`` (build_bvh's binary depth cap of 20
+# bounds it whatever T).
+INT32_MAX = 2**31 - 1
+MAX_TRIS = INT32_MAX // 19
 MAX_STACK = 64  # per-ray stack entries (csrc/bvh4.cuh kStack)
 WIDTHS = (2, 4, 8)
 _BIG = 3.4e38  # entry t of a child that is not pushed
@@ -255,9 +276,18 @@ def build_bvh4(scene: Scene, max_leaf: int, builder: str = "median", width: int 
 
 
 def supports_bvh4(scene: Scene) -> bool:
-    """``supports_pallas_bvh`` or ``supports_pallas_bvh4_hbm``: the kernels'
-    triangle range over both tiers."""
-    return 0 < scene.num_triangles <= HBM_MAX_TRIS
+    """The kernels' triangle range: 1..``MAX_TRIS`` (both of the JAX
+    package's tiers, ``supports_pallas_bvh`` and ``supports_pallas_bvh4_hbm``,
+    and past them)."""
+    return 0 < scene.num_triangles <= MAX_TRIS
+
+
+def check_max_tris(num_tris: int) -> None:
+    """Raise past ``MAX_TRIS``, the limit of the kernels' int32 indexing."""
+    if num_tris > MAX_TRIS:
+        raise NotImplementedError(
+            f"{num_tris} triangles exceed MAX_TRIS = {MAX_TRIS}, the limit of the card's "
+            f"int32 indexing (the pregathered shade's 19-float payload rows, ops/bvh4.py)")
 
 
 def supports_fused_bounce_bvh4(scene: Scene) -> bool:
@@ -275,10 +305,7 @@ def supports_fused_bounce_bvh4(scene: Scene) -> bool:
 
 def _tree_args(name, tree: BVH4, device):
     """(width, nodes, rows, slot_to_prim) as the kernels take them."""
-    if tree.num_tris > HBM_MAX_TRIS:
-        raise NotImplementedError(
-            f"{tree.num_tris} triangles exceed the wide kernels' cap of {HBM_MAX_TRIS} "
-            f"(HBM_MAX_TRIS; ROADMAP A13)")
+    check_max_tris(tree.num_tris)
     w = tree.width
     if (w not in WIDTHS or tree.nodes.shape != (tree.num_nodes, 8 * w)
             or tree.rows.shape != (tree.num_tris, 12)):
@@ -521,7 +548,7 @@ def occluded_bvh4_plain(scene: Scene, tree: BVH4, origins, dirs, t_max):
 @torch.no_grad()
 def _bounce(scene, tree, origins, dirs, live, on_card):
     if not supports_fused_bounce_bvh4(scene):
-        raise ValueError(f"BVH bounce kernel: the scene needs 1..{HBM_MAX_TRIS} triangles, "
+        raise ValueError(f"BVH bounce kernel: the scene needs 1..{MAX_TRIS} triangles, "
                          f"no spheres and at most 30 point lights (supports_fused_bounce_bvh4)")
     o, d = ck._rays(origins, dirs)
     lights = scene.point_lights.position.detach().contiguous()

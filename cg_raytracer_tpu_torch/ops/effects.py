@@ -75,11 +75,29 @@ def bloom_quirk_aa(render_offset_fn, cfg: RenderConfig):
     4-subsample sum passes the threshold; the in-place blur of it is added to
     the un-antialiased render at the pixel corner, which replaces the AA
     average.  ``render_offset_fn`` as ``supersample_render``'s."""
+    return bloom_quirk_aa_finish(bloom_quirk_aa_parts(render_offset_fn))
+
+
+def bloom_quirk_aa_parts(render_offset_fn):
+    """The per-pixel part of ``bloom_quirk_aa``: the un-antialiased render
+    and the bright buffer, concatenated on channels ([..., 6]); a row tile of
+    it is the frame's rows."""
     imgs = [render_offset_fn(off) for off in AA_OFFSETS]
     total = imgs[0] + imgs[1] + imgs[2] + imgs[3]
     bright = torch.where(total.sum(dim=-1, keepdim=True) > 1.0, imgs[3],
                          torch.zeros_like(imgs[3]))
-    return imgs[0] + _bloom_quirk_blur(bright)
+    return torch.cat([imgs[0], bright], dim=-1)
+
+
+def bloom_quirk_aa_finish(parts):
+    """The in-place blur of the bright buffer added to the base: the
+    whole-frame part of ``bloom_quirk_aa``."""
+    return parts[..., :3] + _bloom_quirk_blur(parts[..., 3:])
+
+
+def is_bloom_quirk_aa(cfg: RenderConfig) -> bool:
+    """Whether a render takes the reference's AA + bloom path (no post-pass)."""
+    return cfg.bloom and cfg.reference_quirks and cfg.anti_aliasing and not cfg.motion_blur
 
 
 def _wavefronts(h: int, w: int, r: int):

@@ -14,6 +14,8 @@ same samples.
 """
 from __future__ import annotations
 
+from typing import Callable, NamedTuple
+
 import torch
 
 from ..scene.types import Scene
@@ -72,8 +74,20 @@ def _random_unit_vectors(key: soft.SampleKey, points, samples):
     return safe_normalize(soft.philox_gauss(key, points, samples).transpose(0, 1))
 
 
+class SampleSplit(NamedTuple):
+    """One rank's share of the scan's sample chunks (``parallel/sharding.py::
+    sample_sharded_render``): chunks ``index``, ``index + count``, ...;
+    ``all_sum(counts)`` adds the ranks' visible counts ([Ls, N] float32,
+    integers) in place and returns them."""
+
+    index: int
+    count: int
+    all_sum: Callable
+
+
 def spherical_fracs(scene: Scene, positions, occluded_fn, generator, num_samples: int = 200,
-                    sample_chunk: int = 20, soft_vis_fn=None, gauss=None, valid=None):
+                    sample_chunk: int = 20, soft_vis_fn=None, gauss=None, valid=None,
+                    sample_split=None):
     """Per-(light, point) soft-shadow visibility fractions [Ls, N]: the
     spherical-light oracle (discrete, not differentiated, like the any-hit
     bools it counts).
@@ -87,7 +101,10 @@ def spherical_fracs(scene: Scene, positions, occluded_fn, generator, num_samples
     own total, as in the JAX package.  ``gauss`` ([S, N, 3], or [Ls, S, N, 3]
     per light) replaces the scan's draws, so that a test can feed it another
     stream.  ``valid`` ([N] bool): points to sample; the rest do no work and
-    get fraction 0."""
+    get fraction 0.  ``sample_split`` (a ``SampleSplit``): the scan counts
+    only this rank's chunks and sums the counts across ranks before the
+    division; the counts are integers and each (point, sample) draws the
+    same stream, so the fractions equal the unsplit scan's bit for bit."""
     num_lights = scene.spherical_lights.position.shape[0]
     n = positions.shape[0]
     if num_lights == 0:
@@ -95,6 +112,8 @@ def spherical_fracs(scene: Scene, positions, occluded_fn, generator, num_samples
     positions = positions.detach()
     key = soft.as_key(generator)
     lights = scene.spherical_lights
+    if soft_vis_fn is not None and sample_split is not None:
+        raise ValueError("spherical_fracs: a sample split runs the scan, not a sampler kernel")
     if soft_vis_fn is not None:
         return torch.stack([
             soft_vis_fn(lights.position[li], lights.radius[li], positions, key.fold_in(li),
@@ -104,12 +123,13 @@ def spherical_fracs(scene: Scene, positions, occluded_fn, generator, num_samples
     num_chunks = -(-num_samples // chunk)
     total = num_chunks * chunk
     rows = torch.arange(n, device=positions.device)
-    fracs = []
+    first, stride = (0, 1) if sample_split is None else sample_split[:2]
+    counts = []
     for li in range(num_lights):
         lpos, lrad = lights.position[li].detach(), lights.radius[li].detach()
         lkey = key.fold_in(li)
         count = torch.zeros((n,), dtype=torch.float32, device=positions.device)
-        for ci in range(num_chunks):
+        for ci in range(first, num_chunks, stride):
             samples = torch.arange(ci * chunk, (ci + 1) * chunk, device=positions.device)
             if gauss is None:
                 units = _random_unit_vectors(lkey, rows, samples)  # [C, N, 3]
@@ -128,8 +148,11 @@ def spherical_fracs(scene: Scene, positions, occluded_fn, generator, num_samples
             if valid is not None:
                 visible = visible & valid[None]
             count = count + visible.to(torch.float32).sum(dim=0)
-        fracs.append(count / float(total))
-    return torch.stack(fracs)
+        counts.append(count)
+    counts = torch.stack(counts)
+    if sample_split is not None:
+        counts = sample_split.all_sum(counts)
+    return counts / float(total)
 
 
 def direct_spherical_lights(scene: Scene, view_dir, surf: Surface, fracs):
@@ -149,17 +172,18 @@ def direct_spherical_lights(scene: Scene, view_dir, surf: Surface, fracs):
 
 def direct_light(scene: Scene, view_dir, surf: Surface, occluded_fn, generator=None,
                  shadow_bits=None, soft_shadow_samples: int = 200, sample_chunk: int = 20,
-                 soft_vis_fn=None, soft_fracs=None):
+                 soft_vis_fn=None, soft_fracs=None, sample_split=None):
     """Total direct lighting = point lights + spherical lights (shading(),
     main.cpp:160-235).  ``generator``: the level's ``torch.Generator`` or
     ``soft.SampleKey``, for the spherical lights' samples (unused without
     them); ``soft_fracs`` ([Ls, N]): recorded fractions, which skip the
-    sampling."""
+    sampling; ``sample_split``: as ``spherical_fracs``."""
     color = direct_point_lights(scene, view_dir, surf, occluded_fn, shadow_bits=shadow_bits)
     if scene.spherical_lights.position.shape[0] == 0:
         return color
     if soft_fracs is None:
         soft_fracs = spherical_fracs(scene, surf.position, occluded_fn, generator,
                                      num_samples=soft_shadow_samples, sample_chunk=sample_chunk,
-                                     soft_vis_fn=soft_vis_fn, valid=surf.valid)
+                                     soft_vis_fn=soft_vis_fn, valid=surf.valid,
+                                     sample_split=sample_split)
     return color + direct_spherical_lights(scene, view_dir, surf, soft_fracs)

@@ -14,7 +14,9 @@ Step i's spherical-light samples come from the key folded with i
 global step: the losses depend neither on the checkpoint cadence nor on a
 resume.  The JAX package's ``steps_per_call`` (K steps per dispatch, to
 amortise a remote TPU's per-call cost) has no counterpart: a step here is
-one render, one backward and one optimizer update.
+one render, one backward and one optimizer update
+(``parallel/sharding.py::make_train_step``); with a ``mesh`` every rank
+renders its rows and the gradients are summed across ranks.
 """
 from __future__ import annotations
 
@@ -178,16 +180,21 @@ def optimize(scene: Scene, camera: Camera, target, cfg, steps: int = 100,
       fold with i.
     - ``plain=True`` routes the kernels through their plain twins (the
       reference an on-card run is checked against).
-    - ``mesh`` (the JAX package's device mesh) raises: multi-device training
-      is ROADMAP A11.
+    - ``mesh`` (``parallel/sharding.py::make_mesh``): every rank runs this
+      loop on its own device with the same arguments, renders its row block
+      and takes the same step on gradients summed across ranks; rank 0
+      alone logs and writes the checkpoint, every rank resumes from it.
     """
     from ..models.whitted import build_accel, needs_bvh
     from ..ops.refit import make_refit_plan
+    from ..parallel.sharding import Mesh, make_train_step
     from ..utils.profiling import JsonlLogger
 
-    if mesh is not None:
-        raise NotImplementedError("optimize(mesh=...): multi-device training is not ported "
-                                  "yet (ROADMAP A11)")
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh: a parallel.sharding.Mesh (make_mesh), got {type(mesh)}")
+    lead = mesh is None or mesh.rank == 0
+    if not lead:
+        log_fn, log_jsonl = (lambda *a: None), None
     if params is None:
         params = material_params(scene)
     cfg = training_config(cfg, "vertices" in params)
@@ -201,6 +208,8 @@ def optimize(scene: Scene, camera: Camera, target, cfg, steps: int = 100,
     accel = build_accel(scene, cfg) if needs_bvh(cfg, scene.num_triangles, device) else None
     refit_plan = (make_refit_plan(accel) if accel is not None and "vertices" in params
                   else None)
+    step = make_train_step(cfg, opt, apply_params, mesh=mesh, accel=accel,
+                           refit_plan=refit_plan, plain=plain)
 
     start = 0
     if checkpoint_path and resume and os.path.exists(checkpoint_path):
@@ -210,14 +219,7 @@ def optimize(scene: Scene, camera: Camera, target, cfg, steps: int = 100,
     losses = []
     for i in range(start, steps):
         t0 = time.perf_counter()
-        loss, grads = loss_and_grads(
-            lambda p: render_loss(p, scene, camera, target, cfg, apply_params=apply_params,
-                                  generator=base.fold_in(i), accel=accel,
-                                  refit_plan=refit_plan, plain=plain), params)
-        for k, p in params.items():
-            p.grad = grads[k]
-        opt.step()
-        loss_f = loss.item()
+        loss_f = step(params, scene, camera, target, base.fold_in(i)).item()
         dt = time.perf_counter() - t0
         losses.append(loss_f)
         if logger:
@@ -227,11 +229,13 @@ def optimize(scene: Scene, camera: Camera, target, cfg, steps: int = 100,
                        rays_per_s=cfg.width * cfg.height / max(dt, 1e-9))
         if log_every and (i % log_every == 0 or i == steps - 1):
             log_fn(f"step {i}: loss {loss_f:.6e}")
-        if checkpoint_path and checkpoint_every and (i + 1) % checkpoint_every == 0 \
+        if lead and checkpoint_path and checkpoint_every and (i + 1) % checkpoint_every == 0 \
                 and i + 1 < steps:
             save_checkpoint(checkpoint_path, i + 1, params, opt)
     if logger:
         logger.close()
-    if checkpoint_path:
+    if lead and checkpoint_path:
         save_checkpoint(checkpoint_path, steps, params, opt)
+    if mesh is not None:
+        mesh.barrier()  # the checkpoint is on disk before any rank returns
     return {k: v.detach() for k, v in params.items()}, losses

@@ -195,7 +195,26 @@ Phases, each printing its own lines:
     ``optimize()`` step; the native median builds of the teacup, the donut
     and the torus against numpy (seconds), their arrays equal to the same
     sources built with native/Makefile's flags, their hits through the
-    4-wide walk equal to the numpy tree's.
+    4-wide walk equal to the numpy tree's;
+33. ray- and sample-parallel on the card (``parallel/sharding.py``): in a
+    one-rank NCCL group, ``sharded_render`` of the stand-in box at 1024x1024
+    equal to ``render()`` bit for bit, ``sample_sharded_render`` of the
+    spherical box (200 samples) at 256x256 equal to the scan-path render bit
+    for bit, one ``make_train_step`` equal to the single-device step (loss
+    to 8 digits, parameters within ``checks.TABLE_GRAD``); then two spawned
+    ranks sharing the card over gloo give the same frames and step; ms per
+    frame of each beside the single-device frame, and each path's launches;
+34. past the JAX package's ``HBM_MAX_TRIS``: a 2,880,000-triangle torus
+    built on the card's autos (median, leaf 4, width 4; MB and seconds),
+    its closest-hit and any-hit walks exact against their twins on every
+    16th ray of a 1024x1024 camera, its walk's ms per million camera rays
+    beside the 1,280,000-triangle torus's, and a 1024x1024 ``render()``;
+35. geometry sharding (``parallel/geometry.py``) on two ranks sharing the
+    card over gloo: ``geometry_sharded_intersect`` of the teacup equal to
+    the replicated walk's global prim ids, t, u and v but for ties (<= 0.5%),
+    ``geometry_sharded_render`` of the teacup at 512x512 and of the torus
+    past the cap at 256x256 within ``IMG_MAX_BAD`` of the replicated render,
+    and the per-shard kernels' launches.
 
 Every kernel's entry has its bound: the larger of its operations over 67
 TFLOP/s (integer ones over 16.7 Tops/s) and its bytes over 3.35 TB/s
@@ -755,6 +774,7 @@ def main(argv=None) -> int:
     walk_shade_phase(out, device, kernels, e2e, results, scenes, args.parent)
     sweep_phase(out, device, kernels, e2e, results, scenes, args.parent)
     effects_phase(out, device, e2e, results, scenes)
+    parallel_phases(out, device, e2e, results, scenes)
 
     results.update(card=smi, counts=counts, kernels=kernels, end_to_end=e2e)
     with open(os.path.join(out, "results.json"), "w") as f:
@@ -3800,6 +3820,329 @@ def effects_phase(out, device, e2e, results, scenes) -> None:
               f"4-wide walk equal on {same:.5%} of {o.shape[0]} rays, max |dt| {t_err:.3g}")
     results["native_builds"] = builds
     lap("native builds")
+
+
+PAST_CAP_GRID = 1200  # the torus on a 1200 x 1200 grid: 2,880,000 triangles
+PARALLEL = dict(box=1024, spherical=256, step=256, teacup=512, torus=256, torus_rays=1024)
+_PATH_MODULES = ("cuda_kernels", "shade", "bvh4", "soft")
+
+
+def _modules():
+    import importlib
+
+    return [importlib.import_module(f"cg_raytracer_tpu_torch.ops.{m}") for m in _PATH_MODULES]
+
+
+def _reset_counts():
+    for module in _modules():
+        module.reset_launch_counts()
+
+
+def _read_counts() -> dict:
+    import torch
+
+    torch.cuda.synchronize()
+    return {k: v for m in _modules() for k, v in m.launch_counts().items()
+            if v and ":w" not in k}
+
+
+def _wall_ms(fn, mesh=None, iters=3) -> float:
+    """Median host milliseconds of ``fn`` ending in a synchronise (and, on
+    a mesh, a barrier first, so the ranks start together)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(iters):
+        if mesh is not None:
+            mesh.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def _parallel_scenes(device):
+    import torch  # noqa: F401
+
+    from cg_raytracer_tpu_torch.scene import standins
+    from cg_raytracer_tpu_torch.scene.presets import load_standin
+    from cg_raytracer_tpu_torch.scene.types import PointLights, make_scene
+
+    box = make_scene(standins.mirror_box_meshes(),
+                     point_lights=PointLights.of(*standins.MIRROR_BOX_LIGHTS), device=device)
+    return box, load_standin("spherical_box", device=device)
+
+
+def _parallel_configs():
+    from cg_raytracer_tpu_torch.optim import inverse
+    from cg_raytracer_tpu_torch.utils.config import RenderConfig
+
+    n = PARALLEL
+    return (RenderConfig(width=n["box"], height=n["box"]),
+            RenderConfig(width=n["spherical"], height=n["spherical"], soft_shadow_kernel="off"),
+            inverse.training_config(RenderConfig(width=n["step"], height=n["step"]), False))
+
+
+def _step(mesh, box, cam, cfg):
+    """One ``make_train_step`` on the box's materials and light (Adam 1e-2)
+    toward 0.9 x its render -> (loss, params, the step's launches)."""
+    import torch
+
+    from cg_raytracer_tpu_torch.models.whitted import render
+    from cg_raytracer_tpu_torch.optim import inverse
+    from cg_raytracer_tpu_torch.parallel import sharding
+
+    target = 0.9 * render(box, cam, cfg).detach()
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in inverse.material_params(box).items()}
+    opt = torch.optim.Adam(list(params.values()), lr=1e-2)
+    step = sharding.make_train_step(cfg, opt, inverse.apply_material_params, mesh=mesh)
+    _reset_counts()
+    loss = step(params, box, cam, target, None)
+    return loss.item(), {k: v.detach().cpu() for k, v in params.items()}, _read_counts()
+
+
+def _ray_parallel_cases(mesh, sample_mesh) -> dict:
+    """Phase 33's paths on ``mesh``: each frame and step, its launches from
+    0, and its ms (host clock)."""
+    from cg_raytracer_tpu_torch.parallel import sharding
+    from cg_raytracer_tpu_torch.scene.types import Camera
+
+    box, sbox = _parallel_scenes(mesh.device)
+    cam = Camera.default(device=mesh.device)
+    box_cfg, sph_cfg, step_cfg = _parallel_configs()
+    res = {}
+    for label, fn in (
+            ("box", lambda: sharding.sharded_render(box, cam, box_cfg, mesh)),
+            ("spherical", lambda: sharding.sample_sharded_render(sbox, cam, sph_cfg,
+                                                                 sample_mesh))):
+        fn()  # the tree and first launches
+        _reset_counts()
+        img = fn()
+        res[f"{label} launches"] = _read_counts()
+        res[label] = img.cpu()
+        res[f"{label} ms"] = _wall_ms(fn, mesh)
+    loss, params, res["step launches"] = _step(mesh, box, cam, step_cfg)
+    res["step"] = (loss, params)
+    return res
+
+
+def _gloo_ray_rank(rank, path):
+    """Phase 33 on one of two ranks sharing the card over gloo."""
+    import torch
+
+    from cg_raytracer_tpu_torch.parallel import sharding
+
+    mesh = sharding.make_mesh(device="cuda")
+    res = _ray_parallel_cases(mesh, sharding.make_mesh2(1, 2, device="cuda"))
+    res["device"] = str(mesh.device)
+    if rank == 0:
+        torch.save(res, path)
+
+
+def _gloo_geometry_rank(rank, path):
+    """Phase 35 on one of two ranks sharing the card over gloo."""
+    import torch
+
+    from cg_raytracer_tpu_torch.ops.camera import generate_rays
+    from cg_raytracer_tpu_torch.parallel import geometry, sharding
+    from cg_raytracer_tpu_torch.scene.presets import load_scene
+    from cg_raytracer_tpu_torch.scene.types import Camera
+    from cg_raytracer_tpu_torch.utils.config import RenderConfig
+
+    mesh = sharding.make_mesh(device="cuda", axis=geometry.PRIM_AXIS)
+    cam = Camera.default(device=mesh.device)
+    res = {}
+    for label, scene in (("teacup", load_scene("teacup", device=mesh.device)),
+                         ("torus", torus_scene(mesh.device, PAST_CAP_GRID))):
+        size = PARALLEL[label]
+        cfg = RenderConfig(width=size, height=size)
+        t0 = time.perf_counter()
+        shards = geometry.build_geometry_shards(scene, 2, cfg, shard=mesh.index(geometry.PRIM_AXIS))
+        torch.cuda.synchronize()
+        res[f"{label} shard build s"] = time.perf_counter() - t0
+        res[f"{label} shard size"] = shards.shard_size
+        if label == "teacup":
+            o, d = generate_rays(cam, size, size)
+            _reset_counts()
+            hit = geometry.geometry_sharded_intersect(scene, cfg, mesh, shards, o, d)
+            res["teacup hits launches"] = _read_counts()
+            res["teacup hits"] = tuple(x.cpu() for x in hit)
+        render_fn = lambda: geometry.geometry_sharded_render(  # noqa: E731
+            scene, cam, cfg, mesh, shards=shards)
+        _reset_counts()
+        res[label] = render_fn().cpu()
+        res[f"{label} launches"] = _read_counts()
+        res[f"{label} ms"] = _wall_ms(render_fn, mesh)
+    if rank == 0:
+        torch.save(res, path)
+
+
+def parallel_phases(out, device, e2e, results, scenes) -> None:
+    """Phases 33-35: the multi-device slice and scenes past the JAX
+    package's HBM_MAX_TRIS."""
+    import torch
+    import torch.distributed as dist
+
+    from cg_raytracer_tpu_torch.models.whitted import build_accel, make_backend, render
+    from cg_raytracer_tpu_torch.ops import bvh4 as b4
+    from cg_raytracer_tpu_torch.ops.camera import generate_rays
+    from cg_raytracer_tpu_torch.parallel import multihost, sharding
+    from cg_raytracer_tpu_torch.scene.types import Camera
+    from cg_raytracer_tpu_torch.utils import checks, roofline
+    from cg_raytracer_tpu_torch.utils.bench import median, time_frames
+    from cg_raytracer_tpu_torch.utils.config import RenderConfig
+    from cg_raytracer_tpu_torch.utils.image import write_png
+
+    cam = Camera.default(device=device)
+    par = {}
+
+    phase("phase 33: ray- and sample-parallel render and step (one-rank NCCL, two gloo ranks)")
+    box, sbox = _parallel_scenes(device)
+    box_cfg, sph_cfg, step_cfg = _parallel_configs()
+    single = {"box": render(box, cam, box_cfg), "spherical": render(sbox, cam, sph_cfg)}
+    single_ms = {"box": _wall_ms(lambda: render(box, cam, box_cfg)),
+                 "spherical": _wall_ms(lambda: render(sbox, cam, sph_cfg))}
+    want_loss, want_params, _ = _step(None, box, cam, step_cfg)
+    assert multihost.initialize_distributed(f"tcp://127.0.0.1:{multihost.free_port()}", 1, 0,
+                                            device=device) == "nccl"
+    try:
+        one = torch.ones((4,), device=device)
+        dist.all_reduce(one)  # NCCL itself, once: a one-rank mesh's collectives are no-ops
+        assert torch.equal(one, torch.ones_like(one))
+        mesh = sharding.make_mesh(device=device)
+        nccl = _ray_parallel_cases(mesh, sharding.make_mesh2(1, 1, device=device))
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    multihost.spawn(_gloo_ray_rank, 2, args=(os.path.join(out, "parallel_gloo.pt"),),
+                    backend="gloo", device="cuda")
+    spawn_s = time.perf_counter() - t0
+    gloo = torch.load(os.path.join(out, "parallel_gloo.pt"), weights_only=False)
+    for run, got in (("one-rank NCCL", nccl), ("two gloo ranks", gloo)):
+        for label in ("box", "spherical"):
+            assert torch.equal(got[label], single[label].cpu()), (run, label)
+            assert got[f"{label} launches"], (run, label, "no kernel launched")
+        loss, params = got["step"]
+        if run == "one-rank NCCL":  # the single-device step itself
+            assert f"{loss:.8g}" == f"{want_loss:.8g}", (run, loss, want_loss)
+        else:  # two ranks' sums add in another order
+            assert abs(loss - want_loss) <= 1e-6 * abs(want_loss), (run, loss, want_loss)
+        for k in params:
+            torch.testing.assert_close(params[k], want_params[k], **checks.TABLE_GRAD,
+                                       msg=f"{run} {k}")
+        assert got["step launches"], (run, "the step launched no kernel")
+        print(f"  {run}: box {PARALLEL['box']}^2 and spherical box {PARALLEL['spherical']}^2 "
+              f"(200 samples, the scan) equal to the single-device renders bit for bit; step "
+              f"{PARALLEL['step']}^2 loss {loss:.8g} (single {want_loss:.8g}), parameters "
+              f"within TABLE_GRAD")
+        print(f"    ms per frame (host clock, median of 3): box {got['box ms']:.3f} (single "
+              f"{single_ms['box']:.3f}), spherical box {got['spherical ms']:.3f} (single "
+              f"{single_ms['spherical']:.3f})")
+        print(f"    launches: box {got['box launches']}; spherical {got['spherical launches']}; "
+              f"step {got['step launches']}")
+    print(f"  two gloo ranks: spawned, ran and joined in {spawn_s:.1f} s")
+    par["ray_parallel"] = {run: {k: v for k, v in got.items() if "ms" in k or "launches" in k}
+                           for run, got in (("nccl_1", nccl), ("gloo_2", gloo))}
+    par["ray_parallel"]["single_ms"] = single_ms
+    write_png(os.path.join(out, "parallel_box.png"), gloo["box"])
+
+    phase(f"phase 34: past HBM_MAX_TRIS ({b4.HBM_MAX_TRIS}): the {2 * PAST_CAP_GRID ** 2}-"
+          f"triangle torus on the card's autos")
+    t0 = time.perf_counter()
+    torus = torus_scene(device, PAST_CAP_GRID)
+    make_s = time.perf_counter() - t0
+    cfg0 = RenderConfig()
+    t0 = time.perf_counter()
+    tree = build_accel(torus, cfg0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    assert torus.num_triangles == 2 * PAST_CAP_GRID ** 2 > b4.HBM_MAX_TRIS
+    assert isinstance(tree, b4.BVH4) and tree.width == 4 and tree.num_tris == torus.num_triangles
+    mb = roofline.tree_bytes(tree) / 1e6
+    n = PARALLEL["torus_rays"]
+    o1, d1 = generate_rays(cam, n, n)
+    sub = torch.arange(0, o1.shape[0], 16, device=device)
+    o, d = o1[sub].contiguous(), d1[sub].contiguous()
+    got, want = b4._closest_kernel(tree, o, d, None), b4._closest_plain(tree, o, d, None)
+    assert all(torch.equal(a, b) for a, b in zip(got, want)), "closest walk vs twin"
+    lp = torus.point_lights.position[0]
+    hitp = o + d * torch.where(got.prim_id >= 0, got.t, 0.0)[:, None]
+    ldir = torch.nn.functional.normalize(lp - hitp, dim=1).contiguous()
+    so = (hitp + 1e-3 * ldir).contiguous()
+    st = torch.where(got.prim_id >= 0, (lp - so).norm(dim=1), -1.0).contiguous()
+    occ, occ_want = b4._anyhit_kernel(tree, so, ldir, st), b4._anyhit_plain(tree, so, ldir, st)
+    assert torch.equal(occ, occ_want), "any-hit walk vs twin"
+    per_mray = {}
+    for label, tr in (("torus 2.88M", tree),) + ((("torus 1.28M", scenes["torus"][2]),)
+                                                  if "torus" in scenes else ()):
+        ms = median(time_frames(lambda: b4._closest_kernel(tr, o1, d1, None), iters=10))
+        per_mray[label] = ms / (o1.shape[0] / 1e6)
+    _reset_counts()
+    img = render(torus, cam, RenderConfig(width=n, height=n), accel=tree)
+    counts = _read_counts()
+    assert img.shape == (n, n, 3) and bool(torch.isfinite(img).all())
+    lit = (img.amax(dim=-1) > 0.02).float().mean().item()
+    assert lit > 0.05 and counts.get("bounce_bvh4_cuda", 0) > 0, (lit, counts)
+    write_png(os.path.join(out, "torus_past_cap.png"), img)
+    frame_ms = median(time_frames(lambda: render(torus, cam, RenderConfig(width=n, height=n),
+                                                 accel=tree), iters=3, warmup=0))
+    print(f"  {torus.num_triangles} triangles (mesh {make_s:.2f} s): tree {tree.num_nodes} "
+          f"nodes, {tree.depth} levels, {mb:.1f} MB, built in {build_s:.2f} s (median, leaf "
+          f"{cfg0.resolve_bvh_max_leaf()}, width {tree.width})")
+    print(f"  closest and any-hit walks equal to their twins on {o.shape[0]} rays "
+          f"({(got.prim_id >= 0).float().mean().item():.2%} hit, "
+          f"{occ.float().mean().item():.2%} of the shadow rays occluded)")
+    print("  closest walk, ms per million 1024^2 camera rays (events, median of 10): " +
+          ", ".join(f"{k} {v:.5f}" for k, v in per_mray.items()))
+    print(f"  render() {n}^2: lit {lit:.3f}, {frame_ms:.3f} ms per frame (events), "
+          f"launches {counts}")
+    par["past_cap"] = {"triangles": torus.num_triangles, "tree_mb": mb, "build_s": build_s,
+                       "nodes": tree.num_nodes, "depth": tree.depth,
+                       "closest_ms_per_mray": per_mray, "frame_ms": frame_ms,
+                       "launches": counts}
+
+    phase("phase 35: geometry sharding, two gloo ranks sharing the card")
+    t0 = time.perf_counter()
+    multihost.spawn(_gloo_geometry_rank, 2, args=(os.path.join(out, "geometry_gloo.pt"),),
+                    backend="gloo", device="cuda")
+    spawn_s = time.perf_counter() - t0
+    geo = torch.load(os.path.join(out, "geometry_gloo.pt"), weights_only=False)
+    teacup = scenes["teacup"]
+    size = PARALLEL["teacup"]
+    cfg = RenderConfig(width=size, height=size)
+    o, d = generate_rays(cam, size, size)
+    rep = make_backend(teacup, cfg, accel=build_accel(teacup, cfg)).closest(o, d)
+    g = [x.to(device) for x in geo["teacup hits"]]
+    agree = (g[1] == rep.prim_id) & (g[0] == rep.t) & (g[2] == rep.u) & (g[3] == rep.v)
+    share = agree.float().mean().item()
+    assert share >= 1 - IMG_MAX_BAD, f"sharded teacup hits agree on {share:.4%}"
+    print(f"  teacup {size}^2 geometry_sharded_intersect: global prim id, t, u and v equal to "
+          f"the replicated walk's on {share:.5%} of the rays (shard {geo['teacup shard size']} "
+          f"triangles); launches {geo['teacup hits launches']}")
+    for label, scene, accel in (("teacup", teacup, None), ("torus", torus, tree)):
+        size = PARALLEL[label]
+        rcfg = RenderConfig(width=size, height=size)
+        want = render(scene, cam, rcfg, accel=accel)
+        rep_ms = _wall_ms(lambda: render(scene, cam, rcfg, accel=accel))
+        images_close(geo[label].to(device), want, f"{label} {size}^2 geometry-sharded vs "
+                                                  f"replicated")
+        assert geo[f"{label} launches"], (label, "no kernel launched")
+        print(f"    {label}: {geo[label + ' ms']:.3f} ms per frame on two ranks (host clock; "
+              f"replicated {rep_ms:.3f}); shards of {geo[label + ' shard size']} triangles "
+              f"built in {geo[label + ' shard build s']:.2f} s; launches "
+              f"{geo[label + ' launches']}")
+        write_png(os.path.join(out, f"geometry_{label}.png"), geo[label])
+    print(f"  two gloo ranks: spawned, ran and joined in {spawn_s:.1f} s")
+    par["geometry"] = {k: v for k, v in geo.items() if "ms" in k or "launches" in k
+                       or " s" in k or "size" in k}
+    results["parallel"] = par
+    e2e["parallel"] = {"box_ms": {"single": single_ms["box"], "nccl_1": nccl["box ms"],
+                                  "gloo_2": gloo["box ms"]},
+                       "torus_2.88M_frame_ms": frame_ms}
 
 
 if __name__ == "__main__":

@@ -229,11 +229,12 @@ def test_past_the_4_wide_cap_the_card_raises(teacup_on_card):
     from cg_raytracer_tpu_torch.models.whitted import make_backend
 
     teacup, *_ = teacup_on_card
-    n = b4.HBM_MAX_TRIS + 1  # past both of the JAX package's kernel tiers
+    n = b4.MAX_TRIS + 1  # past the limit of the kernels' int32 indexing
     big = dataclasses.replace(
-        teacup, triangles=torch.zeros((n, 3), dtype=torch.int32, device=teacup.device),
-        tri_material=torch.zeros((n,), dtype=torch.int32, device=teacup.device))
-    with pytest.raises(NotImplementedError, match="HBM_MAX_TRIS"):
+        teacup, triangles=torch.zeros((1, 3), dtype=torch.int32,
+                                      device=teacup.device).expand(n, 3),
+        tri_material=torch.zeros((1,), dtype=torch.int32, device=teacup.device).expand(n))
+    with pytest.raises(NotImplementedError, match="MAX_TRIS"):
         make_backend(big, RenderConfig())
 
 

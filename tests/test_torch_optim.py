@@ -158,9 +158,16 @@ def test_per_group_learning_rates_and_the_jsonl_log(tmp_path):
     assert [r["step"] for r in lines] == [0, 1, 2]
     assert {"step", "loss", "param_norm", "step_seconds", "rays_per_s"} <= set(lines[0])
     assert [r["loss"] for r in lines] == losses
-    with pytest.raises(NotImplementedError, match="A11"):
-        tinv.optimize(t, trt.Camera.default(device="cpu"), target, trt.RenderConfig(**cfg), steps=1,
-                      mesh=object())
+    # Multi-device training is ported (parallel/sharding.py): a one-rank
+    # mesh runs the same steps; a mesh of another kind raises.
+    from cg_raytracer_tpu_torch.parallel.sharding import make_mesh
+
+    cam = trt.Camera.default(device="cpu")
+    one = [tinv.optimize(t, cam, target, trt.RenderConfig(**cfg), steps=2, log_every=0,
+                         mesh=mesh)[1] for mesh in (None, make_mesh(device="cpu"))]
+    assert one[0] == one[1]
+    with pytest.raises(TypeError, match="Mesh"):
+        tinv.optimize(t, cam, target, trt.RenderConfig(**cfg), steps=1, mesh=object())
 
 
 def test_cli_optimize_and_bench(tmp_path, capsys):

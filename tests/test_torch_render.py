@@ -155,17 +155,16 @@ def test_unported_features_raise():
             for two_phase in ("off", "on")]
     torch.testing.assert_close(imgs[0], imgs[1])
     assert bool(torch.isfinite(imgs[0]).all()) and imgs[0].amax() > 0.02
-    # Past the 4-wide BVH kernels' cap over both tiers (HBM_MAX_TRIS; the
-    # JAX package's XLA traversal there is ROADMAP A13): the card raises
-    # before building a tree.
-    n = tb4.HBM_MAX_TRIS + 1
-    big = dataclasses.replace(t, triangles=torch.zeros((n, 3), dtype=torch.int32),
-                              tri_material=torch.zeros((n,), dtype=torch.int32))
+    # Past the limit of the kernels' int32 indexing (MAX_TRIS): the card
+    # raises before building a tree (stride-0 tables: no memory).
+    n = tb4.MAX_TRIS + 1
+    big = dataclasses.replace(t, triangles=torch.zeros((1, 3), dtype=torch.int32).expand(n, 3),
+                              tri_material=torch.zeros((1,), dtype=torch.int32).expand(n))
     for cfg in (trt.RenderConfig(backend="cuda"), trt.RenderConfig(backend="cuda",
                                                                     forward_only=True)):
-        with pytest.raises(NotImplementedError, match="HBM_MAX_TRIS"):
+        with pytest.raises(NotImplementedError, match="MAX_TRIS"):
             tw.make_backend(big, cfg)
-        with pytest.raises(NotImplementedError, match="HBM_MAX_TRIS"):
+        with pytest.raises(NotImplementedError, match="MAX_TRIS"):
             tw.build_accel(big, cfg)
 
 
