@@ -17,8 +17,11 @@ instead: ``spherical_box``
 the brute soft-shadow sampler) or ``spherical_teacup`` (the teacup lit by
 ``monkey_spherical_light``'s, through the cone sampler), both at the
 reference's 200 samples.  ``vs_baseline`` divides by the reference's
-forward-only 3.8e6 rays/s on a CPU.  Needs a CUDA device; without one it
-raises.
+forward-only 3.8e6 rays/s on a CPU; ``pct_of_roofline``, printed for the
+brute-force scenes, is the share of the H100's least time for the
+closed-form work of the step (``utils/roofline.py::headline_roofline``).
+Each step is one replay of its CUDA graph, as ``optimize()`` runs it.  Needs
+a CUDA device; without one it raises.
 """
 import argparse
 import json
@@ -38,14 +41,17 @@ def main(argv=None) -> int:
                      include_vertex_params=True, scene_name=name)
     mat = run_bench(scene, width=1024, height=1024, include_bwd=True, iters=10,
                     scene_name=name)
-    print(json.dumps({
+    line = {
         "metric": full["metric"] + " [full-gradient contract]",
         "value": full["value"],
         "unit": full["unit"],
         "vs_baseline": full["vs_baseline"],
         "materials_only_value": mat["value"],
         "materials_only_vs_baseline": mat["vs_baseline"],
-    }))
+    }
+    if "pct_of_roofline" in full:
+        line["pct_of_roofline"] = round(full["pct_of_roofline"], 2)
+    print(json.dumps(line))
     return 0
 
 

@@ -33,7 +33,10 @@
 // resident warps then walk ~36 points at once, against ~9 here.
 //
 // Sample s of the point with global index g = offset + i: Philox4x32-10 at
-// counter (g, s, 0, 0) under the key (k0, k1), its four words turned into
+// counter (g, s, 0, 0) under the key (k0, k1), read on the card from the
+// two words the wrapper points at (ops/soft.py device_key: a fresh copy per
+// launch, or a slot of the key table a CUDA graph replays with, so no key is
+// baked into a captured launch), its four words turned into
 // three Gaussians by Box-Muller on 24-bit uniforms (_gauss3_from_bits; logf,
 // sqrtf, and sincosf / cosf, not the fast intrinsics).  The sample ray is
 // _soft_sample_ray op for op (the build's -fmad=false keeps each multiply
@@ -84,7 +87,8 @@ struct SoftArgs {
   int n;
   const float* light;  // [4] center, radius
   int num_samples;
-  unsigned k0, k1, offset;  // the light's key and the batch's first global point index
+  const unsigned* key;  // [2] the light's key words (k0, k1) on the card; null for a table
+  unsigned offset;      // the batch's first global point index
   const float* gauss;       // table variant: [N, S, 3]
   int* counts;              // [N]
 };
@@ -150,7 +154,7 @@ __device__ __forceinline__ Ray sample_ray(float px, float py, float pz, float gx
 template <bool kTable, int W>
 __device__ __forceinline__ bool sample_visible(const SoftArgs& a, const SoftScene& sc,
                                                const float4* s_tri, int i, int s, float px,
-                                               float py, float pz) {
+                                               float py, float pz, unsigned k0, unsigned k1) {
   float gx, gy, gz;
   if (kTable) {
     const float* g = a.gauss + 3 * (static_cast<size_t>(i) * a.num_samples + s);
@@ -158,7 +162,7 @@ __device__ __forceinline__ bool sample_visible(const SoftArgs& a, const SoftScen
   } else {
     const uint4 ctr = make_uint4(a.offset + static_cast<unsigned>(i), static_cast<unsigned>(s),
                                  0u, 0u);
-    gauss3(philox4x32_10(ctr, a.k0, a.k1), gx, gy, gz);
+    gauss3(philox4x32_10(ctr, k0, k1), gx, gy, gz);
   }
   float tm;
   const Ray r = sample_ray(px, py, pz, gx, gy, gz, a.light, tm);
@@ -185,6 +189,11 @@ __global__ void __launch_bounds__(kSoftThreads) soft_kernel(SoftArgs a, SoftScen
     stage_rows3(sc.tris, sc.num_tris, s_mem);
     __syncthreads();
   }
+  unsigned k0 = 0u, k1 = 0u;
+  if (!kTable) {
+    k0 = a.key[0];
+    k1 = a.key[1];
+  }
   const long long points = a.order != nullptr ? *a.count : a.n;
   const long long total = points * a.num_samples;
   // t0 is the same for the whole block, so every lane reaches the warp votes.
@@ -199,7 +208,8 @@ __global__ void __launch_bounds__(kSoftThreads) soft_kernel(SoftArgs a, SoftScen
     bool visible = false;
     if (i >= 0) {
       visible = sample_visible<kTable, W>(a, sc, s_mem, i, static_cast<int>(t % a.num_samples),
-                                          a.pos[3 * i], a.pos[3 * i + 1], a.pos[3 * i + 2]);
+                                          a.pos[3 * i], a.pos[3 * i + 1], a.pos[3 * i + 2], k0,
+                                          k1);
     }
     const unsigned same = __match_any_sync(0xFFFFFFFFu, i);
     const int count = __popc(__ballot_sync(0xFFFFFFFFu, visible) & same);
@@ -225,15 +235,16 @@ int launch(const SoftArgs& a, const SoftScene& sc, cudaStream_t stream) {
 extern "C" {
 
 // counts[i] += visible samples of point i out of num_samples (the caller
-// zeroes counts); gauss null = the Philox stream of (k0, k1) at points
-// offset + i, else the table [N, num_samples, 3].  Only the count points
+// zeroes counts); gauss null = the Philox stream of the key words key[0],
+// key[1] (device memory) at points offset + i, else the table [N,
+// num_samples, 3] (key unread, may be null).  Only the count points
 // listed first in order are sampled (ops/soft.py _compact); order and count
 // null: every point.
 int cgrt_soft_brute(const float* pos, const int* order, const int* count, int n,
                     const float* light, const float* tris, int num_tris, int num_samples,
-                    unsigned k0, unsigned k1, unsigned offset, const float* gauss, int* counts,
+                    const unsigned* key, unsigned offset, const float* gauss, int* counts,
                     cudaStream_t stream) {
-  const cgrt::SoftArgs a{pos, order, count, n, light, num_samples, k0, k1, offset, gauss, counts};
+  const cgrt::SoftArgs a{pos, order, count, n, light, num_samples, key, offset, gauss, counts};
   const cgrt::SoftScene sc{tris, num_tris, cgrt::Tree{nullptr, nullptr}};
   return gauss != nullptr ? cgrt::launch<true, 0>(a, sc, stream)
                           : cgrt::launch<false, 0>(a, sc, stream);
@@ -245,9 +256,9 @@ int cgrt_soft_brute(const float* pos, const int* order, const int* count, int n,
 // both 16-byte aligned.
 int cgrt_soft_bvh4(const float* pos, const int* order, const int* count, int n,
                    const float* light, int width, const float* nodes, const float* rows,
-                   int num_samples, unsigned k0, unsigned k1, unsigned offset, const float* gauss,
+                   int num_samples, const unsigned* key, unsigned offset, const float* gauss,
                    int* counts, cudaStream_t stream) {
-  const cgrt::SoftArgs a{pos, order, count, n, light, num_samples, k0, k1, offset, gauss, counts};
+  const cgrt::SoftArgs a{pos, order, count, n, light, num_samples, key, offset, gauss, counts};
   const cgrt::SoftScene sc{nullptr, 0,
                            cgrt::Tree{reinterpret_cast<const float4*>(nodes),
                                       reinterpret_cast<const float4*>(rows)}};

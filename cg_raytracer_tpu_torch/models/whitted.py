@@ -142,7 +142,10 @@ def build_accel(scene: Scene, cfg: RenderConfig):
         primary = _wide_tree(scene, cfg.resolve_bvh_max_leaf(), builder, tree_width(scene, cfg))
         if _soft_route(scene, cfg) != "cone":
             return primary
-        return AccelBundle(primary, _soft_tree(scene, cfg, primary))
+        soft_tree = _soft_tree(scene, cfg, primary)
+        # One bundle per pair of trees: a graph of render() is keyed on it.
+        return _cached_accel(scene, ("bundle", id(primary), id(soft_tree)),
+                             lambda: AccelBundle(primary, soft_tree))
     return None
 
 
@@ -621,8 +624,35 @@ def resolve_fwd_shade_kernel(scene: Scene, cfg: RenderConfig) -> RenderConfig:
     return dataclasses.replace(cfg, fwd_shade_kernel="on" if on else "off")
 
 
+def resolve_render(scene: Scene, cfg: RenderConfig, accel=None):
+    """``render()``'s config and tree for ``scene``: the depth cut to what
+    its materials can reach (``effective_max_depth``), ``fwd_shade_kernel``
+    resolved, and the tree built (memoized) where the backend walks one.
+    Both resolutions read scene values on the host."""
+    depth = effective_max_depth(scene, cfg)
+    if depth != cfg.max_depth:
+        cfg = dataclasses.replace(cfg, max_depth=depth)
+    cfg = resolve_fwd_shade_kernel(scene, cfg)
+    if accel is None and needs_bvh(cfg, scene.num_triangles, scene.device):
+        accel = build_accel(scene, cfg)
+    return cfg, accel
+
+
+def render_resolved(scene: Scene, camera: Camera, cfg: RenderConfig, accel=None,
+                    generator=None, jit: bool = True):
+    """``render()`` of a config ``resolve_render`` gave: on the card with
+    ``jit`` one replay of the frame's cached CUDA graph
+    (``utils/graphs.py``), else ``render_image`` eagerly."""
+    if jit and scene.device.type == "cuda":
+        from ..utils import graphs
+
+        return graphs.render(scene, camera, cfg, accel, _frame_key(scene, generator))
+    return render_image(scene, camera, cfg, backend=make_backend(scene, cfg, accel=accel),
+                        generator=generator)
+
+
 def render(scene: Scene, camera: Camera, cfg: RenderConfig,
-           generator: Optional[torch.Generator] = None, accel=None):
+           generator: Optional[torch.Generator] = None, accel=None, jit: bool = True):
     """User-facing render entry point -> [H, W, 3] float32 on the scene's device.
 
     ``generator`` (a ``torch.Generator``) takes the place of the JAX
@@ -632,12 +662,14 @@ def render(scene: Scene, camera: Camera, cfg: RenderConfig,
     lights draw no samples.  ``accel``: the scene's tree from
     ``build_accel`` (the JAX package's ``bvh=``); built and memoized here
     when None.
+
+    ``jit`` (the JAX package's default, whitted.py:1056): on the card the
+    whole frame, its effects included, is captured once per resolved config,
+    input shapes, tree and spherical lights as a CUDA graph and replayed
+    (``utils/graphs.py``; the first call pays the warm-up and the capture,
+    as JAX's pays compilation).  The graph takes no gradient: a scene that
+    requires one raises under ``jit``.  ``jit=False``, and every CPU scene,
+    renders eagerly.
     """
-    depth = effective_max_depth(scene, cfg)
-    if depth != cfg.max_depth:
-        cfg = dataclasses.replace(cfg, max_depth=depth)
-    cfg = resolve_fwd_shade_kernel(scene, cfg)
-    if accel is None and needs_bvh(cfg, scene.num_triangles, scene.device):
-        accel = build_accel(scene, cfg)
-    return render_image(scene, camera, cfg, backend=make_backend(scene, cfg, accel=accel),
-                        generator=generator)
+    cfg, accel = resolve_render(scene, cfg, accel)
+    return render_resolved(scene, camera, cfg, accel, generator, jit)

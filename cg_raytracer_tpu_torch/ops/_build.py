@@ -27,7 +27,8 @@ import subprocess
 import threading
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = ("oracle.cu", "trace.cu", "record.cu", "shade.cu", "bvh4.cu", "soft.cu")
+SOURCES = ("oracle.cu", "trace.cu", "record.cu", "shade.cu", "bvh4.cu", "soft.cu",
+           "bloom.cu")
 HEADERS = ("sweep.cuh", "bvh4.cuh")
 # A check of the sample stream against the toolkit's curand Philox, built into
 # a library of its own (``load_check``) that only on-card checks load.
@@ -121,8 +122,10 @@ SIGNATURES = {
     "cgrt_bvh4_closest": [_P, _P, _P, _I, _I] + [_P] * 3 + [_P] * 4 + [_P],
     "cgrt_bvh4_anyhit": [_P, _P, _P, _I, _I] + [_P] * 3 + [_P] + [_P],
     "cgrt_bvh4_bounce": [_P, _P, _P, _I, _I] + [_P] * 3 + [_P, _I] + [_P] * 5 + [_P],
-    "cgrt_soft_brute": [_P, _P, _P, _I, _P, _P, _I, _I, _U, _U, _U, _P, _P] + [_P],
-    "cgrt_soft_bvh4": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _U, _U, _U, _P, _P] + [_P],
+    "cgrt_soft_brute": [_P, _P, _P, _I, _P, _P, _I, _I, _P, _U, _P, _P] + [_P],
+    "cgrt_soft_bvh4": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _U, _P, _P] + [_P],
+    "cgrt_bloom_quirk": [_P, _I, _I] + [_P],
+    "cgrt_bloom_quirk_adjoint": [_P, _I, _I] + [_P],
 }
 
 

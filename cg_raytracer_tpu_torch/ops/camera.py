@@ -10,10 +10,17 @@ conventions of ``cg_raytracer_tpu/ops/camera.py`` (the reference's
 """
 from __future__ import annotations
 
+import dataclasses
+import math
+
 import torch
 
 from ..scene.types import Camera
 from .linalg import cross, normalize
+
+ROTATION_SPEED_DEG_PER_PX = 0.3  # trackball.cpp:13
+TRANSLATION_SPEED = 0.005  # trackball.cpp:14
+ZOOM_SPEED = 0.5  # trackball.cpp:15
 
 
 def quat_from_euler(euler):
@@ -41,6 +48,32 @@ def camera_position(cam: Camera):
     q = quat_from_euler(cam.euler)
     zero = torch.zeros_like(cam.dist)
     return cam.look_at + quat_rotate(q, torch.stack([zero, zero, -cam.dist]))
+
+
+def orbit(cam: Camera, delta_px):
+    """Left-drag orbit by (dx, dy) pixels (trackball.cpp:138-141): the pitch
+    clamped to +-pi/2; a new camera."""
+    dx, dy = delta_px
+    ex = torch.clamp(cam.euler[0] - math.radians(dy * ROTATION_SPEED_DEG_PER_PX),
+                     -math.pi / 2, math.pi / 2)
+    ey = cam.euler[1] - math.radians(dx * ROTATION_SPEED_DEG_PER_PX)
+    return dataclasses.replace(cam, euler=torch.stack([ex, ey, cam.euler[2]]))
+
+
+def pan(cam: Camera, delta_px):
+    """Right-drag pan by (dx, dy) pixels in the image plane
+    (trackball.cpp:143-147)."""
+    dx, dy = delta_px
+    q = quat_from_euler(cam.euler)
+    axes = torch.eye(3, dtype=cam.euler.dtype, device=cam.euler.device)
+    left, up = quat_rotate(q, axes[0]), quat_rotate(q, axes[1])
+    return dataclasses.replace(
+        cam, look_at=cam.look_at + dx * TRANSLATION_SPEED * left - dy * TRANSLATION_SPEED * up)
+
+
+def zoom(cam: Camera, scroll_y):
+    """Scroll zoom (trackball.cpp:152-157): the distance clamped to [0.1, 100]."""
+    return dataclasses.replace(cam, dist=torch.clamp(cam.dist - scroll_y * ZOOM_SPEED, 0.1, 100.0))
 
 
 def generate_ray(cam: Camera, ndc):

@@ -14,7 +14,10 @@
   lookAt is absolute and the base render is dropped, still over 16.
 
 Every effect is plain PyTorch around the render function: autograd
-differentiates it, and on the card the renders inside run the kernels.
+differentiates it, and on the card the renders inside run the kernels.  The
+quirk blur alone is a kernel of its own on the card (``csrc/bloom.cu``,
+forward and adjoint, in ``_QuirkBlur``); a CPU tensor takes its plain twins
+(``bloom_quirk_plain``, ``bloom_quirk_adjoint_plain``).
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import torch.nn.functional as F
 
 from ..scene.types import Camera
 from ..utils.config import RenderConfig
+from . import cuda_kernels as ck
 
 BLOOM_RADIUS = 10  # 21x21 window (main.cpp:594-600)
 MOTION_BLUR_STEPS = 15
@@ -120,7 +124,78 @@ def _wavefronts(h: int, w: int, r: int):
 
 def _bloom_quirk_blur(bright):
     """The reference's sequential in-place 21x21 window mean
-    (main.cpp:586-614), in wavefronts.
+    (main.cpp:586-614) of ``bright`` [H, W, 3], differentiable: the kernel
+    and its adjoint on the card, the plain twins on the CPU."""
+    return _QuirkBlur.apply(bright)
+
+
+class _QuirkBlur(torch.autograd.Function):
+    """The quirk blur with a hand-written adjoint (``bloom_quirk_adjoint_*``),
+    where the JAX package differentiates through its ``lax.scan``."""
+
+    @staticmethod
+    def forward(ctx, bright):
+        return bloom_quirk_cuda(bright)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return bloom_quirk_adjoint_cuda(grad)
+
+
+def _blur_input(name, x):
+    """[H, W, 3] float32, contiguous, detached, as a new buffer (the
+    kernels work in place)."""
+    if x.ndim != 3 or x.shape[2] != 3:
+        raise ValueError(f"{name}: expected [H, W, 3], got {tuple(x.shape)}")
+    if x.shape[0] * x.shape[1] >= 2 ** 31 // 3:
+        raise ValueError(f"{name}: at most 2**31 / 3 pixels")
+    return x.detach().to(torch.float32).clone(memory_format=torch.contiguous_format)
+
+
+def bloom_quirk_cuda(bright):
+    """The quirk blur of ``bright`` [H, W, 3] -> [H, W, 3] float32: the
+    kernel of ``csrc/bloom.cu`` for a CUDA tensor (no gradient), the plain
+    twin for a CPU one."""
+    if not bright.is_cuda:
+        return bloom_quirk_plain(bright)
+    buf = _blur_input("cgrt_bloom_quirk", bright)
+    ck._launch("cgrt_bloom_quirk", buf.device, ck._ptr(buf), buf.shape[0], buf.shape[1])
+    bloom_quirk_cuda.launches += 1
+    return buf
+
+
+def bloom_quirk_adjoint_cuda(grad):
+    """The blur's vector-Jacobian product: the cotangent [H, W, 3] of its
+    output -> that of its input; the adjoint kernel for a CUDA tensor, the
+    plain twin for a CPU one."""
+    if not grad.is_cuda:
+        return bloom_quirk_adjoint_plain(grad)
+    buf = _blur_input("cgrt_bloom_quirk_adjoint", grad)
+    ck._launch("cgrt_bloom_quirk_adjoint", buf.device, ck._ptr(buf), buf.shape[0],
+               buf.shape[1])
+    bloom_quirk_adjoint_cuda.launches += 1
+    return buf
+
+
+def _padded(x, r):
+    """``x`` [h, w, 3] in a zero border of ``r`` cells, flattened to
+    [(h + 2r) (w + 2r), 3], and the tables of ``_wavefronts`` on its device."""
+    h, w = x.shape[0], x.shape[1]
+    wp = w + 2 * r
+    dev = x.device
+    centers, corners, counters, bounds = _wavefronts(h, w, r)
+    centers, corners = torch.from_numpy(centers).to(dev), torch.from_numpy(corners).to(dev)
+    counters = torch.from_numpy(counters).to(dev)[:, None]
+    span = torch.arange(2 * r + 1, device=dev)
+    window = (span[:, None] * wp + span[None, :]).reshape(-1)  # [441] cell offsets
+    buf = torch.zeros(((h + 2 * r) * wp, 3), dtype=x.dtype, device=dev)
+    buf.view(h + 2 * r, wp, 3)[r:r + h, r:r + w] = x
+    return buf, centers, corners, counters, bounds, window
+
+
+def bloom_quirk_plain(bright):
+    """The quirk blur in wavefronts, in PyTorch (differentiable by
+    autograd).
 
     The reference visits pixels in raster order and overwrites each with the
     mean of the current buffer over its in-bounds window, so pixel (y, x)
@@ -135,21 +210,46 @@ def _bloom_quirk_blur(bright):
     steps (9,589 at 800^2) of about W/11 windows each, where the JAX package
     scans H*W pixels one at a time.  Window sums are taken in another order
     than XLA's (float tolerance)."""
-    h, w = bright.shape[0], bright.shape[1]
-    r = BLOOM_RADIUS
-    wp = w + 2 * r
-    dev = bright.device
-    centers, corners, counters, bounds = _wavefronts(h, w, r)
-    centers, corners = torch.from_numpy(centers).to(dev), torch.from_numpy(corners).to(dev)
-    counters = torch.from_numpy(counters).to(dev)[:, None]
-    span = torch.arange(2 * r + 1, device=dev)
-    window = (span[:, None] * wp + span[None, :]).reshape(-1)  # [441] cell offsets
-    buf = torch.zeros(((h + 2 * r) * wp, 3), dtype=bright.dtype, device=dev)
-    buf.view(h + 2 * r, wp, 3)[r:r + h, r:r + w] = bright
+    h, w, r = bright.shape[0], bright.shape[1], BLOOM_RADIUS
+    buf, centers, corners, counters, bounds, window = _padded(bright, r)
     for b0, b1 in zip(bounds[:-1], bounds[1:]):
         mean = buf[corners[b0:b1, None] + window].sum(dim=1) / counters[b0:b1]
         buf.index_copy_(0, centers[b0:b1], mean)
-    return buf.view(h + 2 * r, wp, 3)[r:r + h, r:r + w]
+    return buf.view(h + 2 * r, w + 2 * r, 3)[r:r + h, r:r + w]
+
+
+@torch.no_grad()
+def bloom_quirk_adjoint_plain(grad):
+    """The blur's adjoint in PyTorch: the wavefronts in reverse; on each,
+    the centres' cotangents divided by their counts (v), the centres set to
+    0, then v added to every cell of each centre's window (``index_add_``,
+    centre after centre, in row order).  Two centres of one wavefront lie
+    outside each other's windows, so a centre's own update reads no other
+    centre's."""
+    h, w, r = grad.shape[0], grad.shape[1], BLOOM_RADIUS
+    buf, centers, corners, counters, bounds, window = _padded(grad.detach(), r)
+    cells = window.numel()
+    for b0, b1 in reversed(list(zip(bounds[:-1], bounds[1:]))):
+        v = buf[centers[b0:b1]] / counters[b0:b1]
+        buf.index_fill_(0, centers[b0:b1], 0.0)
+        buf.index_add_(0, (corners[b0:b1, None] + window).reshape(-1),
+                       v[:, None, :].expand(-1, cells, -1).reshape(-1, 3))
+    return buf.view(h + 2 * r, w + 2 * r, 3)[r:r + h, r:r + w].contiguous()
+
+
+KERNEL_WRAPPERS = (bloom_quirk_cuda, bloom_quirk_adjoint_cuda)
+
+
+def launch_counts() -> dict:
+    return {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+
+
+def reset_launch_counts() -> None:
+    for w in KERNEL_WRAPPERS:
+        w.launches = 0
+
+
+reset_launch_counts()
 
 
 def motion_blur(base_render_fn, camera: Camera, cfg: RenderConfig):

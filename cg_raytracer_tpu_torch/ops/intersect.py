@@ -238,7 +238,7 @@ def reconstruct_hit(scene: Scene, origins, dirs, hit: Hit) -> Surface:
     valid = prim >= 0
     is_sphere = valid & (prim >= num_tris)
     is_tri = valid & (prim < num_tris)
-    unit_x = torch.tensor([1.0, 0.0, 0.0], dtype=origins.dtype, device=origins.device)
+    unit_x = torch.eye(3, dtype=origins.dtype, device=origins.device)[0]  # no host copy
 
     if num_tris > 0:
         tris = scene.triangles.long()

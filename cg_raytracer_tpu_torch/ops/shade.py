@@ -91,7 +91,7 @@ def _shade_tables(scene: Scene):
         tri, aux = ck._tri_table(scene), ck._aux_table(scene)
     else:
         f32 = dict(dtype=torch.float32, device=scene.device)
-        tri = torch.tensor([[1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0]], **f32)
+        tri = torch.eye(3, **f32).reshape(1, 9)  # made on the device: no host copy
         aux = torch.zeros((1, 19), **f32)
         aux[0, 0:12] = 0.5773503
         aux[0, 18] = 1.0

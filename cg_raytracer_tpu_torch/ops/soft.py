@@ -46,7 +46,14 @@ threads.
 The sample stream (``SampleKey``): a render draws one key, two 32-bit
 words, from its ``torch.Generator`` on the host, and folds it per bounce
 level and per light on the host (``SampleKey.fold_in``: the first two words
-of Philox4x32-10 at counter (data, 0, 0, 0) under the key).  Sample s of the
+of Philox4x32-10 at counter (data, 0, 0, 0) under the key).  The kernels
+read a key's words on the card (``device_key``): each launch copies them
+from the host, except under a ``KeyTable``, whose buffer a CUDA graph
+(``utils/graphs.py``) reads instead, so that every replay samples its own
+keys: each slot of the table records how its key derives from the captured
+call's root keys (``SampleKey.path``), and before each replay ``fill``
+writes the words of that call's keys into the buffer with one copy.  The
+plain twin's Philox (``philox_gauss``) reads the same slots under a table.  Sample s of the
 point with global index g (the batch's ``offset`` plus its row) is
 Philox4x32-10 at counter (g, s, 0, 0) under the light's key; its four words
 become three Gaussians by Box-Muller (``gauss3``, the JAX kernels'
@@ -133,16 +140,20 @@ def gauss3(b0, b1, b2, b3):
 
 class SampleKey(NamedTuple):
     """The soft-shadow samples' key: two 32-bit words, and the global index
-    of the batch's first point (``offset``)."""
+    of the batch's first point (``offset``).  ``path``: under a capture, the
+    index of the root key it derives from, then each ``fold_in``'s data
+    (``KeyTable.root``); None elsewhere."""
 
     k0: int
     k1: int
     offset: int = 0
+    path: Optional[tuple] = None
 
     def fold_in(self, data: int) -> "SampleKey":
         """A key for ``data`` (a level, a light), derived on the host."""
         w = philox_host((data, 0, 0, 0), (self.k0, self.k1))
-        return SampleKey(w[0], w[1], self.offset)
+        path = None if self.path is None else self.path + (int(data),)
+        return SampleKey(w[0], w[1], self.offset, path)
 
     def at(self, offset: int) -> "SampleKey":
         return self._replace(offset=int(offset))
@@ -168,12 +179,111 @@ def as_key(generator) -> SampleKey:
 def philox_gauss(key: SampleKey, points, samples):
     """Gaussians [len(points), len(samples), 3] of the stream: ``points``
     are the rows of the batch (int64 [m]; the key's offset is added),
-    ``samples`` the sample indices (int64 [k])."""
+    ``samples`` the sample indices (int64 [k]).  Under a ``KeyTable`` the
+    key's words come from its slot (int64 tensors), else from the host."""
     c0 = (points.to(torch.int64) + key.offset)[:, None] & _MASK
     c1 = samples.to(torch.int64).to(c0.device)[None, :]
     zero = torch.zeros((), dtype=torch.int64, device=c0.device)
-    b0, b1, b2, b3 = philox(c0, c1, zero, zero, key.k0, key.k1)
+    k0, k1 = key.k0, key.k1
+    if _TABLE[0] is not None:
+        words = _TABLE[0].slot(key).to(torch.int64) & _MASK
+        k0, k1 = words[0], words[1]
+    b0, b1, b2, b3 = philox(c0, c1, zero, zero, k0, k1)
     return torch.stack(gauss3(b0, b1, b2, b3), dim=-1)
+
+
+# --------------------------------------------------------------------------
+# Keys on the card.
+# --------------------------------------------------------------------------
+
+KEY_SLOTS = 1024  # a KeyTable's slots: distinct (root, fold path) keys of one capture
+_TABLE = [None]  # the KeyTable the kernels and philox_gauss read, while one records
+
+
+def _word(x: int) -> int:
+    """A 32-bit word as the int32 of the same bits."""
+    x = int(x) & _MASK
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
+class KeyTable:
+    """Sample keys on the card for a CUDA graph: ``words`` [KEY_SLOTS, 2]
+    int32, one slot per distinct key the captured call uses, found by the
+    key's ``path`` (its root's index and fold data), so a replay's keys are
+    the captured call's derivations of the replay's roots.  On a CPU device
+    a slot takes its key's words when it is made (the tests' stand-in for a
+    capture); on the card ``fill`` writes every slot before a replay."""
+
+    def __init__(self, device, slots: int = KEY_SLOTS):
+        self.words = torch.zeros((slots, 2), dtype=torch.int32, device=device)
+        self.paths = []
+        self._slots = {}
+
+    @staticmethod
+    def root(index: int, key: Optional[SampleKey]) -> Optional[SampleKey]:
+        """``key`` as root ``index`` of a capture (None stays None)."""
+        return None if key is None else key._replace(path=(int(index),))
+
+    def slot(self, key: SampleKey):
+        """The key's two words: int32 [2], a view of ``words``."""
+        if key.path is None:
+            raise RuntimeError("a sample key that no root of the capture derives reached a "
+                               "sampler: its words would be baked into the graph")
+        s = self._slots.get(key.path)
+        if s is None:
+            s = self._slots[key.path] = len(self.paths)
+            if s >= self.words.shape[0]:
+                raise RuntimeError(f"more than {self.words.shape[0]} sample keys in one capture")
+            self.paths.append(key.path)
+            if not self.words.is_cuda:
+                self.words[s] = torch.tensor([_word(key.k0), _word(key.k1)], dtype=torch.int32)
+        return self.words[s]
+
+    def fill(self, roots) -> None:
+        """Write the words of every slot's key derived from ``roots`` (the
+        replay's root keys, in the captured order), with one copy."""
+        if not self.paths:
+            return
+        memo = {}
+
+        def derive(path):
+            if path not in memo:
+                memo[path] = (roots[path[0]] if len(path) == 1
+                              else derive(path[:-1]).fold_in(path[-1]))
+            return memo[path]
+
+        host = torch.tensor([[_word(derive(p).k0), _word(derive(p).k1)] for p in self.paths],
+                            dtype=torch.int32)
+        if self.words.is_cuda:
+            host = host.pin_memory()
+        self.words[:len(self.paths)].copy_(host, non_blocking=True)
+
+    def __enter__(self):
+        if _TABLE[0] is not None:
+            raise RuntimeError("a KeyTable is already recording")
+        _TABLE[0] = self
+        return self
+
+    def __exit__(self, *exc):
+        _TABLE[0] = None
+        return False
+
+
+def device_key(key: SampleKey, device):
+    """The key's words as int32 [2] on ``device``, as the samplers read them:
+    the slot of the recording ``KeyTable``, else a copy from the host (from
+    pinned memory on the card).  Raises during a CUDA graph capture without
+    a table: the copy would be replayed from freed host memory."""
+    if _TABLE[0] is not None:
+        return _TABLE[0].slot(key)
+    device = torch.device(device)
+    host = torch.tensor([_word(key.k0), _word(key.k1)], dtype=torch.int32)
+    if device.type != "cuda":
+        return host.to(device)
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("a sample key reached a sampler during a CUDA graph capture "
+                           "without a KeyTable (utils/graphs.py records one)")
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 # --------------------------------------------------------------------------
@@ -274,10 +384,13 @@ def _head(name, pos, light, valid, gauss_nsc):
         order, count)
 
 
-def _key_args(key, num_samples):
-    """(S, k0, k1, offset) as the kernels take them; a table launch has no key."""
-    k = key if key is not None else SampleKey(0, 0)
-    return (int(num_samples), *(ctypes.c_uint32(int(x) & _MASK) for x in k))
+def _key_args(key, num_samples, device):
+    """((S, key words' pointer, offset) as the kernels take them, the words
+    on the card to keep alive until the launch is queued); a table launch
+    has no key."""
+    words = None if key is None else device_key(key, device)
+    offset = 0 if key is None else key.offset
+    return (int(num_samples), ck._ptr(words), ctypes.c_uint32(int(offset) & _MASK)), words
 
 
 def _brute_kernel(tri, pos, light, num_samples, valid, key=None, gauss_nsc=None):
@@ -285,8 +398,9 @@ def _brute_kernel(tri, pos, light, num_samples, valid, key=None, gauss_nsc=None)
     counts = torch.zeros((pos.shape[0],), dtype=torch.int32, device=pos.device)
     ck._check("cgrt_soft_brute", tri, device=pos.device)
     head, _keep = _head("cgrt_soft_brute", pos, light, valid, gauss_nsc)
-    ck._launch("cgrt_soft_brute", pos.device, *head, ck._ptr(tri), tri.shape[0],
-               *_key_args(key, num_samples), ck._ptr(gauss_nsc), ck._ptr(counts))
+    key_args, _words = _key_args(key, num_samples, pos.device)
+    ck._launch("cgrt_soft_brute", pos.device, *head, ck._ptr(tri), tri.shape[0], *key_args,
+               ck._ptr(gauss_nsc), ck._ptr(counts))
     (soft_prng_cuda if gauss_nsc is None else soft_table_cuda).launches += 1
     return counts
 
@@ -298,8 +412,9 @@ def _tree_kernel(tree, pos, light, num_samples, valid, key=None, gauss_nsc=None,
     counts = torch.zeros((pos.shape[0],), dtype=torch.int32, device=pos.device)
     width, nodes, rows, _ = b4._tree_args("cgrt_soft_bvh4", tree, pos.device)
     head, _keep = _head("cgrt_soft_bvh4", pos, light, valid, gauss_nsc)
-    ck._launch("cgrt_soft_bvh4", pos.device, *head, width, nodes, rows,
-               *_key_args(key, num_samples), ck._ptr(gauss_nsc), ck._ptr(counts))
+    key_args, _words = _key_args(key, num_samples, pos.device)
+    ck._launch("cgrt_soft_bvh4", pos.device, *head, width, nodes, rows, *key_args,
+               ck._ptr(gauss_nsc), ck._ptr(counts))
     prng, table = (soft_bvh_prng_cuda, soft_bvh_table_cuda) if route == "sample" else (
         soft4_prng_cuda, soft4_table_cuda)
     b4.count_launch(prng if gauss_nsc is None else table, width)

@@ -12,11 +12,12 @@ current vertices (``ops/refit.py``), so the kernels never walk a stale tree.
 Step i's spherical-light samples come from the key folded with i
 (``soft.SampleKey.fold_in``), as the JAX package folds its PRNG key with the
 global step: the losses depend neither on the checkpoint cadence nor on a
-resume.  The JAX package's ``steps_per_call`` (K steps per dispatch, to
-amortise a remote TPU's per-call cost) has no counterpart: a step here is
-one render, one backward and one optimizer update
-(``parallel/sharding.py::make_train_step``); with a ``mesh`` every rank
-renders its rows and the gradients are summed across ranks.
+resume.  A step is one render, one backward and one optimizer update; the
+loop runs them in chunks of ``steps_per_call`` (the JAX package's K-step
+dispatch): on the card each chunk is one replay of a CUDA graph of its K
+steps (``parallel/sharding.py::make_train_loop``), and the host reads the
+chunk's losses once.  With a ``mesh`` every rank renders its rows and the
+gradients are summed across ranks, step by step.
 """
 from __future__ import annotations
 
@@ -159,8 +160,8 @@ def optimize(scene: Scene, camera: Camera, target, cfg, steps: int = 100,
              apply_params: Callable = apply_material_params, mesh=None,
              checkpoint_path: Optional[str] = None, checkpoint_every: int = 50,
              resume: bool = True, log_every: int = 10, log_fn: Callable = print,
-             log_jsonl: Optional[str] = None, key=None, optimizer: Optional[Callable] = None,
-             plain: bool = False):
+             log_jsonl: Optional[str] = None, key=None, steps_per_call: int = 8,
+             optimizer: Optional[Callable] = None, plain: bool = False, jit: bool = True):
     """Run the inverse-rendering loop on the scene's device; returns (params,
     losses), the params detached, one loss per step run.
 
@@ -168,18 +169,28 @@ def optimize(scene: Scene, camera: Camera, target, cfg, steps: int = 100,
       is left as it is.  ``apply_params(scene, params) -> scene``.
     - ``optimizer``: a function from the parameter dict to a torch optimizer
       (default ``torch.optim.Adam`` at ``learning_rate``, optax.adam's
-      update); per-group learning rates are its parameter groups.
+      update; ``capturable=True`` on the card, in the eager path too, so that
+      both round alike); per-group learning rates are its parameter groups.
+    - ``steps_per_call`` (the JAX package's, default 8): the steps of one
+      chunk.  On the card (without ``mesh``, ``plain`` or ``jit=False``) a
+      chunk of K steps is one replay of a CUDA graph captured once per chunk
+      length (a tail chunk and a chunk cut at a checkpoint get their own);
+      the loop reads the chunk's losses once.  Step i samples under the
+      key's fold with i whatever the chunking, so the losses do not depend
+      on K.  A graphed step needs a capturable optimizer: one built with
+      ``capturable=False`` raises.
     - ``checkpoint_path``: an npz of (step, params, optimizer state) written
-      every ``checkpoint_every`` steps and at the end; with ``resume`` an
-      existing one is loaded and the loop continues from its step.
+      every ``checkpoint_every`` steps (chunks end there) and at the end;
+      with ``resume`` an existing one is loaded and the loop continues from
+      its step.
     - ``log_every``: a ``log_fn`` line every that many steps (0: none);
-      ``log_jsonl``: one JSON line per step (loss, parameter norm, step
-      seconds, rays/s).
+      ``log_jsonl``: one JSON line per step (loss, the parameter norm at the
+      chunk's end, the chunk's seconds / K as step seconds, rays/s).
     - ``key``: the spherical lights' sample stream: a seed (default 0), a
       ``torch.Generator`` or a ``soft.SampleKey``; step i samples under its
       fold with i.
-    - ``plain=True`` routes the kernels through their plain twins (the
-      reference an on-card run is checked against).
+    - ``plain=True`` routes the kernels through their plain twins, eagerly
+      (the reference an on-card run is checked against).
     - ``mesh`` (``parallel/sharding.py::make_mesh``): every rank runs this
       loop on its own device with the same arguments, renders its row block
       and takes the same step on gradients summed across ranks; rank 0
@@ -187,7 +198,7 @@ def optimize(scene: Scene, camera: Camera, target, cfg, steps: int = 100,
     """
     from ..models.whitted import build_accel, needs_bvh
     from ..ops.refit import make_refit_plan
-    from ..parallel.sharding import Mesh, make_train_step
+    from ..parallel.sharding import Mesh, make_train_loop
     from ..utils.profiling import JsonlLogger
 
     if mesh is not None and not isinstance(mesh, Mesh):
@@ -202,14 +213,22 @@ def optimize(scene: Scene, camera: Camera, target, cfg, steps: int = 100,
     params = {k: v.detach().to(device).clone().requires_grad_(True) for k, v in params.items()}
     target = torch.as_tensor(target).to(device=device, dtype=torch.float32)
     if optimizer is None:
-        optimizer = lambda p: torch.optim.Adam(list(p.values()), lr=learning_rate)  # noqa: E731
+        capturable = device.type == "cuda"
+        optimizer = lambda p: torch.optim.Adam(list(p.values()), lr=learning_rate,  # noqa: E731
+                                               capturable=capturable)
     opt = optimizer(params)
     base = _base_key(key)
     accel = build_accel(scene, cfg) if needs_bvh(cfg, scene.num_triangles, device) else None
     refit_plan = (make_refit_plan(accel) if accel is not None and "vertices" in params
                   else None)
-    step = make_train_step(cfg, opt, apply_params, mesh=mesh, accel=accel,
-                           refit_plan=refit_plan, plain=plain)
+    steps_per_call = max(1, int(steps_per_call))
+    loops = {}  # chunk length -> its loop (on the card: its graph, captured at first use)
+
+    def run_chunk(k, first):
+        if k not in loops:
+            loops[k] = make_train_loop(cfg, opt, apply_params, k, mesh=mesh, accel=accel,
+                                       refit_plan=refit_plan, plain=plain, jit=jit)
+        return loops[k](params, scene, camera, target, base, first)
 
     start = 0
     if checkpoint_path and resume and os.path.exists(checkpoint_path):
@@ -217,23 +236,34 @@ def optimize(scene: Scene, camera: Camera, target, cfg, steps: int = 100,
         log_fn(f"resumed from {checkpoint_path} at step {start}")
     logger = JsonlLogger(log_jsonl, echo=False) if log_jsonl else None
     losses = []
-    for i in range(start, steps):
+    i = start
+    while i < steps:
+        k = min(steps_per_call, steps - i)
+        if checkpoint_path and checkpoint_every:
+            k = min(k, checkpoint_every - i % checkpoint_every)  # end on the boundary
         t0 = time.perf_counter()
-        loss_f = step(params, scene, camera, target, base.fold_in(i)).item()
-        dt = time.perf_counter() - t0
-        losses.append(loss_f)
+        chunk = run_chunk(k, i).tolist()  # the chunk's one wait for the card
+        dt = (time.perf_counter() - t0) / k
+        losses.extend(chunk)
         if logger:
             with torch.no_grad():
                 norm = float(torch.sqrt(sum((p.double() ** 2).sum() for p in params.values())))
-            logger.log(step=i, loss=loss_f, param_norm=norm, step_seconds=dt,
-                       rays_per_s=cfg.width * cfg.height / max(dt, 1e-9))
-        if log_every and (i % log_every == 0 or i == steps - 1):
-            log_fn(f"step {i}: loss {loss_f:.6e}")
-        if lead and checkpoint_path and checkpoint_every and (i + 1) % checkpoint_every == 0 \
-                and i + 1 < steps:
-            save_checkpoint(checkpoint_path, i + 1, params, opt)
+            for j, loss_f in enumerate(chunk):
+                logger.log(step=i + j, loss=loss_f, param_norm=norm, step_seconds=dt,
+                           rays_per_s=cfg.width * cfg.height / max(dt, 1e-9))
+        for j, loss_f in enumerate(chunk):
+            if log_every and ((i + j) % log_every == 0 or i + j == steps - 1):
+                log_fn(f"step {i + j}: loss {loss_f:.6e}")
+        i += k
+        if lead and checkpoint_path and checkpoint_every and i % checkpoint_every == 0 \
+                and i < steps:
+            save_checkpoint(checkpoint_path, i, params, opt)
     if logger:
         logger.close()
+    from ..utils import graphs
+
+    for loop in loops.values():
+        graphs.forget(loop)  # no later call replays this loop's graphs: free their pools
     if lead and checkpoint_path:
         save_checkpoint(checkpoint_path, steps, params, opt)
     if mesh is not None:

@@ -27,7 +27,10 @@ from this one only along it).  A world of one rank needs no process group.
   JAX package) and every rank takes the same optimizer step.  The sum
   changes the order of float additions: gradients match a single-device
   step to float tolerance, not bit for bit.  With vertices among the
-  parameters every rank refits its own tree replica each step.
+  parameters every rank refits its own tree replica each step.  Without a
+  mesh the step and the K-step loop replay CUDA graphs on the card
+  (``utils/graphs.py``); with one they run eagerly, and so do the sharded
+  renders: their collectives go through the host.
 
 Collectives: every cross-rank operation here and in ``geometry.py`` is an
 ``all_reduce``.  Gloo takes CUDA tensors only for ``broadcast`` and
@@ -169,17 +172,6 @@ def _check_devices(scene: Scene, camera: Camera, mesh: Mesh) -> None:
                          f"rank's device is {mesh.device}")
 
 
-def _prepared(scene: Scene, cfg: RenderConfig, accel):
-    """``render()``'s resolution of the config and its tree."""
-    depth = whitted.effective_max_depth(scene, cfg)
-    if depth != cfg.max_depth:
-        cfg = dataclasses.replace(cfg, max_depth=depth)
-    cfg = whitted.resolve_fwd_shade_kernel(scene, cfg)
-    if accel is None and whitted.needs_bvh(cfg, scene.num_triangles, scene.device):
-        accel = whitted.build_accel(scene, cfg)
-    return cfg, accel
-
-
 def _tile(scene, camera, cfg, backend, key, rows):
     """Rows (start, stop) before the whole-frame pass: ``render_rows``'s
     pixels, or on the reference's AA + bloom path its per-pixel buffers
@@ -232,7 +224,7 @@ def render_on_mesh(scene: Scene, camera: Camera, cfg: RenderConfig, mesh: Mesh, 
 
 
 def _render(scene, camera, cfg, mesh, generator, accel, sample_split=None):
-    cfg, accel = _prepared(scene, cfg, accel)
+    cfg, accel = whitted.resolve_render(scene, cfg, accel)
     backend = whitted.make_backend(scene, cfg, accel=accel)
     if sample_split is not None:
         backend = backend._replace(soft_vis=None, sample_split=sample_split)
@@ -328,46 +320,91 @@ def sum_grads(grads: Dict, mesh: Optional[Mesh]) -> Dict:
 
 def make_train_step(cfg: RenderConfig, optimizer, apply_params: Callable,
                     mesh: Optional[Mesh] = None, accel=None, refit_plan=None,
-                    plain: bool = False):
+                    plain: bool = False, jit: bool = True):
     """The inverse-rendering step: ``step(params, scene, camera, target,
     generator) -> loss`` (the global loss, a detached scalar).  ``params``
     is the dict of leaf tensors that ``optimizer`` (a torch optimizer)
     updates in place: render, backward on fresh leaves, the gradients
     summed over the mesh's 'rays' group, one ``optimizer.step()``.  Without
-    a mesh, ``optim/inverse.py::optimize``'s step exactly."""
-    from ..optim.inverse import loss_and_grads
+    a mesh, ``optim/inverse.py::optimize``'s step exactly: on the card (and
+    ``jit``) the whole step, the refit and the optimizer's update included,
+    is one replay of a CUDA graph (``make_train_loop`` with K = 1), which
+    needs a capturable optimizer (``torch.optim.Adam(..., capturable=True)``;
+    else it raises).  With a mesh, with ``plain`` (the twins sync with the
+    host) or with ``jit=False`` it runs eagerly."""
+    loop = make_train_loop(cfg, optimizer, apply_params, 1, mesh=mesh, accel=accel,
+                           refit_plan=refit_plan, plain=plain, jit=jit)
 
     def step(params, scene, camera, target, generator):
+        return loop.run(params, scene, camera, target, [generator])[0]
+
+    return step
+
+
+class _TrainLoop:
+    """``make_train_loop``'s chunk: K steps eagerly, or as one graph."""
+
+    def __init__(self, cfg, optimizer, apply_params, steps_per_call, mesh, accel, refit_plan,
+                 plain, jit):
+        if steps_per_call < 1:
+            raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
+        self.cfg, self.optimizer, self.apply_params = cfg, optimizer, apply_params
+        self.k, self.mesh, self.accel, self.refit_plan = steps_per_call, mesh, accel, refit_plan
+        self.plain = plain
+        self.graphed = jit and mesh is None and not plain
+
+    def step(self, params, scene, camera, target, generator):
+        """One eager step -> loss."""
+        from ..optim.inverse import loss_and_grads
+
+        mesh = self.mesh
         loss, grads = loss_and_grads(
-            lambda p: render_loss(p, scene, camera, target, cfg, generator, apply_params,
-                                  mesh=mesh, accel=accel, refit_plan=refit_plan, plain=plain),
+            lambda p: render_loss(p, scene, camera, target, self.cfg, generator,
+                                  self.apply_params, mesh=mesh, accel=self.accel,
+                                  refit_plan=self.refit_plan, plain=self.plain),
             params)
         grads = sum_grads(grads, mesh)
         if mesh is not None:
             loss = mesh.all_reduce(loss.clone(), axis=RAY_AXIS)
         for k, p in params.items():
             p.grad = grads[k]
-        optimizer.step()
+        self.optimizer.step()
         return loss
 
-    return step
+    def run(self, params, scene, camera, target, generators):
+        """The steps of ``generators`` (each step's generator or sample key)
+        -> losses [K]."""
+        if len(generators) != self.k:
+            raise ValueError(f"a chunk of {self.k} steps got {len(generators)} keys")
+        if self.graphed and scene.device.type == "cuda":
+            from ..utils import graphs
+
+            spherical = scene.spherical_lights.position.shape[0] > 0
+            keys = [soft.as_key(g) if spherical else None for g in generators]
+            return graphs.train_chunk(self.step, params, self.optimizer,
+                                      (scene, camera, target), keys, owner=self,
+                                      hold=(self.accel, self.refit_plan))
+        return torch.stack([self.step(params, scene, camera, target, g) for g in generators])
+
+    def __call__(self, params, scene, camera, target, key, start_step: int = 0):
+        key = soft.as_key(key)
+        return self.run(params, scene, camera, target,
+                        [key.fold_in(start_step + j) for j in range(self.k)])
 
 
 def make_train_loop(cfg: RenderConfig, optimizer, apply_params: Callable, steps_per_call: int,
                     mesh: Optional[Mesh] = None, accel=None, refit_plan=None,
-                    plain: bool = False):
-    """K = ``steps_per_call`` steps per call: ``loop(params, scene, camera,
-    target, key, start_step) -> losses [K]``; step j samples under
-    ``key.fold_in(start_step + j)`` (``key`` a ``soft.SampleKey`` or a
-    generator to draw one from), the stream of K calls of the step with
-    ``fold_in(i)``.  There is no dispatch to amortise here: the loop is K
-    steps of ``make_train_step``."""
-    step = make_train_step(cfg, optimizer, apply_params, mesh=mesh, accel=accel,
-                           refit_plan=refit_plan, plain=plain)
-
-    def loop(params, scene, camera, target, key, start_step: int = 0):
-        key = soft.as_key(key)
-        return torch.stack([step(params, scene, camera, target, key.fold_in(start_step + j))
-                            for j in range(steps_per_call)])
-
-    return loop
+                    plain: bool = False, jit: bool = True):
+    """K = ``steps_per_call`` steps per call (the JAX package's K-step
+    ``lax.scan``): ``loop(params, scene, camera, target, key, start_step)
+    -> losses [K]``; step j samples under ``key.fold_in(start_step + j)``
+    (``key`` a ``soft.SampleKey`` or a generator to draw one from), the
+    stream of K calls of the step with ``fold_in(i)``.  Without a mesh, on
+    the card and with ``jit``, the K steps are captured once as one CUDA
+    graph (``utils/graphs.py::train_chunk``) and every call is one replay:
+    the host's launches are paid once per chunk length, not per step, and
+    the losses stay on the card until the caller reads them.  With a mesh
+    (collectives through the host), ``plain`` or ``jit=False`` the K steps
+    run eagerly, one after another; the losses are the same."""
+    return _TrainLoop(cfg, optimizer, apply_params, steps_per_call, mesh, accel, refit_plan,
+                      plain, jit)

@@ -24,6 +24,11 @@ def _row(values, like):
     return torch.tensor(values, dtype=torch.float32, device=like.device).reshape(1, -1)
 
 
+def num_lights(scene: Scene) -> int:
+    """Editable lights, point and spherical: the combo's length."""
+    return scene.point_lights.position.shape[0] + scene.spherical_lights.position.shape[0]
+
+
 def _split_index(scene: Scene, index: int):
     """Unified index -> ('point'|'spherical', local index); raises IndexError."""
     np_ = scene.point_lights.position.shape[0]

@@ -42,6 +42,12 @@ RECON_FLOPS = 150  # the hit's surface: MT re-solve, normal, flip, masks
 SHADE_FLOPS = 60  # Phong toward one light
 BOUNCE_MISC_FLOPS = 50  # reflection, throughput, masks
 SAMPLE_FLOPS = 65  # a soft-shadow sample's float work: Box-Muller (25), its ray (40)
+# Per-ray byte streams of a frame (the JAX package's bytes_per_ray): the
+# bounce kernel's rays in and records out, the surface's gathered row and
+# fields, shading's re-reads and the color.
+KERNEL_BYTES = 48
+RECON_BYTES = 28 * 4 + 60
+SHADE_BYTES = 120
 # Philox4x32-10's integer work per sample: ten rounds of two 32 x 32 -> 64-bit
 # products (a high and a low word each), four xors and two key bumps, then
 # the four 24-bit masks of the uniforms.
@@ -149,3 +155,45 @@ def shade_flops(n_live: int, num_lights: int, backward: bool = False) -> float:
     """The shade kernels: each live ray's surface and Phong toward each
     light (its backward about three times the forward)."""
     return float(n_live * (RECON_FLOPS + SHADE_FLOPS * num_lights) * (3 if backward else 1))
+
+
+def brute_flops_per_ray(num_tris: int, num_lights: int, bounces: int,
+                        include_bwd: bool = False) -> float:
+    """Operations per primary ray of a brute-force frame in closed form
+    (``cg_raytracer_tpu/utils/roofline.py::brute_flops_per_ray``): every ray
+    tests every triangle at each bounce, a shadow ray per light tests them
+    all, then the surface and Phong; the backward replays the surface and
+    shading at about twice their forward (the sweeps are oracles)."""
+    closest = num_tris * (MT_FLOPS + CLOSEST_UPDATE)
+    shadow = num_lights * (SHADOW_SETUP + num_tris * (MT_FLOPS + ANYHIT_UPDATE))
+    fwd = bounces * (RECON_FLOPS + num_lights * SHADE_FLOPS + BOUNCE_MISC_FLOPS)
+    return float(bounces * (closest + shadow) + fwd + (2 * fwd if include_bwd else 0))
+
+
+def bytes_per_ray(num_lights: int, bounces: int, include_bwd: bool = False) -> float:
+    """The per-ray byte streams of a frame (``cg_raytracer_tpu/utils/
+    roofline.py::bytes_per_ray``; the scene's tables amortise to ~0 per
+    ray)."""
+    fwd = bounces * (RECON_BYTES + SHADE_BYTES)
+    return float(bounces * KERNEL_BYTES + fwd + (2 * fwd if include_bwd else 0))
+
+
+def headline_roofline(width: int, height: int, num_tris: int, num_lights: int, bounces: int,
+                      include_bwd: bool) -> dict:
+    """The least time of a brute-force frame or training step on an H100
+    (``cg_raytracer_tpu/utils/roofline.py::headline_roofline`` over this
+    card's peaks): the closed-form operations over 67 TFLOP/s against the
+    bytes over 3.35 TB/s."""
+    rays = width * height
+    flops = rays * brute_flops_per_ray(num_tris, num_lights, bounces, include_bwd)
+    byts = rays * bytes_per_ray(num_lights, bounces, include_bwd)
+    ms, by = bound_ms(flops, byts)
+    return {"chip": "NVIDIA H100 SXM (67 TFLOP/s float32, 3.35 TB/s)", "rays": rays,
+            "gflops_per_frame": flops / 1e9, "mbytes_per_frame": byts / 1e6,
+            "ideal_seconds": ms / 1e3, "bound": by, "ideal_rays_per_s": rays / (ms / 1e3)}
+
+
+def pct_of_roofline(measured_s: float, flops: float, bytes_: float) -> float:
+    """The least time of ``flops`` and ``bytes_`` on the card as a percentage
+    of ``measured_s``."""
+    return 100.0 * bound_ms(flops, bytes_)[0] / 1e3 / measured_s

@@ -8,7 +8,8 @@ tree-width slice (the walk and the samplers at node widths 2 and 8), the
 redesigned kernels measured against their earlier versions, and the
 effects and front-end slice (AA, bloom, motion blur, ``render_rows``, the
 CLI's effects and ``--profile``, the debug front ends, the native host
-builds).
+builds), the multi-device slice, and compiled dispatch (frames, steps and
+``optimize()`` chunks replayed as CUDA graphs; the quirk blur's kernel).
 
 Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
@@ -214,7 +215,21 @@ Phases, each printing its own lines:
     the replicated walk's global prim ids, t, u and v but for ties (<= 0.5%),
     ``geometry_sharded_render`` of the teacup at 512x512 and of the torus
     past the cap at 256x256 within ``IMG_MAX_BAD`` of the replicated render,
-    and the per-shard kernels' launches.
+    and the per-shard kernels' launches;
+36. compiled dispatch (``utils/graphs.py``): every route of PERF.md's kernel
+    table rendered through ``render()``'s CUDA graph (counts from 0: the
+    warm-up and the replays) and eagerly, bit-equal, then replayed once
+    more with a material scaled, the camera moved and (spherical lights)
+    a new key, bit-equal to a fresh eager render; eager and graphed ms and
+    busy share of each, the first call's capture and instantiation
+    seconds and the graph's pool; three graphed training steps (the box,
+    the teacup, the box with the quirk bloom) against the eager step: the
+    loss bit-equal, the gradients within ``checks.TABLE_GRAD``;
+    ``optimize(steps_per_call=8)`` over 16 teacup vertex steps against the
+    eager loop; ``csrc/bloom.cu``'s forward and adjoint against their twins
+    at 1024x1024 and 37x53, timed against the twins and their bound; and
+    the teacup's motion-blur sets against the plain twins (run on the CPU
+    in processes started with the script).
 
 Every kernel's entry has its bound: the larger of its operations over 67
 TFLOP/s (integer ones over 16.7 Tops/s) and its bytes over 3.35 TB/s
@@ -372,6 +387,7 @@ def main(argv=None) -> int:
     from cg_raytracer_tpu_torch.utils.profiling import device_breakdown
 
     os.makedirs(out, exist_ok=True)
+    mb_twins = start_mb_twins(out)  # phase 36's CPU twins, in the background from now
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -775,6 +791,7 @@ def main(argv=None) -> int:
     sweep_phase(out, device, kernels, e2e, results, scenes, args.parent)
     effects_phase(out, device, e2e, results, scenes)
     parallel_phases(out, device, e2e, results, scenes)
+    counts.update(dispatch_phase(out, device, kernels, e2e, results, scenes, mb_twins))
 
     results.update(card=smi, counts=counts, kernels=kernels, end_to_end=e2e)
     with open(os.path.join(out, "results.json"), "w") as f:
@@ -1655,12 +1672,15 @@ def scale_phases(out, device, check, note, kernels, e2e, results, scenes) -> dic
                        apply_params=inverse.apply_vertex_params, log_every=1)
             del refits[:]
             params, losses = inverse.optimize(moved, cam, target, cfg, log_jsonl=log, **run)
-            assert len(refits) == run["steps"], f"{label}: {len(refits)} refits"
+            # The four steps are one chunk, one CUDA graph: its warm-up step
+            # and its capture call the refit once per step, its replay none.
+            assert len(refits) == run["steps"] + 1, f"{label}: {len(refits)} refits"
             step_s = [json.loads(line)["step_seconds"] for line in open(log)]
-            opt[label] = {"losses": losses, "step_ms": median(step_s[1:]) * 1e3}
+            opt[label] = {"losses": losses, "step_ms": median(step_s) * 1e3}
             print(f"  {label} 1024^2 (depth {effective_max_depth(scene, cfg)}), "
                   f"{moved.num_triangles} triangles: losses {losses}, "
-                  f"{opt[label]['step_ms']:.4f} ms/step after the first (host clock)")
+                  f"{opt[label]['step_ms']:.4f} ms/step: the chunk's seconds / 4, its warm-up "
+                  f"and capture included (host clock; phase 36 times replays)")
             assert all(np.isfinite(losses)) and losses[-1] < losses[0], (label, losses)
             tcfg = inverse.training_config(cfg, True)
             accel0 = build_accel(moved, tcfg)  # memoized: the tree optimize built
@@ -1672,9 +1692,25 @@ def scale_phases(out, device, check, note, kernels, e2e, results, scenes) -> dic
                   f"{accel0.num_nodes} nodes, {len(plan.levels)} levels)")
             if label != "teacup":
                 continue
-            _, plain_losses = inverse.optimize(moved, cam, target, cfg, plain=True, **run)
-            print(f"  teacup, the same steps through the plain path: losses {plain_losses}")
-            np.testing.assert_allclose(losses, plain_losses, rtol=1e-4)
+            # The graphed chunk against the eager loop's steps (the shade
+            # backward's atomics add in another order in each run).
+            _, eager_losses = inverse.optimize(moved, cam, target, cfg, jit=False, **run)
+            np.testing.assert_allclose(losses, eager_losses, rtol=1e-4)
+            # The kernels against the plain twins, on a non-capturable Adam
+            # (so the kernels' run is eager).  A vertex step moves hit edges,
+            # so a float difference in one step's update can flip a pixel
+            # three steps on; the capturable Adam's float32 bias correction
+            # is such a difference.
+            adam = lambda p: torch.optim.Adam(list(p.values()), lr=run["learning_rate"])  # noqa
+            _, k_losses = inverse.optimize(moved, cam, target, cfg, jit=False, optimizer=adam,
+                                           **run)
+            _, plain_losses = inverse.optimize(moved, cam, target, cfg, plain=True,
+                                               optimizer=adam, **run)
+            print(f"  teacup: the graphed steps' losses "
+                  f"{'equal' if losses == eager_losses else 'within rtol 1e-4 of'} the eager "
+                  f"loop's {eager_losses}; with Adam not capturable, the kernels' losses "
+                  f"{k_losses}, the plain path's {plain_losses}")
+            np.testing.assert_allclose(k_losses, plain_losses, rtol=1e-4)
             refit_tree = real_refit(accel0, final, plan)
             fresh = b4.build_bvh4(final, max_leaf=tcfg.resolve_bvh_max_leaf(),
                                   builder=tcfg.resolve_bvh_builder(final.num_triangles, device))[1]
@@ -2355,12 +2391,24 @@ def build_variants(source, ablations, signatures, parent=None, parent_signatures
     return libs
 
 
-def soft_signatures():
+def soft_signatures(key_by_value: bool = False):
+    """The samplers' argtypes; ``key_by_value``: an earlier tree's, whose
+    kernels took the key's words (k0, k1) as scalars."""
     import ctypes
 
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-    return {"cgrt_soft_brute": [p, p, p, i, p, p, i, i, u, u, u, p, p, p],
-            "cgrt_soft_bvh4": [p, p, p, i, p, i, p, p, i, u, u, u, p, p, p]}
+    key = [u, u, u] if key_by_value else [p, u]
+    return {"cgrt_soft_brute": [p, p, p, i, p, p, i, i, *key, p, p, p],
+            "cgrt_soft_bvh4": [p, p, p, i, p, i, p, p, i, *key, p, p, p]}
+
+
+def parent_keys_by_value(parent) -> bool:
+    """Whether the checkout ``parent``'s samplers take the key's words as
+    scalars (trees before the key moved to the card)."""
+    if parent is None:
+        return False
+    with open(os.path.join(parent, CSRC, "soft.cu")) as f:
+        return "const unsigned* key" not in f.read()
 
 
 def soft_launch(lib, target, pos, light, num, valid, key, gauss_nsc):
@@ -2376,7 +2424,12 @@ def soft_launch(lib, target, pos, light, num, valid, key, gauss_nsc):
 
     counts = torch.zeros((pos.shape[0],), dtype=torch.int32, device=pos.device)
     head, _keep = soft._head("soft variant", pos, light, valid, gauss_nsc)
-    tail = (*soft._key_args(key, num), ck._ptr(gauss_nsc), ck._ptr(counts),
+    if getattr(lib, "key_by_value", False):
+        k = key if key is not None else soft.SampleKey(0, 0)
+        key_args = (num, *(ctypes.c_uint32(int(x) & 0xFFFFFFFF) for x in k[:3]))
+    else:
+        key_args, _words = soft._key_args(key, num, pos.device)
+    tail = (*key_args, ck._ptr(gauss_nsc), ck._ptr(counts),
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if isinstance(target, b4.BVH4):
         err = lib.cgrt_soft_bvh4(*head, target.width, ck._ptr(target.nodes),
@@ -2483,7 +2536,10 @@ def sampler_phase(out, device, kernels, e2e, results, scenes, parent=None) -> No
     targets.update({f"w{w}": ("teacup", stree[("teacup", w)], work[f"teacup w{w}"])
                     for w in (2, 4, 8)})
     t0 = time.perf_counter()
-    variants = build_variants("soft.cu", SOFT_ABLATIONS, soft_signatures(), parent)
+    variants = build_variants("soft.cu", SOFT_ABLATIONS, soft_signatures(), parent,
+                              soft_signatures(key_by_value=parent_keys_by_value(parent)))
+    if "parent" in variants:
+        variants["parent"][0].key_by_value = parent_keys_by_value(parent)
     print(f"  {len(variants)} variants of soft.cu built in {time.perf_counter() - t0:.1f} s")
     with open(_build.library_path()[:-3] + ".log") as f:
         logs = {"this tree": f.read()}
@@ -3699,7 +3755,9 @@ def effects_phase(out, device, e2e, results, scenes) -> None:
                      "--bloom", "--motion-blur", "--profile", trace_dir, "--width", size,
                      "--height", size, "-o", png]) == 0
     cli_counts = counts()
-    assert cli_counts == {"trace_cuda": 2 * 64}, cli_counts  # warm-up and timed, 64 frames each
+    # The warm-up render captures its graph (an eager warm-up, then a replay)
+    # and the timed one replays it: 64 frames each, three times.
+    assert cli_counts == {"trace_cuda": 3 * 64}, cli_counts
     img = read_image(png)
     assert img.shape == (FX["cli"], FX["cli"], 3) and (img.max(axis=-1) > 0.02).mean() > 0.1
     traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
@@ -3898,7 +3956,10 @@ def _step(mesh, box, cam, cfg):
     target = 0.9 * render(box, cam, cfg).detach()
     params = {k: v.detach().clone().requires_grad_(True)
               for k, v in inverse.material_params(box).items()}
-    opt = torch.optim.Adam(list(params.values()), lr=1e-2)
+    # Capturable on the card (as optimize() builds it): the step without a
+    # mesh replays a CUDA graph, the mesh's runs eagerly with the same update.
+    opt = torch.optim.Adam(list(params.values()), lr=1e-2,
+                           capturable=box.device.type == "cuda")
     step = sharding.make_train_step(cfg, opt, inverse.apply_material_params, mesh=mesh)
     _reset_counts()
     loss = step(params, box, cam, target, None)
@@ -4143,6 +4204,404 @@ def parallel_phases(out, device, e2e, results, scenes) -> None:
     e2e["parallel"] = {"box_ms": {"single": single_ms["box"], "nccl_1": nccl["box ms"],
                                   "gloo_2": gloo["box ms"]},
                        "torus_2.88M_frame_ms": frame_ms}
+
+
+# Phase 36's sizes: the frames (the tree routes at widths 2 also at 512^2),
+# the steps, optimize()'s teacup steps, the odd bloom size, and the teacup's
+# motion-blur sets against the twins (the 4-wide twin walk takes ~2 s a
+# frame at any size: 95 frames, so the twins run on the CPU in processes
+# of their own from the script's start, ``start_mb_twins``).
+DISPATCH = dict(frame=1024, small=512, step=1024, bloom_step=256, opt=256, opt_steps=16,
+                opt_k=8, odd=(37, 53), mb=16)
+MB_SETS = ("motion blur", "aa+bloom+motion blur", "quirks motion blur")
+BLOOM_TOL = dict(rtol=1e-5, atol=1e-5)  # window sums in another order than the twin's
+MB_TWIN_SNIPPET = """
+import json, os, sys, torch
+os.nice(10)  # behind the script's own host work
+sys.path.insert(0, ".")
+from cg_raytracer_tpu_torch.models.whitted import make_backend, render_image, resolve_render
+from cg_raytracer_tpu_torch.scene.presets import load_scene
+from cg_raytracer_tpu_torch.scene.types import Camera
+from cg_raytracer_tpu_torch.utils.config import RenderConfig
+torch.set_num_threads(1)
+flags, size, path = json.loads(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+scene = load_scene("teacup", device="cpu")
+cfg, accel = resolve_render(scene, RenderConfig(width=size, height=size, backend="cuda", **flags))
+torch.save(render_image(scene, Camera.default(device="cpu"), cfg,
+                        backend=make_backend(scene, cfg, plain=True, accel=accel)), path)
+"""
+
+
+def start_mb_twins(out) -> dict:
+    """The teacup's motion-blur sets through the plain twins on the CPU, one
+    process per set (no card: CUDA hidden), started now and read in phase
+    36: name -> (process, output path).  Any still running when the script
+    exits (a phase failed first) is killed then."""
+    import atexit
+
+    procs = {}
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    for name in MB_SETS:
+        path = os.path.join(out, f"mb_twin_{name.replace(' ', '_').replace('+', '_')}.pt")
+        cmd = [sys.executable, "-c", MB_TWIN_SNIPPET, json.dumps(EFFECTS[name]),
+               str(DISPATCH["mb"]), path]
+        procs[name] = (subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True), path)
+    atexit.register(lambda: [p.kill() for p, _ in procs.values() if p.poll() is None])
+    return procs
+
+
+def _kd_moved(scene):
+    """``scene`` with material 0's kd scaled (a value the graph must copy in)."""
+    kd = scene.materials.kd.clone()
+    kd[0] = kd[0] * 0.7
+    return dataclasses.replace(scene, materials=dataclasses.replace(scene.materials, kd=kd))
+
+
+def _bloom_work(h, w, adjoint=False):
+    """(operations, bytes) of the quirk blur on [h, w, 3] (or its adjoint):
+    each pixel's window, counted on its in-bounds cells, three channels."""
+    import numpy as np
+
+    ys, xs = np.arange(h), np.arange(w)
+    cy = np.minimum(ys + 10, h - 1) - np.maximum(ys - 10, 0) + 1
+    cx = np.minimum(xs + 10, w - 1) - np.maximum(xs - 10, 0) + 1
+    cells = float((cy[:, None] * cx[None, :]).sum())
+    per_px = 3.0  # a divide per channel
+    adds = 3 * cells if adjoint else 3 * (cells - h * w)
+    return adds + per_px * h * w, 2 * h * w * 12
+
+
+def dispatch_phase(out, device, kernels, e2e, results, scenes, mb_twins) -> dict:
+    """Phase 36: compiled dispatch.  Returns the launch counts of its main
+    path (the graphed frames, steps and ``optimize()``)."""
+    import numpy as np
+    import torch
+
+    from cg_raytracer_tpu_torch.models import whitted
+    from cg_raytracer_tpu_torch.models.whitted import make_backend, render, render_image
+    from cg_raytracer_tpu_torch.ops import effects, soft
+    from cg_raytracer_tpu_torch.optim import inverse
+    from cg_raytracer_tpu_torch.scene import standins
+    from cg_raytracer_tpu_torch.scene.presets import load_scene
+    from cg_raytracer_tpu_torch.scene.types import Camera, PointLights, Spheres, make_scene
+    from cg_raytracer_tpu_torch.utils import bench, checks, graphs, roofline
+    from cg_raytracer_tpu_torch.utils.bench import median, time_frames
+    from cg_raytracer_tpu_torch.utils.config import RenderConfig
+    from cg_raytracer_tpu_torch.utils.profiling import device_breakdown
+
+    phase("phase 36: compiled dispatch: graphed frames, steps and optimize() against eager "
+          "runs; the quirk blur's kernel")
+    start = time.perf_counter()
+
+    def lap(what):
+        print(f"  [{what}: {time.perf_counter() - start:.1f} s into phase 36]")
+
+    modules = _modules() + [effects]
+
+    def reset():
+        for m in modules:
+            m.reset_launch_counts()
+
+    def read():
+        torch.cuda.synchronize()
+        return {k: v for m in modules for k, v in m.launch_counts().items() if v}
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    cam = Camera.default(device=device)
+    cam2 = Camera.default(look_at=(0.02, -0.015, 0.01), euler_deg=(21.0, 18.5, 0.0),
+                          device=device)
+    mixed = make_scene(standins.mixed_meshes(),
+                       spheres=Spheres(**{k: torch.as_tensor(v)
+                                          for k, v in standins.mixed_spheres().items()}),
+                       point_lights=PointLights.of(*standins.MIXED_LIGHTS), device=device)
+    box, sbox, teacup = scenes["box"], scenes["spherical_box"], scenes["teacup"]
+    steacup, donut = scenes["spherical_teacup"][0], scenes["donut"]
+    n, m = DISPATCH["frame"], DISPATCH["small"]
+    routes = {  # label -> (scene, size, RenderConfig flags); rows of PERF.md's table
+        "box default (3)": (box, n, {}),
+        "box forward-only (6)": (box, n, dict(forward_only=True)),
+        "mixed default (1, 2)": (mixed, n, {}),
+        "spheres preset": (load_scene("spheres", device=device), n, {}),
+        "spherical box (3, 4)": (sbox, n, {}),
+        "teacup default (18)": (teacup, n, {}),
+        "teacup bvh_wide=2 (10)": (teacup, m, dict(bvh_wide="2")),
+        "spherical teacup (18, 19)": (steacup, n, {}),
+        "spherical teacup bvh_wide=2 (10, 15)": (steacup, m, dict(bvh_wide="2")),
+        "spherical teacup tile=sample (10, 13)": (steacup, m,
+                                                   dict(soft_shadow_tile="sample")),
+        "teacup + spheres (17)": (scenes["teacup_spheres"], n, {}),
+        "teacup + spheres bvh_wide=2 (9)": (scenes["teacup_spheres"], m, dict(bvh_wide="2")),
+        "donut default (22)": (donut, n, {}),
+        "donut bvh_wide_hbm=2 (12)": (donut, m, dict(bvh_wide_hbm="2")),
+        "donut + spheres (21)": (scenes["donut_spheres"], n, {}),
+        "donut + spheres bvh_wide_hbm=2 (11)": (scenes["donut_spheres"], m,
+                                                dict(bvh_wide_hbm="2")),
+        "box quirk bloom (bloom.cu)": (box, n, dict(bloom=True, reference_quirks=True)),
+        "box quirk aa+bloom (bloom.cu)": (box, n, dict(anti_aliasing=True, bloom=True,
+                                                      reference_quirks=True)),
+    }
+    graphs.clear()
+    main_counts = {}
+    table = {}
+    for label, (scene, size, flags) in routes.items():
+        cfg = RenderConfig(width=size, height=size, **flags)
+        rcfg, accel = whitted.resolve_render(scene, cfg)
+        # The main path: counts from 0, the first graphed call (warm-up,
+        # capture, one replay), then one more replay.
+        reset()
+        t0 = time.perf_counter()
+        img = render(scene, cam, cfg, generator=gen(1))
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        key = graphs.render_key(scene, cam, rcfg, accel)
+        graph = graphs.CACHE.get(key)
+        assert graph is not None, f"{label}: render() captured no graph"
+        moved = _kd_moved(scene)
+        img2 = render(moved, cam2, cfg, generator=gen(2))
+        counts = read()
+        # The spheres preset has no triangle: its frame is plain PyTorch.
+        assert counts or scene.num_triangles == 0, f"{label}: no kernel launched"
+        assert graphs.CACHE.get(key) is graph and len(graphs.CACHE) <= graphs.MAX_GRAPHS
+        for k, v in counts.items():
+            main_counts[k] = main_counts.get(k, 0) + v
+        # Bit for bit against eager renders of the same inputs; the second
+        # replay took the new material, camera and key.
+        want = render(scene, cam, cfg, generator=gen(1), jit=False)
+        want2 = render(moved, cam2, cfg, generator=gen(2), jit=False)
+        assert torch.equal(img, want), f"{label}: graphed frame differs from the eager one"
+        assert torch.equal(img2, want2), f"{label}: the second replay differs from eager"
+        assert not torch.equal(img, img2), f"{label}: the replay ignored its new inputs"
+        assert bool(torch.isfinite(img).all()) and img.shape == (size, size, 3)
+        if scene.spherical_lights.position.shape[0] > 0:
+            other = render(scene, cam, cfg, generator=gen(3))
+            assert torch.equal(other, render(scene, cam, cfg, generator=gen(3), jit=False))
+            assert not torch.equal(other, img), f"{label}: a new key changed no sample"
+        # Eager against graphed, on the pre-resolved frame (run_bench's call).
+        calls = {"eager": lambda: whitted.render_resolved(scene, cam, rcfg, accel, jit=False),
+                 "graphed": lambda: whitted.render_resolved(scene, cam, rcfg, accel)}
+        row = {"size": size, "first_call_s": first_s, "warmup_s": graph.warmup_s,
+               "capture_s": graph.capture_s, "pool_mb": graph.pool_mb,
+               "launches per replay": {w.__name__: d[0] for w, d in graph.launches.items()},
+               "launches": counts}
+        for kind, fn in calls.items():
+            row[f"{kind}_ms"] = median(time_frames(fn, iters=3, warmup=1))
+            prof = device_breakdown(fn, iters=2)
+            row[f"{kind}_busy"] = prof["busy"]
+            row[f"{kind}_device_ms"] = prof["device_ms"]
+        table[label] = row
+        busy = {k: ("not measured" if row[f"{k}_busy"] is None else f"{row[f'{k}_busy']:.3f}")
+                for k in calls}
+        print(f"  {label} {size}^2: eager {row['eager_ms']:.4f} ms (busy {busy['eager']}), "
+              f"graphed {row['graphed_ms']:.4f} ms (busy {busy['graphed']}), "
+              f"x{row['eager_ms'] / row['graphed_ms']:.2f}; first call {first_s:.3f} s (warm-up "
+              f"{graph.warmup_s:.3f}, capture + instantiation {graph.capture_s:.3f}), pool "
+              f"{graph.pool_mb:.1f} MB; frames bit-equal to eager, the second replay too; "
+              f"launches {counts}")
+    lap("frames")
+
+    # Training: one graphed forward + backward (run_bench's step) against the
+    # eager one, then a second replay with another jitter and material.
+    steps = {"box step, full contract (8, 23, 25)": (box, DISPATCH["step"], {}),
+             "teacup step, full contract (18, 24, 26)": (teacup, DISPATCH["step"], {}),
+             "box quirk bloom step (bloom.cu adjoint)": (
+                 box, DISPATCH["bloom_step"], dict(bloom=True, reference_quirks=True))}
+    gen_j = torch.Generator(device).manual_seed(36)
+    for label, (scene, size, flags) in steps.items():
+        cfg = bench.training_config(
+            whitted.resolve_render(scene, RenderConfig(width=size, height=size, **flags))[0],
+            True)
+        accel = whitted.build_accel(scene, cfg) if whitted.needs_bvh(
+            cfg, scene.num_triangles, device) else None
+
+        def owner(s, c, j, key, cfg=cfg, accel=accel):
+            return bench.fwd_bwd_step(s, c, cfg, bench.training_params(s, True), j,
+                                      accel=accel, generator=key)
+
+        def graphed(s, j):
+            return graphs.fwd_bwd(owner, (s, cam, j), None, cfg, accel, owner=owner)
+
+        def eager(s, j):
+            return bench.fwd_bwd_step(s, cam, cfg, bench.training_params(s, True), j,
+                                      accel=accel)
+
+        jit1, jit2 = (bench.camera_jitter(gen_j, device) for _ in range(2))
+        reset()
+        t0 = time.perf_counter()
+        got = graphed(scene, jit1)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        moved = _kd_moved(scene)
+        got2 = graphed(moved, jit2)
+        counts = read()
+        assert counts, f"{label}: no kernel launched"
+        for k, v in counts.items():
+            main_counts[k] = main_counts.get(k, 0) + v
+        row = {"size": size, "first_call_s": first_s, "launches": counts}
+        for which, (g, w) in (("first", (got, eager(scene, jit1))),
+                              ("second", (got2, eager(moved, jit2)))):
+            assert torch.equal(g[0], w[0]), f"{label} {which}: loss {g[0]} != eager {w[0]}"
+            exact = all(torch.equal(g[1][k], w[1][k]) for k in w[1])
+            for k in w[1]:
+                assert bool(torch.isfinite(g[1][k]).all()), (label, k)
+                tol = dict(checks.TABLE_GRAD, atol=2e-5) if k == "vertices" else checks.TABLE_GRAD
+                torch.testing.assert_close(g[1][k], w[1][k], **tol, msg=f"{label} d/d{k}")
+            row[f"{which} grads bit-equal"] = exact
+            row[f"{which} max grad diff"] = max((g[1][k] - w[1][k]).abs().max().item()
+                                                for k in w[1])
+        assert not torch.equal(got[0], got2[0]), f"{label}: the replay ignored its inputs"
+        for kind, fn in (("eager", lambda: eager(scene, jit1)),
+                         ("graphed", lambda: graphed(scene, jit1))):
+            row[f"{kind}_ms"] = median(time_frames(fn, iters=3, warmup=1))
+            prof = device_breakdown(fn, iters=2)
+            row[f"{kind}_busy"], row[f"{kind}_device_ms"] = prof["busy"], prof["device_ms"]
+        table[label] = row
+        busy = {k: ("not measured" if row[f"{k}_busy"] is None else f"{row[f'{k}_busy']:.3f}")
+                for k in ("eager", "graphed")}
+        print(f"  {label} {size}^2: eager {row['eager_ms']:.4f} ms, graphed "
+              f"{row['graphed_ms']:.4f} ms (x{row['eager_ms'] / row['graphed_ms']:.2f}), busy "
+              f"{busy['eager']} / {busy['graphed']}; loss bit-equal; gradients "
+              f"{'bit-equal' if row['first grads bit-equal'] else 'within TABLE_GRAD'} (max "
+              f"diff {row['first max grad diff']:.3g}; second replay "
+              f"{row['second max grad diff']:.3g}); "
+              f"first call {first_s:.3f} s; launches {counts}")
+    assert main_counts.get("bloom_quirk_adjoint_cuda", 0) > 0, "the adjoint never launched"
+    lap("steps")
+
+    # optimize(steps_per_call=8): 16 vertex steps of the teacup, graphed
+    # against the eager loop (the same capturable Adam).
+    size = DISPATCH["opt"]
+    cfg = RenderConfig(width=size, height=size)
+    shift = torch.tensor([0.0, 0.0, 0.02], device=device)  # phase 22's problem
+    start_scene = dataclasses.replace(teacup, vertices=teacup.vertices + shift)
+    target = render(teacup, cam, cfg)
+    run = dict(steps=DISPATCH["opt_steps"], learning_rate=3e-4,
+               params=inverse.vertex_params(start_scene), apply_params=inverse.apply_vertex_params,
+               log_every=0, steps_per_call=DISPATCH["opt_k"])
+    reset()
+    t0 = time.perf_counter()
+    p_g, l_g = inverse.optimize(start_scene, cam, target, cfg, **run)
+    torch.cuda.synchronize()
+    opt_g_s = time.perf_counter() - t0
+    opt_counts = read()
+    for k, v in opt_counts.items():
+        main_counts[k] = main_counts.get(k, 0) + v
+    t0 = time.perf_counter()
+    p_e, l_e = inverse.optimize(start_scene, cam, target, cfg, jit=False, **run)
+    torch.cuda.synchronize()
+    opt_e_s = time.perf_counter() - t0
+    # The chunk alone: a K-step loop captured once, then two chunks replayed,
+    # against the eager loop's two chunks (host clock; the optimizer moves on).
+    from cg_raytracer_tpu_torch.ops.refit import make_refit_plan
+    from cg_raytracer_tpu_torch.parallel import sharding
+
+    tcfg = inverse.training_config(cfg, True)
+    accel = whitted.build_accel(start_scene, tcfg)
+    chunk_s = {}
+    for kind, jit in (("graphed", True), ("eager", False)):
+        params = {"vertices": start_scene.vertices.detach().clone().requires_grad_(True)}
+        adam = torch.optim.Adam(list(params.values()), lr=3e-4, capturable=True)
+        loop = sharding.make_train_loop(tcfg, adam, inverse.apply_vertex_params,
+                                        DISPATCH["opt_k"], accel=accel,
+                                        refit_plan=make_refit_plan(accel), jit=jit)
+        base = soft.draw_key(None)
+        loop(params, start_scene, cam, target, base, 0).tolist()  # the capture (or a warm-up)
+        t0 = time.perf_counter()
+        for c in (1, 2):
+            loop(params, start_scene, cam, target, base, c * DISPATCH["opt_k"]).tolist()
+        chunk_s[kind] = (time.perf_counter() - t0) / (2 * DISPATCH["opt_k"])
+        graphs.forget(loop)
+    print(f"  optimize() losses: graphed {l_g}, eager {l_e}")
+    # The shade backward's atomics add in another order in each run, and a
+    # vertex step can move a hit edge: phase 22's rtol for the losses,
+    # TABLE_GRAD for the vertices.
+    np.testing.assert_allclose(l_g, l_e, rtol=1e-4, atol=0.0)
+    torch.testing.assert_close(p_g["vertices"], p_e["vertices"], **checks.TABLE_GRAD)
+    assert l_g[-1] < l_g[0], "optimize() did not lower the loss"
+    opt = {"size": size, "steps": DISPATCH["opt_steps"], "k": DISPATCH["opt_k"],
+           "losses bit-equal": l_g == l_e,
+           "max loss rel diff": max(abs(a - b) / abs(b) for a, b in zip(l_g, l_e)),
+           "max vertex diff": (p_g["vertices"] - p_e["vertices"]).abs().max().item(),
+           "graphed_s": opt_g_s, "eager_s": opt_e_s, "chunk_step_ms": {
+               k: v * 1e3 for k, v in chunk_s.items()}, "launches": opt_counts}
+    table["optimize teacup vertices"] = opt
+    same = "bit-equal to" if opt["losses bit-equal"] else "within rtol 1e-4 of"
+    print(f"  optimize() {DISPATCH['opt_steps']} teacup vertex steps {size}^2, steps_per_call "
+          f"{DISPATCH['opt_k']}: losses {same} the eager loop's (max rel diff "
+          f"{opt['max loss rel diff']:.3g}, vertices {opt['max vertex diff']:.3g}); "
+          f"{opt_g_s / DISPATCH['opt_steps'] * 1e3:.3f} ms per step with the captures, eager "
+          f"{opt_e_s / DISPATCH['opt_steps'] * 1e3:.3f}; a chunk's steps replayed "
+          f"{chunk_s['graphed'] * 1e3:.3f} ms each, eager {chunk_s['eager'] * 1e3:.3f} "
+          f"(host clock, the chunk's losses read once); launches {opt_counts}")
+    lap("optimize")
+
+    # bloom.cu against its twins: the box's bright buffer at 1024^2 and an
+    # odd size, forward and adjoint.
+    frame = render(box, cam, RenderConfig(width=n, height=n, forward_only=True))
+    bright = effects._threshold(frame).contiguous()
+    rng = torch.Generator(device).manual_seed(53)
+    odd = torch.rand((*DISPATCH["odd"], 3), device=device, generator=rng) * 1.5
+    errs = {"bloom_quirk": 0.0, "bloom_quirk_adjoint": 0.0}
+    bl = {}
+    for size_label, x in ((f"{n}^2", bright), ("x".join(map(str, DISPATCH["odd"])), odd)):
+        g = torch.randn(x.shape, device=device, generator=rng)
+        for name, kern, plain, arg in (
+                ("bloom_quirk", effects.bloom_quirk_cuda, effects.bloom_quirk_plain, x),
+                ("bloom_quirk_adjoint", effects.bloom_quirk_adjoint_cuda,
+                 effects.bloom_quirk_adjoint_plain, g)):
+            got, want = kern(arg), plain(arg)
+            torch.testing.assert_close(got, want, **BLOOM_TOL, msg=f"{name} {size_label}")
+            assert torch.equal(got, kern(arg)), f"{name}: two launches differ"
+            err = (got - want).abs().max().item()
+            errs[name] = max(errs[name], err)
+            print(f"  {name} {size_label}: max |kernel - twin| {err:.3g} (max |twin| "
+                  f"{want.abs().max().item():.3g}); two launches bit-equal")
+    h, w = bright.shape[0], bright.shape[1]
+    for name, kern, plain, arg in (
+            ("bloom_quirk", effects.bloom_quirk_cuda, effects.bloom_quirk_plain, bright),
+            ("bloom_quirk_adjoint", effects.bloom_quirk_adjoint_cuda,
+             effects.bloom_quirk_adjoint_plain, torch.randn(bright.shape, device=device,
+                                                            generator=rng))):
+        ms = median(time_frames(lambda: kern(arg), iters=5, warmup=1))
+        plain_ms = median(time_frames(lambda: plain(arg), iters=1, warmup=0))
+        b_ms, b_by = roofline.bound_ms(*_bloom_work(h, w, adjoint=name.endswith("adjoint")))
+        chain = 11 * (h - 1) + w
+        bl[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "wavefronts": chain, "us_per_wavefront": ms * 1e3 / chain}
+        print(f"  {name} {h}x{w}: {ms:.4f} ms ({ms * 1e3 / chain:.3f} us per wavefront of "
+              f"{chain}), twin {plain_ms:.2f} ms (x{plain_ms / ms:.0f}), bound {b_ms:.5f} ms by "
+              f"{b_by} ({b_ms / ms:.2%} of it)")
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "cg_raytracer_tpu_torch/csrc/bloom.cu",
+                        "replaces": "cg_raytracer_tpu/ops/effects.py:132",
+                        "launches": main_counts.get(f"{name}_cuda", 0), "max_abs_err": errs[name],
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None})
+    lap("bloom.cu")
+
+    # The teacup's motion-blur sets against the twins (on the CPU, started
+    # with the script): the graphed kernel renders at the same size.
+    size = DISPATCH["mb"]
+    for name in MB_SETS:
+        proc, path = mb_twins[name]
+        stdout, stderr = proc.communicate()
+        assert proc.returncode == 0, f"the {name} twin process failed:\n{stdout}{stderr}"
+        twin = torch.load(path).to(device)
+        cfg = RenderConfig(width=size, height=size, **EFFECTS[name])
+        img = render(teacup, cam, cfg)
+        images_close(img, twin, f"teacup {size}^2 {name} (graphed kernels) vs the plain twins "
+                                f"(CPU)",
+                     max_bad=min(1.0, IMG_MAX_BAD * sub_renders(EFFECTS[name])))
+    lap("the teacup's motion blur against the twins")
+    results["dispatch"] = {"routes": table, "bloom": bl, "cache": len(graphs.CACHE)}
+    e2e["dispatch"] = {k: {kk: v.get(kk) for kk in ("eager_ms", "graphed_ms", "eager_busy",
+                                                    "graphed_busy")}
+                       for k, v in table.items() if "eager_ms" in v}
+    graphs.clear()
+    print(f"  launches of phase 36's main path (graphed frames, steps, optimize): {main_counts}")
+    return main_counts
 
 
 if __name__ == "__main__":

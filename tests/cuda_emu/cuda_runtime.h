@@ -8,7 +8,9 @@
 // and flush it).  A warp vote sees only the calling lane, so each lane adds
 // its own vote: a kernel whose warp adds its lanes' votes adds the same
 // total.  The warp shuffles return the caller's own value: right only within
-// a one-lane mask, which is all a vote returns here.  Under emu_launch,
+// a one-lane mask, which is all a vote returns here, except the butterfly
+// __shfl_xor_sync, which under emu_launch_threads exchanges values between
+// the lanes of a warp (its threads meet at a barrier).  Under emu_launch,
 // __syncthreads is empty: a block's shared memory is filled by its threads
 // in turn, so the first launch over a shared table may read entries not yet
 // staged (such a test launches twice and keeps the second).  Dynamic shared
@@ -122,6 +124,23 @@ inline void __syncthreads() {
   if (emu_barrier != nullptr) emu_barrier->wait();
 }
 
+// The butterfly shuffle of a warp whose 32 lanes run at once
+// (emu_launch_threads with whole warps): each lane posts its value, the
+// warp's lanes meet, each reads its partner's, and they meet again.  Every
+// lane of the warp must call it, as on the card.  Under emu_launch (one
+// thread at a time) it returns the caller's own value.
+inline std::vector<EmuBarrier>* emu_warp_barriers = nullptr;
+inline std::vector<float> emu_shuffle_slots;
+inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+  if (emu_warp_barriers == nullptr) return v;
+  const unsigned t = threadIdx.x, warp = t / 32;
+  emu_shuffle_slots[t] = v;
+  (*emu_warp_barriers)[warp].wait();
+  const float other = emu_shuffle_slots[warp * 32 + ((t % 32) ^ static_cast<unsigned>(lane_mask))];
+  (*emu_warp_barriers)[warp].wait();
+  return other;
+}
+
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
@@ -188,6 +207,10 @@ void emu_launch_threads(unsigned grid, unsigned block, size_t smem, cudaStream_t
   EmuBarrier barrier;
   barrier.n = block;
   emu_barrier = &barrier;
+  std::vector<EmuBarrier> warps(block % 32 == 0 ? block / 32 : 0);
+  for (auto& w : warps) w.n = 32;
+  emu_shuffle_slots.assign(block, 0.0f);
+  emu_warp_barriers = warps.empty() ? nullptr : &warps;
   for (blockIdx.x = 0; blockIdx.x < grid; ++blockIdx.x) {
     std::vector<std::thread> threads;
     for (unsigned t = 0; t < block; ++t) {
@@ -199,4 +222,5 @@ void emu_launch_threads(unsigned grid, unsigned block, size_t smem, cudaStream_t
     for (auto& th : threads) th.join();
   }
   emu_barrier = nullptr;
+  emu_warp_barriers = nullptr;
 }

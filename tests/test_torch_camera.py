@@ -57,3 +57,22 @@ def test_quaternion_helpers_match_jax():
     jc = jrt.Camera.default(euler_deg=(10, -50, 3), dist=2.0)
     np.testing.assert_allclose(tcam.camera_position(camera_from_numpy(jax_leaves(jc))).numpy(),
                                np.asarray(jcam.camera_position(jc)), rtol=0, atol=1e-6)
+
+
+def test_trackball_controls_match_jax():
+    # tests/test_camera.py:75-89's interactions on both packages.
+    jc = jrt.Camera.default()
+    tc = camera_from_numpy(jax_leaves(jc))
+    for move, arg in ((tcam.orbit, (10.0, -2000.0)), (tcam.orbit, (35.0, 12.0)),
+                      (tcam.pan, (100.0, 0.0)), (tcam.pan, (-7.0, 33.0)),
+                      (tcam.zoom, 1000.0), (tcam.zoom, -1000.0), (tcam.zoom, 0.8)):
+        want = getattr(jcam, move.__name__)(jc, arg)
+        got = move(tc, arg)
+        for a, b in zip((got.look_at, got.euler, got.dist, got.fovy, got.aspect),
+                        jax_leaves(want)):
+            np.testing.assert_allclose(a.numpy(), b, rtol=1e-6, atol=1e-7)
+    assert np.isclose(float(tcam.orbit(tc, (10.0, -2000.0)).euler[0]), np.pi / 2)
+    assert np.isclose(float(tcam.zoom(tc, 1000.0).dist), 0.1)
+    assert np.isclose(float(tcam.zoom(tc, -1000.0).dist), 100.0)
+    c3 = tcam.pan(tc, (100.0, 0.0))
+    assert not torch.allclose(c3.look_at, tc.look_at) and torch.equal(c3.euler, tc.euler)

@@ -3,8 +3,11 @@ twin on the card, the wide BVH kernels on the procedural teacup (48,000
 triangles; node widths 2, 4 and 8) and on the donut (320,000, past the JAX
 package's on-chip tier; widths 4 and 2),
 the soft-shadow samplers and the spherical-light shade on the spherical
-stand-ins (``presets.load_standin``), the donut's render and training step
-and ``optimize()`` with the refit.  Skipped where there is no CUDA device.
+stand-ins (``presets.load_standin``), the donut's render and training step,
+``optimize()`` with the refit, and compiled dispatch (``render()``'s graph
+replaying new inputs, ``optimize()``'s graphed chunks against the eager
+loop, ``csrc/bloom.cu`` against its twins).  Skipped where there is no CUDA
+device.
 
 This file imports no JAX, so it runs on a machine without it:
 
@@ -536,3 +539,63 @@ def test_width_routes_render_on_card(route, spherical_on_card, donut_on_card):
                                                                accel=accel), generator=gen)
     colors_close(img, plain)
     assert (img.amax(dim=-1) > 0.02).float().mean().item() > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mirror_box", "spherical_box"])
+def test_graphed_render_replays_new_inputs_on_card(name, cuda_device):
+    # One graph for both calls: the second replay takes the moved camera and
+    # (spherical lights) the new key, and equals the eager frame bit for bit.
+    from cg_raytracer_tpu_torch.models.whitted import render
+    from cg_raytracer_tpu_torch.utils import graphs
+
+    scene = load_standin(name, device=cuda_device)
+    cfg = RenderConfig(width=128, height=128)
+    graphs.clear()
+    frames = []
+    for seed, look_at in ((1, (0.0, 0.0, 0.0)), (2, (0.02, 0.0, -0.01))):
+        cam = Camera.default(look_at=look_at, device=cuda_device)
+        got = render(scene, cam, cfg, generator=torch.Generator().manual_seed(seed))
+        want = render(scene, cam, cfg, generator=torch.Generator().manual_seed(seed), jit=False)
+        assert torch.equal(got, want)
+        frames.append(got)
+    assert len(graphs.CACHE) == 1 and not torch.equal(*frames)
+    graphs.clear()
+
+
+@pytest.mark.cuda
+def test_graphed_optimize_matches_the_eager_loop_on_card(cuda_device):
+    from cg_raytracer_tpu_torch.models.whitted import render
+    from cg_raytracer_tpu_torch.optim import inverse
+
+    box = load_standin("mirror_box", device=cuda_device)
+    cam = Camera.default(device=cuda_device)
+    cfg = RenderConfig(width=64, height=64)
+    target = render(box, cam, cfg) * 0.8
+    run = dict(steps=5, steps_per_call=2, log_every=0)  # chunks 2 + 2 + 1
+    p_g, l_g = inverse.optimize(box, cam, target, cfg, **run)
+    p_e, l_e = inverse.optimize(box, cam, target, cfg, jit=False, **run)
+    # The shade backward's table gradients add by atomics, in another order
+    # in each run.
+    torch.testing.assert_close(torch.tensor(l_g), torch.tensor(l_e), rtol=1e-5, atol=0.0)
+    for k in p_g:
+        torch.testing.assert_close(p_g[k], p_e[k], **checks.TABLE_GRAD)
+    with pytest.raises(ValueError, match="capturable"):
+        inverse.optimize(box, cam, target, cfg, steps=1, log_every=0,
+                         optimizer=lambda p: torch.optim.Adam(list(p.values())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(37, 53), (256, 256)])
+def test_quirk_blur_kernels_match_their_twins_on_card(hw, cuda_device):
+    from cg_raytracer_tpu_torch.ops import effects
+
+    gen = torch.Generator(cuda_device).manual_seed(sum(hw))
+    x = torch.rand((*hw, 3), device=cuda_device, generator=gen) * 1.5
+    g = torch.randn((*hw, 3), device=cuda_device, generator=gen)
+    effects.reset_launch_counts()
+    torch.testing.assert_close(effects.bloom_quirk_cuda(x), effects.bloom_quirk_plain(x),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(effects.bloom_quirk_adjoint_cuda(g),
+                               effects.bloom_quirk_adjoint_plain(g), rtol=1e-5, atol=1e-5)
+    assert effects.launch_counts() == {"bloom_quirk_cuda": 1, "bloom_quirk_adjoint_cuda": 1}
