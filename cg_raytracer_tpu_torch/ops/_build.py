@@ -125,7 +125,7 @@ SIGNATURES = {
     "cgrt_soft_brute": [_P, _P, _P, _I, _P, _P, _I, _I, _P, _U, _P, _P] + [_P],
     "cgrt_soft_bvh4": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _U, _P, _P] + [_P],
     "cgrt_bloom_quirk": [_P, _I, _I] + [_P],
-    "cgrt_bloom_quirk_adjoint": [_P, _I, _I] + [_P],
+    "cgrt_bloom_quirk_adjoint": [_P, _P, _I, _I] + [_P],
 }
 
 

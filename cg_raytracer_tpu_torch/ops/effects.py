@@ -170,11 +170,12 @@ def bloom_quirk_adjoint_cuda(grad):
     plain twin for a CPU one."""
     if not grad.is_cuda:
         return bloom_quirk_adjoint_plain(grad)
-    buf = _blur_input("cgrt_bloom_quirk_adjoint", grad)
-    ck._launch("cgrt_bloom_quirk_adjoint", buf.device, ck._ptr(buf), buf.shape[0],
-               buf.shape[1])
+    v = _blur_input("cgrt_bloom_quirk_adjoint", grad)  # overwritten by the first pass
+    out = torch.empty_like(v)
+    ck._launch("cgrt_bloom_quirk_adjoint", v.device, ck._ptr(v), ck._ptr(out), v.shape[0],
+               v.shape[1])
     bloom_quirk_adjoint_cuda.launches += 1
-    return buf
+    return out
 
 
 def _padded(x, r):

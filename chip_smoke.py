@@ -227,9 +227,14 @@ Phases, each printing its own lines:
     loss bit-equal, the gradients within ``checks.TABLE_GRAD``;
     ``optimize(steps_per_call=8)`` over 16 teacup vertex steps against the
     eager loop; ``csrc/bloom.cu``'s forward and adjoint against their twins
-    at 1024x1024 and 37x53, timed against the twins and their bound; and
-    the teacup's motion-blur sets against the plain twins (run on the CPU
-    in processes started with the script).
+    at 1024x1024, 800x800 and 37x53 (two launches bit-equal), timed against
+    the twins and their bound, with the ablations of ``BLOOM_ABLATIONS``
+    (one block, a cluster of 8) and ``bloom_full_window`` (full windows) and,
+    with ``--parent DIR``, that commit's ``bloom.cu`` in turns at 1024x1024,
+    the cluster that ran, a lone row's pixel step, the derived lag a row
+    adds and the cycles of a step's parts (``BLOOM_CLOCKS``); and the
+    teacup's motion-blur sets against the plain twins (run on the CPU in
+    processes started with the script).
 
 Every kernel's entry has its bound: the larger of its operations over 67
 TFLOP/s (integer ones over 16.7 Tops/s) and its bytes over 3.35 TB/s
@@ -360,8 +365,8 @@ def main(argv=None) -> int:
                         help="directory for the renders and results.json")
     parser.add_argument("--parent", default=None,
                         help="an unpacked checkout of an earlier commit whose samplers, walk, "
-                             "shade backward and brute sweeps phases 29-31 time beside this "
-                             "tree's")
+                             "shade backward and brute sweeps phases 29-31, and whose quirk "
+                             "blur phase 36, time beside this tree's")
     args = parser.parse_args(argv)
     out = args.out
     import torch
@@ -791,7 +796,8 @@ def main(argv=None) -> int:
     sweep_phase(out, device, kernels, e2e, results, scenes, args.parent)
     effects_phase(out, device, e2e, results, scenes)
     parallel_phases(out, device, e2e, results, scenes)
-    counts.update(dispatch_phase(out, device, kernels, e2e, results, scenes, mb_twins))
+    counts.update(dispatch_phase(out, device, kernels, e2e, results, scenes, mb_twins,
+                                 args.parent))
 
     results.update(card=smi, counts=counts, kernels=kernels, end_to_end=e2e)
     with open(os.path.join(out, "results.json"), "w") as f:
@@ -3725,8 +3731,7 @@ def effects_phase(out, device, e2e, results, scenes) -> None:
                       ("quirk bloom", RenderConfig(bloom=True, reference_quirks=True))):
         post[name] = median(time_frames(lambda: effects.bloom(frame, cfg), iters=3, warmup=1))
     print(f"  bloom post-pass on the box's {size}^2 frame: clean {post['clean bloom']:.3f} ms, "
-          f"quirk (11 (H-1) + W = {11 * (size - 1) + size} wavefronts) "
-          f"{post['quirk bloom']:.3f} ms")
+          f"quirk (csrc/bloom.cu) {post['quirk bloom']:.3f} ms")
     fx[f"bloom post-pass {size}^2 ms"] = post
     lap("the box at 800^2 against the twins, the post-passes")
     results["effects"] = fx
@@ -4259,20 +4264,304 @@ def _kd_moved(scene):
 
 
 def _bloom_work(h, w, adjoint=False):
-    """(operations, bytes) of the quirk blur on [h, w, 3] (or its adjoint):
-    each pixel's window, counted on its in-bounds cells, three channels."""
+    """(operations, bytes) of csrc/bloom.cu's design on [h, w, 3] (or its
+    adjoint), three channels: per pixel one column sum of its entering
+    column's other in-bounds rows, a sum over its in-bounds columns' sums,
+    its own row's cells (outputs left of it, raw cells from it on; the
+    adjoint's first pass the pixel's own cotangent) and a divide; the
+    adjoint adds its second pass, separable as the kernel takes it: per
+    pixel one column sum of the window's in-bounds rows above it, a sum over
+    its columns' sums and its own row's cells up to it.  Bytes: the image
+    read once and written once."""
     import numpy as np
 
     ys, xs = np.arange(h), np.arange(w)
-    cy = np.minimum(ys + 10, h - 1) - np.maximum(ys - 10, 0) + 1
-    cx = np.minimum(xs + 10, w - 1) - np.maximum(xs - 10, 0) + 1
-    cells = float((cy[:, None] * cx[None, :]).sum())
-    per_px = 3.0  # a divide per channel
-    adds = 3 * cells if adjoint else 3 * (cells - h * w)
-    return adds + per_px * h * w, 2 * h * w * 12
+    cy = (np.minimum(ys + 10, h - 1) - np.maximum(ys - 10, 0) + 1)[:, None]
+    cx = (np.minimum(xs + 10, w - 1) - np.maximum(xs - 10, 0) + 1)[None, :]
+    left = (xs - np.maximum(xs - 10, 0))[None, :]
+    right = (np.minimum(xs + 10, w - 1) - xs + 1)[None, :]
+    if adjoint:
+        below = (np.minimum(ys + 10, h - 1) - ys)[:, None]
+        above = (ys - np.maximum(ys - 10, 0))[:, None]
+        per_px = below + cx + (right - 1) + 1 + 1 + above + cx + left + 1
+    else:
+        per_px = (cy - 1) + cx + left + right + 1
+    return 3.0 * float(np.broadcast_to(per_px, (h, w)).sum()), 2 * h * w * 12
 
 
-def dispatch_phase(out, device, kernels, e2e, results, scenes, mb_twins) -> dict:
+# Phase 36's variants of bloom.cu: each takes one lever of the row pipeline
+# out again or moves the cluster's size (substitutions as in SOFT_ABLATIONS;
+# the full windows' are cut from the source by bloom_full_window()).
+BLOOM_ABLATIONS = {
+    "one block": [("bloom.cu", "kBloomCluster = 16;", "kBloomCluster = 1;", 1)],
+    "cluster of 8": [("bloom.cu", "kBloomCluster = 16;", "kBloomCluster = 8;", 1)],
+}
+# Phase B2 of the full-window ablation: each pixel sums its window cell by
+# cell (half 0 the rows above, half 1 the rows below and its row's raw
+# cells; none below in the adjoint's first pass), through the L2.
+_BLOOM_FULL_B2 = """      if (x < w) {
+        const int r0 = half == 0 ? max(y - kBloomR, 0) : y + 1;
+        const int r1 = half == 0 ? y - 1 : (kAdjoint ? y : min(y + kBloomR, h - 1));
+        for (int r = r0; r <= r1; ++r) {
+          for (int cc = c0; cc <= c1; ++cc) {
+            const float* p = buf + cell<kAdjoint>(r, cc, h, w);
+#pragma unroll
+            for (int ch = 0; ch < 3; ++ch) a[ch] += __ldcg(p + ch);
+          }
+        }
+        for (int cc = x; half == 1 && cc <= (kAdjoint ? x : c1); ++cc) {
+          const float* p = buf + cell<kAdjoint>(y, cc, h, w);
+#pragma unroll
+          for (int ch = 0; ch < 3; ++ch) a[ch] += p[ch];
+        }
+      }
+"""
+
+
+def bloom_full_window():
+    """The ablation "full 441-cell windows": bloom.cu with the column sums
+    (phases A1, B1, A2 and the first group's loads) cut out and phase B2
+    summing each pixel's whole window instead, as substitutions on the
+    source as it stands."""
+    with open(os.path.join(ROOT, CSRC, "bloom.cu")) as f:
+        src = f.read()
+
+    def span(start, end):
+        i = src.index(start)
+        return src[i:src.index(end, i)]
+
+    return [("bloom.cu", "    load_column<kAdjoint>(buf, y, j, h, w, half, e, own);\n", "", 1),
+            ("bloom.cu", span("      // A1.", "      // B1."), "", 1),
+            ("bloom.cu", span("      // B1.", "      wait(y, min(c - j"),
+             "      float a[3] = {0.0f, 0.0f, 0.0f};\n", 1),
+            ("bloom.cu", span("      // A2.", "      if (g == 0) continue;"), "", 1),
+            ("bloom.cu", span("      // B2.", "      float b[3];"), _BLOOM_FULL_B2, 1)]
+
+
+# A build of bloom.cu that stamps clock64() at the parts of a step (wait,
+# A2, B2, C, publish) for rows 0 and 9 (slots 0 and 9 of the cluster), steps
+# below 60, and returns them through cgrt_bloom_clock: the same arithmetic.
+_BLOOM_STAMP = ("if (lane == 0 && (slot == 0 || slot == 9) && y < 10 && g < 60) "
+                "g_clk[((slot == 9) * 60 + g) * 8 + {}] = clock64();\n")
+BLOOM_CLOCKS = [
+    ("bloom.cu", "      wait(y, min(c - j + kBloomChunk, w));\n",
+     "      " + _BLOOM_STAMP.format(0) + "      wait(y, min(c - j + kBloomChunk, w));\n      "
+     + _BLOOM_STAMP.format(1), 1),
+    ("bloom.cu", "      if (g == 0) continue;\n",
+     "      " + _BLOOM_STAMP.format(2) + "      if (g == 0) continue;\n", 1),
+    ("bloom.cu", "      // C. The chunk's pixels in order",
+     "      " + _BLOOM_STAMP.format(3) + "      // C. The chunk's pixels in order", 1),
+    ("bloom.cu", "      if (lane == 0 && y + 1 < h) {\n",
+     "      " + _BLOOM_STAMP.format(4) + "      if (lane == 0 && y + 1 < h) {\n", 1),
+    ("bloom.cu", "// buf [h, w, 3], blurred in place (kAdjoint",
+     "__device__ long long g_clk[120 * 8];\n// buf [h, w, 3], blurred in place (kAdjoint", 1),
+    ("bloom.cu", "int cgrt_bloom_config(int* out) {",
+     "int cgrt_bloom_clock(long long* out) {\n  return static_cast<int>(cudaMemcpyFromSymbol("
+     "out, cgrt::g_clk, sizeof(long long) * 960));\n}\nint cgrt_bloom_config(int* out) {", 1),
+]
+
+
+def bloom_step_cycles(lib, adjoint, buf, out):
+    """Median cycles of each part of a step (steps 2-39) of rows 0 and 9 in
+    one launch of the BLOOM_CLOCKS build: {row: {part: cycles}}."""
+    import ctypes
+    import statistics
+
+    import torch
+
+    bloom_call(lib, adjoint, buf, out)
+    torch.cuda.synchronize()
+    stamps = (ctypes.c_longlong * 960)()
+    lib.cgrt_bloom_clock.argtypes = [ctypes.c_void_p]
+    assert lib.cgrt_bloom_clock(ctypes.cast(stamps, ctypes.c_void_p)) == 0
+    result = {}
+    for k, row in enumerate((0, 9)):
+        steps = []
+        for g in range(2, 40):
+            t = stamps[(k * 60 + g) * 8:(k * 60 + g) * 8 + 5]
+            t_next = stamps[(k * 60 + g + 1) * 8]
+            steps.append((t[1] - t[0], t[2] - t[1], t[3] - t[2], t[4] - t[3], t_next - t[4]))
+        med = [statistics.median(s[i] for s in steps) for i in range(5)]
+        result[row] = dict(zip(("wait", "A2", "B2", "C", "publish, A1, B1"), med))
+    return result
+
+
+def bloom_signatures(in_place_adjoint=False):
+    """bloom.cu's argtypes; ``in_place_adjoint``: an earlier tree's, whose
+    adjoint took one buffer (the wavefront kernel)."""
+    import ctypes
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return {"cgrt_bloom_quirk": [p, i, i, p],
+            "cgrt_bloom_quirk_adjoint": [p, i, i, p] if in_place_adjoint else [p, p, i, i, p]}
+
+
+def bloom_call(lib, adjoint, buf, out=None):
+    """One launch of ``lib``'s blur (in place on ``buf``) or adjoint (``buf``
+    the cotangent, ``out`` the result; an in-place adjoint when None)."""
+    import ctypes
+
+    import torch
+
+    from cg_raytracer_tpu_torch.ops import cuda_kernels as ck
+
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    h, w = buf.shape[0], buf.shape[1]
+    if not adjoint:
+        err = lib.cgrt_bloom_quirk(ck._ptr(buf), h, w, stream)
+    elif out is None:
+        err = lib.cgrt_bloom_quirk_adjoint(ck._ptr(buf), h, w, stream)
+    else:
+        err = lib.cgrt_bloom_quirk_adjoint(ck._ptr(buf), ck._ptr(out), h, w, stream)
+    assert err == 0, f"bloom variant launch: CUDA error {err}"
+
+
+def bloom_config(lib):
+    """(cluster blocks, warps a block, pixels a chunk) of a built bloom.cu."""
+    import ctypes
+
+    out = (ctypes.c_int * 3)()
+    lib.cgrt_bloom_config.argtypes = [ctypes.c_void_p]
+    lib.cgrt_bloom_config(ctypes.cast(out, ctypes.c_void_p))
+    return tuple(out)
+
+
+def bloom_part(device, kernels, main_counts, box, cam, bloom_builds, parent_in_place, lap):
+    """Phase 36's quirk blur: ``csrc/bloom.cu`` against its twins at three
+    sizes, this tree's kernel, its ablations and the parent's (``bloom_builds``,
+    a future of ``build_variants``) timed in turns at 1024^2, the derived
+    pixel step and row lag; appends the two kernels' rows to ``kernels``."""
+    import torch
+
+    from cg_raytracer_tpu_torch.models.whitted import render
+    from cg_raytracer_tpu_torch.ops import _build, effects
+    from cg_raytracer_tpu_torch.utils import roofline
+    from cg_raytracer_tpu_torch.utils.bench import median, time_frames
+    from cg_raytracer_tpu_torch.utils.config import RenderConfig
+
+    n = DISPATCH["frame"]
+    # bloom.cu against its twins: the box's bright buffers at 1024^2 and at
+    # 800^2 (the reference's buffer) and an odd size, forward and adjoint.
+    rng = torch.Generator(device).manual_seed(53)
+    inputs = {}
+    for size in (n, 800):
+        frame = render(box, cam, RenderConfig(width=size, height=size, forward_only=True))
+        inputs[f"{size}^2"] = effects._threshold(frame).contiguous()
+    inputs["x".join(map(str, DISPATCH["odd"]))] = torch.rand(
+        (*DISPATCH["odd"], 3), device=device, generator=rng) * 1.5
+    errs = {"bloom_quirk": 0.0, "bloom_quirk_adjoint": 0.0}
+    bl = {"sizes": {}}
+    twins = {}
+    for size_label, x in inputs.items():
+        g = torch.randn(x.shape, device=device, generator=rng)
+        for name, kern, plain, arg in (
+                ("bloom_quirk", effects.bloom_quirk_cuda, effects.bloom_quirk_plain, x),
+                ("bloom_quirk_adjoint", effects.bloom_quirk_adjoint_cuda,
+                 effects.bloom_quirk_adjoint_plain, g)):
+            got = kern(arg)
+            t0 = time.perf_counter()
+            want = plain(arg)
+            torch.cuda.synchronize()
+            twins[(name, size_label)] = (arg, want, (time.perf_counter() - t0) * 1e3)
+            torch.testing.assert_close(got, want, **BLOOM_TOL, msg=f"{name} {size_label}")
+            assert torch.equal(got, kern(arg)), f"{name}: two launches differ"
+            err = (got - want).abs().max().item()
+            errs[name] = max(errs[name], err)
+            bl["sizes"][f"{name} {size_label}"] = err
+            print(f"  {name} {size_label}: max |kernel - twin| {err:.3g} (max |twin| "
+                  f"{want.abs().max().item():.3g}); two launches bit-equal")
+    lap("bloom.cu against its twins")
+
+    # Times at 1024^2: this tree's kernel, each ablation and the parent's
+    # bloom.cu in turns (the list, then reversed), each call restoring its
+    # input first (a 12.6 MB copy, ~0.01 ms); each variant held to the twin
+    # (the cluster variants bit for bit to this tree's kernel).
+    libs = {"this tree": (_build.load(), ""), **bloom_builds.result()}
+    clocks = libs.pop("step clocks")[0]
+    for name, (lib, log) in libs.items():
+        regs = [line.strip() for line in log.splitlines() if "registers" in line]
+        shape = ("the parent's kernel" if name == "parent" else
+                 "a cluster of {} block(s) of {} warps, chunks of {} pixels".format(
+                     *bloom_config(lib)))
+        print(f"  bloom.cu {name}: {shape}{'; ptxas: ' + ' | '.join(regs) if regs else ''}")
+    bright = inputs[f"{n}^2"]
+    h, w = bright.shape[0], bright.shape[1]
+    row = bright[:1].contiguous()
+    times = {}
+    for name in ("bloom_quirk", "bloom_quirk_adjoint"):
+        arg, want, _ = twins[(name, f"{n}^2")]
+        adjoint = name.endswith("adjoint")
+        mine = (effects.bloom_quirk_adjoint_cuda if adjoint else effects.bloom_quirk_cuda)(arg)
+        for lname, (lib, _log) in libs.items():
+            buf, out2 = torch.empty_like(arg), torch.empty_like(arg)
+            in_place = adjoint and lname == "parent" and parent_in_place
+            bloom_call(lib, adjoint, buf.copy_(arg), None if in_place else out2)
+            got = buf if (not adjoint or in_place) else out2
+            torch.testing.assert_close(got, want, **BLOOM_TOL, msg=f"{name} {lname}")
+            if lname not in ("parent", "full 441-cell windows"):
+                assert torch.equal(got, mine), f"{name} {lname}: not bit-equal to this tree's"
+        for turn in range(2):
+            order = list(libs) if turn == 0 else list(reversed(libs))
+            for lname in order:
+                lib = libs[lname][0]
+                in_place = adjoint and lname == "parent" and parent_in_place
+                buf, out2 = torch.empty_like(arg), torch.empty_like(arg)
+                slow = lname in ("parent", "one block", "full 441-cell windows")
+                ms = median(time_frames(
+                    lambda: bloom_call(lib, adjoint, buf.copy_(arg), None if in_place else out2),
+                    iters=2 if slow else 5, warmup=1))
+                times.setdefault((name, lname), []).append(ms)
+        # One row of the same width: a lone row's walk, no hand-off.
+        lib = libs["this tree"][0]
+        buf, out2 = torch.empty_like(row), torch.empty_like(row)
+        row_ms = median(time_frames(lambda: bloom_call(lib, adjoint, buf.copy_(row), out2),
+                                    iters=10, warmup=2))
+        times[(name, "one row")] = [row_ms]
+        bl[f"{name} step cycles"] = cycles = bloom_step_cycles(
+            clocks, adjoint, torch.empty_like(arg).copy_(arg), torch.empty_like(arg))
+        for row_y, parts in cycles.items():
+            print(f"  {name} {h}x{w}, row {row_y}: median cycles of a step's parts "
+                  f"(clock64, steps 2-39) {parts}")
+    lap("bloom.cu variants timed in turns")
+    blocks, warps, chunk = bloom_config(libs["this tree"][0])
+    for name in ("bloom_quirk", "bloom_quirk_adjoint"):
+        adjoint = name.endswith("adjoint")
+        ms = median(times[(name, "this tree")])
+        row_ms = times[(name, "one row")][0]
+        step_us = row_ms * 1e3 / w  # a pixel's step in a lone row
+        lag_us = (ms - row_ms) * 1e3 / (h - 1)  # derived: what each row adds
+        handoff_us = lag_us - 11 * step_us  # the lag beyond 11 pixel steps
+        plain_ms = twins[(name, f"{n}^2")][2]
+        b_ms, b_by = roofline.bound_ms(*_bloom_work(h, w, adjoint=adjoint))
+        chain = 11 * (h - 1) + w
+        floor_ms = chain * step_us / 1e3  # the data's chain at this step, hand-offs free
+        variants = {lname: [round(t, 5) for t in times[(name, lname)]]
+                    for lname in libs if lname != "this tree"}
+        bl[name] = {"ms": ms, "turns_ms": times[(name, "this tree")], "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "cluster_blocks": blocks,
+                    "warps_per_block": warps, "chunk": chunk, "one_row_ms": row_ms,
+                    "pixel_step_us": step_us, "row_lag_us": lag_us, "handoff_us": handoff_us,
+                    "chain_steps": chain, "chain_floor_ms": floor_ms, "variants_ms": variants}
+        print(f"  {name} {h}x{w}: {ms:.4f} ms (turns {times[(name, 'this tree')]}), a cluster "
+              f"of {blocks} blocks ran; twin {plain_ms:.2f} ms (x{plain_ms / ms:.0f}), bound "
+              f"{b_ms:.5f} ms by {b_by} ({b_ms / ms:.2%} of it); one row {row_ms:.4f} ms: "
+              f"{step_us:.4f} us a pixel step; {lag_us:.3f} us a row (derived), "
+              f"{handoff_us:.3f} us of it beyond 11 steps (chunks and hand-off); the chain "
+              f"of 11 (H-1) + W = {chain} pixel steps alone {floor_ms:.4f} ms")
+        for lname, ts in variants.items():
+            print(f"    {lname}: {ts} ms (x{median(ts) / ms:.2f} this tree's)")
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "cg_raytracer_tpu_torch/csrc/bloom.cu",
+                        "replaces": "cg_raytracer_tpu/ops/effects.py:132",
+                        "launches": main_counts.get(f"{name}_cuda", 0), "max_abs_err": errs[name],
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None})
+    lap("bloom.cu")
+    return bl
+
+
+def dispatch_phase(out, device, kernels, e2e, results, scenes, mb_twins,
+                   parent=None) -> dict:
     """Phase 36: compiled dispatch.  Returns the launch counts of its main
     path (the graphed frames, steps and ``optimize()``)."""
     import numpy as np
@@ -4285,7 +4574,7 @@ def dispatch_phase(out, device, kernels, e2e, results, scenes, mb_twins) -> dict
     from cg_raytracer_tpu_torch.scene import standins
     from cg_raytracer_tpu_torch.scene.presets import load_scene
     from cg_raytracer_tpu_torch.scene.types import Camera, PointLights, Spheres, make_scene
-    from cg_raytracer_tpu_torch.utils import bench, checks, graphs, roofline
+    from cg_raytracer_tpu_torch.utils import bench, checks, graphs
     from cg_raytracer_tpu_torch.utils.bench import median, time_frames
     from cg_raytracer_tpu_torch.utils.config import RenderConfig
     from cg_raytracer_tpu_torch.utils.profiling import device_breakdown
@@ -4293,6 +4582,17 @@ def dispatch_phase(out, device, kernels, e2e, results, scenes, mb_twins) -> dict
     phase("phase 36: compiled dispatch: graphed frames, steps and optimize() against eager "
           "runs; the quirk blur's kernel")
     start = time.perf_counter()
+    # bloom.cu's ablations (and the parent's bloom.cu) build while the frames run.
+    parent_bloom = parent is not None and os.path.exists(os.path.join(parent, CSRC, "bloom.cu"))
+    parent_in_place = False  # the parent's adjoint takes one buffer (the wavefront kernel)
+    if parent_bloom:
+        with open(os.path.join(parent, CSRC, "bloom.cu")) as f:
+            parent_in_place = "float* g_in" not in f.read()
+    bloom_builds = concurrent.futures.ThreadPoolExecutor(1).submit(
+        build_variants, "bloom.cu", {**BLOOM_ABLATIONS, "full 441-cell windows":
+                                     bloom_full_window(), "step clocks": BLOOM_CLOCKS},
+        bloom_signatures(),
+        parent if parent_bloom else None, bloom_signatures(parent_in_place))
 
     def lap(what):
         print(f"  [{what}: {time.perf_counter() - start:.1f} s into phase 36]")
@@ -4537,49 +4837,7 @@ def dispatch_phase(out, device, kernels, e2e, results, scenes, mb_twins) -> dict
           f"(host clock, the chunk's losses read once); launches {opt_counts}")
     lap("optimize")
 
-    # bloom.cu against its twins: the box's bright buffer at 1024^2 and an
-    # odd size, forward and adjoint.
-    frame = render(box, cam, RenderConfig(width=n, height=n, forward_only=True))
-    bright = effects._threshold(frame).contiguous()
-    rng = torch.Generator(device).manual_seed(53)
-    odd = torch.rand((*DISPATCH["odd"], 3), device=device, generator=rng) * 1.5
-    errs = {"bloom_quirk": 0.0, "bloom_quirk_adjoint": 0.0}
-    bl = {}
-    for size_label, x in ((f"{n}^2", bright), ("x".join(map(str, DISPATCH["odd"])), odd)):
-        g = torch.randn(x.shape, device=device, generator=rng)
-        for name, kern, plain, arg in (
-                ("bloom_quirk", effects.bloom_quirk_cuda, effects.bloom_quirk_plain, x),
-                ("bloom_quirk_adjoint", effects.bloom_quirk_adjoint_cuda,
-                 effects.bloom_quirk_adjoint_plain, g)):
-            got, want = kern(arg), plain(arg)
-            torch.testing.assert_close(got, want, **BLOOM_TOL, msg=f"{name} {size_label}")
-            assert torch.equal(got, kern(arg)), f"{name}: two launches differ"
-            err = (got - want).abs().max().item()
-            errs[name] = max(errs[name], err)
-            print(f"  {name} {size_label}: max |kernel - twin| {err:.3g} (max |twin| "
-                  f"{want.abs().max().item():.3g}); two launches bit-equal")
-    h, w = bright.shape[0], bright.shape[1]
-    for name, kern, plain, arg in (
-            ("bloom_quirk", effects.bloom_quirk_cuda, effects.bloom_quirk_plain, bright),
-            ("bloom_quirk_adjoint", effects.bloom_quirk_adjoint_cuda,
-             effects.bloom_quirk_adjoint_plain, torch.randn(bright.shape, device=device,
-                                                            generator=rng))):
-        ms = median(time_frames(lambda: kern(arg), iters=5, warmup=1))
-        plain_ms = median(time_frames(lambda: plain(arg), iters=1, warmup=0))
-        b_ms, b_by = roofline.bound_ms(*_bloom_work(h, w, adjoint=name.endswith("adjoint")))
-        chain = 11 * (h - 1) + w
-        bl[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                    "wavefronts": chain, "us_per_wavefront": ms * 1e3 / chain}
-        print(f"  {name} {h}x{w}: {ms:.4f} ms ({ms * 1e3 / chain:.3f} us per wavefront of "
-              f"{chain}), twin {plain_ms:.2f} ms (x{plain_ms / ms:.0f}), bound {b_ms:.5f} ms by "
-              f"{b_by} ({b_ms / ms:.2%} of it)")
-        kernels.append({"name": name, "route": "cuda",
-                        "source": "cg_raytracer_tpu_torch/csrc/bloom.cu",
-                        "replaces": "cg_raytracer_tpu/ops/effects.py:132",
-                        "launches": main_counts.get(f"{name}_cuda", 0), "max_abs_err": errs[name],
-                        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": None})
-    lap("bloom.cu")
+    bl = bloom_part(device, kernels, main_counts, box, cam, bloom_builds, parent_in_place, lap)
 
     # The teacup's motion-blur sets against the twins (on the CPU, started
     # with the script): the graphed kernel renders at the same size.

@@ -5,12 +5,18 @@
 // one thread at a time, or to emu_launch_threads, which runs each block's
 // threads at once on host threads, so that __syncthreads is a barrier and
 // atomicAdd an atomic (a block's threads stage a shared table, add into it
-// and flush it).  A warp vote sees only the calling lane, so each lane adds
+// and flush it).  cudaLaunchKernelEx runs a thread-block cluster: every
+// thread of every block at once (the grid is the cluster), each block with
+// shared memory of its own, cooperative_groups.h's cluster rank, mapping of
+// another block's shared memory and cluster barrier, and cuda/atomic's
+// atomic_ref (whose loads yield the host thread, so a spinning thread lets
+// the others run).  A warp vote sees only the calling lane, so each lane adds
 // its own vote: a kernel whose warp adds its lanes' votes adds the same
 // total.  The warp shuffles return the caller's own value: right only within
 // a one-lane mask, which is all a vote returns here, except the butterfly
-// __shfl_xor_sync, which under emu_launch_threads exchanges values between
-// the lanes of a warp (its threads meet at a barrier).  Under emu_launch,
+// __shfl_xor_sync, which under emu_launch_threads and the cluster launch
+// exchanges values between the lanes of a warp (its threads meet at a
+// barrier), and __syncwarp is then the warp's barrier.  Under emu_launch,
 // __syncthreads is empty: a block's shared memory is filled by its threads
 // in turn, so the first launch over a shared table may read entries not yet
 // staged (such a test launches twice and keeps the second).  Dynamic shared
@@ -43,9 +49,11 @@
 
 struct dim3 {
   unsigned x = 0, y = 0, z = 0;
+  dim3() = default;
+  dim3(unsigned x_, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
 };
-inline thread_local dim3 threadIdx;
-inline dim3 blockIdx, blockDim, gridDim;
+inline thread_local dim3 threadIdx, blockIdx;
+inline dim3 blockDim, gridDim;
 
 struct uint4 {
   unsigned x, y, z, w;
@@ -61,6 +69,11 @@ template <class T>
 T __ldg(const T* p) {
   return *p;
 }
+template <class T>
+T __ldcg(const T* p) {
+  return *p;
+}
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 inline int __float_as_int(float f) {
   int i;
   std::memcpy(&i, &f, sizeof(i));
@@ -119,26 +132,43 @@ struct EmuBarrier {
     }
   }
 };
-inline EmuBarrier* emu_barrier = nullptr;
+
+// A block whose threads run at once: its barrier, its warps' barriers and
+// shuffle slots (whole warps only) and its shared memory.
+struct EmuBlock {
+  EmuBarrier barrier;
+  std::vector<EmuBarrier> warps;
+  std::vector<float> slots;
+  void* smem = nullptr;
+  size_t smem_bytes = 0;
+  void init(unsigned block) {
+    barrier.n = block;
+    warps = std::vector<EmuBarrier>(block % 32 == 0 ? block / 32 : 0);
+    for (auto& w : warps) w.n = 32;
+    slots.assign(block, 0.0f);
+  }
+};
+inline thread_local EmuBlock* emu_block = nullptr;
 inline void __syncthreads() {
-  if (emu_barrier != nullptr) emu_barrier->wait();
+  if (emu_block != nullptr) emu_block->barrier.wait();
 }
 
 // The butterfly shuffle of a warp whose 32 lanes run at once
-// (emu_launch_threads with whole warps): each lane posts its value, the
-// warp's lanes meet, each reads its partner's, and they meet again.  Every
-// lane of the warp must call it, as on the card.  Under emu_launch (one
-// thread at a time) it returns the caller's own value.
-inline std::vector<EmuBarrier>* emu_warp_barriers = nullptr;
-inline std::vector<float> emu_shuffle_slots;
+// (emu_launch_threads with whole warps, or a cluster launch): each lane
+// posts its value, the warp's lanes meet, each reads its partner's, and they
+// meet again.  Every lane of the warp must call it, as on the card.  Under
+// emu_launch (one thread at a time) it returns the caller's own value.
 inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
-  if (emu_warp_barriers == nullptr) return v;
+  if (emu_block == nullptr || emu_block->warps.empty()) return v;
   const unsigned t = threadIdx.x, warp = t / 32;
-  emu_shuffle_slots[t] = v;
-  (*emu_warp_barriers)[warp].wait();
-  const float other = emu_shuffle_slots[warp * 32 + ((t % 32) ^ static_cast<unsigned>(lane_mask))];
-  (*emu_warp_barriers)[warp].wait();
+  emu_block->slots[t] = v;
+  emu_block->warps[warp].wait();
+  const float other = emu_block->slots[warp * 32 + ((t % 32) ^ static_cast<unsigned>(lane_mask))];
+  emu_block->warps[warp].wait();
   return other;
+}
+inline void __syncwarp(unsigned = 0xFFFFFFFFu) {
+  if (emu_block != nullptr && !emu_block->warps.empty()) emu_block->warps[threadIdx.x / 32].wait();
 }
 
 typedef void* cudaStream_t;
@@ -147,7 +177,10 @@ inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t err) {
   return err == cudaSuccess ? "no error" : "invalid argument";
 }
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaFuncAttribute {
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaFuncAttributeNonPortableClusterSizeAllowed = 11
+};
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 inline int emu_sms = 2;
 template <class F>
@@ -172,7 +205,8 @@ inline void* emu_smem = nullptr;
 inline size_t emu_smem_bytes = 0;
 template <class T>
 T* emu_dynamic_shared() {
-  return static_cast<T*>(emu_smem);
+  return static_cast<T*>(emu_block != nullptr && emu_block->smem != nullptr ? emu_block->smem
+                                                                            : emu_smem);
 }
 
 inline void emu_shared(size_t smem) {
@@ -204,23 +238,88 @@ void emu_launch_threads(unsigned grid, unsigned block, size_t smem, cudaStream_t
   emu_shared(smem);
   gridDim.x = grid;
   blockDim.x = block;
-  EmuBarrier barrier;
-  barrier.n = block;
-  emu_barrier = &barrier;
-  std::vector<EmuBarrier> warps(block % 32 == 0 ? block / 32 : 0);
-  for (auto& w : warps) w.n = 32;
-  emu_shuffle_slots.assign(block, 0.0f);
-  emu_warp_barriers = warps.empty() ? nullptr : &warps;
-  for (blockIdx.x = 0; blockIdx.x < grid; ++blockIdx.x) {
+  for (unsigned b = 0; b < grid; ++b) {
+    EmuBlock ctx;
+    ctx.init(block);
     std::vector<std::thread> threads;
     for (unsigned t = 0; t < block; ++t) {
-      threads.emplace_back([=] {
+      threads.emplace_back([=, &ctx] {
         threadIdx.x = t;
+        blockIdx.x = b;
+        emu_block = &ctx;
         kernel(args...);
       });
     }
     for (auto& th : threads) th.join();
   }
-  emu_barrier = nullptr;
-  emu_warp_barriers = nullptr;
+}
+
+// A thread-block cluster: the blocks of the grid, each with its own shared
+// memory of exactly `smem` bytes, every thread at once.
+inline std::vector<EmuBlock>* emu_cluster = nullptr;
+inline EmuBarrier* emu_cluster_barrier = nullptr;
+
+template <class F, class... A>
+void emu_launch_cluster(unsigned grid, unsigned block, size_t smem, F kernel, A... args) {
+  gridDim.x = grid;
+  blockDim.x = block;
+  std::vector<EmuBlock> blocks(grid);
+  EmuBarrier barrier;
+  barrier.n = grid * block;
+  for (auto& b : blocks) {
+    b.init(block);
+    b.smem = ::operator new(smem, std::align_val_t(16));
+    b.smem_bytes = smem;
+  }
+  emu_cluster = &blocks;
+  emu_cluster_barrier = &barrier;
+  std::vector<std::thread> threads;
+  for (unsigned b = 0; b < grid; ++b) {
+    for (unsigned t = 0; t < block; ++t) {
+      threads.emplace_back([=, &blocks] {
+        threadIdx.x = t;
+        blockIdx.x = b;
+        emu_block = &blocks[b];
+        kernel(args...);
+      });
+    }
+  }
+  for (auto& th : threads) th.join();
+  for (auto& b : blocks) ::operator delete(b.smem, std::align_val_t(16));
+  emu_cluster = nullptr;
+  emu_cluster_barrier = nullptr;
+}
+
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttributeValue {
+  struct {
+    unsigned x, y, z;
+  } clusterDim;
+};
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  cudaLaunchAttributeValue val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes = 0;
+  cudaStream_t stream = nullptr;
+  cudaLaunchAttribute* attrs = nullptr;
+  unsigned numAttrs = 0;
+};
+
+// A launch whose cluster is the whole one-dimensional grid runs as one
+// cluster; any other is refused.
+template <class... P, class... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* config, void (*kernel)(P...),
+                               A&&... args) {
+  unsigned cluster = 1;
+  for (unsigned i = 0; i < config->numAttrs; ++i)
+    if (config->attrs[i].id == cudaLaunchAttributeClusterDimension)
+      cluster = config->attrs[i].val.clusterDim.x;
+  if (cluster != config->gridDim.x || config->gridDim.y != 1 || config->gridDim.z != 1)
+    return cudaErrorInvalidValue;
+  emu_launch_cluster(config->gridDim.x, config->blockDim.x, config->dynamicSmemBytes, kernel,
+                     static_cast<P>(args)...);
+  return cudaSuccess;
 }
