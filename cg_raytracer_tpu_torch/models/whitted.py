@@ -16,6 +16,13 @@ to ``pallas_brute_max_tris`` triangles, the wide BVH kernels of
 triangles, ``bvh_wide_hbm`` past it; 4 by default).  The acceleration structure is built on the host
 once per scene (``build_accel``) and passed in as ``accel``.
 
+After its query each level of the one-phase trace runs ``Backend.level``
+(``ops/level.py``): on the card ``level_cuda``, the surface, the shading
+and the update in ``csrc/level.cu`` (the JAX package's jit-fused level);
+the differentiable chain (``level_plain``: ``reconstruct_hit`` +
+``direct_light`` + the update) on the CPU, for the plain reference backend
+and wherever the render is being differentiated.
+
 Under ``grad_two_phase='on'`` the trace splits in two (``_trace_two_phase``):
 phase 1 records every level's hits, shadow bits and next rays on the
 detached scene (the record-trace kernel, or a loop of bounce-refl or bounce
@@ -43,17 +50,18 @@ from ..ops import bvh4 as b4
 from ..ops import camera as cam_ops
 from ..ops import cuda_kernels as ck
 from ..ops import effects
+from ..ops import level as level_ops
 from ..ops import shade as shade_ops
 from ..ops import shading
 from ..ops import soft
 from ..ops.bvh import BVH, build_bvh, intersect_bvh, occluded_bvh
 from ..ops.intersect import (intersect_brute, occluded_brute, reconstruct_hit,
                              record_surface)
-from ..ops.linalg import norm, reflect, safe_normalize
+from ..ops.linalg import reflect, safe_normalize
 from ..scene.types import Camera, Scene
 from ..utils.config import RenderConfig
 
-REFLECT_EPS = 1e-3
+REFLECT_EPS = level_ops.REFLECT_EPS
 
 
 class AccelBundle(NamedTuple):
@@ -92,6 +100,9 @@ class Backend(NamedTuple):
     # This rank's share of the soft-shadow scan (shading.SampleSplit; set by
     # parallel/sharding.py::sample_sharded_render, with soft_vis None).
     sample_split: Optional[shading.SampleSplit] = None
+    # One level of the one-phase trace after its query (ops/level.py): the
+    # kernels' wrapper, or the chain for the plain reference.
+    level: Callable = level_ops.level_cuda
 
 
 def needs_bvh(cfg: RenderConfig, num_tris: int, device) -> bool:
@@ -198,11 +209,12 @@ def make_backend(scene: Scene, cfg: RenderConfig, plain: bool = False, accel=Non
     (built here when None)."""
     kind = cfg.resolve_backend(scene.num_triangles, scene.device)
     shade = shade_ops.shade_fused_plain if plain else shade_ops.shade_fused_cuda
+    level = level_ops.level_plain if plain else level_ops.level_cuda
     if kind == "brute":
         return Backend(
             closest=lambda o, d: intersect_brute(scene, o, d, tri_chunk=cfg.tri_chunk),
             occluded=lambda o, d, tm: occluded_brute(scene, o, d, tm, tri_chunk=cfg.tri_chunk),
-            shade=shade,
+            shade=shade, level=level,
         )
     if kind == "bvh":
         tree = accel if accel is not None else build_accel(scene, cfg)
@@ -210,7 +222,7 @@ def make_backend(scene: Scene, cfg: RenderConfig, plain: bool = False, accel=Non
             raise TypeError(f"backend='bvh' traverses a BVH (ops/bvh.py), got {type(tree)}")
         return Backend(closest=lambda o, d: intersect_bvh(scene, tree, o, d),
                        occluded=lambda o, d, tm: occluded_bvh(scene, tree, o, d, tm),
-                       shade=shade)
+                       shade=shade, level=level)
     if scene.num_triangles > cfg.pallas_brute_max_tris:
         return _bvh4_backend(scene, cfg, plain, accel, shade)
     if plain:
@@ -244,6 +256,7 @@ def make_backend(scene: Scene, cfg: RenderConfig, plain: bool = False, accel=Non
                if cfg.forward_only and ck.supports_trace_kernel(scene) else None),
         shade=shade,
         soft_vis=soft_vis,
+        level=level,
     )
 
 
@@ -298,6 +311,7 @@ def _bvh4_backend(scene: Scene, cfg: RenderConfig, plain: bool, accel, shade) ->
         bounce=(lambda o, d, live=None: bounce(scene, tree, o, d, live=live)) if fused else None,
         shade=shade,
         soft_vis=soft_vis,
+        level=level_ops.level_plain if plain else level_ops.level_cuda,
     )
 
 
@@ -325,41 +339,25 @@ def trace_rays(scene: Scene, origins, dirs, cfg: RenderConfig, backend: Backend,
     if cfg.resolve_grad_two_phase() or fwd_only_kernel:
         return _trace_two_phase(scene, origins, dirs, cfg, backend, key)
 
-    n = origins.shape[0]
-    color = torch.zeros((n, 3), dtype=torch.float32, device=origins.device)
-    throughput = torch.ones_like(color)
-    active = torch.ones((n,), dtype=torch.bool, device=origins.device)
+    # Each level after its query: the backend's level function (the kernel of
+    # ops/level.py on the card) unless the render is being differentiated,
+    # which takes the chain (reconstruct_hit + direct_light + the update).
+    level_fn = (level_ops.level_plain if level_ops.needs_chain(scene, origins, dirs)
+                else backend.level)
+    color = throughput = active = None
     o, d = origins, dirs
     for level in range(cfg.max_depth):
         shadow_bits = None
         if backend.bounce is not None:
-            hit, shadow_bits = backend.bounce(o, d, live=active if level > 0 else None)
+            hit, shadow_bits = backend.bounce(o, d, live=active)
         else:
             hit = backend.closest(o, d)
-        surf = reconstruct_hit(scene, o, d, hit)
-        direct = shading.direct_light(scene, d, surf, backend.occluded,
-                                      key.fold_in(level) if key is not None else None,
-                                      shadow_bits=shadow_bits, **_soft_args(cfg, backend))
-        lit = active & surf.valid
-        color = color + throughput * direct * lit[:, None].to(torch.float32)
-        if level + 1 >= cfg.max_depth:
-            break
-        if cfg.reference_quirks:
-            reflective = surf.ks[:, 2] > 0.01  # comma-operator bug (main.cpp:246)
-        else:
-            reflective = (surf.ks > 0.01).any(dim=1)
-        active = lit & reflective
-        throughput = throughput * surf.ks
-        refl_dir = safe_normalize(reflect(d, surf.normal))
-        o = surf.position + REFLECT_EPS * refl_dir
-        d = torch.where(active[:, None], refl_dir, d)
+        color, throughput, active, o, d = level_fn(
+            scene, o, d, hit, shadow_bits, color, throughput, active, cfg, backend,
+            key.fold_in(level) if key is not None else None, last=level + 1 >= cfg.max_depth)
+    if color is None:
+        color = torch.zeros((origins.shape[0], 3), dtype=torch.float32, device=origins.device)
     return color
-
-
-def _soft_args(cfg: RenderConfig, backend: Backend) -> dict:
-    return dict(soft_shadow_samples=cfg.soft_shadow_samples,
-                sample_chunk=cfg.soft_shadow_chunk, soft_vis_fn=backend.soft_vis,
-                sample_split=backend.sample_split)
 
 
 def _detached(obj):
@@ -384,10 +382,7 @@ def _synth_bounce(scene: Scene, backend: Backend):
         pos = torch.where(valid[:, None], o + d * t[:, None], 0.0)
         bits = torch.zeros((o.shape[0],), dtype=torch.int32, device=o.device)
         for li in range(lights.shape[0]):
-            to_light = lights[li] - pos
-            ldir = safe_normalize(to_light)
-            blocked = backend.occluded(pos + shading.SHADOW_EPS * ldir, ldir,
-                                       norm(to_light) - shading.SHADOW_EPS)
+            blocked = backend.occluded(*shading.shadow_ray(lights[li], pos))
             bits = bits | (blocked.to(torch.int32) << li)
         return hit, bits
 

@@ -28,7 +28,7 @@ import threading
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = ("oracle.cu", "trace.cu", "record.cu", "shade.cu", "bvh4.cu", "soft.cu",
-           "bloom.cu")
+           "bloom.cu", "level.cu")
 HEADERS = ("sweep.cuh", "bvh4.cuh")
 # A check of the sample stream against the toolkit's curand Philox, built into
 # a library of its own (``load_check``) that only on-card checks load.
@@ -126,6 +126,10 @@ SIGNATURES = {
     "cgrt_soft_bvh4": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _U, _P, _P] + [_P],
     "cgrt_bloom_quirk": [_P, _I, _I] + [_P],
     "cgrt_bloom_quirk_adjoint": [_P, _P, _I, _I] + [_P],
+    # csrc/level.cu: a pointer to its LevelArgs (ops/level.py::_Args), the stream.
+    "cgrt_level": [_P, _P],
+    "cgrt_level_surface": [_P, _P],
+    "cgrt_level_shade": [_P, _P],
 }
 
 

@@ -41,29 +41,46 @@ def phong_one_light(view_dir, normal, kd, ks, shininess, light_dir, light_color)
     return diffuse, specular
 
 
+def shadow_ray(light_pos, positions):
+    """The shadow ray toward a point light -> (origins, unit dirs, t_max): it
+    starts SHADOW_EPS along the light direction and is blocked by a hit at
+    t < dist - SHADOW_EPS (main.cpp:110-119)."""
+    to_light = light_pos - positions
+    ldir = safe_normalize(to_light)
+    return positions + SHADOW_EPS * ldir, ldir, norm(to_light) - SHADOW_EPS
+
+
+def shadow_masks(scene: Scene, positions, occluded_fn):
+    """[L, N] bool: True where point light l is blocked from the point."""
+    lights = scene.point_lights.position
+    if lights.shape[0] == 0:
+        return torch.zeros((0, positions.shape[0]), dtype=torch.bool, device=positions.device)
+    return torch.stack([occluded_fn(*shadow_ray(lights[li], positions))
+                        for li in range(lights.shape[0])])
+
+
 def direct_point_lights(scene: Scene, view_dir, surf: Surface, occluded_fn,
-                        shadow_bits=None):
+                        shadow_bits=None, blocked=None):
     """Phong over the point lights, gated by hard shadows.
 
-    ``occluded_fn(origins, dirs, t_max) -> bool [N]`` is the any-hit oracle;
-    ``shadow_bits`` ([N] int32, bit l = light l blocked) from a fused bounce
-    kernel replaces the per-light oracle calls.  The shadow ray starts
-    SHADOW_EPS along the light direction and is blocked by a hit at
-    t < dist - SHADOW_EPS (main.cpp:110-119).
+    ``occluded_fn(origins, dirs, t_max) -> bool [N]`` is the any-hit oracle,
+    called with each light's ``shadow_ray``; ``shadow_bits`` ([N] int32, bit
+    l = light l blocked) from a fused bounce kernel, or ``blocked`` ([L, N]
+    bool, ``shadow_masks``), replaces the per-light oracle calls.
     """
     color = torch.zeros_like(surf.position)
     lights = scene.point_lights
     for li in range(lights.position.shape[0]):
-        to_light = lights.position[li] - surf.position
-        ldir = safe_normalize(to_light)
+        ldir = safe_normalize(lights.position[li] - surf.position)
         if shadow_bits is not None:
-            blocked = ((shadow_bits >> li) & 1) > 0
+            hidden = ((shadow_bits >> li) & 1) > 0
+        elif blocked is not None:
+            hidden = blocked[li]
         else:
-            shadow_origin = surf.position + SHADOW_EPS * ldir
-            blocked = occluded_fn(shadow_origin, ldir, norm(to_light) - SHADOW_EPS)
+            hidden = occluded_fn(*shadow_ray(lights.position[li], surf.position))
         diffuse, specular = phong_one_light(view_dir, surf.normal, surf.kd, surf.ks,
                                             surf.shininess, ldir, lights.color[li])
-        lit = (~blocked) & surf.valid
+        lit = (~hidden) & surf.valid
         color = color + (diffuse + specular) * lit[:, None].to(diffuse.dtype)
     return color
 
@@ -172,13 +189,15 @@ def direct_spherical_lights(scene: Scene, view_dir, surf: Surface, fracs):
 
 def direct_light(scene: Scene, view_dir, surf: Surface, occluded_fn, generator=None,
                  shadow_bits=None, soft_shadow_samples: int = 200, sample_chunk: int = 20,
-                 soft_vis_fn=None, soft_fracs=None, sample_split=None):
+                 soft_vis_fn=None, soft_fracs=None, sample_split=None, blocked=None):
     """Total direct lighting = point lights + spherical lights (shading(),
     main.cpp:160-235).  ``generator``: the level's ``torch.Generator`` or
     ``soft.SampleKey``, for the spherical lights' samples (unused without
     them); ``soft_fracs`` ([Ls, N]): recorded fractions, which skip the
-    sampling; ``sample_split``: as ``spherical_fracs``."""
-    color = direct_point_lights(scene, view_dir, surf, occluded_fn, shadow_bits=shadow_bits)
+    sampling; ``sample_split``: as ``spherical_fracs``; ``shadow_bits`` and
+    ``blocked``: as ``direct_point_lights``."""
+    color = direct_point_lights(scene, view_dir, surf, occluded_fn, shadow_bits=shadow_bits,
+                                blocked=blocked)
     if scene.spherical_lights.position.shape[0] == 0:
         return color
     if soft_fracs is None:

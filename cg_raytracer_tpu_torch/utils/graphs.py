@@ -133,10 +133,10 @@ def render_key(scene, camera, cfg, accel=None) -> tuple:
 # --------------------------------------------------------------------------
 
 def _wrappers() -> list:
-    from ..ops import bvh4, cuda_kernels, effects, shade
+    from ..ops import bvh4, cuda_kernels, effects, level, shade
 
     return [*cuda_kernels.KERNEL_WRAPPERS, *shade.KERNEL_WRAPPERS, *bvh4.KERNEL_WRAPPERS,
-            *soft.KERNEL_WRAPPERS, *effects.KERNEL_WRAPPERS]
+            *soft.KERNEL_WRAPPERS, *effects.KERNEL_WRAPPERS, *level.KERNEL_WRAPPERS]
 
 
 def _counts() -> dict:

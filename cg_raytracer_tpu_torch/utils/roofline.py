@@ -157,6 +157,52 @@ def shade_flops(n_live: int, num_lights: int, backward: bool = False) -> float:
     return float(n_live * (RECON_FLOPS + SHADE_FLOPS * num_lights) * (3 if backward else 1))
 
 
+# One bounce level (ops/level.py, csrc/level.cu): per-ray streams in bytes.
+LEVEL_RAY_IN = 12 + 12 + 4  # o, d, prim id
+LEVEL_STATE = 1 + 12 + 12  # active, throughput, color (none at level 0)
+LEVEL_NEXT = 12 + 1 + 12 + 12  # throughput, active, o and d out (none at the last level)
+LEVEL_SURFACE = 4 * 12 + 4 + 1  # position, normal, kd, ks, shininess, valid
+
+
+@torch.no_grad()
+def level_work(scene, prim, kind: str = "level", bits: bool = True, state: bool = True,
+               last: bool = False):
+    """(operations, bytes) of one level's kernel on these hits (``prim`` [N]):
+    ``kind`` 'level' (surface, shade and update), 'surface' or 'shade'.
+    Bytes: each ray's streams (rays, prim id, ``bits`` [N] int32 or a byte
+    per point light of blocked masks, a fraction per spherical light, the
+    ``state`` in, the color and, unless ``last``, the next rays out; the
+    surface between the split kernels), plus the scene rows the hits gather,
+    each once: the triangles' index and material rows, their vertices and
+    vertex normals, their materials, the spheres, the lights.  Operations:
+    a hit's surface (``RECON_FLOPS``: the Moller-Trumbore re-solve or the
+    sphere's quadratic, the normal and its flip), Phong toward each light,
+    and every ray's update (``BOUNCE_MISC_FLOPS``)."""
+    n = int(prim.shape[0])
+    num_pl = int(scene.point_lights.position.shape[0])
+    num_sl = int(scene.spherical_lights.position.shape[0])
+    valid = prim >= 0
+    n_valid = int(valid.sum())
+    flops, byts = 0.0, 0
+    if kind in ("level", "surface"):
+        num_tris = scene.num_triangles
+        tri = torch.unique(prim[valid & (prim < num_tris)]).long()
+        sph = torch.unique(prim[prim >= num_tris] - num_tris).long()
+        verts = torch.unique(scene.triangles[tri].long()) if tri.numel() else tri
+        mats = torch.unique(scene.tri_material[tri].long()) if tri.numel() else tri
+        byts += (n * LEVEL_RAY_IN + tri.numel() * 16 + verts.numel() * 24 + mats.numel() * 28
+                 + sph.numel() * 44)
+        flops += n_valid * RECON_FLOPS
+    if kind == "surface":
+        return float(flops), float(byts + n * LEVEL_SURFACE)
+    if kind == "shade":
+        byts += n * (12 + LEVEL_SURFACE)  # d and the surface
+    byts += n * ((4 if bits else num_pl) + 4 * num_sl + (LEVEL_STATE if state else 0) + 12
+                 + (0 if last else LEVEL_NEXT)) + 24 * (num_pl + num_sl)
+    flops += n_valid * SHADE_FLOPS * (num_pl + num_sl) + n * BOUNCE_MISC_FLOPS
+    return float(flops), float(byts)
+
+
 def brute_flops_per_ray(num_tris: int, num_lights: int, bounces: int,
                         include_bwd: bool = False) -> float:
     """Operations per primary ray of a brute-force frame in closed form

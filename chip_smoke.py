@@ -8,8 +8,9 @@ tree-width slice (the walk and the samplers at node widths 2 and 8), the
 redesigned kernels measured against their earlier versions, and the
 effects and front-end slice (AA, bloom, motion blur, ``render_rows``, the
 CLI's effects and ``--profile``, the debug front ends, the native host
-builds), the multi-device slice, and compiled dispatch (frames, steps and
-``optimize()`` chunks replayed as CUDA graphs; the quirk blur's kernel).
+builds), the multi-device slice, compiled dispatch (frames, steps and
+``optimize()`` chunks replayed as CUDA graphs; the quirk blur's kernel),
+and the default route's bounce level as one kernel.
 
 Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
@@ -234,7 +235,23 @@ Phases, each printing its own lines:
     the cluster that ran, a lone row's pixel step, the derived lag a row
     adds and the cycles of a step's parts (``BLOOM_CLOCKS``); and the
     teacup's motion-blur sets against the plain twins (run on the CPU in
-    processes started with the script).
+    processes started with the script);
+37. the default route's bounce level (``csrc/level.cu``): on nine default
+    routes (``LEVEL_ROUTES``: the box, the box under ``reference_quirks``,
+    the triangles + spheres scene, the ``spheres`` preset, the spherical
+    box, the teacup, the teacup at width 2 at 512x512, the donut, the donut
+    with two spheres) every level of the frame through ``level_cuda`` and
+    through the chain (``level_plain``) on the same inputs, every output bit
+    for bit (and ``level_surface_cuda`` against ``reconstruct_hit``; an
+    output that is not is named with its ulp gap and held to
+    ``utils/checks.py``'s rule), the frame too; then, the counts from 0,
+    every route's graphed frame (``render()``) bit-equal to the chain's eager
+    frame, each level kernel launched; each route's graphed frame timed
+    against the chain's graphed frame in turns, with its busy share and
+    kernels per frame; the three kernels' times against the chain on the
+    box's and the spherical box's first level and their bounds.  With
+    ``--parent DIR``, each route's graphed frame in a process per tree
+    (parent, this, this, parent).
 
 Every kernel's entry has its bound: the larger of its operations over 67
 TFLOP/s (integer ones over 16.7 Tops/s) and its bytes over 3.35 TB/s
@@ -246,6 +263,7 @@ without CUDA.  Images and a results file go to ``--out`` (default
 import argparse
 import concurrent.futures
 import dataclasses
+import faulthandler
 import json
 import os
 import subprocess
@@ -321,6 +339,14 @@ KERNELS = {  # wrapper -> (name, source, Pallas kernel replaced), forward path f
                            "cg_raytracer_tpu/ops/pallas_bvh4.py:732"),
     "soft4_table_cuda:w8": ("soft4_table_w8", "cg_raytracer_tpu_torch/csrc/soft.cu",
                             "cg_raytracer_tpu/ops/pallas_bvh4.py:778"),
+    # The default route's bounce level: the JAX package's jit-compiled
+    # one-phase level (XLA fusions, not Pallas), one kernel or two.
+    "level_cuda": ("level", "cg_raytracer_tpu_torch/csrc/level.cu",
+                   "cg_raytracer_tpu/models/whitted.py:697"),
+    "level_surface_cuda": ("level_surface", "cg_raytracer_tpu_torch/csrc/level.cu",
+                           "cg_raytracer_tpu/models/whitted.py:600"),
+    "level_shade_cuda": ("level_shade", "cg_raytracer_tpu_torch/csrc/level.cu",
+                         "cg_raytracer_tpu/models/whitted.py:600"),
 }
 FORWARD_KERNELS = ("intersect_cuda", "occluded_cuda", "bounce_cuda", "trace_cuda")
 TRAIN_KERNELS = ("record_trace_cuda", "bounce_refl_cuda", "shade_fwd_cuda", "shade_bwd_cuda")
@@ -365,10 +391,12 @@ def main(argv=None) -> int:
                         help="directory for the renders and results.json")
     parser.add_argument("--parent", default=None,
                         help="an unpacked checkout of an earlier commit whose samplers, walk, "
-                             "shade backward and brute sweeps phases 29-31, and whose quirk "
-                             "blur phase 36, time beside this tree's")
+                             "shade backward and brute sweeps phases 29-31, whose quirk "
+                             "blur phase 36, and whose graphed default frames phase 37 time "
+                             "beside this tree's")
     args = parser.parse_args(argv)
     out = args.out
+    faulthandler.enable()  # a fatal signal prints every thread's Python stack to stderr
     import torch
 
     if not torch.cuda.is_available():
@@ -798,6 +826,7 @@ def main(argv=None) -> int:
     parallel_phases(out, device, e2e, results, scenes)
     counts.update(dispatch_phase(out, device, kernels, e2e, results, scenes, mb_twins,
                                  args.parent))
+    counts.update(level_phase(out, device, kernels, e2e, results, scenes, args.parent))
 
     results.update(card=smi, counts=counts, kernels=kernels, end_to_end=e2e)
     with open(os.path.join(out, "results.json"), "w") as f:
@@ -1492,6 +1521,29 @@ def torus_scene(device, grid: int = TORUS_GRID):
                       device=device)
 
 
+# Phase 23's graphed donut frames in a fresh process: run_bench's frame
+# time and device_breakdown's profile of render() at each size, as JSON.
+DONUT_FRAMES_SNIPPET = """
+import json, sys
+sys.path.insert(0, ".")
+from cg_raytracer_tpu_torch.models.whitted import build_accel, render
+from cg_raytracer_tpu_torch.scene.presets import load_scene
+from cg_raytracer_tpu_torch.scene.types import Camera
+from cg_raytracer_tpu_torch.utils.bench import run_bench
+from cg_raytracer_tpu_torch.utils.config import RenderConfig
+from cg_raytracer_tpu_torch.utils.profiling import device_breakdown
+donut, cam, out = load_scene("donut", device="cuda"), Camera.default(device="cuda"), {}
+tree = build_accel(donut, RenderConfig())
+for size, fo in ((800, False), (1024, False), (1024, True)):
+    r = run_bench(donut, width=size, height=size, cfg_overrides={"forward_only": fo})
+    cfg = RenderConfig(width=size, height=size, forward_only=fo)
+    prof = device_breakdown(lambda: render(donut, cam, cfg, accel=tree), iters=3)
+    out[f"{size}_{'fwd_only' if fo else 'default'}"] = {
+        "bench": {k: r[k] for k in ("seconds_per_frame", "value")}, "profile": prof}
+print(json.dumps(out))
+"""
+
+
 def scale_phases(out, device, check, note, kernels, e2e, results, scenes) -> dict:
     """Phases 19-23: the scale slice (the donut, a torus past L2) and
     ``optimize()`` with the refit.  Returns the large tier's launch counts
@@ -1800,11 +1852,18 @@ def scale_phases(out, device, check, note, kernels, e2e, results, scenes) -> dic
               f"{roofline.tree_bytes(tr) / 1e6:.1f} MB): {ms / (n1 / 1e6):.5f} ms per million "
               f"camera rays, {hit:.2%} hit")
     results["closest_ms_per_mray"] = per_mray
+    # The donut's graphed frames and their profiles come from a process of
+    # their own (DONUT_FRAMES_SNIPPET): in this process, after phases 1-22, a
+    # profiled replay of them died of a segmentation fault in three of seven
+    # full runs on an H100, and never in 16 fresh processes that profiled the
+    # same frames 18-24 times each.
+    r = subprocess.run([sys.executable, "-c", DONUT_FRAMES_SNIPPET], capture_output=True,
+                       text=True, cwd=ROOT, timeout=300)
+    assert r.returncode == 0, f"donut frames: rc {r.returncode}: {r.stderr[-3000:]}"
+    frames = json.loads(r.stdout.strip().splitlines()[-1])
     for size, fo in ((800, False), (1024, False), (1024, True)):
         route = "fwd_only" if fo else "default"
-        r = run_bench(donut, width=size, height=size, cfg_overrides={"forward_only": fo})
-        cfg = RenderConfig(width=size, height=size, forward_only=fo)
-        prof = device_breakdown(lambda: render(donut, cam, cfg, accel=tree), iters=3)
+        r, prof = frames[f"{size}_{route}"]["bench"], frames[f"{size}_{route}"]["profile"]
         busy = f"{prof['busy']:.3f}" if prof["busy"] is not None else "not measured"
         e2e[f"donut_{size}_{route}"] = {"ms": r["seconds_per_frame"] * 1e3,
                                         "rays_per_s": r["value"], "profile": prof}
@@ -3887,7 +3946,7 @@ def effects_phase(out, device, e2e, results, scenes) -> None:
 
 PAST_CAP_GRID = 1200  # the torus on a 1200 x 1200 grid: 2,880,000 triangles
 PARALLEL = dict(box=1024, spherical=256, step=256, teacup=512, torus=256, torus_rays=1024)
-_PATH_MODULES = ("cuda_kernels", "shade", "bvh4", "soft")
+_PATH_MODULES = ("cuda_kernels", "shade", "bvh4", "soft", "level")
 
 
 def _modules():
@@ -4861,6 +4920,310 @@ def dispatch_phase(out, device, kernels, e2e, results, scenes, mb_twins,
     print(f"  launches of phase 36's main path (graphed frames, steps, optimize): {main_counts}")
     return main_counts
 
+
+LEVEL_OUTPUTS = ("color", "throughput", "active", "o_next", "d_next")
+SURFACE_FIELDS = ("valid", "position", "normal", "kd", "ks", "shininess")
+LEVEL_KERNELS = ("level_cuda", "level_surface_cuda", "level_shade_cuda")
+# Phase 37's routes and their parent-tree turns: label -> (scene name, size, flags).
+LEVEL_SCENE_NAMES = ("box", "mixed", "spheres", "spherical_box", "teacup", "donut",
+                     "donut_spheres")
+LEVEL_ROUTES = {
+    "box default": ("box", "frame", {}),
+    "box quirks": ("box", "frame", dict(reference_quirks=True)),
+    "mixed": ("mixed", "frame", {}),
+    "spheres preset": ("spheres", "frame", {}),
+    "spherical box": ("spherical_box", "frame", {}),
+    "teacup default": ("teacup", "frame", {}),
+    "teacup bvh_wide=2": ("teacup", "small", dict(bvh_wide="2")),
+    "donut default": ("donut", "frame", {}),
+    "donut + spheres": ("donut_spheres", "frame", {}),
+}
+LEVEL_SCENES_SNIPPET = """
+def level_scenes(device, have):
+    # Phase 37's scenes: those in ``have`` (built by earlier phases, their
+    # trees memoized) as they are, the others built here.
+    import dataclasses, torch
+    from cg_raytracer_tpu_torch.scene import standins
+    from cg_raytracer_tpu_torch.scene.presets import load_scene, load_standin
+    from cg_raytracer_tpu_torch.scene.types import PointLights, Spheres, make_scene
+    two = lambda: Spheres(center=torch.tensor([[0.55, -0.35, -0.45], [-0.6, 0.45, 0.3]]),
+                          radius=torch.tensor([0.2, 0.15]),
+                          kd=torch.tensor([[0.9, 0.2, 0.2], [0.2, 0.3, 0.9]]),
+                          ks=torch.tensor([[0.3, 0.3, 0.3], [0.0, 0.0, 0.0]]),
+                          shininess=torch.tensor([20.0, 1.0])).to(device)
+    build = {
+        "box": lambda: load_standin("mirror_box", device=device),
+        "mixed": lambda: make_scene(standins.mixed_meshes(), spheres=Spheres(**{
+            k: torch.as_tensor(v) for k, v in standins.mixed_spheres().items()}),
+            point_lights=PointLights.of(*standins.MIXED_LIGHTS), device=device),
+        "spheres": lambda: load_scene("spheres", device=device),
+        "spherical_box": lambda: load_standin("spherical_box", device=device),
+        "teacup": lambda: load_scene("teacup", device=device),
+        "donut": lambda: load_scene("donut", device=device),
+        "donut_spheres": lambda: dataclasses.replace(out["donut"], spheres=two()),
+    }
+    out = {}
+    for name, make in build.items():
+        out[name] = have[name] if name in have else make()
+    return out
+"""
+# One process per tree (``--parent``): each route's graphed frame, its busy
+# share and kernels per frame, printed as JSON.
+LEVEL_E2E_SNIPPET = LEVEL_SCENES_SNIPPET + """
+import json, sys, torch
+sys.path.insert(0, ".")
+from cg_raytracer_tpu_torch.models import whitted
+from cg_raytracer_tpu_torch.scene.types import Camera
+from cg_raytracer_tpu_torch.utils.bench import median, time_frames
+from cg_raytracer_tpu_torch.utils.config import RenderConfig
+from cg_raytracer_tpu_torch.utils.profiling import device_breakdown
+routes, sizes = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+scenes, cam, out = level_scenes("cuda", {}), Camera.default(device="cuda"), {}
+for label, (name, size, flags) in routes.items():
+    size = sizes[size]
+    rcfg, accel = whitted.resolve_render(scenes[name], RenderConfig(width=size, height=size,
+                                                                    **flags))
+    fn = lambda: whitted.render_resolved(scenes[name], cam, rcfg, accel)
+    prof = device_breakdown(fn, iters=2)
+    out[label] = {"graphed_ms": median(time_frames(fn, iters=5, warmup=1)), "busy": prof["busy"],
+                  "kernels": sum(k[2] for k in prof["kernels"])}
+print(json.dumps(out))
+"""
+
+
+def ulp_gap(a, b) -> int:
+    """The largest distance in units of the last place between two float32
+    tensors (their int32 words, signs folded onto one line)."""
+    import torch
+
+    def line(x):
+        i = x.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int((line(a) - line(b)).abs().max().item()) if a.numel() else 0
+
+
+def level_phase(out, device, kernels, e2e, results, scenes, parent=None) -> dict:
+    """Phase 37: the default route's bounce level (``csrc/level.cu``).
+    Returns the launch counts of its main path (the routes' graphed frames)."""
+    import torch
+
+    from cg_raytracer_tpu_torch.models import whitted
+    from cg_raytracer_tpu_torch.models.whitted import make_backend, render, render_image
+    from cg_raytracer_tpu_torch.ops import level as lv
+    from cg_raytracer_tpu_torch.ops import shading
+    from cg_raytracer_tpu_torch.ops.intersect import reconstruct_hit
+    from cg_raytracer_tpu_torch.scene.types import Camera
+    from cg_raytracer_tpu_torch.utils import graphs, roofline
+    from cg_raytracer_tpu_torch.utils.bench import median, time_frames
+    from cg_raytracer_tpu_torch.utils.config import RenderConfig
+    from cg_raytracer_tpu_torch.utils.profiling import device_breakdown
+
+    phase("phase 37: the default route's bounce level (csrc/level.cu): every level of every "
+          "route against the chain bit for bit, graphed frames, kernels per frame")
+    start = time.perf_counter()
+    namespace = {}
+    exec(LEVEL_SCENES_SNIPPET, namespace)  # the parent's turns build the same scenes
+    built = namespace["level_scenes"](device, {k: v for k, v in scenes.items()
+                                               if k in LEVEL_SCENE_NAMES})
+    cam = Camera.default(device=device)
+    sizes = {"frame": DISPATCH["frame"], "small": DISPATCH["small"]}
+    routes = {label: (built[name], sizes[size], flags)
+              for label, (name, size, flags) in LEVEL_ROUTES.items()}
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    # Every level of every route: the kernels' wrapper and the chain on the
+    # same inputs (the frame's own, through a backend whose level runs both).
+    gaps, err = {}, {k: 0.0 for k in LEVEL_KERNELS}
+    timed = {}  # label -> the first level's inputs, for the kernel rows
+
+    def checked(label):
+        calls = {"n": 0}
+
+        def level(scene, o, d, hit, bits, color, thr, active, cfg, backend, key=None,
+                  last=False):
+            args = (scene, o, d, hit, bits, color, thr, active, cfg, backend, key)
+            want = lv.level_plain(*args, last=last)
+            got = lv.level_cuda(*args, last=last)
+            lvl = calls["n"] % cfg.max_depth
+            calls["n"] += 1
+            fused = bits is not None and scene.spherical_lights.position.shape[0] == 0
+            which = "level_cuda" if fused else "level_shade_cuda"
+            for name, g, w in zip(LEVEL_OUTPUTS, got, want):
+                assert (g is None) == (w is None), (label, name)
+                if w is None:
+                    continue
+                if not same_bits(g, w):  # named below, held to the checks' rule
+                    assert w.dtype == torch.float32, f"{label} level {lvl}: {name} differs"
+                    torch.testing.assert_close(g, w, **SHADE_FWD)
+                    gaps[(label, lvl, name)] = ulp_gap(g, w)
+                    err[which] = max(err[which], (g - w).abs().max().item())
+            surf_g = lv.level_surface_cuda(scene, o, d, hit)
+            surf_w = reconstruct_hit(scene, o, d, hit)
+            for name, g, w in zip(SURFACE_FIELDS, surf_g, surf_w):
+                if not same_bits(g, w):
+                    assert w.dtype == torch.float32, f"{label} level {lvl}: surface {name}"
+                    torch.testing.assert_close(g, w, **SHADE_FWD)
+                    gaps[(label, lvl, "surface " + name)] = ulp_gap(g, w)
+                    err["level_surface_cuda"] = max(err["level_surface_cuda"],
+                                                    (g - w).abs().max().item())
+            if lvl == 0 and label not in timed:
+                timed[label] = (args, last, surf_g)
+            return got
+
+        return level
+
+    frames = {}
+    for label, (scene, size, flags) in routes.items():
+        rcfg, accel = whitted.resolve_render(scene, RenderConfig(width=size, height=size,
+                                                                 **flags))
+        backend = make_backend(scene, rcfg, accel=accel)
+        img = render_image(scene, cam, rcfg, backend=backend._replace(level=checked(label)),
+                           generator=gen(1))
+        chain = render_image(scene, cam, rcfg, backend=backend._replace(level=lv.level_plain),
+                             generator=gen(1))
+        assert same_bits(img, chain), f"{label}: the kernels' frame differs from the chain's"
+        assert bool(torch.isfinite(img).all()) and img.shape == (size, size, 3)
+        frames[label] = (scene, rcfg, accel, chain)
+    torch.cuda.synchronize()
+    named = {}
+    for (label, lvl, name), gap in gaps.items():
+        named[name] = max(named.get(name, 0), gap)
+    print(f"  every output of every level, {len(routes)} routes: "
+          + ("bit-equal to the chain" if not gaps else
+             f"bit-equal but {sorted(named)}, which fall to utils/checks.py's rule (max ulp "
+             f"gap {named}; levels {sorted(gaps)})"))
+    lap = lambda what: print(f"  [{what}: {time.perf_counter() - start:.1f} s into phase 37]")
+    lap("levels checked")
+
+    # The main path: every route's graphed frame, the counts from 0.
+    graphs.clear()
+    _reset_counts()
+    for label, (scene, size, flags) in routes.items():
+        img = render(scene, cam, RenderConfig(width=size, height=size, **flags),
+                     generator=gen(1))
+        assert same_bits(img, frames[label][3]), (
+            f"{label}: the graphed frame differs from the chain's eager frame")
+    main_counts = _read_counts()
+    for w in LEVEL_KERNELS:
+        assert main_counts.get(w, 0) > 0, f"{w} never launched on the default routes"
+    print(f"  graphed frames bit-equal to the chain's eager frames; launches {main_counts}")
+    graphs.clear()
+    lap("graphed frames")
+
+    # Graphed frames: the kernels' against the chain's (make_backend takes the
+    # chain where level_cuda is swapped for it), in turns; kernels per frame.
+    table = {}
+    for label, (scene, rcfg, accel, _) in frames.items():
+        key = whitted._frame_key(scene, gen(1))
+        roots = [] if key is None else [key]
+        held = {}
+        for who in ("kernel", "chain"):
+            if who == "chain":
+                lv.level_cuda, kept = lv.level_plain, lv.level_cuda
+            try:
+                whitted.render_resolved(scene, cam, rcfg, accel, generator=gen(1))
+                gkey = graphs.render_key(scene, cam, rcfg, accel)
+                held[who] = graphs.CACHE.entries.pop(gkey)
+            finally:
+                if who == "chain":
+                    lv.level_cuda = kept
+        row = {}
+        for who in ("kernel", "chain", "chain", "kernel"):
+            fn = partial(held[who], (scene, cam), roots)
+            row.setdefault(f"{who}_ms", []).append(median(time_frames(fn, iters=3, warmup=1)))
+        for who, g in held.items():
+            prof = device_breakdown(partial(g, (scene, cam), roots), iters=2)
+            row[f"{who}_busy"] = prof["busy"]
+            row[f"{who}_kernels"] = sum(k[2] for k in prof["kernels"])
+            row[f"{who}_by_name"] = {k[0][:80]: k[2] for k in prof["kernels"]}
+            g.release()
+        table[label] = row
+        k_ms, c_ms = sum(row["kernel_ms"]) / 2, sum(row["chain_ms"]) / 2
+        busy = {w: "not measured" if row[f"{w}_busy"] is None else f"{row[f'{w}_busy']:.3f}"
+                for w in held}
+        print(f"  {label} {rcfg.width}^2 graphed: kernel {row['kernel_ms'][0]:.4f}, "
+              f"{row['kernel_ms'][1]:.4f} ms (busy {busy['kernel']}, "
+              f"{row['kernel_kernels']:g} kernels a frame); chain {row['chain_ms'][0]:.4f}, "
+              f"{row['chain_ms'][1]:.4f} ms (busy {busy['chain']}, {row['chain_kernels']:g} "
+              f"kernels); x{c_ms / k_ms:.2f}")
+    # What the kernel route's frame still launches, most launched first.
+    top = sorted(table["box default"]["kernel_by_name"].items(), key=lambda kv: -kv[1])
+    print("  box default, the kernel route's launches a frame by kernel: " + "; ".join(
+        f"{n:g} {k}" for k, n in top[:12]))
+    lap("graphed frames timed")
+
+    # The kernel rows: each wrapper on its route's first level, against the
+    # plain version on the same inputs.
+    rows = {"level_cuda": "box default", "level_surface_cuda": "spherical box",
+            "level_shade_cuda": "spherical box"}
+    for wrapper, label in rows.items():
+        (scene, o, d, hit, bits, color, thr, active, cfg, backend, key), last, surf = timed[label]
+        prim = hit.prim_id
+        if wrapper == "level_cuda":
+            run = partial(lv.level_cuda, scene, o, d, hit, bits, color, thr, active, cfg, backend,
+                          key, last=last)
+            plain = partial(lv.level_plain, scene, o, d, hit, bits, color, thr, active, cfg,
+                            backend, key, last=last)
+            work = roofline.level_work(scene, prim, "level", bits=True, state=color is not None,
+                                       last=last)
+        elif wrapper == "level_surface_cuda":
+            run = partial(lv.level_surface_cuda, scene, o, d, hit)
+            plain = partial(reconstruct_hit, scene, o, d, hit)
+            work = roofline.level_work(scene, prim, "surface")
+        else:
+            fracs = shading.spherical_fracs(
+                scene, surf.position, backend.occluded, key, num_samples=cfg.soft_shadow_samples,
+                sample_chunk=cfg.soft_shadow_chunk, soft_vis_fn=backend.soft_vis,
+                valid=surf.valid)
+            shade_args = (scene, d, surf, bits, None, fracs, color, thr, active,
+                          cfg.reference_quirks, last)
+            got, want = lv.level_shade_cuda(*shade_args), lv.level_shade_plain(*shade_args)
+            for name, g, w in zip(LEVEL_OUTPUTS, got, want):
+                assert (g is None and w is None) or same_bits(g, w) or name in named, name
+            run = partial(lv.level_shade_cuda, *shade_args)
+            plain = partial(lv.level_shade_plain, *shade_args)
+            work = roofline.level_work(scene, prim, "shade", bits=bits is not None,
+                                       state=color is not None, last=last)
+        ms = batched_ms(run)
+        plain_ms = median(time_frames(plain, iters=5, warmup=1))
+        b_ms, b_by = roofline.bound_ms(*work)
+        name, source, replaces = KERNELS[wrapper]
+        print(f"  {name} ({label}, {o.shape[0]} rays, level 0): ms {ms:.5f}, plain_ms "
+              f"{plain_ms:.4f} (x{plain_ms / ms:.1f}), bound_ms {b_ms:.5f} by {b_by} "
+              f"({b_ms / ms:.1%} of it); launches {main_counts[wrapper]}")
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": main_counts[wrapper], "max_abs_err": err[wrapper],
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None})
+    lap("kernel rows")
+
+    if parent:
+        runs = {"parent": [], "this tree": []}
+        argv = [json.dumps(LEVEL_ROUTES), json.dumps(sizes)]
+        for who in ("parent", "this tree", "this tree", "parent"):
+            r = subprocess.run([sys.executable, "-c", LEVEL_E2E_SNIPPET, *argv],
+                               capture_output=True, text=True,
+                               cwd=parent if who == "parent" else ROOT, timeout=600)
+            assert r.returncode == 0, f"{who}: {r.stderr[-3000:]}"
+            runs[who].append(json.loads(r.stdout.strip().splitlines()[-1]))
+        for label in LEVEL_ROUTES:
+            vals = {who: [run[label] for run in rs] for who, rs in runs.items()}
+            table[label]["parent vs this tree"] = vals
+            print(f"  {label} graphed, in turns: parent "
+                  f"{[round(v['graphed_ms'], 4) for v in vals['parent']]} ms "
+                  f"({vals['parent'][0]['kernels']:g} kernels, busy "
+                  f"{vals['parent'][0]['busy']}), this tree "
+                  f"{[round(v['graphed_ms'], 4) for v in vals['this tree']]} ms "
+                  f"({vals['this tree'][0]['kernels']:g} kernels, busy "
+                  f"{vals['this tree'][0]['busy']})")
+        lap("the parent's turns")
+    results["level"] = {"routes": table, "ulp_gaps": {f"{k[0]} level {k[1]} {k[2]}": v
+                                                      for k, v in gaps.items()}}
+    e2e["level"] = table
+    return {w: main_counts[w] for w in LEVEL_KERNELS}
 
 if __name__ == "__main__":
     sys.exit(main())

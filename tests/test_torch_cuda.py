@@ -6,8 +6,9 @@ the soft-shadow samplers and the spherical-light shade on the spherical
 stand-ins (``presets.load_standin``), the donut's render and training step,
 ``optimize()`` with the refit, and compiled dispatch (``render()``'s graph
 replaying new inputs, ``optimize()``'s graphed chunks against the eager
-loop, ``csrc/bloom.cu`` against its twins).  Skipped where there is no CUDA
-device.
+loop, ``csrc/bloom.cu`` against its twins), and the default route's level
+kernels (``csrc/level.cu``) bit-equal to the chain.  Skipped where there is
+no CUDA device.
 
 This file imports no JAX, so it runs on a machine without it:
 
@@ -599,3 +600,84 @@ def test_quirk_blur_kernels_match_their_twins_on_card(hw, cuda_device):
     torch.testing.assert_close(effects.bloom_quirk_adjoint_cuda(g),
                                effects.bloom_quirk_adjoint_plain(g), rtol=1e-5, atol=1e-5)
     assert effects.launch_counts() == {"bloom_quirk_cuda": 1, "bloom_quirk_adjoint_cuda": 1}
+
+
+def _bits_equal(a, b):
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mirror_box", "mixed", "spheres", "spherical_box"])
+def test_level_kernels_match_the_chain_on_card(name, cuda_device):
+    # Every level of the default route through the kernels' wrapper and the
+    # chain on the same inputs, bit for bit; the graphed frame equals the
+    # chain's eager frame.
+    from cg_raytracer_tpu_torch.models import whitted
+    from cg_raytracer_tpu_torch.ops import level as lv
+    from cg_raytracer_tpu_torch.ops.intersect import reconstruct_hit
+    from cg_raytracer_tpu_torch.utils import graphs
+
+    box, mixed, _, _, _ = card_inputs(cuda_device)
+    scene = {"mirror_box": box, "mixed": mixed,
+             "spheres": load_scene("spheres", device=cuda_device),
+             "spherical_box": load_standin("spherical_box", device=cuda_device)}[name]
+    cam = Camera.default(device=cuda_device)
+    cfg, accel = whitted.resolve_render(scene, RenderConfig(width=256, height=256))
+    levels = []
+
+    def checked(scene_, o, d, hit, bits, color, thr, active, cfg_, backend, key=None,
+                last=False):
+        args = (scene_, o, d, hit, bits, color, thr, active, cfg_, backend, key)
+        got, want = lv.level_cuda(*args, last=last), lv.level_plain(*args, last=last)
+        for g, w in zip(got, want):
+            assert (g is None and w is None) or _bits_equal(g, w)
+        for g, w in zip(lv.level_surface_cuda(scene_, o, d, hit),
+                        reconstruct_hit(scene_, o, d, hit)):
+            assert _bits_equal(g, w)
+        levels.append(bits is not None)
+        return got
+
+    backend = whitted.make_backend(scene, cfg, accel=accel)
+    lv.reset_launch_counts()
+    img = whitted.render_image(scene, cam, cfg, backend=backend._replace(level=checked),
+                               generator=torch.Generator().manual_seed(1))
+    assert len(levels) == cfg.max_depth
+    counts = lv.launch_counts()
+    fused = levels[0] and scene.spherical_lights.position.shape[0] == 0
+    assert (counts["level_cuda"] > 0) == fused
+    assert (counts["level_shade_cuda"] > 0) != fused
+    chain = whitted.render_image(scene, cam, cfg, backend=backend._replace(level=lv.level_plain),
+                                 generator=torch.Generator().manual_seed(1))
+    graphs.clear()
+    graphed = whitted.render(scene, cam, RenderConfig(width=256, height=256),
+                             generator=torch.Generator().manual_seed(1))
+    graphs.clear()
+    assert _bits_equal(img, chain) and _bits_equal(graphed, chain)
+    assert (chain.amax(dim=-1) > 0.02).float().mean().item() > 0.05
+
+
+@pytest.mark.cuda
+def test_level_kernels_stay_out_of_a_differentiated_render_on_card(cuda_device):
+    from cg_raytracer_tpu_torch.models import whitted
+    from cg_raytracer_tpu_torch.ops import level as lv
+
+    box = load_standin("mirror_box", device=cuda_device)
+    cam = Camera.default(device=cuda_device)
+    cfg = RenderConfig(width=64, height=64)
+    kd = box.materials.kd.clone().requires_grad_(True)
+    scene = dataclasses.replace(box, materials=dataclasses.replace(box.materials, kd=kd))
+    lv.reset_launch_counts()
+    img = whitted.render(scene, cam, cfg, jit=False)
+    img.mean().backward()
+    assert lv.launch_counts() == {w: 0 for w in lv.launch_counts()}
+    assert kd.grad.abs().sum().item() > 0
+    # Called directly under grad, the kernels' outputs refuse a backward.
+    backend = whitted.make_backend(scene, cfg)
+    o, d = generate_rays(cam, 64, 64)
+    hit, bits = backend.bounce(o, d)
+    color = lv.level_cuda(scene, o, d, hit, bits, None, None, None, cfg, backend, last=True)[0]
+    assert lv.launch_counts()["level_cuda"] == 1
+    with pytest.raises(NotImplementedError, match="no backward"):
+        color.sum().backward()
