@@ -1,0 +1,10 @@
+"""idle_pct.render: 100 x (1 - the union of the device's operations over
+the traced segment of frames), from the CUPTI trace (device layer)."""
+
+
+def read(ctx):
+    if ctx.kind != "orbit":
+        return None
+    lo, hi = ctx.window
+    busy = sum(b - a for a, b in ctx.trace.busy(lo, hi))
+    return 100.0 * (1.0 - busy / (hi - lo))
