@@ -229,9 +229,11 @@ Phases, each printing its own lines:
     ``optimize(steps_per_call=8)`` over 16 teacup vertex steps against the
     eager loop; ``csrc/bloom.cu``'s forward and adjoint against their twins
     at 1024x1024, 800x800 and 37x53 (two launches bit-equal), timed against
-    the twins and their bound, with the ablations of ``BLOOM_ABLATIONS``
-    (one block, a cluster of 8) and ``bloom_full_window`` (full windows) and,
-    with ``--parent DIR``, that commit's ``bloom.cu`` in turns at 1024x1024,
+    the twins and their bound, with the variants of ``BLOOM_ABLATIONS``
+    (one block, a cluster of 8, spinning polls, acquire polls) and
+    ``bloom_full_window`` (full windows) and, with ``--parent DIR``, that
+    commit's ``bloom.cu``, each bit-equal to this tree's kernel at the three
+    sizes (the full windows', to the twin) and timed in turns at 1024x1024,
     the cluster that ran, a lone row's pixel step, the derived lag a row
     adds and the cycles of a step's parts (``BLOOM_CLOCKS``); and the
     teacup's motion-blur sets against the plain twins (run on the CPU in
@@ -4351,9 +4353,21 @@ def _bloom_work(h, w, adjoint=False):
 # Phase 36's variants of bloom.cu: each takes one lever of the row pipeline
 # out again or moves the cluster's size (substitutions as in SOFT_ABLATIONS;
 # the full windows' are cut from the source by bloom_full_window()).
+# "spinning polls": a waiting lane never sleeps; "acquire polls": every poll
+# an acquire load and no sleep (the wait as it was before the sleep).
+_BLOOM_SLEEP = "          if (now < (y - 1) * stride) __nanosleep(128);\n"
+_BLOOM_POLLS = """        for (int now = above.load(cuda::std::memory_order_relaxed); now < target;
+             now = above.load(cuda::std::memory_order_relaxed)) {
+""" + _BLOOM_SLEEP + """        }
+        (void)above.load(cuda::std::memory_order_acquire);
+"""
 BLOOM_ABLATIONS = {
     "one block": [("bloom.cu", "kBloomCluster = 16;", "kBloomCluster = 1;", 1)],
     "cluster of 8": [("bloom.cu", "kBloomCluster = 16;", "kBloomCluster = 8;", 1)],
+    "spinning polls": [("bloom.cu", _BLOOM_SLEEP, "", 1)],
+    "acquire polls": [("bloom.cu", _BLOOM_POLLS,
+                       "        while (above.load(cuda::std::memory_order_acquire) < target) {\n"
+                       "        }\n", 1)],
 }
 # Phase B2 of the full-window ablation: each pixel sums its window cell by
 # cell (half 0 the rows above, half 1 the rows below and its row's raw
@@ -4389,7 +4403,7 @@ def bloom_full_window():
         i = src.index(start)
         return src[i:src.index(end, i)]
 
-    return [("bloom.cu", "    load_column<kAdjoint>(buf, y, j, h, w, half, e, own);\n", "", 1),
+    return [("bloom.cu", "    copy_column<kAdjoint>(buf, y, j, h, w, half, lane, col);\n", "", 1),
             ("bloom.cu", span("      // A1.", "      // B1."), "", 1),
             ("bloom.cu", span("      // B1.", "      wait(y, min(c - j"),
              "      float a[3] = {0.0f, 0.0f, 0.0f};\n", 1),
@@ -4398,16 +4412,18 @@ def bloom_full_window():
 
 
 # A build of bloom.cu that stamps clock64() at the parts of a step (wait,
-# A2, B2, C, publish) for rows 0 and 9 (slots 0 and 9 of the cluster), steps
-# below 60, and returns them through cgrt_bloom_clock: the same arithmetic.
+# the hand-off's read of row y - 1's cells, the rest of A2, B2, C, publish)
+# for rows 0 and 9 (slots 0 and 9 of the cluster), steps below 60, and
+# returns them through cgrt_bloom_clock: the same arithmetic.
 _BLOOM_STAMP = ("if (lane == 0 && (slot == 0 || slot == 9) && y < 10 && g < 60) "
                 "g_clk[((slot == 9) * 60 + g) * 8 + {}] = clock64();\n")
 BLOOM_CLOCKS = [
     ("bloom.cu", "      wait(y, min(c - j + kBloomChunk, w));\n",
      "      " + _BLOOM_STAMP.format(0) + "      wait(y, min(c - j + kBloomChunk, w));\n      "
      + _BLOOM_STAMP.format(1), 1),
-    ("bloom.cu", "      if (g == 0) continue;\n",
-     "      " + _BLOOM_STAMP.format(2) + "      if (g == 0) continue;\n", 1),
+    ("bloom.cu", "      __syncwarp();\n      if (g == 0) continue;\n",
+     "      " + _BLOOM_STAMP.format(5) + "      __syncwarp();\n      " + _BLOOM_STAMP.format(2)
+     + "      if (g == 0) continue;\n", 1),
     ("bloom.cu", "      // C. The chunk's pixels in order",
      "      " + _BLOOM_STAMP.format(3) + "      // C. The chunk's pixels in order", 1),
     ("bloom.cu", "      if (lane == 0 && y + 1 < h) {\n",
@@ -4434,14 +4450,16 @@ def bloom_step_cycles(lib, adjoint, buf, out):
     lib.cgrt_bloom_clock.argtypes = [ctypes.c_void_p]
     assert lib.cgrt_bloom_clock(ctypes.cast(stamps, ctypes.c_void_p)) == 0
     result = {}
+    parts = ("wait", "hand-off read", "A2 rest", "B2", "C", "publish, A1, B1")
     for k, row in enumerate((0, 9)):
         steps = []
         for g in range(2, 40):
-            t = stamps[(k * 60 + g) * 8:(k * 60 + g) * 8 + 5]
+            t = stamps[(k * 60 + g) * 8:(k * 60 + g) * 8 + 6]
             t_next = stamps[(k * 60 + g + 1) * 8]
-            steps.append((t[1] - t[0], t[2] - t[1], t[3] - t[2], t[4] - t[3], t_next - t[4]))
-        med = [statistics.median(s[i] for s in steps) for i in range(5)]
-        result[row] = dict(zip(("wait", "A2", "B2", "C", "publish, A1, B1"), med))
+            steps.append((t[1] - t[0], t[5] - t[1], t[2] - t[5], t[3] - t[2], t[4] - t[3],
+                          t_next - t[4]))
+        med = [statistics.median(s[i] for s in steps) for i in range(len(parts))]
+        result[row] = dict(zip(parts, med))
     return result
 
 
@@ -4487,9 +4505,10 @@ def bloom_config(lib):
 
 def bloom_part(device, kernels, main_counts, box, cam, bloom_builds, parent_in_place, lap):
     """Phase 36's quirk blur: ``csrc/bloom.cu`` against its twins at three
-    sizes, this tree's kernel, its ablations and the parent's (``bloom_builds``,
-    a future of ``build_variants``) timed in turns at 1024^2, the derived
-    pixel step and row lag; appends the two kernels' rows to ``kernels``."""
+    sizes, its variants and the parent's (``bloom_builds``, a future of
+    ``build_variants``) bit-equal to it there (but the full windows', to the
+    twin), all timed in turns at 1024^2, the derived pixel step and row lag;
+    appends the two kernels' rows to ``kernels``."""
     import torch
 
     from cg_raytracer_tpu_torch.models.whitted import render
@@ -4531,10 +4550,11 @@ def bloom_part(device, kernels, main_counts, box, cam, bloom_builds, parent_in_p
                   f"{want.abs().max().item():.3g}); two launches bit-equal")
     lap("bloom.cu against its twins")
 
-    # Times at 1024^2: this tree's kernel, each ablation and the parent's
-    # bloom.cu in turns (the list, then reversed), each call restoring its
-    # input first (a 12.6 MB copy, ~0.01 ms); each variant held to the twin
-    # (the cluster variants bit for bit to this tree's kernel).
+    # Each variant and the parent's bloom.cu at the three sizes, held bit for
+    # bit to this tree's kernel (the full windows sum in another order: to
+    # the twin).  Then times at 1024^2: this tree's kernel, each variant and
+    # the parent's in turns (the list, then reversed), each call restoring
+    # its input first (a 12.6 MB copy, ~0.01 ms).
     libs = {"this tree": (_build.load(), ""), **bloom_builds.result()}
     clocks = libs.pop("step clocks")[0]
     for name, (lib, log) in libs.items():
@@ -4543,29 +4563,38 @@ def bloom_part(device, kernels, main_counts, box, cam, bloom_builds, parent_in_p
                  "a cluster of {} block(s) of {} warps, chunks of {} pixels".format(
                      *bloom_config(lib)))
         print(f"  bloom.cu {name}: {shape}{'; ptxas: ' + ' | '.join(regs) if regs else ''}")
+    for (name, size_label), (arg, want, _) in twins.items():
+        adjoint = name.endswith("adjoint")
+        mine = (effects.bloom_quirk_adjoint_cuda if adjoint else effects.bloom_quirk_cuda)(arg)
+        for lname, (lib, _log) in libs.items():
+            if lname == "this tree":
+                continue
+            buf, out2 = torch.empty_like(arg), torch.empty_like(arg)
+            in_place = adjoint and lname == "parent" and parent_in_place
+            bloom_call(lib, adjoint, buf.copy_(arg), None if in_place else out2)
+            got = buf if (not adjoint or in_place) else out2
+            if lname == "full 441-cell windows":
+                torch.testing.assert_close(got, want, **BLOOM_TOL, msg=f"{name} {lname}")
+            else:
+                assert torch.equal(got, mine), (f"{name} {size_label} {lname}: not bit-equal to "
+                                                "this tree's")
+    same = [lname for lname in libs if lname not in ("this tree", "full 441-cell windows")]
+    print(f"  bloom.cu: {', '.join(same)} bit-equal to this tree's kernel at "
+          f"{', '.join(inputs)}, forward and adjoint")
     bright = inputs[f"{n}^2"]
     h, w = bright.shape[0], bright.shape[1]
     row = bright[:1].contiguous()
     times = {}
     for name in ("bloom_quirk", "bloom_quirk_adjoint"):
-        arg, want, _ = twins[(name, f"{n}^2")]
+        arg = twins[(name, f"{n}^2")][0]
         adjoint = name.endswith("adjoint")
-        mine = (effects.bloom_quirk_adjoint_cuda if adjoint else effects.bloom_quirk_cuda)(arg)
-        for lname, (lib, _log) in libs.items():
-            buf, out2 = torch.empty_like(arg), torch.empty_like(arg)
-            in_place = adjoint and lname == "parent" and parent_in_place
-            bloom_call(lib, adjoint, buf.copy_(arg), None if in_place else out2)
-            got = buf if (not adjoint or in_place) else out2
-            torch.testing.assert_close(got, want, **BLOOM_TOL, msg=f"{name} {lname}")
-            if lname not in ("parent", "full 441-cell windows"):
-                assert torch.equal(got, mine), f"{name} {lname}: not bit-equal to this tree's"
         for turn in range(2):
             order = list(libs) if turn == 0 else list(reversed(libs))
             for lname in order:
                 lib = libs[lname][0]
                 in_place = adjoint and lname == "parent" and parent_in_place
                 buf, out2 = torch.empty_like(arg), torch.empty_like(arg)
-                slow = lname in ("parent", "one block", "full 441-cell windows")
+                slow = lname in ("one block", "full 441-cell windows")
                 ms = median(time_frames(
                     lambda: bloom_call(lib, adjoint, buf.copy_(arg), None if in_place else out2),
                     iters=2 if slow else 5, warmup=1))

@@ -27,6 +27,8 @@
 // a launch (cudaDeviceGetAttribute, cudaOccupancy...) answer with emu_sms
 // SMs of one block each, so a one-wave grid is small and strides;
 // emu_max_grid caps any grid of emu_launch_threads the same way.
+// __nanosleep yields the host thread; cuda_pipeline.h's asynchronous copies
+// are plain copies, complete when they return.
 #pragma once
 
 #include <cmath>
@@ -83,6 +85,7 @@ inline unsigned __umulhi(unsigned a, unsigned b) {
   return static_cast<unsigned>((static_cast<unsigned long long>(a) * b) >> 32);
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline void __nanosleep(unsigned) { std::this_thread::yield(); }
 inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
 inline unsigned emu_lane_bit() { return 1u << (threadIdx.x % 32); }
 inline unsigned __ballot_sync(unsigned, bool pred) { return pred ? emu_lane_bit() : 0u; }

@@ -9,7 +9,11 @@ are atomics, a hand-off to another block's counter goes through the stand-in
 barrier and exchange, and the cluster barrier spans every thread.  The
 cluster is cut from 16 blocks of 16 warps to 4 blocks of 2 warps (8 row
 slots), so rows wrap round the slots and hand off between blocks as on the
-card.  The adjoint's second pass is rewritten to ``emu_launch_threads``.
+card; a waiting lane polls relaxed and sleeps (``__nanosleep`` yields) while
+the row above has published nothing, and the next group's cells arrive
+through ``cuda_pipeline.h``'s asynchronous copies (plain copies here, each
+into a shared-memory column of exactly its lane).  The adjoint's second pass
+is rewritten to ``emu_launch_threads``.
 Each image lives in a buffer of exactly its size, each block's shared
 memory in one of exactly the launch's bytes.
 
@@ -18,11 +22,14 @@ memory in one of exactly the launch's bytes.
   summed in another order (column sums, then the row's own cells; the
   adjoint's first pass and masked box sum are not the twin's wavefronts),
   on sizes with fewer rows than slots, rows that wrap round the slots
-  several times, widths below and above a chunk and a window.
+  several times, widths below and above a chunk and a window, and rows of
+  many chunks (24x300: 19 chunks a row, more than two a slot, so rows wait
+  for a warp and start late; 70x131: 9 chunks, rows wrapping eight times).
 - The adjoint is the forward's transpose: ``<F x, g>`` equals
   ``<x, F^T g>``, both kernels emulated, the dot products in float64.
 - A build that drops the own row's outputs from a window, or the second
-  pass's row-y terms, must differ: the harness sees each part.
+  pass's row-y terms, or copies the next group's cells from a group to the
+  left, must differ: the harness sees each part.
 """
 import os
 import re
@@ -39,7 +46,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "cg_raytracer_tpu_torch", "csrc")
 EMU = os.path.join(ROOT, "tests", "cuda_emu")
 FN = dict(rtol=1e-5, atol=1e-6)
-SIZES = [(24, 20), (3, 40), (14, 100), (40, 64), (37, 29)]
+SIZES = [(24, 20), (3, 40), (14, 100), (40, 64), (37, 29), (24, 300), (70, 131)]
 MAIN = r"""
 #include <cstdio>
 #include <cstdlib>
@@ -70,6 +77,9 @@ FAULTS = {
                                   "for (int i = 0; i < kBloomR; ++i) sum += 0.0f * q[k + i];"),
     "second pass's row-y terms dropped": ("for (int k = 0; k <= kBloomR; ++k) {",
                                           "for (int k = 0; k < 0; ++k) {"),
+    "next group's cells copied a group to the left": (
+        "  const int cc = min(c, w - 1);\n  const int r0_in",
+        "  const int cc = max(min(c, w - 1) - kBloomChunk, 0);\n  const int r0_in"),
 }
 
 
