@@ -8,7 +8,9 @@ warm-up render (kernel build and first launches excluded, like the
 reference's BVH build; a mesh scene's tree is built once, in the warm-up);
 ``--aa``, ``--bloom`` and ``--motion-blur`` turn on the effects, and
 ``--profile DIR`` writes a Chrome trace of the timed render into DIR, with
-the program's ``cgrt.*`` spans (``utils/profiling.py``) above its kernels.
+the program's ``cgrt.*`` spans (``utils/profiling.py``) above its kernels,
+and prints the shape of the scene's tree and the rays a frame hands the
+tree walks, where the scene walks one.
 ``optimize`` fits the scene's materials and point lights to a target image
 (``optim/inverse.py::optimize``, npz checkpoint and resume with
 ``--checkpoint``) and prints the final loss; ``--output`` renders the
@@ -127,6 +129,15 @@ def cmd_render(args) -> int:
         ms = (time.perf_counter() - t0) * 1e3
     print(f"Time to render image: {ms:.2f} milliseconds")
     print(f"{cfg.width * cfg.height / (ms / 1e3):.3e} primary rays/s")
+    if args.profile:
+        from .ops import bvh4
+        from .utils import graphs
+
+        shape, rays = bvh4.tree_counts(), graphs.replay_rays()
+        if shape:
+            print(f"tree: {shape}")
+        if rays:
+            print(f"tree walk rays per frame: {rays}")
     if args.output.lower().endswith(".bmp"):
         write_bmp(args.output, img)
     else:

@@ -162,11 +162,23 @@ def build_accel(scene: Scene, cfg: RenderConfig):
 
 
 def _wide_tree(scene: Scene, leaf: int, builder: str, width: int):
-    """The ``width``-wide collapse of the scene's binary tree (each memoized)."""
-    binary = _cached_accel(scene, ("binary", leaf, builder),
-                           lambda: build_bvh(scene, max_leaf=leaf, builder=builder))
-    return _cached_accel(scene, ("bvh4", leaf, builder, width),
-                         lambda: b4.collapse_bvhw(binary, width).to(scene.device))
+    """The ``width``-wide collapse of the scene's binary tree (each memoized).
+    A build is the span ``cgrt.accel.build``, with ``cgrt.accel.binary``
+    (the binary tree, or its memo) and ``cgrt.accel.collapse`` (the
+    collapse and the copy to the scene's device) inside; its shape goes to
+    ``ops/bvh4.py::tree_counts``."""
+    def build():
+        with span("accel.build"):
+            with span("accel.binary"):
+                binary = _cached_accel(scene, ("binary", leaf, builder),
+                                       lambda: build_bvh(scene, max_leaf=leaf, builder=builder))
+            with span("accel.collapse"):
+                host = b4.collapse_bvhw(binary, width)
+                tree = host.to(scene.device)
+            b4.record_tree(host)
+            return tree
+
+    return _cached_accel(scene, ("bvh4", leaf, builder, width), build)
 
 
 def _soft_tree(scene: Scene, cfg: RenderConfig, primary):
@@ -625,14 +637,16 @@ def resolve_render(scene: Scene, cfg: RenderConfig, accel=None):
     its materials can reach (``effective_max_depth``), ``fwd_shade_kernel``
     resolved, and the tree built (memoized) where the backend walks one.
     Both resolutions read scene values on the host (span
-    ``cgrt.render.resolve``)."""
+    ``cgrt.render.resolve``); the tree's, ``build_accel``, is the span
+    ``cgrt.render.accel`` inside it, on scenes that walk a tree only."""
     with span("render.resolve"):
         depth = effective_max_depth(scene, cfg)
         if depth != cfg.max_depth:
             cfg = dataclasses.replace(cfg, max_depth=depth)
         cfg = resolve_fwd_shade_kernel(scene, cfg)
         if accel is None and needs_bvh(cfg, scene.num_triangles, scene.device):
-            accel = build_accel(scene, cfg)
+            with span("render.accel"):
+                accel = build_accel(scene, cfg)
         return cfg, accel
 
 

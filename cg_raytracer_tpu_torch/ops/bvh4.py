@@ -319,10 +319,12 @@ def _tree_args(name, tree: BVH4, device):
     return w, ck._ptr(tree.nodes), ck._ptr(tree.rows), ck._ptr(tree.slot_to_prim)
 
 
-def count_launch(wrapper, width: int) -> None:
-    """One launch of ``wrapper``'s kernel at node width ``width``."""
+def count_launch(wrapper, width: int, rays: int = 0) -> None:
+    """One launch of ``wrapper``'s kernel at node width ``width``, handed
+    ``rays`` rays (the tree walks count them; the samplers pass none)."""
     wrapper.launches += 1
     wrapper.launches_by_width[width] += 1
+    wrapper.rays_by_width[width] += rays
 
 
 def _closest_kernel(tree, o, d, tm):
@@ -333,7 +335,7 @@ def _closest_kernel(tree, o, d, tm):
     ck._launch("cgrt_bvh4_closest", o.device, ck._ptr(o), ck._ptr(d), ck._ptr(tm), n,
                *_tree_args("cgrt_bvh4_closest", tree, o.device), ck._ptr(t), ck._ptr(prim),
                ck._ptr(u), ck._ptr(v))
-    count_launch(intersect_bvh4_cuda, tree.width)
+    count_launch(intersect_bvh4_cuda, tree.width, n)
     return Hit(t, prim, u, v)
 
 
@@ -343,7 +345,7 @@ def _anyhit_kernel(tree, o, d, tm):
     hit = torch.empty((n,), dtype=torch.uint8, device=o.device)
     ck._launch("cgrt_bvh4_anyhit", o.device, ck._ptr(o), ck._ptr(d), ck._ptr(tm), n,
                *_tree_args("cgrt_bvh4_anyhit", tree, o.device), ck._ptr(hit))
-    count_launch(occluded_bvh4_cuda, tree.width)
+    count_launch(occluded_bvh4_cuda, tree.width, n)
     return hit.bool()
 
 
@@ -355,7 +357,7 @@ def _bounce_kernel(tree, lights, o, d, tm):
     ck._launch("cgrt_bvh4_bounce", o.device, ck._ptr(o), ck._ptr(d), ck._ptr(tm), n,
                *_tree_args("cgrt_bvh4_bounce", tree, o.device), ck._ptr(lights),
                lights.shape[0], ck._ptr(t), ck._ptr(prim), ck._ptr(u), ck._ptr(v), ck._ptr(bits))
-    count_launch(bounce_bvh4_cuda, tree.width)
+    count_launch(bounce_bvh4_cuda, tree.width, n)
     return Hit(t, prim, u, v), bits
 
 
@@ -584,14 +586,50 @@ def reset_counts(wrappers) -> None:
     for w in wrappers:
         w.launches = 0
         w.launches_by_width = {k: 0 for k in WIDTHS}
+        w.rays_by_width = {k: 0 for k in WIDTHS}
 
 
 def launch_counts() -> dict:
     return width_counts(KERNEL_WRAPPERS)
 
 
+def ray_counts() -> dict:
+    """The rays each walk's wrapper was handed (rows of its origins, live or
+    not), at each node width, under ``name:wW``."""
+    return {f"{w.__name__}:w{k}": n for w in KERNEL_WRAPPERS for k, n in w.rays_by_width.items()}
+
+
 def reset_launch_counts() -> None:
     reset_counts(KERNEL_WRAPPERS)
+
+
+def tree_shape(tree: BVH4) -> dict:
+    """What a tree holds: its nodes, leaves and depth (levels of W-wide
+    nodes), the mean and largest leaf in triangles, and the bytes of its
+    tensors (on the card, where the tree lives there)."""
+    w = tree.width
+    sizes = tree.meta[:, w:].reshape(-1)
+    sizes = sizes[sizes > 0]
+    leaves = int(sizes.numel())
+    return {"width": w, "nodes": tree.num_nodes, "leaves": leaves, "depth": tree.depth,
+            "triangles": tree.num_tris, "leaf_mean": tree.num_tris / max(1, leaves),
+            "leaf_max": int(sizes.max()) if leaves else 0,
+            "bytes": sum(x.numel() * x.element_size() for x in tree[:7])}
+
+
+_TREE_SHAPE: dict = {}
+
+
+def record_tree(tree: BVH4) -> None:
+    """Keep ``tree_shape(tree)`` as the last built tree's (``tree_counts``)."""
+    _TREE_SHAPE.clear()
+    _TREE_SHAPE.update(tree_shape(tree))
+
+
+def tree_counts() -> dict:
+    """The shape of the last tree ``models/whitted.py::build_accel`` built
+    ({} before the first)."""
+    return dict(_TREE_SHAPE)
 
 
 reset_launch_counts()

@@ -34,9 +34,10 @@ step more; replayed, it is one ``torch.cuda.CUDAGraph.replay()``.
   use (the kernel library, ``ops/_build.py::load``; a tree's walk records;
   ``models/whitted.py::_cached_accel``; autograd's and the optimizer's
   state), none of which may happen during a capture.
-- **Launch counts**: a capture records its kernels' launches without
-  running them, so the counts it added to the wrappers are taken back;
-  every replay adds them again.
+- **Launch counts**: a capture records its kernels' launches (and the
+  rays the tree walks were handed) without running them, so the counts it
+  added to the wrappers are taken back; every replay adds them again
+  (``replay_rays``: the last replay's rays).
 - **Memory**: each graph holds a private memory pool with its
   intermediates and outputs (hundreds of MB for a 1024^2 frame or a step's
   saved tensors).  The cache keeps at most ``MAX_GRAPHS`` = 8 graphs; the
@@ -145,30 +146,47 @@ def _wrappers() -> list:
 
 
 def _counts() -> dict:
-    return {w: (w.launches, dict(getattr(w, "launches_by_width", {}))) for w in _wrappers()}
+    """Each wrapper's (launches, launches by width, rays by width); the
+    last two only where a wrapper keeps them (``ops/bvh4.py``'s walks and
+    the tree samplers)."""
+    return {w: (w.launches, dict(getattr(w, "launches_by_width", {})),
+                dict(getattr(w, "rays_by_width", {}))) for w in _wrappers()}
 
 
 def _set_counts(counts: dict) -> None:
-    for w, (n, by_width) in counts.items():
+    for w, (n, by_width, rays) in counts.items():
         w.launches = n
         if hasattr(w, "launches_by_width"):
             w.launches_by_width = dict(by_width)
+            w.rays_by_width = dict(rays)
 
 
 def _delta(before: dict, after: dict) -> dict:
     out = {}
-    for w, (n, by_width) in after.items():
-        n0, w0 = before[w]
+    for w, (n, by_width, rays) in after.items():
+        n0, w0, r0 = before[w]
         if n != n0:
-            out[w] = (n - n0, {k: v - w0.get(k, 0) for k, v in by_width.items()})
+            out[w] = (n - n0, {k: v - w0.get(k, 0) for k, v in by_width.items()},
+                      {k: v - r0.get(k, 0) for k, v in rays.items()})
     return out
 
 
 def _add_counts(delta: dict) -> None:
-    for w, (n, by_width) in delta.items():
+    for w, (n, by_width, rays) in delta.items():
         w.launches += n
         for k, v in by_width.items():
             w.launches_by_width[k] += v
+        for k, v in rays.items():
+            w.rays_by_width[k] += v
+
+
+def replay_rays() -> dict:
+    """The rays one replay of the last graph replayed hands each tree walk
+    ({wrapper name: {node width: rays}}, the walks it launches; {} before
+    the first replay).  Kept after ``clear()``, so it can be read once the
+    graphs are released."""
+    return {w.__name__: dict(rays) for w, (_, _, rays) in Graph.last_launches.items()
+            if any(rays.values())}
 
 
 # --------------------------------------------------------------------------
@@ -181,7 +199,11 @@ class Graph:
     empty without spherical lights).  ``warmup(*static_inputs)`` replaces the
     eager warm-up run of ``fn`` (a training chunk warms up on one step and
     restores what it moved).  ``hold``: objects whose buffers the graph reads
-    by address, kept alive with it."""
+    by address, kept alive with it.  ``launches``: what one replay adds to
+    the wrappers' counts (``_delta``); ``Graph.last_launches`` is the last
+    replayed graph's."""
+
+    last_launches: dict = {}
 
     def __init__(self, fn: Callable, inputs: tuple, roots: Sequence, device,
                  warmup: Optional[Callable] = None, hold=()):
@@ -228,6 +250,7 @@ class Graph:
             self.graph.replay()
         with span("graph.outputs"):
             _add_counts(self.launches)
+            Graph.last_launches = self.launches
             return rebuild(self.out, (x.clone() for x in leaves(self.out)))
 
     def release(self) -> None:

@@ -10,7 +10,9 @@ package's API, kept for parity; it is not the program's tracing.
 
 - ``cgrt.render`` (``models/whitted.py::render``, the whole call) holds
   ``cgrt.render.resolve`` (``resolve_render``: the host reads of ``ks``,
-  ``fwd_shade_kernel``'s resolution) and, on the card's graphed route
+  ``fwd_shade_kernel``'s resolution, and on a scene that walks a tree
+  ``cgrt.render.accel``: ``build_accel``'s routing and memo look-up) and,
+  on the card's graphed route
   (``utils/graphs.py``), ``cgrt.graph.inputs`` (the frame's key, the
   no-grad check, the cache key, the cache look-up, the copy of the inputs
   into the graph's), ``cgrt.graph.key_fill`` (``ops/soft.py::KeyTable.fill``:
@@ -21,6 +23,12 @@ package's API, kept for parity; it is not the program's tracing.
 - ``cgrt.graph.capture`` (``Graph.__init__``: the eager warm-up and the
   capture) nests inside ``cgrt.graph.inputs`` on a cache miss: a capture
   inside a frame means that the frame's key missed the cache.
+- ``cgrt.accel.build`` (``models/whitted.py::_wide_tree``, a wide tree's
+  build on a memo miss: inside ``cgrt.render.accel`` on a scene's first
+  ``render()``) holds ``cgrt.accel.binary`` (``ops/bvh.py::build_bvh``, native
+  or numpy, or the binary tree's memo) and ``cgrt.accel.collapse``
+  (``ops/bvh4.py::collapse_bvhw`` and the copy to the card).  Like the
+  capture, these record at set-up.
 - ``cgrt.fit`` (``optim/inverse.py::optimize``, the whole call) holds one
   ``cgrt.fit.chunk`` per chunk (its launch, without the read of its losses,
   which waits for the card), and each chunk the ``cgrt.graph.*`` spans of

@@ -8,14 +8,23 @@ exported Chrome trace holds the same names at the same times (the clock
 contract: ``t0_ns`` within 50 µs of the event's ``ts`` +
 ``baseTimeNanoseconds``); the ring keeps the last ``SPAN_LOG_SIZE`` spans.
 
+The tree route (a lathed cup of 1,200 triangles, the benchmark's teacup
+surface on a coarse grid, under ``backend="cuda"``): ``cgrt.render.accel``
+inside ``cgrt.render.resolve`` on every frame of a tree scene and on none of
+the box; a first render's ``cgrt.accel.build`` with ``cgrt.accel.binary``
+and ``cgrt.accel.collapse`` inside; the tree-shape counters against the
+built tree and its binary tree; the rays counter carried through a
+capture's delta and its replays.
+
 On the card (marker ``cuda``, skipped here): the ``cgrt.graph.*`` spans of a
 graphed frame, one ``cgrt.graph.capture`` on its first call and none on the
-second, and the parts of a warm frame covering at least 90% of its
-``cgrt.render``.  This file imports no JAX, so it runs on a machine without
-it:
+second, the parts of a warm frame covering at least 90% of its
+``cgrt.render``, and the rays counter after N replays N times one eager
+frame's.  This file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_tracing.py
 """
+import importlib.util
 import json
 import os
 
@@ -24,9 +33,13 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import cg_raytracer_tpu_torch as trt
+from cg_raytracer_tpu_torch.models import whitted
+from cg_raytracer_tpu_torch.ops import bvh4
+from cg_raytracer_tpu_torch.ops.bvh import build_bvh
 from cg_raytracer_tpu_torch.optim import inverse
 from cg_raytracer_tpu_torch.scene.presets import load_standin
-from cg_raytracer_tpu_torch.utils import profiling
+from cg_raytracer_tpu_torch.scene.types import PointLights, make_scene
+from cg_raytracer_tpu_torch.utils import graphs, profiling
 
 SIZE = 16
 CLOCK_NS = 50_000
@@ -44,6 +57,20 @@ def cuda_device():
 def _box(device="cpu"):
     scene = load_standin("mirror_box", device=device)
     return scene, trt.Camera.default(device=device), trt.RenderConfig(width=SIZE, height=SIZE)
+
+
+def _cup(device="cpu"):
+    """A fresh 1,200-triangle cup (new tensors: its tree is not memoized
+    yet) and a config whose route walks a tree on any device."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "benchmark", "configs", "teacup.py")
+    spec = importlib.util.spec_from_file_location("tracing_test_teacup", path)
+    cup = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cup)
+    scene = make_scene(cup.cup(24, 26), point_lights=PointLights.of(((-1, 1, -1), (1, 1, 1))),
+                       device=device)
+    return scene, trt.Camera.default(device=device), trt.RenderConfig(width=SIZE, height=SIZE,
+                                                                      backend="cuda")
 
 
 def _fit(scene, cam, cfg, target):
@@ -152,6 +179,113 @@ def test_ring_is_bounded():
     calls = [r.call for r in log]
     assert calls == sorted(calls) and calls[-1] - calls[0] == profiling.SPAN_LOG_SIZE - 1
     assert profiling.span_log() == []
+
+
+def test_accel_span_on_tree_scenes_only():
+    cup, cam, cfg = _cup()
+    box = load_standin("mirror_box", device="cpu")
+    trt.render(cup, cam, cfg)
+    trt.render(box, cam, cfg)
+    profiling.clear_span_log()
+    with profile(activities=[ProfilerActivity.CPU]):
+        trt.render(cup, cam, cfg)
+        cup_log = profiling.span_log()
+        profiling.clear_span_log()
+        trt.render(box, cam, cfg)
+        box_log = profiling.span_log()
+        profiling.clear_span_log()
+    (resolve,) = [r for r in cup_log if r.name == "cgrt.render.resolve"]
+    (accel,) = [r for r in cup_log if r.name == "cgrt.render.accel"]
+    assert accel.parent == "cgrt.render.resolve" and accel.call == resolve.call
+    assert resolve.t0_ns <= accel.t0_ns <= accel.t1_ns <= resolve.t1_ns
+    assert not any(r.name.startswith("cgrt.accel.") for r in cup_log)  # the memo's tree
+    assert "cgrt.render.resolve" in {r.name for r in box_log}
+    assert not any("accel" in r.name for r in box_log)
+
+
+def test_accel_build_records_its_parts():
+    cup, cam, cfg = _cup()
+    profiling.clear_span_log()
+    with profile(activities=[ProfilerActivity.CPU]):
+        trt.render(cup, cam, cfg)
+    log = profiling.span_log()
+    profiling.clear_span_log()
+    (accel,) = [r for r in log if r.name == "cgrt.render.accel"]
+    (build,) = [r for r in log if r.name == "cgrt.accel.build"]
+    (binary,) = [r for r in log if r.name == "cgrt.accel.binary"]
+    (collapse,) = [r for r in log if r.name == "cgrt.accel.collapse"]
+    assert build.parent == "cgrt.render.accel" and build.call == accel.call
+    assert accel.t0_ns <= build.t0_ns <= build.t1_ns <= accel.t1_ns
+    for part in (binary, collapse):
+        assert part.parent == "cgrt.accel.build" and part.call == build.call
+        assert build.t0_ns <= part.t0_ns <= part.t1_ns <= build.t1_ns
+    assert binary.t1_ns <= collapse.t0_ns
+
+
+def test_tree_counts_match_the_built_tree():
+    cup, _, cfg = _cup()
+    tree = whitted.build_accel(cup, cfg)
+    counts = bvh4.tree_counts()
+    assert counts == bvh4.tree_shape(tree)
+    leaf = cfg.resolve_bvh_max_leaf()
+    binary = build_bvh(cup, max_leaf=leaf, builder=cfg.resolve_bvh_builder(1200, cup.device))
+    sizes = binary.count[binary.count > 0]
+    assert counts["width"] == tree.width == 4 and counts["triangles"] == 1200
+    assert counts["nodes"] == tree.num_nodes and counts["depth"] == tree.depth
+    assert counts["leaves"] == sizes.numel() and counts["leaf_max"] == int(sizes.max()) <= leaf
+    assert counts["leaf_mean"] == pytest.approx(1200 / sizes.numel())
+    assert counts["bytes"] == sum(x.numel() * x.element_size() for x in
+                                  (tree.boxes, tree.meta, tree.nchild, tree.tris,
+                                   tree.slot_to_prim, tree.nodes, tree.rows))
+
+
+def test_rays_counter_carried_through_a_capture():
+    """A capture's delta of the walks' launches and rays, taken back and
+    added once per replay: N replays count N times the captured rays, and
+    ``replay_rays`` gives one replay's."""
+    bvh4.reset_launch_counts()
+    before = graphs._counts()
+    bvh4.count_launch(bvh4.bounce_bvh4_cuda, 4, 640)
+    bvh4.count_launch(bvh4.bounce_bvh4_cuda, 4, 640)
+    bvh4.count_launch(bvh4.occluded_bvh4_cuda, 2, 100)
+    delta = graphs._delta(before, graphs._counts())
+    graphs._set_counts(before)
+    assert all(n == 0 for n in bvh4.ray_counts().values())
+    saved = graphs.Graph.last_launches
+    try:
+        for _ in range(3):
+            graphs._add_counts(delta)
+            graphs.Graph.last_launches = delta
+        rays = bvh4.ray_counts()
+        assert rays["bounce_bvh4_cuda:w4"] == 3 * 1280 and rays["occluded_bvh4_cuda:w2"] == 300
+        assert bvh4.launch_counts()["bounce_bvh4_cuda"] == 6
+        assert graphs.replay_rays() == {"bounce_bvh4_cuda": {2: 0, 4: 1280, 8: 0},
+                                        "occluded_bvh4_cuda": {2: 100, 4: 0, 8: 0}}
+    finally:
+        graphs.Graph.last_launches = saved
+        bvh4.reset_launch_counts()
+
+
+@pytest.mark.cuda
+def test_rays_counter_after_replays(cuda_device):
+    """N graphed frames hand the walks N times the rays of one eager frame
+    (every level's rays, live or not), and ``replay_rays`` gives one."""
+    cup, cam, cfg = _cup(cuda_device)
+    cfg = trt.RenderConfig(width=64, height=64)
+    graphs.clear()
+    bvh4.reset_launch_counts()
+    trt.render(cup, cam, cfg, jit=False)
+    torch.cuda.synchronize()
+    eager = bvh4.ray_counts()
+    assert eager["bounce_bvh4_cuda:w4"] == 2 * 64 * 64  # depth 2: a level's rays each
+    trt.render(cup, cam, cfg)
+    bvh4.reset_launch_counts()
+    for _ in range(3):
+        trt.render(cup, cam, cfg)
+    torch.cuda.synchronize()
+    assert bvh4.ray_counts() == {k: 3 * n for k, n in eager.items()}
+    assert graphs.replay_rays() == {"bounce_bvh4_cuda": {2: 0, 4: 2 * 64 * 64, 8: 0}}
+    graphs.clear()
 
 
 @pytest.mark.cuda
