@@ -10,7 +10,9 @@ reference's BVH build; a mesh scene's tree is built once, in the warm-up);
 ``--profile DIR`` writes a Chrome trace of the timed render into DIR, with
 the program's ``cgrt.*`` spans (``utils/profiling.py``) above its kernels,
 and prints the shape of the scene's tree and the rays a frame hands the
-tree walks, where the scene walks one.
+tree walks, where the scene walks one, and the share of triangle tests the
+brute soft-shadow sampler's per-point culling kept in the timed render
+(``ops/soft.py::cull_counts``), where it ran.
 ``optimize`` fits the scene's materials and point lights to a target image
 (``optim/inverse.py::optimize``, npz checkpoint and resume with
 ``--checkpoint``) and prints the final loss; ``--output`` renders the
@@ -122,6 +124,10 @@ def cmd_render(args) -> int:
     sync = torch.cuda.synchronize if scene.device.type == "cuda" else (lambda: None)
     img = render(scene, camera, cfg, generator=generator)
     sync()
+    if args.profile:
+        from .ops import soft
+
+        soft.reset_cull_counts()
     with profiler_trace(args.profile):
         t0 = time.perf_counter()
         img = render(scene, camera, cfg, generator=generator)
@@ -138,6 +144,10 @@ def cmd_render(args) -> int:
             print(f"tree: {shape}")
         if rays:
             print(f"tree walk rays per frame: {rays}")
+        kept, swept = soft.cull_counts()
+        if swept:
+            print(f"brute sampler triangle tests kept: {kept} of {swept} "
+                  f"({100.0 * kept / swept:.3f}%)")
     if args.output.lower().endswith(".bmp"):
         write_bmp(args.output, img)
     else:

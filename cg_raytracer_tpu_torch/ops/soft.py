@@ -37,6 +37,13 @@ parity.  ``valid`` ([N] bool) marks the points to sample: the rest do no work
 and count 0 (the JAX kernels sampled a miss at position 0 and the shading
 discarded it).
 
+From ``csrc/soft.cu``'s ``kCullMinSamples`` samples on, the brute sampler
+tests each sample ray only against the triangles that may lie between its
+point and the light (per-point culling, exact: the counts are those of a
+sweep of every triangle); its launches add the tests they kept and the
+tests full sweeps would make to a tally on the card (``cull_counts``,
+``reset_cull_counts``).
+
 On the card the tree samplers read the tree's records (``BVH4.nodes``,
 ``BVH4.rows``, built once per tree by ``ops/bvh4.py``) through the any-hit
 walk that ``bvh4.cu`` runs too.  Every kernel launch gets the marked points
@@ -396,6 +403,38 @@ def _key_args(key, num_samples, device):
     return (int(num_samples), ck._ptr(words), ctypes.c_uint32(int(offset) & _MASK)), words
 
 
+_TALLY = {}  # device -> int64 [2]: the brute sampler's (tests kept, tests of full sweeps)
+
+
+def _tally(device):
+    """The brute sampler's tally on ``device``, made on its first launch
+    there outside a CUDA graph capture (a capture's warm-up runs eagerly
+    first); None inside a capture before that, and that launch counts
+    nothing."""
+    t = _TALLY.get(device)
+    if t is None and not (device.type == "cuda" and torch.cuda.is_current_stream_capturing()):
+        t = _TALLY[device] = torch.zeros((2,), dtype=torch.int64, device=device)
+    return t
+
+
+def cull_counts() -> tuple:
+    """The brute sampler's cumulative (triangle tests its per-point masks
+    kept, tests full sweeps would have made) over every live sample ray
+    since the last ``reset_cull_counts``, its graphs' replays included;
+    below ``csrc/soft.cu``'s ``kCullMinSamples`` a sample keeps all.  Waits
+    for the card."""
+    kept = swept = 0
+    for t in _TALLY.values():
+        k, s = t.tolist()
+        kept, swept = kept + k, swept + s
+    return kept, swept
+
+
+def reset_cull_counts() -> None:
+    for t in _TALLY.values():
+        t.zero_()
+
+
 def _brute_kernel(tri, pos, light, num_samples, valid, key=None, gauss_nsc=None):
     """The brute sampler's launch."""
     counts = torch.zeros((pos.shape[0],), dtype=torch.int32, device=pos.device)
@@ -403,7 +442,7 @@ def _brute_kernel(tri, pos, light, num_samples, valid, key=None, gauss_nsc=None)
     head, _keep = _head("cgrt_soft_brute", pos, light, valid, gauss_nsc)
     key_args, _words = _key_args(key, num_samples, pos.device)
     ck._launch("cgrt_soft_brute", pos.device, *head, ck._ptr(tri), tri.shape[0], *key_args,
-               ck._ptr(gauss_nsc), ck._ptr(counts))
+               ck._ptr(gauss_nsc), ck._ptr(counts), ck._ptr(_tally(pos.device)))
     (soft_prng_cuda if gauss_nsc is None else soft_table_cuda).launches += 1
     return counts
 

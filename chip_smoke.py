@@ -2421,20 +2421,23 @@ def variant_dir(root, subs) -> str:
     return root
 
 
-def build_variants(source, ablations, signatures, parent=None, parent_signatures=None) -> dict:
+def build_variants(source, ablations, signatures, parent=None, parent_signatures=None,
+                   tag: str = "") -> dict:
     """name -> (ctypes library, ptxas log): csrc/``source`` (a file name, or
     a tuple of them linked into one library) compiled with each of
     ``ablations``' substitutions and, given ``parent`` (an unpacked
     checkout), that checkout's ``source``; one nvcc each, all started
-    together, into the build directory.  ``signatures``: the argtypes of the
-    entry points to declare (``parent_signatures`` the parent's)."""
+    together, into the build directory (``tag``: a directory of its own, so
+    that libraries another phase loaded are not rebuilt under it).
+    ``signatures``: the argtypes of the entry points to declare
+    (``parent_signatures`` the parent's)."""
     import ctypes
 
     from cg_raytracer_tpu_torch.ops import _build
 
     sources = (source,) if isinstance(source, str) else tuple(source)
     root = os.path.join(_build.build_dir(),
-                        "variants_" + "_".join(x.split(".")[0] for x in sources))
+                        "variants_" + "_".join(x.split(".")[0] for x in sources) + tag)
     jobs = {}
     for k, (name, subs) in enumerate(ablations.items()):
         src_dir = variant_dir(os.path.join(root, f"v{k}"), subs)
@@ -2458,14 +2461,15 @@ def build_variants(source, ablations, signatures, parent=None, parent_signatures
     return libs
 
 
-def soft_signatures(key_by_value: bool = False):
+def soft_signatures(key_by_value: bool = False, tally: bool = True):
     """The samplers' argtypes; ``key_by_value``: an earlier tree's, whose
-    kernels took the key's words (k0, k1) as scalars."""
+    kernels took the key's words (k0, k1) as scalars; ``tally``: whether the
+    brute sampler takes its tally's pointer (trees since its culling)."""
     import ctypes
 
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     key = [u, u, u] if key_by_value else [p, u]
-    return {"cgrt_soft_brute": [p, p, p, i, p, p, i, i, *key, p, p, p],
+    return {"cgrt_soft_brute": [p, p, p, i, p, p, i, i, *key, p, p, *([p] if tally else []), p],
             "cgrt_soft_bvh4": [p, p, p, i, p, i, p, p, i, *key, p, p, p]}
 
 
@@ -2476,6 +2480,25 @@ def parent_keys_by_value(parent) -> bool:
         return False
     with open(os.path.join(parent, CSRC, "soft.cu")) as f:
         return "const unsigned* key" not in f.read()
+
+
+def parent_tally(parent) -> bool:
+    """Whether the checkout ``parent``'s brute sampler takes a tally."""
+    if parent is None:
+        return True
+    with open(os.path.join(parent, CSRC, "soft.cu")) as f:
+        return "unsigned long long* tally" in f.read()
+
+
+def parent_soft_signatures(parent):
+    return soft_signatures(key_by_value=parent_keys_by_value(parent), tally=parent_tally(parent))
+
+
+def mark_parent(variants, parent) -> None:
+    """Tell soft_launch how the parent's samplers take their arguments."""
+    if "parent" in variants:
+        variants["parent"][0].key_by_value = parent_keys_by_value(parent)
+        variants["parent"][0].tally = parent_tally(parent)
 
 
 def soft_launch(lib, target, pos, light, num, valid, key, gauss_nsc):
@@ -2496,27 +2519,42 @@ def soft_launch(lib, target, pos, light, num, valid, key, gauss_nsc):
         key_args = (num, *(ctypes.c_uint32(int(x) & 0xFFFFFFFF) for x in k[:3]))
     else:
         key_args, _words = soft._key_args(key, num, pos.device)
-    tail = (*key_args, ck._ptr(gauss_nsc), ck._ptr(counts),
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    tail = (*key_args, ck._ptr(gauss_nsc), ck._ptr(counts))
     if isinstance(target, b4.BVH4):
         err = lib.cgrt_soft_bvh4(*head, target.width, ck._ptr(target.nodes),
-                                 ck._ptr(target.rows), *tail)
+                                 ck._ptr(target.rows), *tail, stream)
     else:
-        err = lib.cgrt_soft_brute(*head, ck._ptr(target), target.shape[0], *tail)
+        tally = (ctypes.c_void_p(0),) if getattr(lib, "tally", True) else ()
+        err = lib.cgrt_soft_brute(*head, ck._ptr(target), target.shape[0], *tail, *tally, stream)
     assert err == 0, f"soft variant launch: CUDA error {err}"
     return counts
 
 
-def ptxas_soft(log: str) -> dict:
+SOFT_MANGLED = r"soft_kernelILb([01])ELi(\d)E(?:Lb([01])E)?E"  # (table?, W, culled?)
+
+
+def soft_instance(name: str, cull: bool = False):
+    """(table?, W) of a mangled soft_kernel instantiation, if it is a culled
+    one exactly when ``cull`` (an earlier tree's have no such flag)."""
+    import re
+
+    m = re.search(SOFT_MANGLED, name)
+    if not m or (m.group(3) == "1") != cull:
+        return None
+    return m.group(1) == "1", int(m.group(2))
+
+
+def ptxas_soft(log: str, cull: bool = False) -> dict:
     """(table?, W) -> registers, stack frame and spill bytes of soft_kernel's
-    instantiations in a ``-Xptxas=-v`` log."""
+    instantiations in a ``-Xptxas=-v`` log (``cull``: the brute sampler's
+    culled ones, W = 0)."""
     import re
 
     info, cur = {}, None
     for line in log.splitlines():
         if "Function properties for" in line or "Compiling entry function" in line:
-            m = re.search(r"soft_kernelILb([01])ELi(\d)E", line)
-            cur = (m.group(1) == "1", int(m.group(2))) if m else None
+            cur = soft_instance(line, cull)
             if cur is not None:
                 info.setdefault(cur, {})
             continue
@@ -2559,8 +2597,7 @@ def sass_soft(lib_path: str):
     out, cur = {}, None
     for line in text.splitlines():
         if "Function :" in line:
-            m = re.search(r"soft_kernelILb([01])ELi(\d)E", line)
-            cur = (m.group(1) == "1", int(m.group(2))) if m else None
+            cur = soft_instance(line)
             if cur is not None:
                 out[cur] = {"total": 0}
             continue
@@ -2604,9 +2641,8 @@ def sampler_phase(out, device, kernels, e2e, results, scenes, parent=None) -> No
                     for w in (2, 4, 8)})
     t0 = time.perf_counter()
     variants = build_variants("soft.cu", SOFT_ABLATIONS, soft_signatures(), parent,
-                              soft_signatures(key_by_value=parent_keys_by_value(parent)))
-    if "parent" in variants:
-        variants["parent"][0].key_by_value = parent_keys_by_value(parent)
+                              parent_soft_signatures(parent))
+    mark_parent(variants, parent)
     print(f"  {len(variants)} variants of soft.cu built in {time.perf_counter() - t0:.1f} s")
     with open(_build.library_path()[:-3] + ".log") as f:
         logs = {"this tree": f.read()}
@@ -2741,7 +2777,227 @@ def sampler_phase(out, device, kernels, e2e, results, scenes, parent=None) -> No
                 print(f"  {scene} 1024^2 {what}: parent {[round(x, 5) for x in vals['parent']]} "
                       f"ms, this tree {[round(x, 5) for x in vals['this tree']]} ms")
                 e2e[f"{scene} {what} parent vs this tree"] = vals
+    results["sampler_cull"] = cull_part(device, parent)
 
+
+
+# cull_part: the brute sampler's per-point culling measured.  soft.cu is
+# rebuilt with its threshold on the samples moved, so that one build culls
+# at every S and one at none; each is held exactly to this tree's kernel.
+CULL_SAMPLES = (1, 4, 5, 6, 8, 16, 64, 200)
+CULL_ORBIT_POSES = 96  # a figure-eight: yaw +-45 deg, pitch +-15 deg about the default camera
+CULL_TIMED_POSES = 24  # the first poses' launches timed again, level by level
+
+
+def cull_threshold() -> int:
+    with open(os.path.join(ROOT, CSRC, "soft.cu")) as f:
+        text = f.read()
+    return int(text.split("constexpr int kCullMinSamples = ")[1].split(";")[0])
+
+
+def cull_variants() -> dict:
+    old = f"kCullMinSamples = {cull_threshold()};"
+    bounds = "__launch_bounds__(kSoftThreads) soft_kernel"
+    return {"no cull": [("soft.cu", old, "kCullMinSamples = 1 << 30;", 1)],
+            "cull always": [("soft.cu", old, "kCullMinSamples = 1;", 1)],
+            **{f"culled at {k} blocks an SM": [
+                ("soft.cu", bounds, f"__launch_bounds__(kSoftThreads, kCull ? {k} : 1) "
+                                    "soft_kernel", 1)] for k in (12, 16)}}
+
+
+def sass_functions(lib_path: str, pattern: str) -> dict:
+    """Mangled name -> its SASS instructions without addresses or encodings,
+    for the functions of ``lib_path`` whose name matches ``pattern``."""
+    import re
+
+    from cg_raytracer_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            cur = name if re.search(pattern, name) else None
+            if cur is not None:
+                out[cur] = []
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(.*?);", line)
+        if cur is not None and m:
+            out[cur].append(m.group(1).strip())
+    return out
+
+
+def cull_part(device, parent=None) -> dict:
+    """The brute sampler's culling on the card: registers; the tree
+    samplers' SASS against ``parent``'s; on every hit point of the spherical
+    box at 1024^2, the Philox counts of this tree, of the builds that cull
+    at every S and at none, and of ``parent``'s kernel, bit-equal, and their
+    times in turns at each of CULL_SAMPLES; the kept share; and over an orbit
+    of eager 800^2 frames every launch of the brute sampler held bit for bit
+    to ``parent``'s (else the no-cull build's) on the same inputs."""
+    import ctypes
+    import math
+
+    import torch
+
+    from cg_raytracer_tpu_torch.models.whitted import render
+    from cg_raytracer_tpu_torch.ops import _build
+    from cg_raytracer_tpu_torch.ops import cuda_kernels as ck
+    from cg_raytracer_tpu_torch.ops import soft
+    from cg_raytracer_tpu_torch.ops.camera import generate_rays
+    from cg_raytracer_tpu_torch.scene.presets import load_standin
+    from cg_raytracer_tpu_torch.scene.types import Camera
+    from cg_raytracer_tpu_torch.utils.config import RenderConfig
+
+    phase(f"cull: the brute sampler's per-point culling (kCullMinSamples "
+          f"{cull_threshold()})" + (f", against {parent}" if parent else ""))
+    t0 = time.perf_counter()
+    variants = build_variants("soft.cu", cull_variants(), soft_signatures(), parent,
+                              parent_soft_signatures(parent), tag="_cull")
+    mark_parent(variants, parent)
+    libs = {"this tree": _build.load(), **{k: v[0] for k, v in variants.items()}}
+    print(f"  {len(variants)} builds of soft.cu in {time.perf_counter() - t0:.1f} s")
+    with open(_build.library_path()[:-3] + ".log") as f:
+        logs = {"this tree": f.read(), **{k: v[1] for k, v in variants.items()}}
+    for name, log in logs.items():
+        for cull in (False, True):
+            info = ptxas_soft(log, cull)
+            print(f"  ptxas {name}{', culled' if cull else ''}: " + "; ".join(
+                f"({'table' if t else 'PRNG'}, W = {w}) {r['regs']} registers, {r['frame']} / "
+                f"{r['spill_st']} / {r['spill_ld']} bytes" for (t, w), r in sorted(info.items())))
+    result = {"threshold": cull_threshold()}
+    if parent:
+        mine, theirs = ({soft_instance(k): v for k, v in sass_functions(path, "soft_kernel").items()
+                         if soft_instance(k) and soft_instance(k)[1] > 0}
+                        for path in (_build.library_path(),
+                                     os.path.join(_build.build_dir(), "variants_soft_cull",
+                                                  "parent.so")))
+        same = {k: mine[k] == theirs.get(k) for k in mine}
+        print(f"  tree samplers' SASS equal to the parent's: {same}")
+        result["tree_sass_equal"] = all(same.values()) and len(same) == 6
+    scene = load_standin("spherical_box", device)
+    o, d = generate_rays(Camera.default(device=device), 1024, 1024)
+    hit = ck.intersect_cuda(scene, o, d)
+    valid = hit.prim_id >= 0
+    pos = torch.where(valid[:, None], o + d * torch.where(valid, hit.t, 0.0)[:, None],
+                      0.0).contiguous()
+    tri = ck._tri_table(scene).detach().contiguous()
+    light = soft.light_row(scene.spherical_lights.position[0], scene.spherical_lights.radius[0])
+    head, keep = soft._head("cull", pos, light, valid.to(torch.uint8).contiguous(), None)
+    key = soft.SampleKey(2026, 20, 0)
+    words = soft.device_key(key, device)
+    counts = torch.zeros((pos.shape[0],), dtype=torch.int32, device=device)
+    tally = torch.zeros((2,), dtype=torch.int64, device=device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def launch(lib, num, with_tally=False):
+        counts.zero_()
+        extra = ((ck._ptr(tally) if with_tally else ctypes.c_void_p(0)),) \
+            if getattr(lib, "tally", True) else ()
+        err = lib.cgrt_soft_brute(*head, ck._ptr(tri), tri.shape[0], int(num), ck._ptr(words),
+                                  ctypes.c_uint32(0), ctypes.c_void_p(0), ck._ptr(counts),
+                                  *extra, stream)
+        assert err == 0, f"CUDA error {err}"
+        return counts
+
+    points = int(valid.sum())
+    print(f"  {points} hit points of the spherical box at 1024^2; ms a launch (batched, two "
+          f"rounds in turns)")
+    result["turns"] = {}
+    for num in CULL_SAMPLES:
+        ref = launch(libs["no cull"], num).clone()
+        for n, lib in libs.items():
+            assert torch.equal(launch(lib, num), ref), f"S = {num}: {n} counts differ"
+        times = in_turns({n: partial(launch, lib, num) for n, lib in libs.items()},
+                         iters=max(5, min(40, 2000 // num)))
+        tally.zero_()
+        launch(libs["this tree"], num, with_tally=True)
+        kept, swept = tally.tolist()
+        result["turns"][num] = {"ms": times, "kept": kept, "swept": swept}
+        print(f"    S = {num}: counts bit-equal across {len(libs)} builds; kept {kept} of "
+              f"{swept} tests ({100.0 * kept / swept:.3f}%); {turns_line(times)}")
+    del keep
+
+    # An orbit of eager frames: each brute launch against the reference build;
+    # the first CULL_TIMED_POSES' launches kept, to be timed level by level.
+    ref_name = "parent" if parent else "no cull"
+    ref_lib = libs[ref_name]
+    seen = {"launches": 0, "points": 0, "differ": 0}
+    original = soft._brute_kernel
+    kept_launches = []
+
+    def checked(tri_, pos_, light_, num_, valid_, key_=None, gauss_=None):
+        got = original(tri_, pos_, light_, num_, valid_, key_, gauss_)
+        want = soft_launch(ref_lib, tri_, pos_, light_, num_, valid_, key_, gauss_)
+        if seen["launches"] < 2 * CULL_TIMED_POSES:
+            kept_launches.append((seen["launches"] % 2, pos_.clone(),
+                                  None if valid_ is None else valid_.clone(), num_, key_))
+        seen["launches"] += 1
+        seen["points"] += int(valid_.sum()) if valid_ is not None else pos_.shape[0]
+        seen["differ"] += int((got != want).sum())
+        return got
+
+    cfg = RenderConfig(width=800, height=800)
+    gen = torch.Generator().manual_seed(20)
+    soft.reset_cull_counts()
+    soft._brute_kernel = checked
+    try:
+        for k in range(CULL_ORBIT_POSES):
+            a = 2.0 * math.pi * k / CULL_ORBIT_POSES
+            cam = Camera.default(euler_deg=(20.0 + 15.0 * math.sin(2.0 * a),
+                                            20.0 + 45.0 * math.sin(a), 0.0), device=device)
+            render(scene, cam, cfg, generator=gen, jit=False)
+        torch.cuda.synchronize()
+    finally:
+        soft._brute_kernel = original
+    kept, swept = soft.cull_counts()
+    result["orbit"] = dict(seen, kept=kept, swept=swept, reference=ref_name)
+    print(f"  orbit of {CULL_ORBIT_POSES} eager 800^2 frames: {seen['launches']} brute launches, "
+          f"{seen['points']} marked points, {seen['differ']} counts differ from {ref_name}'s; "
+          f"kept {kept} of {swept} tests ({100.0 * kept / max(swept, 1):.3f}%)")
+    assert seen["launches"] > 0 and seen["differ"] == 0
+
+    # The kept launches, level by level, each build in turns (events around
+    # all of a level's launches; each launch's compaction done beforehand).
+    for level in (0, 1):
+        prepared = []
+        for lv, pos_, valid_, num_, key_ in kept_launches:
+            if lv == level:
+                head_, keep_ = soft._head("cull", pos_, light, valid_, None)
+                prepared.append((head_, keep_, soft.device_key(key_, device), num_, key_.offset,
+                                 pos_.shape[0] if valid_ is None else int(valid_.sum())))
+
+        def level_launches(lib, with_tally=False):
+            for head_, _k, words_, num_, offset_, _n in prepared:
+                counts.zero_()
+                extra = ((ck._ptr(tally) if with_tally else ctypes.c_void_p(0)),) \
+                    if getattr(lib, "tally", True) else ()
+                err = lib.cgrt_soft_brute(*head_, ck._ptr(tri), tri.shape[0], int(num_),
+                                          ck._ptr(words_), ctypes.c_uint32(offset_ & 0xFFFFFFFF),
+                                          ctypes.c_void_p(0), ck._ptr(counts), *extra, stream)
+                assert err == 0, f"CUDA error {err}"
+
+        calls = {"this tree": partial(level_launches, libs["this tree"], True),
+                 **{n: partial(level_launches, lib) for n, lib in libs.items()
+                    if n != "this tree"},
+                 "this tree, no tally": partial(level_launches, libs["this tree"])}
+        times = {n: [] for n in calls}
+        for order in (list(calls), list(calls)[::-1]):
+            for n in order:
+                torch.cuda.synchronize()
+                a0, a1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a0.record()
+                calls[n]()
+                a1.record()
+                torch.cuda.synchronize()
+                times[n].append(a0.elapsed_time(a1) / max(len(prepared), 1))
+        marked = sum(p[5] for p in prepared) / max(len(prepared), 1)
+        result[f"orbit_level_{level + 1}"] = {"ms": times, "marked": marked}
+        print(f"  orbit level {level + 1}, {len(prepared)} launches of {marked:.0f} marked points "
+              f"on average, ms a launch (events, two rounds in turns): {turns_line(times)}")
+    return result
 
 
 _SHARED_STACK = """

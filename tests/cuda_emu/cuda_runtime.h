@@ -10,13 +10,14 @@
 // shared memory of its own, cooperative_groups.h's cluster rank, mapping of
 // another block's shared memory and cluster barrier, and cuda/atomic's
 // atomic_ref (whose loads yield the host thread, so a spinning thread lets
-// the others run).  A warp vote sees only the calling lane, so each lane adds
+// the others run), and atomicOr.  A warp vote sees only the calling lane, so each lane adds
 // its own vote: a kernel whose warp adds its lanes' votes adds the same
 // total.  The warp shuffles return the caller's own value: right only within
 // a one-lane mask, which is all a vote returns here, except the butterfly
 // __shfl_xor_sync, which under emu_launch_threads and the cluster launch
 // exchanges values between the lanes of a warp (its threads meet at a
-// barrier), and __syncwarp is then the warp's barrier.  Under emu_launch,
+// barrier), as __reduce_add_sync sums them, and __syncwarp is then the
+// warp's barrier.  Under emu_launch,
 // __syncthreads is empty: a block's shared memory is filled by its threads
 // in turn, so the first launch over a shared table may read entries not yet
 // staged (such a test launches twice and keeps the second).  Dynamic shared
@@ -110,6 +111,12 @@ inline unsigned __fns(unsigned mask, unsigned base, int offset) {
   return 0xFFFFFFFFu;
 }
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline unsigned atomicOr(unsigned* p, unsigned v) {
+  return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);
+}
 inline float atomicAdd(float* p, float v) {
   float old = *p, want;
   do {
@@ -142,6 +149,7 @@ struct EmuBlock {
   EmuBarrier barrier;
   std::vector<EmuBarrier> warps;
   std::vector<float> slots;
+  std::vector<unsigned> counts;
   void* smem = nullptr;
   size_t smem_bytes = 0;
   void init(unsigned block) {
@@ -149,6 +157,7 @@ struct EmuBlock {
     warps = std::vector<EmuBarrier>(block % 32 == 0 ? block / 32 : 0);
     for (auto& w : warps) w.n = 32;
     slots.assign(block, 0.0f);
+    counts.assign(block, 0u);
   }
 };
 inline thread_local EmuBlock* emu_block = nullptr;
@@ -169,6 +178,19 @@ inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   const float other = emu_block->slots[warp * 32 + ((t % 32) ^ static_cast<unsigned>(lane_mask))];
   emu_block->warps[warp].wait();
   return other;
+}
+// The warp's sum, from lanes that run at once (emulated as the butterfly
+// shuffle is, through the warp's slots; the caller's own value where a
+// block's threads run one at a time).  Every lane of the warp must call it.
+inline unsigned __reduce_add_sync(unsigned, unsigned v) {
+  if (emu_block == nullptr || emu_block->warps.empty()) return v;
+  const unsigned t = threadIdx.x, warp = t / 32;
+  emu_block->counts[t] = v;
+  emu_block->warps[warp].wait();
+  unsigned sum = 0u;
+  for (unsigned k = 0; k < 32; ++k) sum += emu_block->counts[warp * 32 + k];
+  emu_block->warps[warp].wait();
+  return sum;
 }
 inline void __syncwarp(unsigned = 0xFFFFFFFFu) {
   if (emu_block != nullptr && !emu_block->warps.empty()) emu_block->warps[threadIdx.x / 32].wait();

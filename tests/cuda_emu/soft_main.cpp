@@ -1,8 +1,12 @@
 // Host harness for csrc/soft.cu built against this directory's stand-in CUDA
-// header (tests/test_torch_soft_memcheck.py).  Reads one launch's inputs
-// from argv[1], each array into a heap buffer of exactly its size, calls
-// cgrt_soft_brute or cgrt_soft_bvh4 twice (the second on zeroed counts:
-// see cuda_runtime.h) and writes the counts [n] int32 to argv[2].
+// header (tests/test_torch_soft_memcheck.py, tests/test_torch_soft_cull.py).
+// Reads one launch's inputs from argv[1], each array into a heap buffer of
+// exactly its size, calls cgrt_soft_brute or cgrt_soft_bvh4 twice (the
+// second on zeroed counts: the tree samplers run under emu_launch, see
+// cuda_runtime.h) and writes the counts [n] int32 to argv[2], then the
+// brute sampler's tally of the second call (two uint64: tests kept, tests
+// of full sweeps).  argv[3], where given, caps the grid of the brute
+// sampler's emu_launch_threads (emu_max_grid), so that its blocks stride.
 //
 // Input: int64 kind (0 brute, else the tree's node width), n, num_samples,
 // num_tris, num_nodes, has_order, has_gauss, k0, k1, offset; then float32
@@ -21,7 +25,7 @@ extern "C" {
 int cgrt_soft_brute(const float* pos, const int* order, const int* count, int n,
                     const float* light, const float* tris, int num_tris, int num_samples,
                     const unsigned* key, unsigned offset, const float* gauss, int* counts,
-                    cudaStream_t stream);
+                    unsigned long long* tally, cudaStream_t stream);
 int cgrt_soft_bvh4(const float* pos, const int* order, const int* count, int n,
                    const float* light, int width, const float* nodes, const float* rows,
                    int num_samples, const unsigned* key, unsigned offset, const float* gauss,
@@ -40,7 +44,8 @@ static T* read_array(FILE* f, long long count) {
 }
 
 int main(int argc, char** argv) {
-  if (argc != 3) return 2;
+  if (argc != 3 && argc != 4) return 2;
+  if (argc == 4) emu_max_grid = static_cast<unsigned>(atoi(argv[3]));
   FILE* f = fopen(argv[1], "rb");
   if (f == nullptr) return 2;
   long long h[10];
@@ -57,8 +62,11 @@ int main(int argc, char** argv) {
   const float* gauss = read_array<float>(f, h[6] ? 3 * n * s : 0);
   fclose(f);
   int* counts = new int[n];
+  // The tally in a heap buffer of exactly two, as the wrapper's.
+  unsigned long long* tally = new unsigned long long[2];
   for (int pass = 0; pass < 2; ++pass) {
     memset(counts, 0, sizeof(int) * n);
+    tally[0] = tally[1] = 0;
     // The key words in a heap buffer of exactly two, as the wrapper's
     // device copy (none for a table launch).
     unsigned* key = h[6] ? nullptr : new unsigned[2]{static_cast<unsigned>(h[7]),
@@ -70,12 +78,14 @@ int main(int argc, char** argv) {
                               reinterpret_cast<const float*>(rows), s, key, offset, gauss,
                               counts, nullptr)
              : cgrt_soft_brute(pos, order, count, n, light, tris, num_tris, s, key, offset,
-                               gauss, counts, nullptr);
+                               gauss, counts, tally, nullptr);
     delete[] key;
     if (err != 0) return 3;
   }
   FILE* out = fopen(argv[2], "wb");
-  if (out == nullptr || fwrite(counts, sizeof(int), n, out) != static_cast<size_t>(n)) return 2;
+  if (out == nullptr || fwrite(counts, sizeof(int), n, out) != static_cast<size_t>(n) ||
+      fwrite(tally, sizeof(unsigned long long), 2, out) != 2)
+    return 2;
   fclose(out);
   return 0;
 }

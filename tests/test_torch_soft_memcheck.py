@@ -3,12 +3,15 @@
 The CUDA source ``csrc/soft.cu`` (with ``bvh4.cuh``, whose any-hit walk
 the tree samplers run, and ``sweep.cuh``) is
 compiled as host C++ against the stand-in CUDA header of ``tests/cuda_emu``
-with AddressSanitizer and UBSan, and ``soft_kernel`` runs one thread at a
-time on small frames of the spherical box (brute sampler) and of the
-1,154-triangle cup lit by ``monkey_spherical_light``'s light (cone sampler
-over the port's tree at widths 4, and 2 and 8), every array in a heap buffer
-of exactly its size.  The kernel's dynamic shared memory (the brute
-sampler's triangle rows) is a heap buffer of exactly the launch's bytes too
+with AddressSanitizer and UBSan, and ``soft_kernel`` runs on small frames of
+the spherical box (brute sampler: a block's threads at once, so that the
+per-point masks' ``__syncthreads`` is a barrier and ``atomicOr`` an atomic,
+on a grid cut to ``BRUTE_GRID`` blocks, so that each block strides) and of
+the 1,154-triangle cup lit by ``monkey_spherical_light``'s light (cone
+sampler over the port's tree at widths 4, and 2 and 8: one thread at a
+time), every array in a heap buffer of exactly its size.  The kernel's
+dynamic shared memory (the brute sampler's triangle rows, cull rows, tally
+and masks) is a heap buffer of exactly the launch's bytes too
 (``tests/cuda_emu/cuda_runtime.h``).  Any stray load or store, in the
 kernel's index arithmetic or the tree walk's stack, aborts the run.  Its counts are then held to the plain twins: exactly for
 the table variant; for the Philox variant the host's ``logf``/``cosf``
@@ -49,25 +52,50 @@ S = 200  # the reference's count: a point's samples straddle warps and blocks
 SIZE = 23  # 529 points x 200 samples: the last block has a tail of idle threads
 KEY = soft.SampleKey(2026, 4, 777_777)
 BOX_TRIS = 32
+BRUTE_GRID = 16  # the brute sampler's emulated grid: each block strides over many samples
 
 
-def build(out, csrc):
+# The brute sampler's blocks run their threads at once (its per-point masks
+# need __syncthreads as a barrier and atomicOr as an atomic); the tree
+# samplers' run one thread at a time.
+LAUNCH_HELPER = """
+template <bool kThreads, class F, class... A>
+void emu_launch_soft(unsigned grid, unsigned block, size_t smem, cudaStream_t stream, F kernel,
+                     A... args) {
+  if constexpr (kThreads) {
+    emu_launch_threads(grid, block, smem, stream, kernel, args...);
+  } else {
+    emu_launch(grid, block, smem, stream, kernel, args...);
+  }
+}
+"""
+
+
+def build(out, csrc, subs=(), name="soft_memcheck"):
     """The sanitized host build of ``csrc``'s soft.cu, its launch rewritten
-    to ``emu_launch`` and its dynamic shared memory to the emulator's."""
+    to ``emu_launch_threads`` (the brute sampler) or ``emu_launch`` (the
+    tree samplers) and its dynamic shared memory to the emulator's; each of
+    ``subs`` (pattern, replacement, count) a regex substitution made first."""
     with open(os.path.join(csrc, "soft.cu")) as f:
         src = f.read()
-    src, launches = re.subn(r"([\w:]+<[^<>;]*>)<<<([^<>;]*)>>>\(", r"emu_launch(\2, \1, ", src)
+    for pattern, repl, count in subs:
+        src, made = re.subn(pattern, repl, src)
+        assert made == count, f"{pattern!r} matched {made} times, not {count}"
+    src, launches = re.subn(r"([\w:]+(?:<[^<>;]*>)?)<<<([^<>;]*)>>>\(",
+                            r"emu_launch_soft<W == 0>(\2, \1, ", src)
     assert launches == 1, "soft.cu's kernel launch was not found"
+    src, helper = re.subn(r'(#include "bvh4.cuh"\n)', lambda m: m.group(1) + LAUNCH_HELPER, src)
+    assert helper == 1
     src, shared = re.subn(r"extern __shared__ (\w+) (\w+)\[\];",
                           r"\1* const \2 = emu_dynamic_shared<\1>();", src)
     assert shared == 1, "soft.cu's dynamic shared memory was not found"
-    with open(os.path.join(out, "soft_emu.cpp"), "w") as f:
+    with open(os.path.join(out, f"{name}.cpp"), "w") as f:
         f.write(src)
-    exe = os.path.join(out, "soft_memcheck")
+    exe = os.path.join(out, name)
     r = subprocess.run(["g++", "-std=c++17", "-O1", "-g", "-fsanitize=address,undefined",
                         "-fno-sanitize-recover=all", "-fno-omit-frame-pointer",
                         "-ffp-contract=off", "-I", EMU, "-I", csrc,
-                        os.path.join(out, "soft_emu.cpp"), os.path.join(EMU, "soft_main.cpp"),
+                        os.path.join(out, f"{name}.cpp"), os.path.join(EMU, "soft_main.cpp"),
                         "-o", exe],
                        capture_output=True, text=True)
     assert r.returncode == 0, r.stderr[-4000:]
@@ -112,24 +140,24 @@ def cup_tree():
     return scene, b4.build_bvh4(scene, max_leaf=4, builder="sah")[0]
 
 
-def run_emulated(emulator, scene, tree, pos, marked, gauss_nsc, tag, check=True):
-    """The emulated launch's counts, the marked points compacted as the
-    wrappers pass them.  With ``check=False``, the completed process and
-    None when the run failed."""
-    exe, out = emulator
+def emulate(exe, out, tag, pos, marked, light, target, gauss_nsc, num_samples=S, key=KEY,
+            max_grid=BRUTE_GRID):
+    """One emulated launch, the marked points compacted as the wrappers pass
+    them: ``target`` is the brute sampler's triangle table [T, 9] or a BVH4.
+    (completed process, counts [N] float32 or None where it failed, the
+    brute sampler's tally (tests kept, tests of full sweeps) or None)."""
     n = pos.shape[0]
-    light = soft.light_row(scene.spherical_lights.position[0], scene.spherical_lights.radius[0])
     arrays = [pos, *soft._compact(marked.to(torch.uint8)), light]
-    if tree is None:
-        tris, nodes = ck._tri_table(scene).detach(), 0
-        arrays.append(tris)
+    if isinstance(target, b4.BVH4):
+        width, tris, nodes = target.width, target.tris, target.num_nodes
+        arrays += [target.nodes, target.rows]
     else:
-        tris, nodes = tree.tris, tree.num_nodes
-        arrays += [tree.nodes, tree.rows]
+        width, tris, nodes = 0, target, 0
+        arrays.append(tris)
     if gauss_nsc is not None:
         arrays.append(gauss_nsc)
-    header = struct.pack("<10q", 0 if tree is None else tree.width, n, S, tris.shape[0], nodes, 1,
-                         int(gauss_nsc is not None), KEY.k0, KEY.k1, KEY.offset)
+    header = struct.pack("<10q", width, n, num_samples, tris.shape[0], nodes, 1,
+                         int(gauss_nsc is not None), key.k0, key.k1, key.offset)
     path = out / f"{tag}.in"
     with open(path, "wb") as f:
         f.write(header)
@@ -137,12 +165,27 @@ def run_emulated(emulator, scene, tree, pos, marked, gauss_nsc, tag, check=True)
             f.write(a.detach().contiguous().numpy().tobytes())
     env = dict(os.environ, ASAN_OPTIONS="detect_leaks=0:abort_on_error=0",
                UBSAN_OPTIONS="print_stacktrace=1")
-    r = subprocess.run([exe, str(path), str(out / f"{tag}.out")], capture_output=True, text=True,
-                       env=env)
+    r = subprocess.run([exe, str(path), str(out / f"{tag}.out"), str(max_grid)],
+                       capture_output=True, text=True, env=env)
+    if r.returncode != 0:
+        return r, None, None
+    raw = (out / f"{tag}.out").read_bytes()
+    counts = torch.from_numpy(np.frombuffer(raw[:4 * n], dtype=np.int32).copy())
+    tally = tuple(int(x) for x in np.frombuffer(raw[4 * n:], dtype=np.uint64))
+    return r, counts.to(torch.float32), (tally if width == 0 else None)
+
+
+def run_emulated(emulator, scene, tree, pos, marked, gauss_nsc, tag, check=True):
+    """The emulated launch's counts on ``scene``'s light.  With
+    ``check=False``, the completed process and None when the run failed."""
+    exe, out = emulator
+    light = soft.light_row(scene.spherical_lights.position[0], scene.spherical_lights.radius[0])
+    target = ck._tri_table(scene).detach() if tree is None else tree
+    r, counts, _ = emulate(exe, out, tag, pos, marked, light, target, gauss_nsc)
     if not check:
-        return r, None
+        return r, counts
     assert r.returncode == 0, f"{tag}: the sanitized sampler failed\n{r.stderr[:4000]}"
-    return torch.from_numpy(np.fromfile(out / f"{tag}.out", dtype=np.int32)).to(torch.float32)
+    return counts
 
 
 @pytest.mark.parametrize("source", ["philox", "table"])
