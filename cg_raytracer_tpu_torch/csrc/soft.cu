@@ -5,21 +5,21 @@
 //   cgrt_soft_brute, PRNG  <- pallas_kernels.py _soft_shadow_prng_kernel (B9),
 //   cgrt_soft_brute, table <- pallas_kernels.py _soft_shadow_table_kernel (B9),
 //   cgrt_soft_bvh4, PRNG   <- pallas_bvh4.py _soft4_cone_prng_kernel (B10; at
-//                             W = 8 B15), pallas_bvh.py _soft_bvh_prng_kernel
-//                             (B12, W = 2) and _soft_bvh_cone_prng_kernel
-//                             (B11, W = 2),
+//                             W = 8 B15), pallas_bvh.py's per-sample PRNG
+//                             kernel (B12, W = 2, pallas_bvh.py:1008) and
+//                             _soft_bvh_cone_prng_kernel (B11, W = 2),
 //   cgrt_soft_bvh4, table  <- their table twins _soft4_cone_table_kernel,
-//                             _soft_bvh_table_kernel, _soft_bvh_cone_table_
-//                             kernel.
+//                             the per-sample table kernel (pallas_bvh.py:
+//                             1036), _soft_bvh_cone_table_kernel.
 // Wrappers, the sample stream and the plain twins: ops/soft.py.
 //
 // One body (sample_visible), templated on the sample source (Philox in the
 // kernel, or a table of Gaussians [N, S, 3]) and on the scene (the triangle
 // table in shared memory, or a W-wide tree, W = 2, 4 or 8).  The JAX
 // package's 'sample' tile (points on lanes, a loop over samples, the binary
-// primary tree) and 'cone' tile (128 pixels x all their samples in one
-// lockstep walk of the soft tree) are both this layout: on the card they
-// differ only in the tree the caller passes.  Layout: one thread per (point,
+// tree) and 'cone' tile (128 pixels x all their samples in one lockstep walk
+// of the tree) are both this layout: on the card they differ only in the
+// width of the scene's one tree, which the caller passes.  Layout: one thread per (point,
 // sample), point-major, so a point's 200 samples fill ~6 consecutive warps
 // and a block's four warps sample one or two points.  The cone sampler's
 // coherence (one point's rays toward a sphere of radius ~0.1 stop at the

@@ -31,9 +31,9 @@ recorded hits; phase 2 shades the records differentiably, through the fused
 shade kernel (``ops/shade.py``) where the scene allows it.
 
 Spherical lights are sampled by the soft-shadow kernels of ``ops/soft.py``
-(``Backend.soft_vis``: the brute sampler up to 256 triangles, a tree
-sampler beyond: 'cone' over ``AccelBundle.soft``, 'sample' over the binary
-primary tree) where ``soft_shadow_kernel`` resolves
+(``Backend.soft_vis``: the brute sampler up to 256 triangles, beyond it the
+tree sampler over the scene's one tree, made binary under
+``soft_shadow_tile='sample'``) where ``soft_shadow_kernel`` resolves
 on, else by a scan over the any-hit oracle (``shading.spherical_fracs``).  A
 render draws one sample key from its generator (``soft.draw_key``; a CPU
 generator seeded 0 when none is given) and folds it per level, as the JAX
@@ -63,16 +63,6 @@ from ..utils.config import RenderConfig
 from ..utils.profiling import span
 
 REFLECT_EPS = level_ops.REFLECT_EPS
-
-
-class AccelBundle(NamedTuple):
-    """The wide tree of the primary kernels and the one the cone soft-shadow
-    sampler walks (``soft_bvh_max_leaf`` / ``soft_bvh_builder``, at the
-    primary tree's width); the same object when the knobs match the primary
-    tree's, their auto."""
-
-    primary: object
-    soft: object
 
 
 class Backend(NamedTuple):
@@ -112,15 +102,12 @@ def needs_bvh(cfg: RenderConfig, num_tris: int, device) -> bool:
     return kind == "bvh" or (kind == "cuda" and num_tris > cfg.pallas_brute_max_tris)
 
 
-def _soft_route(scene: Scene, cfg: RenderConfig) -> Optional[str]:
-    """'cone' or 'sample' where a tree sampler samples this scene's
-    spherical lights, else None (never past ``VMEM_MAX_TRIS``: the JAX
-    package's streaming tier has no sampler, so its spherical lights take
-    the scan over the any-hit kernel)."""
-    if (cfg.resolve_soft_shadow_kernel(scene.device)
-            and soft.supports_soft_shadow_kernel_bvh(scene)):
-        return cfg.resolve_soft_shadow_tile()
-    return None
+def _runs_tree_sampler(scene: Scene, cfg: RenderConfig) -> bool:
+    """Whether a tree sampler samples this scene's spherical lights (never
+    past ``VMEM_MAX_TRIS``: the JAX package's streaming tier has no sampler,
+    so its spherical lights take the scan over the any-hit kernel)."""
+    return (cfg.resolve_soft_shadow_kernel(scene.device)
+            and soft.supports_soft_shadow_kernel_bvh(scene))
 
 
 def tree_width(scene: Scene, cfg: RenderConfig) -> int:
@@ -130,7 +117,7 @@ def tree_width(scene: Scene, cfg: RenderConfig) -> int:
     970-984, 249-260); ``bvh_wide_hbm`` past it."""
     if scene.num_triangles > b4.VMEM_MAX_TRIS:
         return int(cfg.resolve_bvh_wide_hbm())
-    if _soft_route(scene, cfg) == "sample":
+    if _runs_tree_sampler(scene, cfg) and cfg.resolve_soft_shadow_tile() == "sample":
         return 2
     return int(cfg.resolve_bvh_wide())
 
@@ -138,8 +125,7 @@ def tree_width(scene: Scene, cfg: RenderConfig) -> int:
 def build_accel(scene: Scene, cfg: RenderConfig):
     """The resolved backend's acceleration structure: a ``BVH`` for the CPU
     traversal, a ``BVH4`` of width ``tree_width`` on the scene's device for
-    the card's kernels (an ``AccelBundle`` with the cone sampler's tree
-    where that samples the scene's spherical lights), or None.  Memoized on
+    the card's kernels and the tree sampler, or None.  Memoized on
     the identity of the scene's triangle and vertex tensors
     (``_cached_accel``), the binary tree once for every width; a caller
     whose vertex tensors change every step (a training step makes fresh
@@ -151,13 +137,7 @@ def build_accel(scene: Scene, cfg: RenderConfig):
         return _cached_accel(scene, ("bvh", builder), lambda: build_bvh(scene, builder=builder))
     if kind == "cuda" and num_tris > cfg.pallas_brute_max_tris:
         b4.check_max_tris(num_tris)
-        primary = _wide_tree(scene, cfg.resolve_bvh_max_leaf(), builder, tree_width(scene, cfg))
-        if _soft_route(scene, cfg) != "cone":
-            return primary
-        soft_tree = _soft_tree(scene, cfg, primary)
-        # One bundle per pair of trees: a graph of render() is keyed on it.
-        return _cached_accel(scene, ("bundle", id(primary), id(soft_tree)),
-                             lambda: AccelBundle(primary, soft_tree))
+        return _wide_tree(scene, cfg.resolve_bvh_max_leaf(), builder, tree_width(scene, cfg))
     return None
 
 
@@ -179,19 +159,6 @@ def _wide_tree(scene: Scene, leaf: int, builder: str, width: int):
             return tree
 
     return _cached_accel(scene, ("bvh4", leaf, builder, width), build)
-
-
-def _soft_tree(scene: Scene, cfg: RenderConfig, primary):
-    """The cone sampler's tree, at the primary tree's width: ``primary``
-    itself where the soft-tree knobs resolve to the primary tree's (their
-    auto), else a build of its own."""
-    num_tris, device = scene.num_triangles, scene.device
-    leaf, builder = cfg.resolve_bvh_max_leaf(), cfg.resolve_bvh_builder(num_tris, device)
-    sleaf = cfg.resolve_soft_bvh_max_leaf()
-    sbuilder = cfg.resolve_soft_bvh_builder(num_tris, device)
-    if (sleaf, sbuilder) == (leaf, builder):
-        return primary
-    return _wide_tree(scene, sleaf, sbuilder, primary.width)
 
 
 _ACCEL_CACHE: dict = {}
@@ -278,46 +245,35 @@ def _bvh4_backend(scene: Scene, cfg: RenderConfig, plain: bool, accel, shade) ->
     package's ``bvh_wide`` branches, whitted.py:243-368, and past
     ``VMEM_MAX_TRIS`` its streaming tier, ``_hbm_backend`` /
     ``_hbm4_backend`` :196-232): closest hit and any hit, the fused bounce
-    where the scene has no sphere primitives, and up to ``VMEM_MAX_TRIS`` a
-    tree sampler, 'cone' over ``AccelBundle.soft`` or 'sample' over the
-    primary tree (whitted.py:276-306, 341-360).  There is no record or trace
-    kernel over the tree: phase 1 runs level by level on the bounce."""
+    where the scene has no sphere primitives, and up to ``VMEM_MAX_TRIS`` the
+    tree sampler over the same tree (whitted.py:276-306, 341-360).  There is
+    no record or trace kernel over the tree: phase 1 runs level by level on
+    the bounce."""
     b4.check_max_tris(scene.num_triangles)
     tree = accel if accel is not None else build_accel(scene, cfg)
-    soft_tree = None
-    if isinstance(tree, AccelBundle):
-        tree, soft_tree = tree
     width = tree_width(scene, cfg)
-    for t in (tree, soft_tree):
-        if t is None:
-            continue
-        if not isinstance(t, b4.BVH4):
-            raise TypeError(f"the wide BVH kernels traverse a BVH4 (ops/bvh4.py), got {type(t)}")
-        if t.device != scene.device or t.num_tris != scene.num_triangles:
-            raise ValueError(f"accel: a tree of {t.num_tris} triangles on {t.device} for a "
-                             f"scene of {scene.num_triangles} on {scene.device}")
-        if t.width != width:
-            raise ValueError(f"accel: a width-{t.width} tree where the config resolves width "
-                             f"{width} (bvh_wide, bvh_wide_hbm, soft_shadow_tile)")
+    if not isinstance(tree, b4.BVH4):
+        raise TypeError(f"the wide BVH kernels traverse a BVH4 (ops/bvh4.py), got {type(tree)}")
+    if tree.device != scene.device or tree.num_tris != scene.num_triangles:
+        raise ValueError(f"accel: a tree of {tree.num_tris} triangles on {tree.device} for a "
+                         f"scene of {scene.num_triangles} on {scene.device}")
+    if tree.width != width:
+        raise ValueError(f"accel: a width-{tree.width} tree where the config resolves width "
+                         f"{width} (bvh_wide, bvh_wide_hbm, soft_shadow_tile)")
     if plain:
         closest, occluded, bounce = (b4.intersect_bvh4_plain, b4.occluded_bvh4_plain,
                                      b4.bounce_bvh4_plain)
-        samplers = {"cone": soft.soft4_prng_plain, "sample": soft.soft_bvh_prng_plain}
+        sampler = soft.soft4_prng_plain
     else:
         closest, occluded, bounce = (b4.intersect_bvh4_cuda, b4.occluded_bvh4_cuda,
                                      b4.bounce_bvh4_cuda)
-        samplers = {"cone": soft.soft4_prng_cuda, "sample": soft.soft_bvh_prng_cuda}
+        sampler = soft.soft4_prng_cuda
     fused = b4.supports_fused_bounce_bvh4(scene)
     soft_vis = None
-    route = _soft_route(scene, cfg)
-    if route is not None:
-        if route == "sample":
-            sampled = tree
-        else:
-            sampled = soft_tree if soft_tree is not None else _soft_tree(scene, cfg, tree)
-        sampler, ns = samplers[route], cfg.soft_shadow_samples
+    if _runs_tree_sampler(scene, cfg):
+        ns = cfg.soft_shadow_samples
         soft_vis = lambda lpos, lrad, pos, key, valid=None: sampler(  # noqa: E731
-            scene, sampled, pos, lpos, lrad, key, ns, valid=valid)
+            scene, tree, pos, lpos, lrad, key, ns, valid=valid)
     return Backend(
         closest=lambda o, d: closest(scene, tree, o, d),
         occluded=lambda o, d, tm: occluded(scene, tree, o, d, tm),

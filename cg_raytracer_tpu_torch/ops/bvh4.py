@@ -83,6 +83,7 @@ import numpy as np
 import torch
 
 from ..scene.types import Scene
+from ..utils import counters
 from . import cuda_kernels as ck
 from .bvh import _SLAB_EPS, BVH, build_bvh
 from .intersect import (INF, MISS, Hit, merge_spheres_closest, moller_trumbore_edges,
@@ -319,14 +320,6 @@ def _tree_args(name, tree: BVH4, device):
     return w, ck._ptr(tree.nodes), ck._ptr(tree.rows), ck._ptr(tree.slot_to_prim)
 
 
-def count_launch(wrapper, width: int, rays: int = 0) -> None:
-    """One launch of ``wrapper``'s kernel at node width ``width``, handed
-    ``rays`` rays (the tree walks count them; the samplers pass none)."""
-    wrapper.launches += 1
-    wrapper.launches_by_width[width] += 1
-    wrapper.rays_by_width[width] += rays
-
-
 def _closest_kernel(tree, o, d, tm):
     n = o.shape[0]
     ck._check("cgrt_bvh4_closest", o, d, tm, device=o.device)
@@ -335,7 +328,7 @@ def _closest_kernel(tree, o, d, tm):
     ck._launch("cgrt_bvh4_closest", o.device, ck._ptr(o), ck._ptr(d), ck._ptr(tm), n,
                *_tree_args("cgrt_bvh4_closest", tree, o.device), ck._ptr(t), ck._ptr(prim),
                ck._ptr(u), ck._ptr(v))
-    count_launch(intersect_bvh4_cuda, tree.width, n)
+    counters.count("intersect_bvh4_cuda", tree.width, n)
     return Hit(t, prim, u, v)
 
 
@@ -345,7 +338,7 @@ def _anyhit_kernel(tree, o, d, tm):
     hit = torch.empty((n,), dtype=torch.uint8, device=o.device)
     ck._launch("cgrt_bvh4_anyhit", o.device, ck._ptr(o), ck._ptr(d), ck._ptr(tm), n,
                *_tree_args("cgrt_bvh4_anyhit", tree, o.device), ck._ptr(hit))
-    count_launch(occluded_bvh4_cuda, tree.width, n)
+    counters.count("occluded_bvh4_cuda", tree.width, n)
     return hit.bool()
 
 
@@ -357,7 +350,7 @@ def _bounce_kernel(tree, lights, o, d, tm):
     ck._launch("cgrt_bvh4_bounce", o.device, ck._ptr(o), ck._ptr(d), ck._ptr(tm), n,
                *_tree_args("cgrt_bvh4_bounce", tree, o.device), ck._ptr(lights),
                lights.shape[0], ck._ptr(t), ck._ptr(prim), ck._ptr(u), ck._ptr(v), ck._ptr(bits))
-    count_launch(bounce_bvh4_cuda, tree.width, n)
+    counters.count("bounce_bvh4_cuda", tree.width, n)
     return Hit(t, prim, u, v), bits
 
 
@@ -569,38 +562,12 @@ def bounce_bvh4_plain(scene: Scene, tree: BVH4, origins, dirs, live=None):
     return _bounce(scene, tree, origins, dirs, live, on_card=False)
 
 
-KERNEL_WRAPPERS = (intersect_bvh4_cuda, occluded_bvh4_cuda, bounce_bvh4_cuda)
-
-
-def width_counts(wrappers) -> dict:
-    """Each wrapper's launches in all (under its name) and at each node
-    width (under ``name:wW``)."""
-    out = {}
-    for w in wrappers:
-        out[w.__name__] = w.launches
-        out.update({f"{w.__name__}:w{k}": n for k, n in w.launches_by_width.items()})
-    return out
-
-
-def reset_counts(wrappers) -> None:
-    for w in wrappers:
-        w.launches = 0
-        w.launches_by_width = {k: 0 for k in WIDTHS}
-        w.rays_by_width = {k: 0 for k in WIDTHS}
-
-
-def launch_counts() -> dict:
-    return width_counts(KERNEL_WRAPPERS)
-
-
-def ray_counts() -> dict:
-    """The rays each walk's wrapper was handed (rows of its origins, live or
-    not), at each node width, under ``name:wW``."""
-    return {f"{w.__name__}:w{k}": n for w in KERNEL_WRAPPERS for k, n in w.rays_by_width.items()}
-
-
-def reset_launch_counts() -> None:
-    reset_counts(KERNEL_WRAPPERS)
+# Launches by node width, and the rays each walk was handed (rows of its
+# origins, live or not): ``launch_counts``, ``ray_counts``.
+_COUNTS = counters.Group("intersect_bvh4_cuda", "occluded_bvh4_cuda", "bounce_bvh4_cuda",
+                         widths=WIDTHS)
+launch_counts, ray_counts = _COUNTS.launch_counts, _COUNTS.ray_counts
+reset_launch_counts = _COUNTS.reset
 
 
 def tree_shape(tree: BVH4) -> dict:
@@ -630,6 +597,3 @@ def tree_counts() -> dict:
     """The shape of the last tree ``models/whitted.py::build_accel`` built
     ({} before the first)."""
     return dict(_TREE_SHAPE)
-
-
-reset_launch_counts()

@@ -18,8 +18,8 @@ wrapper                Pallas kernel replaced                      plain twin
 The shade kernels of the two-phase structure are in ``shade.py``.
 
 Each wrapper takes the plain PyTorch twin only because its rays lie on the
-CPU; for CUDA tensors it launches its kernel or raises, and adds one to its
-``launches`` count (a plain integer attribute of the wrapper) per launch.
+CPU; for CUDA tensors it launches its kernel or raises, and counts the launch
+(``utils/counters.py``; ``launch_counts``).
 The twins compute the same function with PyTorch operations on any device;
 the CPU tests hold them to the JAX kernels, and ``chip_smoke.py`` holds the
 kernels to them on the card.
@@ -36,6 +36,7 @@ import dataclasses
 import torch
 
 from ..scene.types import Scene
+from ..utils import counters
 from . import _build
 from .intersect import (INF, MISS, Hit, any_hit_sweep, closest_sweep,
                         intersect_spheres_one, merge_spheres_closest,
@@ -175,7 +176,7 @@ def _closest_kernel(tri, o, d, tm):
     u, v = torch.empty_like(t), torch.empty_like(t)
     _launch("cgrt_closest", o.device, _ptr(o), _ptr(d), _ptr(tm), n, _ptr(tri),
             tri.shape[0], _ptr(t), _ptr(slot), _ptr(u), _ptr(v))
-    intersect_cuda.launches += 1
+    counters.count("intersect_cuda")
     return Hit(t, slot, u, v)
 
 
@@ -186,7 +187,7 @@ def _anyhit_kernel(tri, o, d, tm):
     hit = torch.empty((n,), dtype=torch.uint8, device=o.device)
     _launch("cgrt_anyhit", o.device, _ptr(o), _ptr(d), _ptr(tm), n, _ptr(tri),
             tri.shape[0], _ptr(hit))
-    occluded_cuda.launches += 1
+    counters.count("occluded_cuda")
     return hit.bool()
 
 
@@ -200,7 +201,7 @@ def _bounce_kernel(tri, lights, o, d, tm):
     _launch("cgrt_bounce", o.device, _ptr(o), _ptr(d), _ptr(tm), n, _ptr(tri),
             tri.shape[0], _ptr(lights), lights.shape[0], _ptr(t), _ptr(slot), _ptr(u),
             _ptr(v), _ptr(bits))
-    bounce_cuda.launches += 1
+    counters.count("bounce_cuda")
     return Hit(t, slot, u, v), bits
 
 
@@ -211,7 +212,7 @@ def _trace_kernel(tri, aux, sph, lights, o, d, max_depth, quirk_ks_z):
     _launch("cgrt_trace", o.device, _ptr(o), _ptr(d), n, _ptr(tri), tri.shape[0],
             _ptr(aux), _ptr(sph), sph.shape[0], _ptr(lights), lights.shape[0],
             int(max_depth), int(bool(quirk_ks_z)), _ptr(rgb))
-    trace_cuda.launches += 1
+    counters.count("trace_cuda")
     return rgb
 
 
@@ -227,7 +228,7 @@ def _bounce_refl_kernel(tri, aux, lights, o, d, tm, quirk_ks_z):
             tri.shape[0], _ptr(aux), _ptr(lights), lights.shape[0], int(bool(quirk_ks_z)),
             _ptr(t), _ptr(slot), _ptr(u), _ptr(v), _ptr(bits), _ptr(pos), _ptr(refl),
             _ptr(reflective))
-    bounce_refl_cuda.launches += 1
+    counters.count("bounce_refl_cuda")
     return Hit(t, slot, u, v), bits, pos, refl, reflective.bool()
 
 
@@ -244,7 +245,7 @@ def _record_kernel(tri, aux, lights, o, d, max_depth, quirk_ks_z):
             _ptr(aux), _ptr(lights), lights.shape[0], int(max_depth), int(bool(quirk_ks_z)),
             _ptr(t), _ptr(slot), _ptr(u), _ptr(v), _ptr(bits), _ptr(o_next), _ptr(d_next),
             _ptr(active))
-    record_trace_cuda.launches += 1
+    counters.count("record_trace_cuda")
     return t, slot, u, v, bits, o_next, d_next, active.bool()
 
 
@@ -583,16 +584,6 @@ def trace_plain(scene: Scene, origins, dirs, max_depth: int, quirk_ks_z: bool = 
     return _trace(scene, origins, dirs, max_depth, quirk_ks_z, on_card=False)
 
 
-KERNEL_WRAPPERS = (intersect_cuda, occluded_cuda, bounce_cuda, trace_cuda, bounce_refl_cuda,
-                   record_trace_cuda)
-for _wrapper in KERNEL_WRAPPERS:
-    _wrapper.launches = 0
-
-
-def launch_counts() -> dict:
-    return {w.__name__: w.launches for w in KERNEL_WRAPPERS}
-
-
-def reset_launch_counts() -> None:
-    for w in KERNEL_WRAPPERS:
-        w.launches = 0
+_COUNTS = counters.Group("intersect_cuda", "occluded_cuda", "bounce_cuda", "trace_cuda",
+                         "bounce_refl_cuda", "record_trace_cuda")
+launch_counts, reset_launch_counts = _COUNTS.launch_counts, _COUNTS.reset

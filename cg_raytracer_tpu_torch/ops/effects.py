@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..scene.types import Camera
+from ..utils import counters
 from ..utils.config import RenderConfig
 from . import cuda_kernels as ck
 
@@ -160,7 +161,7 @@ def bloom_quirk_cuda(bright):
         return bloom_quirk_plain(bright)
     buf = _blur_input("cgrt_bloom_quirk", bright)
     ck._launch("cgrt_bloom_quirk", buf.device, ck._ptr(buf), buf.shape[0], buf.shape[1])
-    bloom_quirk_cuda.launches += 1
+    counters.count("bloom_quirk_cuda")
     return buf
 
 
@@ -174,7 +175,7 @@ def bloom_quirk_adjoint_cuda(grad):
     out = torch.empty_like(v)
     ck._launch("cgrt_bloom_quirk_adjoint", v.device, ck._ptr(v), ck._ptr(out), v.shape[0],
                v.shape[1])
-    bloom_quirk_adjoint_cuda.launches += 1
+    counters.count("bloom_quirk_adjoint_cuda")
     return out
 
 
@@ -238,19 +239,8 @@ def bloom_quirk_adjoint_plain(grad):
     return buf.view(h + 2 * r, w + 2 * r, 3)[r:r + h, r:r + w].contiguous()
 
 
-KERNEL_WRAPPERS = (bloom_quirk_cuda, bloom_quirk_adjoint_cuda)
-
-
-def launch_counts() -> dict:
-    return {w.__name__: w.launches for w in KERNEL_WRAPPERS}
-
-
-def reset_launch_counts() -> None:
-    for w in KERNEL_WRAPPERS:
-        w.launches = 0
-
-
-reset_launch_counts()
+_COUNTS = counters.Group("bloom_quirk_cuda", "bloom_quirk_adjoint_cuda")
+launch_counts, reset_launch_counts = _COUNTS.launch_counts, _COUNTS.reset
 
 
 def motion_blur(base_render_fn, camera: Camera, cfg: RenderConfig):

@@ -40,8 +40,8 @@ active).
 The kernels carry no gradient.  ``trace_rays`` takes the chain where a
 tensor the level reads requires grad while grad is enabled; a caller who
 differentiates ``level_cuda``'s outputs anyway gets an error, not zeros
-(``_LevelGuard``).  Each wrapper adds one to its ``launches`` count (a
-plain integer attribute) per launch; a failed build or launch raises.
+(``_LevelGuard``).  Each wrapper counts its launches (``utils/counters.py``;
+``launch_counts``); a failed build or launch raises.
 """
 from __future__ import annotations
 
@@ -50,6 +50,7 @@ import ctypes
 import torch
 
 from ..scene.types import Scene
+from ..utils import counters
 from . import cuda_kernels as ck
 from . import shading
 from .intersect import Surface, reconstruct_hit
@@ -231,7 +232,7 @@ def _level_kernel(scene, o, d, prim, bits, color, throughput, active, quirk_ks_z
                   last=int(bool(last)), **_scene_fields(scene, device),
                   **_state_fields(n, device, color, throughput, active, last))
     _launch("cgrt_level", fields)
-    level_cuda.launches += 1
+    counters.count("level_cuda")
     return _outputs(fields, last)
 
 
@@ -247,7 +248,7 @@ def _surface_kernel(scene, o, d, prim) -> Surface:
                   valid=torch.empty((n,), dtype=_U8, device=device),
                   **_scene_fields(scene, device))
     _launch("cgrt_level_surface", fields)
-    level_surface_cuda.launches += 1
+    counters.count("level_surface_cuda")
     return Surface(valid=fields["valid"].view(torch.bool), position=fields["position"],
                    normal=fields["normal"], kd=fields["kd"], ks=fields["ks"],
                    shininess=fields["shininess"])
@@ -279,7 +280,7 @@ def _shade_kernel(scene, d, surf: Surface, bits, masks, fracs, color, throughput
                   **_scene_fields(scene, device),
                   **_state_fields(n, device, color, throughput, active, last))
     _launch("cgrt_level_shade", fields)
-    level_shade_cuda.launches += 1
+    counters.count("level_shade_cuda")
     return _outputs(fields, last)
 
 
@@ -377,15 +378,5 @@ def level_shade_cuda(scene: Scene, d, surf: Surface, bits, masks, fracs, color, 
                          quirk_ks_z, last)
 
 
-KERNEL_WRAPPERS = (level_cuda, level_surface_cuda, level_shade_cuda)
-for _wrapper in KERNEL_WRAPPERS:
-    _wrapper.launches = 0
-
-
-def launch_counts() -> dict:
-    return {w.__name__: w.launches for w in KERNEL_WRAPPERS}
-
-
-def reset_launch_counts() -> None:
-    for w in KERNEL_WRAPPERS:
-        w.launches = 0
+_COUNTS = counters.Group("level_cuda", "level_surface_cuda", "level_shade_cuda")
+launch_counts, reset_launch_counts = _COUNTS.launch_counts, _COUNTS.reset

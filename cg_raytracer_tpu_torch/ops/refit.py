@@ -136,15 +136,8 @@ def _plan_bvh4(tree: BVH4) -> RefitPlan4:
 
 
 def make_refit_plan(accel):
-    """The static topology of ``accel`` (a ``BVH``, a ``BVH4`` or an
-    ``AccelBundle``, whose plan is a (primary, soft) pair with the soft
-    entry None where both fields are one tree).  A host pass: build it once
-    per tree, outside the training loop."""
-    from ..models.whitted import AccelBundle
-
-    if isinstance(accel, AccelBundle):
-        primary = make_refit_plan(accel.primary)
-        return primary, (None if accel.soft is accel.primary else make_refit_plan(accel.soft))
+    """The static topology of ``accel`` (a ``BVH`` or a ``BVH4``).  A host
+    pass: build it once per tree, outside the training loop."""
     if isinstance(accel, BVH):
         return _plan_bvh(accel)
     if isinstance(accel, BVH4):
@@ -210,16 +203,9 @@ def refit_accel(accel, scene: Scene, plan=None):
     """``accel`` with its boxes and triangle table recomputed from
     ``scene.vertices`` (detached), its topology unchanged; new tensors, the
     given tree untouched.  Pass the ``plan`` of ``make_refit_plan`` inside a
-    training loop (making it is a host pass).  An ``AccelBundle`` whose
-    fields are one tree is refit once and stays one tree."""
-    from ..models.whitted import AccelBundle
-
+    training loop (making it is a host pass)."""
     if plan is None:
         plan = make_refit_plan(accel)
-    if isinstance(accel, AccelBundle):
-        primary = refit_accel(accel.primary, scene, plan[0])
-        soft = primary if plan[1] is None else refit_accel(accel.soft, scene, plan[1])
-        return AccelBundle(primary, soft)
     if isinstance(accel, BVH):
         return _refit_bvh(accel, plan, scene)
     if isinstance(accel, BVH4):

@@ -54,6 +54,7 @@ from __future__ import annotations
 import torch
 
 from ..scene.types import Scene
+from ..utils import counters
 from . import cuda_kernels as ck
 from .intersect import moller_trumbore
 from .linalg import cross, dot
@@ -260,7 +261,7 @@ def shade_fwd_cuda(tri, aux, lights, spheres, o, d, prim, bits, num_tris, sph=No
     ck._launch("cgrt_shade_fwd", o.device, *head, int(num_tris), ck._ptr(lights),
                lights.shape[0], ck._ptr(spheres), spheres.shape[0],
                *_sph_inputs("cgrt_shade_fwd", sph, fracs, o), *(ck._ptr(x) for x in outs))
-    shade_fwd_cuda.launches += 1
+    counters.count("shade_fwd_cuda")
     return tuple(outs)
 
 
@@ -278,7 +279,7 @@ def shade_bwd_cuda(tri, aux, lights, spheres, o, d, prim, bits, num_tris, cotang
                *_sph_inputs("cgrt_shade_bwd", sph, fracs, o),
                *(ck._ptr(g) for g in cotangents), ck._ptr(d_o), ck._ptr(d_d),
                *(ck._ptr(x) for x in d_tables), ck._ptr(d_sph))
-    shade_bwd_cuda.launches += 1
+    counters.count("shade_bwd_cuda")
     return (*d_tables, d_o, d_d, d_sph)
 
 
@@ -333,7 +334,7 @@ def shade_pre_fwd_cuda(payload, mats, lights, spheres, o, d, prim, bits, sph=Non
     outs = [torch.empty_like(o) for _ in range(4)]
     ck._launch("cgrt_shade_pre_fwd", o.device, *args,
                *_sph_inputs("cgrt_shade_pre_fwd", sph, fracs, o), *(ck._ptr(x) for x in outs))
-    shade_pre_fwd_cuda.launches += 1
+    counters.count("shade_pre_fwd_cuda")
     return tuple(outs)
 
 
@@ -350,7 +351,7 @@ def shade_pre_bwd_cuda(payload, mats, lights, spheres, o, d, prim, bits, cotange
                *_sph_inputs("cgrt_shade_pre_bwd", sph, fracs, o),
                *(ck._ptr(g) for g in cotangents), ck._ptr(d_o), ck._ptr(d_d),
                *(ck._ptr(x) for x in d_tables), ck._ptr(d_sph))
-    shade_pre_bwd_cuda.launches += 1
+    counters.count("shade_pre_bwd_cuda")
     return (*d_tables, d_o, d_d, d_sph)
 
 
@@ -427,15 +428,6 @@ def shade_fused_plain(scene: Scene, origins, dirs, hit, bits, fracs=None):
     return _shade_fused(scene, origins, dirs, hit, bits, fracs, on_card=False)
 
 
-KERNEL_WRAPPERS = (shade_fwd_cuda, shade_bwd_cuda, shade_pre_fwd_cuda, shade_pre_bwd_cuda)
-for _wrapper in KERNEL_WRAPPERS:
-    _wrapper.launches = 0
-
-
-def launch_counts() -> dict:
-    return {w.__name__: w.launches for w in KERNEL_WRAPPERS}
-
-
-def reset_launch_counts() -> None:
-    for w in KERNEL_WRAPPERS:
-        w.launches = 0
+_COUNTS = counters.Group("shade_fwd_cuda", "shade_bwd_cuda", "shade_pre_fwd_cuda",
+                         "shade_pre_bwd_cuda")
+launch_counts, reset_launch_counts = _COUNTS.launch_counts, _COUNTS.reset

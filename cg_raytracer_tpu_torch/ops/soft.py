@@ -6,29 +6,29 @@ Counterpart of the in-kernel samplers of
 over the binary tree) and ``cg_raytracer_tpu/ops/pallas_bvh4.py`` (the cone
 sampler over the 4- or 8-wide tree).
 
-=======================  =============================================  ======================
-wrapper                  Pallas kernel replaced                         plain twin
-=======================  =============================================  ======================
-``soft_prng_cuda``       ``_soft_shadow_prng_kernel`` (B9)              ``soft_prng_plain``
-``soft_table_cuda``      ``_soft_shadow_table_kernel`` (B9)             ``soft_table_plain``
-``soft_bvh_prng_cuda``   ``_soft_bvh_prng_kernel`` (B12)                ``soft_bvh_prng_plain``
-``soft_bvh_table_cuda``  ``_soft_bvh_table_kernel`` (B12)               ``soft_bvh_table_plain``
-``soft4_prng_cuda``      ``_soft4_cone_prng_kernel`` (B10; W=8 B15),    ``soft4_prng_plain``
-                         ``_soft_bvh_cone_prng_kernel`` (B11, W=2)
-``soft4_table_cuda``     ``_soft4_cone_table_kernel`` (B10; W=8 B15),   ``soft4_table_plain``
-                         ``_soft_bvh_cone_table_kernel`` (B11, W=2)
-=======================  =============================================  ======================
+====================  =============================================  =====================
+wrapper               Pallas kernel replaced                         plain twin
+====================  =============================================  =====================
+``soft_prng_cuda``    ``_soft_shadow_prng_kernel`` (B9)              ``soft_prng_plain``
+``soft_table_cuda``   ``_soft_shadow_table_kernel`` (B9)             ``soft_table_plain``
+``soft4_prng_cuda``   ``_soft4_cone_prng_kernel`` (B10; W=8 B15),    ``soft4_prng_plain``
+                      ``_soft_bvh_cone_prng_kernel`` (B11, W=2),
+                      the per-sample PRNG kernel (B12, W=2)
+``soft4_table_cuda``  ``_soft4_cone_table_kernel`` (B10; W=8 B15),   ``soft4_table_plain``
+                      ``_soft_bvh_cone_table_kernel`` (B11, W=2),
+                      the per-sample table kernel (B12, W=2)
+====================  =============================================  =====================
 
 One kernel body (``csrc/soft.cu``) serves all of them.  The tree samplers
-walk a ``BVH4`` of any width (``ops/bvh4.py``): ``soft_bvh_*`` are the
-``soft_shadow_tile='sample'`` route, over the primary tree (binary: 'sample'
-forces width 2, as in the JAX package), and ``soft4_*`` the 'cone' route,
-over ``AccelBundle.soft`` at the primary tree's width.  The JAX package's
-two tiles (points on lanes with a loop over samples; 128 pixels x all their
-samples in one lockstep walk) are one layout on the card, a thread per
-(point, sample), so the two routes differ only in the tree they walk.  An
-any-hit count does not depend on the tree: given one key or table, every
-width and both routes count the same.  Each returns, per
+walk the scene's one ``BVH4``, of any width (``ops/bvh4.py``), on both
+routes of ``soft_shadow_tile``: 'cone' at the tree's width, 'sample' at
+width 2 (it makes the tree binary, as in the JAX package).  The JAX
+package's two tiles (points on lanes with a loop over samples; 128 pixels
+x all their samples in one lockstep walk) are one layout on the card, a
+thread per (point, sample), so the routes differ only in the tree's
+width: a 'sample' launch counts as ``soft4_prng_cuda:w2``.  An any-hit
+count does not depend on the tree: given one key or table, every width
+counts the same.  Each returns, per
 shading point, how many of ``num_samples`` shadow rays toward random points
 on one spherical light reach it (main.cpp:166-218), as float32 counts [N].
 The PRNG variants draw the samples in the kernel; the table variants take
@@ -84,6 +84,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..scene.types import Scene
+from ..utils import counters
 from ..utils.profiling import span
 from . import bvh4 as b4
 from . import cuda_kernels as ck
@@ -443,23 +444,19 @@ def _brute_kernel(tri, pos, light, num_samples, valid, key=None, gauss_nsc=None)
     key_args, _words = _key_args(key, num_samples, pos.device)
     ck._launch("cgrt_soft_brute", pos.device, *head, ck._ptr(tri), tri.shape[0], *key_args,
                ck._ptr(gauss_nsc), ck._ptr(counts), ck._ptr(_tally(pos.device)))
-    (soft_prng_cuda if gauss_nsc is None else soft_table_cuda).launches += 1
+    counters.count("soft_prng_cuda" if gauss_nsc is None else "soft_table_cuda")
     return counts
 
 
-def _tree_kernel(tree, pos, light, num_samples, valid, key=None, gauss_nsc=None,
-                 route: str = "cone"):
-    """A tree sampler's launch; ``route`` ('sample' or 'cone') names the
-    wrapper whose count it adds to."""
+def _tree_kernel(tree, pos, light, num_samples, valid, key=None, gauss_nsc=None):
+    """A tree sampler's launch."""
     counts = torch.zeros((pos.shape[0],), dtype=torch.int32, device=pos.device)
     width, nodes, rows, _ = b4._tree_args("cgrt_soft_bvh4", tree, pos.device)
     head, _keep = _head("cgrt_soft_bvh4", pos, light, valid, gauss_nsc)
     key_args, _words = _key_args(key, num_samples, pos.device)
     ck._launch("cgrt_soft_bvh4", pos.device, *head, width, nodes, rows, *key_args,
                ck._ptr(gauss_nsc), ck._ptr(counts))
-    prng, table = (soft_bvh_prng_cuda, soft_bvh_table_cuda) if route == "sample" else (
-        soft4_prng_cuda, soft4_table_cuda)
-    b4.count_launch(prng if gauss_nsc is None else table, width)
+    counters.count("soft4_prng_cuda" if gauss_nsc is None else "soft4_table_cuda", width)
     return counts
 
 
@@ -482,9 +479,6 @@ def supports_soft_shadow_kernel_bvh(scene: Scene) -> bool:
     package's streaming tier past that cap has no sampler)."""
     return (0 < scene.num_triangles <= b4.VMEM_MAX_TRIS and scene.spheres.radius.shape[0] == 0
             and scene.spherical_lights.position.shape[0] > 0)
-
-
-supports_soft_shadow_kernel_bvh4 = supports_soft_shadow_kernel_bvh
 
 
 def _inputs(positions, light_pos, light_radius, valid):
@@ -517,7 +511,7 @@ def _brute(scene, positions, light_pos, light_radius, num_samples, valid, key, g
 
 
 def _tree(scene, tree, positions, light_pos, light_radius, num_samples, valid, key, gauss,
-          on_card, route="cone"):
+          on_card):
     if not supports_soft_shadow_kernel_bvh(scene):
         raise ValueError(f"tree soft-shadow kernel: the scene needs 1..{b4.VMEM_MAX_TRIS} "
                          f"triangles, no spheres and a spherical light "
@@ -527,7 +521,7 @@ def _tree(scene, tree, positions, light_pos, light_radius, num_samples, valid, k
     pos, light, v = _inputs(positions, light_pos, light_radius, valid)
     g = None if gauss is None else _gauss_nsc(gauss, pos.shape[0], pos.device)
     if on_card:
-        counts = _tree_kernel(tree, pos, light, num_samples, v, key, g, route)
+        counts = _tree_kernel(tree, pos, light, num_samples, v, key, g)
     else:
         counts = _counts_plain(_tree_anyhit(tree), pos, light, num_samples, v, key, g)
     return counts.to(torch.float32)
@@ -559,38 +553,10 @@ def soft_table_plain(scene: Scene, positions, light_pos, light_radius, gauss, va
                   on_card=False)
 
 
-def soft_bvh_prng_cuda(scene: Scene, tree, positions, light_pos, light_radius,
-                       key: SampleKey, num_samples: int, valid=None):
-    """The 'sample' route: the counts of ``soft_prng_cuda`` by any-hit walks
-    of the primary ``tree`` (the per-sample sampler; the JAX package's
-    ``soft_shadow_counts_pallas_bvh``)."""
-    return _tree(scene, tree, positions, light_pos, light_radius, num_samples, valid, key, None,
-                 on_card=positions.is_cuda, route="sample")
-
-
-def soft_bvh_prng_plain(scene: Scene, tree, positions, light_pos, light_radius,
-                        key: SampleKey, num_samples: int, valid=None):
-    return _tree(scene, tree, positions, light_pos, light_radius, num_samples, valid, key, None,
-                 on_card=False, route="sample")
-
-
-def soft_bvh_table_cuda(scene: Scene, tree, positions, light_pos, light_radius, gauss,
-                        valid=None):
-    """``soft_bvh_prng_cuda`` on given Gaussians ``gauss`` [S, N, 3]."""
-    return _tree(scene, tree, positions, light_pos, light_radius, gauss.shape[0], valid, None,
-                 gauss, on_card=positions.is_cuda, route="sample")
-
-
-def soft_bvh_table_plain(scene: Scene, tree, positions, light_pos, light_radius, gauss,
-                         valid=None):
-    return _tree(scene, tree, positions, light_pos, light_radius, gauss.shape[0], valid, None,
-                 gauss, on_card=False, route="sample")
-
-
 def soft4_prng_cuda(scene: Scene, tree, positions, light_pos, light_radius, key: SampleKey,
                     num_samples: int, valid=None):
-    """The 'cone' route: the counts of ``soft_prng_cuda`` by any-hit walks
-    of the soft ``tree`` (any width): one thread per (point, sample)."""
+    """The counts of ``soft_prng_cuda`` by any-hit walks of the scene's
+    ``tree`` (any width): one thread per (point, sample)."""
     return _tree(scene, tree, positions, light_pos, light_radius, num_samples, valid, key, None,
                  on_card=positions.is_cuda)
 
@@ -614,20 +580,15 @@ def soft4_table_plain(scene: Scene, tree, positions, light_pos, light_radius, ga
                  gauss, on_card=False)
 
 
-BRUTE_WRAPPERS = (soft_prng_cuda, soft_table_cuda)
-TREE_WRAPPERS = (soft_bvh_prng_cuda, soft_bvh_table_cuda, soft4_prng_cuda, soft4_table_cuda)
-KERNEL_WRAPPERS = BRUTE_WRAPPERS + TREE_WRAPPERS
+_BRUTE = counters.Group("soft_prng_cuda", "soft_table_cuda")
+_TREES = counters.Group("soft4_prng_cuda", "soft4_table_cuda", widths=b4.WIDTHS)
 
 
 def launch_counts() -> dict:
     """Each wrapper's launches; the tree samplers' also per node width."""
-    return {**{w.__name__: w.launches for w in BRUTE_WRAPPERS}, **b4.width_counts(TREE_WRAPPERS)}
+    return {**_BRUTE.launch_counts(), **_TREES.launch_counts()}
 
 
 def reset_launch_counts() -> None:
-    for w in BRUTE_WRAPPERS:
-        w.launches = 0
-    b4.reset_counts(TREE_WRAPPERS)
-
-
-reset_launch_counts()
+    _BRUTE.reset()
+    _TREES.reset()

@@ -22,8 +22,6 @@ import torch
 
 from ..optim.inverse import training_config
 
-BASELINE_RAYS_PER_S = 3.8e6  # reference CPU, Cornell/point 800x800 (BASELINE.md)
-
 
 def time_frames(fn, iters: int = 10, warmup: int = 2) -> list:
     """Milliseconds of each of ``iters`` calls of ``fn`` on the current CUDA
@@ -202,7 +200,6 @@ def run_bench(scene: Union[str, "Scene"] = "cornell_box", width: int = 1024,
                   f"tris, {what[1]})",
         "value": rays_per_s,
         "unit": "rays/s",
-        "vs_baseline": rays_per_s / BASELINE_RAYS_PER_S,
         "seconds_per_frame": ms / 1e3,
         "accel_build_s": accel_build_s,
         "device": torch.cuda.get_device_name(device),

@@ -4,8 +4,10 @@ defaults and errors.
 
 The TPU auto-tuning knobs (tile rows, interleave, pop mode, ray order,
 ``remat_shade``, ``bounce_resort``, ``shade_gather``, ``soft_cone_interleave``,
-...) are not carried over: each was a measurement on a TPU.  The BVH leaf size is this port's own
-knob (``bvh_max_leaf``), for the same reason.
+the leaf size and split rule of a tree of the cone sampler's own, ...) are
+not carried over: each was a measurement on a TPU.  The BVH leaf
+size is this port's own knob (``bvh_max_leaf``), for the same reason, and
+every sampler walks the one tree of ``bvh_max_leaf`` and ``bvh_builder``.
 """
 from __future__ import annotations
 
@@ -28,16 +30,11 @@ class RenderConfig:
     # 'auto' = on for a scene on a CUDA device, off on the CPU (the scan over
     # the any-hit oracle); 'on' on the CPU runs the kernels' plain twins.
     soft_shadow_kernel: str = "auto"
-    # The tree sampler's route: 'cone' walks the soft tree (AccelBundle.soft,
-    # at the primary tree's width); 'sample' walks the primary tree and, as in
-    # the JAX package, makes it binary.  On the card both run one thread per
-    # (point, sample) and count the same.  'auto' = 'cone'.
+    # The tree sampler's route: 'cone' walks the scene's tree at bvh_wide;
+    # 'sample', as in the JAX package, makes that tree binary.  On the card
+    # both run one thread per (point, sample) and count the same.  'auto' =
+    # 'cone'.
     soft_shadow_tile: str = "auto"
-    # The cone sampler's tree: leaf size (0 = auto) and split rule ('auto' |
-    # 'median' | 'sah').  'auto' takes the primary tree's value, and where
-    # both match the sampler walks the primary tree itself (no second build).
-    soft_bvh_max_leaf: int = 0
-    soft_bvh_builder: str = "auto"
     # 'auto' | 'brute' | 'bvh' | 'cuda'.  'auto' resolves from the scene's
     # device: 'cuda' on CUDA tensors; on CPU tensors 'brute' up to
     # brute_force_max_tris triangles and 'bvh' (the CPU traversal of
@@ -154,22 +151,6 @@ class RenderConfig:
                 f"bvh_wide_hbm must be 'auto' | '2' | '4', got "
                 f"{self.bvh_wide_hbm!r}")
         return "4" if self.bvh_wide_hbm == "auto" else self.bvh_wide_hbm
-
-    def resolve_soft_bvh_max_leaf(self) -> int:
-        if self.soft_bvh_max_leaf:
-            if self.soft_bvh_max_leaf < 1:
-                raise ValueError("soft_bvh_max_leaf must be positive")
-            return self.soft_bvh_max_leaf
-        return self.resolve_bvh_max_leaf()
-
-    def resolve_soft_bvh_builder(self, num_tris: int, device: torch.device) -> str:
-        if self.soft_bvh_builder not in ("auto", "median", "sah"):
-            raise ValueError(
-                f"soft_bvh_builder must be 'auto' | 'median' | 'sah', got "
-                f"{self.soft_bvh_builder!r}")
-        if self.soft_bvh_builder != "auto":
-            return self.soft_bvh_builder
-        return self.resolve_bvh_builder(num_tris, device)
 
     def resolve_grad_two_phase(self) -> bool:
         if self.grad_two_phase not in ("auto", "on", "off"):

@@ -34,10 +34,10 @@ step more; replayed, it is one ``torch.cuda.CUDAGraph.replay()``.
   use (the kernel library, ``ops/_build.py::load``; a tree's walk records;
   ``models/whitted.py::_cached_accel``; autograd's and the optimizer's
   state), none of which may happen during a capture.
-- **Launch counts**: a capture records its kernels' launches (and the
-  rays the tree walks were handed) without running them, so the counts it
-  added to the wrappers are taken back; every replay adds them again
-  (``replay_rays``: the last replay's rays).
+- **Launch counts** (``utils/counters.py``): a capture records its
+  kernels without running them, so their launches (and the rays the tree
+  walks were handed) go into the graph's own tally, which every replay
+  adds to the totals (``replay_rays``: the last replay's rays).
 - **Memory**: each graph holds a private memory pool with its
   intermediates and outputs (hundreds of MB for a 1024^2 frame or a step's
   saved tensors).  The cache keeps at most ``MAX_GRAPHS`` = 8 graphs; the
@@ -57,6 +57,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from ..ops import soft
+from . import counters
 from .profiling import span
 
 MAX_GRAPHS = 8
@@ -109,22 +110,9 @@ def structure(tree) -> tuple:
     return ("value", tree)
 
 
-def _tree_ids(accel):
-    """The identities of the trees in ``accel`` (a tree, or an
-    ``AccelBundle`` of two)."""
-    from ..models.whitted import AccelBundle
-
-    if accel is None:
-        return None
-    if isinstance(accel, AccelBundle):
-        return tuple(id(t) for t in accel)
-    return id(accel)
-
-
 def graph_key(kind: str, cfg, device, inputs, spherical: bool, accel=None) -> tuple:
     """A graph's cache key: equal keys replay one graph."""
-    return (kind, cfg, str(torch.device(device)), structure(inputs), bool(spherical),
-            _tree_ids(accel))
+    return (kind, cfg, str(torch.device(device)), structure(inputs), bool(spherical), id(accel))
 
 
 def render_key(scene, camera, cfg, accel=None) -> tuple:
@@ -134,59 +122,12 @@ def render_key(scene, camera, cfg, accel=None) -> tuple:
                      scene.spherical_lights.position.shape[0] > 0, accel)
 
 
-# --------------------------------------------------------------------------
-# Launch counts.
-# --------------------------------------------------------------------------
-
-def _wrappers() -> list:
-    from ..ops import bvh4, cuda_kernels, effects, level, shade
-
-    return [*cuda_kernels.KERNEL_WRAPPERS, *shade.KERNEL_WRAPPERS, *bvh4.KERNEL_WRAPPERS,
-            *soft.KERNEL_WRAPPERS, *effects.KERNEL_WRAPPERS, *level.KERNEL_WRAPPERS]
-
-
-def _counts() -> dict:
-    """Each wrapper's (launches, launches by width, rays by width); the
-    last two only where a wrapper keeps them (``ops/bvh4.py``'s walks and
-    the tree samplers)."""
-    return {w: (w.launches, dict(getattr(w, "launches_by_width", {})),
-                dict(getattr(w, "rays_by_width", {}))) for w in _wrappers()}
-
-
-def _set_counts(counts: dict) -> None:
-    for w, (n, by_width, rays) in counts.items():
-        w.launches = n
-        if hasattr(w, "launches_by_width"):
-            w.launches_by_width = dict(by_width)
-            w.rays_by_width = dict(rays)
-
-
-def _delta(before: dict, after: dict) -> dict:
-    out = {}
-    for w, (n, by_width, rays) in after.items():
-        n0, w0, r0 = before[w]
-        if n != n0:
-            out[w] = (n - n0, {k: v - w0.get(k, 0) for k, v in by_width.items()},
-                      {k: v - r0.get(k, 0) for k, v in rays.items()})
-    return out
-
-
-def _add_counts(delta: dict) -> None:
-    for w, (n, by_width, rays) in delta.items():
-        w.launches += n
-        for k, v in by_width.items():
-            w.launches_by_width[k] += v
-        for k, v in rays.items():
-            w.rays_by_width[k] += v
-
-
 def replay_rays() -> dict:
     """The rays one replay of the last graph replayed hands each tree walk
     ({wrapper name: {node width: rays}}, the walks it launches; {} before
     the first replay).  Kept after ``clear()``, so it can be read once the
     graphs are released."""
-    return {w.__name__: dict(rays) for w, (_, _, rays) in Graph.last_launches.items()
-            if any(rays.values())}
+    return counters.last_replay().walk_rays()
 
 
 # --------------------------------------------------------------------------
@@ -199,11 +140,9 @@ class Graph:
     empty without spherical lights).  ``warmup(*static_inputs)`` replaces the
     eager warm-up run of ``fn`` (a training chunk warms up on one step and
     restores what it moved).  ``hold``: objects whose buffers the graph reads
-    by address, kept alive with it.  ``launches``: what one replay adds to
-    the wrappers' counts (``_delta``); ``Graph.last_launches`` is the last
-    replayed graph's."""
-
-    last_launches: dict = {}
+    by address, kept alive with it.  ``tally``: the launches its capture
+    recorded, which each replay adds to the counts
+    (``utils/counters.py``)."""
 
     def __init__(self, fn: Callable, inputs: tuple, roots: Sequence, device,
                  warmup: Optional[Callable] = None, hold=()):
@@ -226,14 +165,12 @@ class Graph:
             self.keys = soft.KeyTable(device)
             self.graph = torch.cuda.CUDAGraph()
             torch.cuda.empty_cache()  # as torch.cuda.graph does on entry: the pool's MB below
-            before, reserved = _counts(), torch.cuda.memory_reserved(device)
+            reserved = torch.cuda.memory_reserved(device)
+            self.tally = counters.Tally()
             t0 = time.perf_counter()
-            with self.keys, torch.cuda.graph(self.graph):
+            with self.keys, counters.recording(self.tally), torch.cuda.graph(self.graph):
                 self.out = fn(*static, [self.keys.root(j, k) for j, k in enumerate(roots)])
             self.capture_s = time.perf_counter() - t0  # capture and instantiation
-            after = _counts()
-            self.launches = _delta(before, after)
-            _set_counts(before)
             self.pool_mb = (torch.cuda.memory_reserved(device) - reserved) / 2 ** 20
 
     def load(self, inputs) -> None:
@@ -249,8 +186,7 @@ class Graph:
         with span("graph.replay"):
             self.graph.replay()
         with span("graph.outputs"):
-            _add_counts(self.launches)
-            Graph.last_launches = self.launches
+            counters.replayed(self.tally)
             return rebuild(self.out, (x.clone() for x in leaves(self.out)))
 
     def release(self) -> None:

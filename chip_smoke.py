@@ -119,8 +119,8 @@ Phases, each printing its own lines:
     on the teacup's 1024x1024 camera rays;
 25. width 2 on the large tier (B14): the same on the donut's frame and on
     every 16th ray of the torus's;
-26. the tree samplers at width 2 (the 'sample' route over the binary
-    primary tree, B12; the 'cone' route over a binary soft tree, B11) and
+26. the tree samplers at width 2 (the 'sample' route, B12, and the 'cone'
+    route, B11, both over the scene's one tree made binary) and
     8: table and PRNG kernels exactly equal to their twins on the 4,096-
     point subsample of both spherical stand-ins, and each route's PRNG
     counts on every hit point of both 1024x1024 frames equal to the 4-wide
@@ -325,10 +325,12 @@ KERNELS = {  # wrapper -> (name, source, Pallas kernel replaced), forward path f
                                      "cg_raytracer_tpu/ops/pallas_bvh.py:732"),
     "bounce_bvh4_cuda:w2:large": ("bvh_bounce_w2_large", "cg_raytracer_tpu_torch/csrc/bvh4.cu",
                                   "cg_raytracer_tpu/ops/pallas_bvh.py:747"),
-    "soft_bvh_prng_cuda:w2": ("soft_bvh_prng", "cg_raytracer_tpu_torch/csrc/soft.cu",
-                              "cg_raytracer_tpu/ops/pallas_bvh.py:1008"),
-    "soft_bvh_table_cuda:w2": ("soft_bvh_table", "cg_raytracer_tpu_torch/csrc/soft.cu",
-                               "cg_raytracer_tpu/ops/pallas_bvh.py:1036"),
+    # The 'sample' route: the same wrappers and kernel as the cone's at
+    # width 2 (one tree), in the table as the JAX package's per-sample rows.
+    "soft4_prng_cuda:w2:sample": ("soft_bvh_prng", "cg_raytracer_tpu_torch/csrc/soft.cu",
+                                  "cg_raytracer_tpu/ops/pallas_bvh.py:1008"),
+    "soft4_table_cuda:w2:sample": ("soft_bvh_table", "cg_raytracer_tpu_torch/csrc/soft.cu",
+                                   "cg_raytracer_tpu/ops/pallas_bvh.py:1036"),
     "soft4_prng_cuda:w2": ("soft_bvh_cone_prng", "cg_raytracer_tpu_torch/csrc/soft.cu",
                            "cg_raytracer_tpu/ops/pallas_bvh.py:1109"),
     "soft4_table_cuda:w2": ("soft_bvh_cone_table", "cg_raytracer_tpu_torch/csrc/soft.cu",
@@ -727,7 +729,7 @@ def main(argv=None) -> int:
     train_counts["bounce_refl_cuda"] = level_counts["bounce_refl_cuda"]
     for c, r in train.items():
         print(f"  {r['metric']}: {r['seconds_per_frame'] * 1e3:.5f} ms/step, "
-              f"{r['value']:.6g} rays/s ({r['vs_baseline']:.4g}x the reference CPU's forward)")
+              f"{r['value']:.6g} rays/s")
     jitter = bench.camera_jitter(torch.Generator(device).manual_seed(9), device)
     steps = {}
     for c, v in contracts.items():
@@ -1209,13 +1211,13 @@ def soft_phases(out, device, check, note, kernels, e2e, results, scenes) -> dict
     accel = build_accel(cup, RenderConfig())
     torch.cuda.synchronize()
     results["soft_accel_build_s"] = time.perf_counter() - t0
-    tree = accel.soft
-    print(f"  spherical teacup: tree built in {results['soft_accel_build_s']:.3f} s; the cone "
-          f"sampler walks the primary tree (soft-tree knobs on auto): {tree is accel.primary}")
+    tree = accel
+    print(f"  spherical teacup: tree built in {results['soft_accel_build_s']:.3f} s; the walks "
+          f"and the cone sampler share it: width {tree.width}, {tree.num_nodes} nodes")
     o1, d1 = generate_rays(cam, 1024, 1024)
     frames = {}
     for label, scene, hit in (("box", box, ck.intersect_cuda(box, o1, d1)),
-                              ("teacup", cup, b4.intersect_bvh4_cuda(cup, accel.primary, o1, d1))):
+                              ("teacup", cup, b4.intersect_bvh4_cuda(cup, tree, o1, d1))):
         valid = hit.prim_id >= 0
         pos = torch.where(valid[:, None], o1 + d1 * torch.where(valid, hit.t, 0.0)[:, None], 0.0)
         light = soft.light_row(scene.spherical_lights.position[0],
@@ -1474,8 +1476,9 @@ def soft_phases(out, device, check, note, kernels, e2e, results, scenes) -> dict
                   f"wall {prof['wall_ms']:.4f} ms, device busy {busy}")
             for kname, kms, n in prof["kernels"][:5]:
                 print(f"    {kms:.5f} ms x{n:g}  {kname[:90]}")
-    # The soft tree: the primary tree (SAH, leaf 4; the port's auto) against
-    # the JAX package's soft-tree auto (median, leaf 14), on the teacup's frame.
+    # The soft tree: the scene's one tree (SAH, leaf 4; the port's auto)
+    # against the JAX package's soft-tree auto (median, leaf 14), on the
+    # teacup's frame.
     _, pos, valid, light, _ = frames["teacup"]
     v8 = valid.to(torch.uint8).contiguous()
     soft_trees = {}
@@ -1926,8 +1929,7 @@ def width_phases(out, device, check, note, kernels, e2e, results, scenes) -> dic
     """Phases 24-28: the tree width.  The one walk of csrc/bvh4.cuh at node
     width 2 (the JAX package's binary kernels: B13 on-chip, B14 streaming)
     and 8 (B15), and the samplers over those trees: the 'sample' route over
-    the binary primary tree (B12) and the 'cone' route at widths 2 (B11) and
-    8.  Returns the new rows' launch counts from the main path (phase 27)."""
+    the binary tree (B12) and the 'cone' route at widths 2 (B11) and 8.  Returns the new rows' launch counts from the main path (phase 27)."""
     import torch
 
     from cg_raytracer_tpu_torch.models import whitted
@@ -2049,13 +2051,16 @@ def width_phases(out, device, check, note, kernels, e2e, results, scenes) -> dic
     box_bvh = build_bvh(box, max_leaf=4, builder="sah")
     stree = {("box", w): b4.collapse_bvhw(box_bvh, w).to(device) for w in (2, 4, 8)}
     stree[("teacup", 2)] = build_accel(cup, RenderConfig(soft_shadow_tile="sample"))
-    stree[("teacup", 4)] = cup_accel.soft
-    stree[("teacup", 8)] = build_accel(cup, RenderConfig(bvh_wide="8")).soft
+    stree[("teacup", 4)] = cup_accel
+    stree[("teacup", 8)] = build_accel(cup, RenderConfig(bvh_wide="8"))
     for (label, w), tr in stree.items():
         assert isinstance(tr, b4.BVH4) and tr.width == w, (label, w)
     routes = (("sample", 2), ("cone", 2), ("cone", 8))
-    wrappers = {"sample": (soft.soft_bvh_prng_cuda, soft.soft_bvh_table_cuda),
-                "cone": (soft.soft4_prng_cuda, soft.soft4_table_cuda)}
+    # Both routes launch one pair of wrappers; the table keeps a row per route.
+    wrappers = (soft.soft4_prng_cuda, soft.soft4_table_cuda)
+
+    def row_key(f, w, route):
+        return f"{f.__name__}:w{w}" + (":sample" if route == "sample" else "")
     v_sub = torch.arange(SOFT_SUB, device=device) % 8 != 0  # as phase 16
     sampler_plain, per_sample = {}, {}
     for label, (scene, pos, valid, light, _) in frames.items():
@@ -2071,7 +2076,7 @@ def width_phases(out, device, check, note, kernels, e2e, results, scenes) -> dic
             for route, rw in routes:
                 if rw != w:
                     continue
-                prng, table = wrappers[route]
+                prng, table = wrappers
                 got_t = table(scene, tr, p_sub, *lights, g, valid=v_sub)
                 got_p = prng(scene, tr, p_sub, *lights, key, num, valid=v_sub)
                 exact = (torch.equal(got_t, want_t), torch.equal(got_p, want_p))
@@ -2081,7 +2086,7 @@ def width_phases(out, device, check, note, kernels, e2e, results, scenes) -> dic
                       f"{table_ms:.1f} ms, {prng_ms:.1f} ms)")
                 assert all(exact), (label, route, w)
                 for f in (prng, table):
-                    note(f"{f.__name__}:w{w}", 0.0, 0.0)
+                    note(row_key(f, w, route), 0.0, 0.0)
             # This run's work per sample ray at this width (twin's count).
             marked = torch.nonzero(v_sub).squeeze(1)
             so, sd, tm = soft.sample_rays(p_sub[marked][:, None], soft.philox_gauss(
@@ -2092,7 +2097,7 @@ def width_phases(out, device, check, note, kernels, e2e, results, scenes) -> dic
         # 4-wide kernel's (an any-hit count does not depend on the tree).
         ref = soft.soft4_prng_cuda(scene, stree[(label, 4)], pos, *lights, key, num, valid=valid)
         for route, w in routes:
-            got = wrappers[route][0](scene, stree[(label, w)], pos, *lights, key, num, valid=valid)
+            got = wrappers[0](scene, stree[(label, w)], pos, *lights, key, num, valid=valid)
             same = (got == ref).float().mean().item()
             print(f"  {label} 1024^2, all {pos.shape[0]} points ({int(valid.sum())} hit): '{route}'"
                   f" width {w} counts equal the 4-wide kernel's on {same:.5%} of points, max "
@@ -2139,15 +2144,21 @@ def width_phases(out, device, check, note, kernels, e2e, results, scenes) -> dic
         torch.cuda.synchronize()
         return images, {**b4.launch_counts(), **soft.launch_counts()}
 
-    vmem_imgs, vmem_counts = drive({**point_cfgs, **soft_cfgs})
+    # The 'sample' route alone: its sampler counts as the cone's at width 2.
+    sample = "spherical teacup soft_shadow_tile=sample"
+    sample_imgs, sample_counts = drive({sample: soft_cfgs[sample]})
+    print(f"  launch counts, 'sample' route {sample_counts}")
+    vmem_imgs, vmem_counts = drive({**point_cfgs, **{k: v for k, v in soft_cfgs.items()
+                                                     if k != sample}})
+    vmem_imgs.update(sample_imgs)
     print(f"  launch counts, on-chip tier {vmem_counts}")
     large_imgs, large_counts = drive(large_cfgs)
     print(f"  launch counts, large tier {large_counts}")
-    for counts_, keys in ((vmem_counts, ("intersect_bvh4_cuda:w2", "occluded_bvh4_cuda:w2",
+    for counts_, keys in ((sample_counts, ("bounce_bvh4_cuda:w2", "soft4_prng_cuda:w2")),
+                          (vmem_counts, ("intersect_bvh4_cuda:w2", "occluded_bvh4_cuda:w2",
                                          "bounce_bvh4_cuda:w2", "intersect_bvh4_cuda:w8",
                                          "occluded_bvh4_cuda:w8", "bounce_bvh4_cuda:w8",
-                                         "soft_bvh_prng_cuda:w2", "soft4_prng_cuda:w2",
-                                         "soft4_prng_cuda:w8")),
+                                         "soft4_prng_cuda:w2", "soft4_prng_cuda:w8")),
                           (large_counts, ("intersect_bvh4_cuda:w2", "occluded_bvh4_cuda:w2",
                                           "bounce_bvh4_cuda:w2"))):
         for k in keys:
@@ -2165,9 +2176,11 @@ def width_phases(out, device, check, note, kernels, e2e, results, scenes) -> dic
                                    + vmem_counts["occluded_bvh4_cuda:w8"]),
         "bounce_bvh4_cuda:w8": vmem_counts["bounce_bvh4_cuda:w8"],
     }
-    for k in ("soft_bvh_prng_cuda:w2", "soft_bvh_table_cuda:w2", "soft4_prng_cuda:w2",
-              "soft4_table_cuda:w2", "soft4_prng_cuda:w8", "soft4_table_cuda:w8"):
+    for k in ("soft4_prng_cuda:w2", "soft4_table_cuda:w2", "soft4_prng_cuda:w8",
+              "soft4_table_cuda:w8"):
         width_counts[k] = vmem_counts[k]
+    for k in ("soft4_prng_cuda:w2", "soft4_table_cuda:w2"):
+        width_counts[f"{k}:sample"] = sample_counts[k]
     # Each image against the plain path on the config render() resolved; the
     # spherical ones at 256^2 on one generator (the samplers' twins on a
     # whole 1024^2 frame take tens of seconds).
@@ -2303,13 +2316,12 @@ def width_phases(out, device, check, note, kernels, e2e, results, scenes) -> dic
         prng_plain, table_plain = sampler_plain[("teacup", w)]
         work = per_sample[("teacup", w)]
         tbytes = roofline.tree_bytes(tr)
-        prng_w, table_w = (f"{f.__name__}:w{w}" for f in wrappers[route])
+        prng_w, table_w = (row_key(f, w, route) for f in wrappers)
         for wrapper, fn, plain_ms, points, flops, int_ops, bytes_ in (
-                (prng_w, lambda: soft._tree_kernel(tr, pos, light, num, v8, key, None, route),
+                (prng_w, lambda: soft._tree_kernel(tr, pos, light, num, v8, key, None),
                  prng_plain, n_valid, n_valid * num * (roofline.SAMPLE_FLOPS + work),
                  n_valid * num * roofline.PHILOX_INT_OPS, pos.shape[0] * (12 + 1 + 4) + 16 + tbytes),
-                (table_w, lambda: soft._tree_kernel(tr, p_sub, light, num, None, None, g_nsc,
-                                                    route),
+                (table_w, lambda: soft._tree_kernel(tr, p_sub, light, num, None, None, g_nsc),
                  table_plain, SOFT_SUB, SOFT_SUB * num * (roofline.SAMPLE_FLOPS - 25 + work), 0,
                  SOFT_SUB * (12 + 4 + 12 * num) + 16 + tbytes)):
             ms = median(time_frames(fn, iters=20, warmup=1))
@@ -2385,14 +2397,14 @@ for name in ("spherical_box", "spherical_teacup"):
     scene = load_standin(name, dev)
     accel = build_accel(scene, RenderConfig()) if name == "spherical_teacup" else None
     hit = (ck.intersect_cuda(scene, o, d) if accel is None
-           else b4.intersect_bvh4_cuda(scene, accel.primary, o, d))
+           else b4.intersect_bvh4_cuda(scene, accel, o, d))
     valid = hit.prim_id >= 0
     pos = torch.where(valid[:, None], o + d * torch.where(valid, hit.t, 0.0)[:, None], 0.0)
     light = (scene.spherical_lights.position[0], scene.spherical_lights.radius[0])
     if accel is None:
         soft.soft_prng_cuda(scene, pos.contiguous(), *light, key, 200, valid=valid)
     else:
-        soft.soft4_prng_cuda(scene, accel.soft, pos.contiguous(), *light, key, 200, valid=valid)
+        soft.soft4_prng_cuda(scene, accel, pos.contiguous(), *light, key, 200, valid=valid)
 torch.cuda.synchronize()
 """
 NCU_METRICS = ("smsp__inst_executed.sum", "smsp__thread_inst_executed.sum",
@@ -5028,7 +5040,7 @@ def dispatch_phase(out, device, kernels, e2e, results, scenes, mb_twins,
                  "graphed": lambda: whitted.render_resolved(scene, cam, rcfg, accel)}
         row = {"size": size, "first_call_s": first_s, "warmup_s": graph.warmup_s,
                "capture_s": graph.capture_s, "pool_mb": graph.pool_mb,
-               "launches per replay": {w.__name__: d[0] for w, d in graph.launches.items()},
+               "launches per replay": graph.tally.by_name(),
                "launches": counts}
         for kind, fn in calls.items():
             row[f"{kind}_ms"] = median(time_frames(fn, iters=3, warmup=1))
@@ -5405,6 +5417,12 @@ def level_phase(out, device, kernels, e2e, results, scenes, parent=None) -> dict
         key = whitted._frame_key(scene, gen(1))
         roots = [] if key is None else [key]
         held = {}
+
+        def replay(graph):
+            """One frame of ``graph`` on this route's inputs, as render() runs it."""
+            graph.load((scene, cam))
+            return graph.replay(roots)
+
         for who in ("kernel", "chain"):
             if who == "chain":
                 lv.level_cuda, kept = lv.level_plain, lv.level_cuda
@@ -5417,10 +5435,10 @@ def level_phase(out, device, kernels, e2e, results, scenes, parent=None) -> dict
                     lv.level_cuda = kept
         row = {}
         for who in ("kernel", "chain", "chain", "kernel"):
-            fn = partial(held[who], (scene, cam), roots)
+            fn = partial(replay, held[who])
             row.setdefault(f"{who}_ms", []).append(median(time_frames(fn, iters=3, warmup=1)))
         for who, g in held.items():
-            prof = device_breakdown(partial(g, (scene, cam), roots), iters=2)
+            prof = device_breakdown(partial(replay, g), iters=2)
             row[f"{who}_busy"] = prof["busy"]
             row[f"{who}_kernels"] = sum(k[2] for k in prof["kernels"])
             row[f"{who}_by_name"] = {k[0][:80]: k[2] for k in prof["kernels"]}

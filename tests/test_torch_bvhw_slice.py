@@ -56,7 +56,7 @@ def test_binary_table_samplers_match_jax(tile, num):
            else jpb.soft_shadow_counts_pallas_bvh_cone)
     want = np.asarray(run(j, packed, jnp.asarray(pos), lpos, lrad, None, num, interpret=True,
                           gauss=jnp.asarray(g)))
-    twin = soft.soft_bvh_table_plain if tile == "sample" else soft.soft4_table_plain
+    twin = soft.soft4_table_plain  # both routes: the one tree sampler
     args = (torch.from_numpy(pos), t.spherical_lights.position[0],
             t.spherical_lights.radius[0], torch.from_numpy(g))
     bvh = carried(jt)

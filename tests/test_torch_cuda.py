@@ -250,7 +250,7 @@ def spherical_on_card():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     device = torch.device("cuda")
     box, cup = load_standin("spherical_box", device), load_standin("spherical_teacup", device)
-    tree = build_accel(cup, RenderConfig()).primary
+    tree = build_accel(cup, RenderConfig())
     o, d = generate_rays(Camera.default(device=device), 128, 128)
     points = {}
     for label, hit in (("box", ck.intersect_cuda(box, o, d)),
@@ -489,28 +489,27 @@ def test_width_kernel_matches_plain_on_card(width, kernel, teacup_on_card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route,width", [("sample", 2), ("cone", 2), ("cone", 8)])
+@pytest.mark.parametrize("route,width", [("sample", 2), ("cone", 2), ("cone", 4), ("cone", 8)])
 def test_tree_sampler_widths_on_card(route, width, spherical_on_card):
-    # B12 ('sample', the primary binary tree), B11 ('cone' over a binary
-    # tree) and B15's cone at width 8: the PRNG kernel equal to its twin,
-    # and its counts equal to the 4-wide kernel's (a count does not depend
-    # on the tree).
+    # B12 ('sample': the scene's tree made binary), B11 ('cone' over a
+    # binary tree), B10 and B15's cone at widths 4 and 8, each over the one
+    # tree build_accel gives: the PRNG kernel equal to its twin, and its
+    # counts equal to the 4-wide kernel's (a count does not depend on the
+    # tree).
     _, cup, tree4, _, _, points = spherical_on_card
     pos, valid = points["cup"]
     lpos, lrad = cup.spherical_lights.position[0], cup.spherical_lights.radius[0]
     tree = build_accel(cup, RenderConfig(bvh_wide=str(width), soft_shadow_tile=route))
-    tree = tree if isinstance(tree, b4.BVH4) else tree.soft
-    assert tree.width == width
-    run, plain = ((soft.soft_bvh_prng_cuda, soft.soft_bvh_prng_plain) if route == "sample"
-                  else (soft.soft4_prng_cuda, soft.soft4_prng_plain))
+    assert isinstance(tree, b4.BVH4) and tree.width == width
     key = soft.SampleKey(11, 22, 33)
     before = soft.launch_counts()
-    got = run(cup, tree, pos, lpos, lrad, key, 200, valid=valid)
-    assert torch.equal(got, plain(cup, tree, pos, lpos, lrad, key, 200, valid=valid))
+    got = soft.soft4_prng_cuda(cup, tree, pos, lpos, lrad, key, 200, valid=valid)
+    assert torch.equal(got, soft.soft4_prng_plain(cup, tree, pos, lpos, lrad, key, 200,
+                                                  valid=valid))
     assert torch.equal(got, soft.soft4_prng_cuda(cup, tree4, pos, lpos, lrad, key, 200,
                                                  valid=valid))
-    name = "soft_bvh_prng_cuda" if route == "sample" else "soft4_prng_cuda"
-    assert soft.launch_counts()[f"{name}:w{width}"] > before[f"{name}:w{width}"]
+    name = f"soft4_prng_cuda:w{width}"
+    assert soft.launch_counts()[name] > before[name]
 
 
 @pytest.mark.cuda
@@ -534,7 +533,7 @@ def test_width_routes_render_on_card(route, spherical_on_card, donut_on_card):
     img = render(scene, cam, cfg, accel=accel)
     counts = {**b4.launch_counts(), **soft.launch_counts()}
     if route == "sample":
-        assert counts["soft_bvh_prng_cuda:w2"] > 0 and counts["soft4_prng_cuda"] == 0
+        assert 0 < counts["soft4_prng_cuda:w2"] == counts["soft4_prng_cuda"]
     assert counts["bounce_bvh4_cuda:w2"] > 0
     plain = render_image(scene, cam, cfg, backend=make_backend(scene, cfg, plain=True,
                                                                accel=accel), generator=gen)

@@ -154,24 +154,20 @@ def test_vertex_gradient_through_a_refit_matches_jax():
 
 
 def test_bundle_of_one_tree_stays_one_tree():
+    """A spherical-light mesh has one tree, which the primary kernels and
+    the tree sampler both walk: a ``BVH4`` that plans and refits."""
     _, t, _, t2 = moved_cup()
     sph = dataclasses.replace(t, spherical_lights=trt.SphericalLights.of(((-1, 1, -1), 0.1,
                                                                          (1, 1, 1))))
     sph2 = dataclasses.replace(sph, vertices=t2.vertices)
     cfg = trt.RenderConfig(backend="cuda", soft_shadow_kernel="on")
-    bundle = tw.build_accel(sph, cfg)
-    assert isinstance(bundle, tw.AccelBundle) and bundle.soft is bundle.primary
-    plan = make_refit_plan(bundle)
-    assert plan[1] is None
-    refit = refit_accel(bundle, sph2, plan)
-    assert refit.soft is refit.primary
-    assert not torch.equal(refit.primary.boxes, bundle.primary.boxes)
-    # Knobs that give the sampler a tree of its own: both trees refit.
-    two = tw.build_accel(sph, dataclasses.replace(cfg, soft_bvh_max_leaf=14))
-    assert two.soft is not two.primary
-    refit2 = refit_accel(two, sph2)
-    assert refit2.soft is not refit2.primary
-    assert torch.equal(refit2.primary.tris, refit.primary.tris)
-    assert all(_same_bits(refit_accel(two.soft, sph2), refit2.soft, ("boxes", "tris")).values())
+    tree = tw.build_accel(sph, cfg)
+    assert isinstance(tree, tb4.BVH4) and tree.width == tw.tree_width(sph, cfg)
+    plan = make_refit_plan(tree)
+    refit = refit_accel(tree, sph2, plan)
+    assert isinstance(refit, tb4.BVH4) and refit.width == tree.width
+    assert not torch.equal(refit.boxes, tree.boxes)
+    assert all(_same_bits(refit_accel(tree, sph2), refit, ("boxes", "tris", "nodes")).values())
+    assert all(_same_bits(refit_accel(tree, sph, plan), tree, ("boxes", "tris")).values())
     with pytest.raises(TypeError, match="no refit"):
         refit_accel(object(), t2, plan=())

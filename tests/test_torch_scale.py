@@ -97,7 +97,7 @@ def test_routing_past_the_on_chip_tier(donut):
     # tier has none), the scan over the any-hit kernel instead.
     sph = dataclasses.replace(t, spherical_lights=trt.SphericalLights.of(((-1, 1, -1), 0.1,
                                                                          (1, 1, 1))))
-    assert not soft.supports_soft_shadow_kernel_bvh4(sph)
+    assert not soft.supports_soft_shadow_kernel_bvh(sph)
     on = dataclasses.replace(cfg, width=8, height=8, soft_shadow_kernel="on",
                              soft_shadow_samples=4)
     accel = tw.build_accel(sph, on)

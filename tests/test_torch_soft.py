@@ -306,23 +306,17 @@ def test_render_stream_is_seeded_and_chunk_independent():
 
 
 def test_soft_config_errors_match_jax():
-    for field, bad in (("soft_shadow_kernel", "yes"), ("soft_shadow_tile", "rows"),
-                       ("soft_bvh_builder", "lbvh")):
+    for field, bad in (("soft_shadow_kernel", "yes"), ("soft_shadow_tile", "rows")):
         j_err = t_err = None
         jcfg, tcfg = JConfig(**{field: bad}), trt.RenderConfig(**{field: bad})
         resolve = {"soft_shadow_kernel": ("resolve_soft_shadow_kernel", ("cpu",)),
-                   "soft_shadow_tile": ("resolve_soft_shadow_tile", ()),
-                   "soft_bvh_builder": ("resolve_soft_bvh_builder", ())}[field]
+                   "soft_shadow_tile": ("resolve_soft_shadow_tile", ())}[field]
         with pytest.raises(ValueError) as j_err:
             getattr(jcfg, resolve[0])(*resolve[1])
         with pytest.raises(ValueError) as t_err:
             args = (torch.device("cpu"),) if field == "soft_shadow_kernel" else ()
-            if field == "soft_bvh_builder":
-                args = (32, torch.device("cpu"))
             getattr(tcfg, resolve[0])(*args)
         assert str(t_err.value) == str(j_err.value), field
-    with pytest.raises(ValueError, match="soft_bvh_max_leaf must be positive"):
-        trt.RenderConfig(soft_bvh_max_leaf=-1).resolve_soft_bvh_max_leaf()
     assert (trt.RenderConfig(soft_shadow_tile="sample").resolve_soft_shadow_tile()
             == JConfig(soft_shadow_tile="sample").resolve_soft_shadow_tile() == "sample")
     cfg = trt.RenderConfig()
@@ -332,36 +326,26 @@ def test_soft_config_errors_match_jax():
     assert cfg.resolve_soft_shadow_kernel(torch.device("cuda"))
     assert not cfg.resolve_soft_shadow_kernel(torch.device("cpu"))
     assert trt.RenderConfig(soft_shadow_kernel="on").resolve_soft_shadow_kernel("cpu")
-    # The soft tree's auto is the primary tree's: one tree, no second build.
-    assert (cfg.resolve_soft_bvh_max_leaf(), cfg.resolve_soft_bvh_builder(48000, "cuda")) == \
-        (cfg.resolve_bvh_max_leaf(), cfg.resolve_bvh_builder(48000, "cuda"))
 
 
 @pytest.mark.parametrize("tile,wide", [("sample", "4"), ("cone", "2"), ("cone", "8")])
 def test_sampler_routes_to_its_tree(tile, wide, monkeypatch):
-    # 'sample' walks the primary tree and makes it binary whatever bvh_wide
-    # says (whitted.py:977-984 of the JAX package); 'cone' walks the soft
-    # tree, at the primary tree's width.
+    # Both routes walk the scene's one tree: 'sample' makes it binary
+    # whatever bvh_wide says (whitted.py:977-984 of the JAX package); 'cone'
+    # keeps bvh_wide.
     _, t = spherical_pair("cup")
     cfg = trt.RenderConfig(backend="cuda", soft_shadow_kernel="on", soft_shadow_tile=tile,
                            bvh_wide=wide)
     accel = tw.build_accel(t, cfg)
     width = 2 if tile == "sample" else int(wide)
     assert tw.tree_width(t, cfg) == width
-    if tile == "sample":
-        assert isinstance(accel, b4.BVH4) and accel.width == 2
-        primary = accel
-    else:
-        assert isinstance(accel, tw.AccelBundle) and accel.soft is accel.primary
-        primary = accel.primary
-    assert primary.width == width
+    assert isinstance(accel, b4.BVH4) and accel.width == width
     seen = []
-    name = "soft_bvh_prng_plain" if tile == "sample" else "soft4_prng_plain"
-    monkeypatch.setattr(soft, name, lambda scene, tree, *a, **k: seen.append(tree))
+    monkeypatch.setattr(soft, "soft4_prng_plain", lambda scene, tree, *a, **k: seen.append(tree))
     backend = tw.make_backend(t, cfg, plain=True, accel=accel)
     backend.soft_vis(t.spherical_lights.position[0], t.spherical_lights.radius[0],
                      torch.zeros((4, 3)), soft.SampleKey(1, 2))
-    assert len(seen) == 1 and seen[0] is primary
+    assert len(seen) == 1 and seen[0] is accel
     # A tree of another width than the config's is refused.
     other = b4.build_bvh4(t, max_leaf=4, builder="sah", width=4 if width != 4 else 8)[1]
     with pytest.raises(ValueError, match="width"):

@@ -14,7 +14,7 @@ inside ``cgrt.render.resolve`` on every frame of a tree scene and on none of
 the box; a first render's ``cgrt.accel.build`` with ``cgrt.accel.binary``
 and ``cgrt.accel.collapse`` inside; the tree-shape counters against the
 built tree and its binary tree; the rays counter carried through a
-capture's delta and its replays.
+capture's own tally and its replays.
 
 On the card (marker ``cuda``, skipped here): the ``cgrt.graph.*`` spans of a
 graphed frame, one ``cgrt.graph.capture`` on its first call and none on the
@@ -39,7 +39,7 @@ from cg_raytracer_tpu_torch.ops.bvh import build_bvh
 from cg_raytracer_tpu_torch.optim import inverse
 from cg_raytracer_tpu_torch.scene.presets import load_standin
 from cg_raytracer_tpu_torch.scene.types import PointLights, make_scene
-from cg_raytracer_tpu_torch.utils import graphs, profiling
+from cg_raytracer_tpu_torch.utils import counters, graphs, profiling
 
 SIZE = 16
 CLOCK_NS = 50_000
@@ -239,30 +239,27 @@ def test_tree_counts_match_the_built_tree():
                                    tree.slot_to_prim, tree.nodes, tree.rows))
 
 
-def test_rays_counter_carried_through_a_capture():
-    """A capture's delta of the walks' launches and rays, taken back and
-    added once per replay: N replays count N times the captured rays, and
-    ``replay_rays`` gives one replay's."""
+def test_rays_counter_carried_through_a_capture(monkeypatch):
+    """A capture's launches and rays go into the graph's own tally and not
+    the totals, and each replay adds that tally: N replays count N times
+    the captured rays, and ``replay_rays`` gives one replay's."""
+    monkeypatch.setattr(counters, "_LAST", [counters.Tally()])
     bvh4.reset_launch_counts()
-    before = graphs._counts()
-    bvh4.count_launch(bvh4.bounce_bvh4_cuda, 4, 640)
-    bvh4.count_launch(bvh4.bounce_bvh4_cuda, 4, 640)
-    bvh4.count_launch(bvh4.occluded_bvh4_cuda, 2, 100)
-    delta = graphs._delta(before, graphs._counts())
-    graphs._set_counts(before)
-    assert all(n == 0 for n in bvh4.ray_counts().values())
-    saved = graphs.Graph.last_launches
+    tally = counters.Tally()
     try:
+        with counters.recording(tally):
+            counters.count("bounce_bvh4_cuda", 4, 640)
+            counters.count("bounce_bvh4_cuda", 4, 640)
+            counters.count("occluded_bvh4_cuda", 2, 100)
+        assert all(n == 0 for n in bvh4.ray_counts().values())
         for _ in range(3):
-            graphs._add_counts(delta)
-            graphs.Graph.last_launches = delta
+            counters.replayed(tally)
         rays = bvh4.ray_counts()
         assert rays["bounce_bvh4_cuda:w4"] == 3 * 1280 and rays["occluded_bvh4_cuda:w2"] == 300
         assert bvh4.launch_counts()["bounce_bvh4_cuda"] == 6
         assert graphs.replay_rays() == {"bounce_bvh4_cuda": {2: 0, 4: 1280, 8: 0},
                                         "occluded_bvh4_cuda": {2: 100, 4: 0, 8: 0}}
     finally:
-        graphs.Graph.last_launches = saved
         bvh4.reset_launch_counts()
 
 
