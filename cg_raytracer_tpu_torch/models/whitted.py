@@ -42,6 +42,7 @@ package folds its PRNG key.
 from __future__ import annotations
 
 import dataclasses
+import operator
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -59,6 +60,7 @@ from ..ops.intersect import (intersect_brute, occluded_brute, reconstruct_hit,
                              record_surface)
 from ..ops.linalg import reflect, safe_normalize
 from ..scene.types import Camera, Scene
+from ..utils import counters, graphs
 from ..utils.config import RenderConfig
 from ..utils.profiling import span
 
@@ -596,14 +598,21 @@ def resolve_render(scene: Scene, cfg: RenderConfig, accel=None):
     ``cgrt.render.resolve``); the tree's, ``build_accel``, is the span
     ``cgrt.render.accel`` inside it, on scenes that walk a tree only."""
     with span("render.resolve"):
-        depth = effective_max_depth(scene, cfg)
-        if depth != cfg.max_depth:
-            cfg = dataclasses.replace(cfg, max_depth=depth)
-        cfg = resolve_fwd_shade_kernel(scene, cfg)
-        if accel is None and needs_bvh(cfg, scene.num_triangles, scene.device):
-            with span("render.accel"):
-                accel = build_accel(scene, cfg)
-        return cfg, accel
+        return _resolve(scene, cfg, accel)
+
+
+def _resolve(scene: Scene, cfg: RenderConfig, accel):
+    """``resolve_render``'s work, inside its caller's ``cgrt.render.resolve``
+    (which ``render()``'s graphed route opens around its frame plan's check
+    first, so that a frame holds one)."""
+    depth = effective_max_depth(scene, cfg)
+    if depth != cfg.max_depth:
+        cfg = dataclasses.replace(cfg, max_depth=depth)
+    cfg = resolve_fwd_shade_kernel(scene, cfg)
+    if accel is None and needs_bvh(cfg, scene.num_triangles, scene.device):
+        with span("render.accel"):
+            accel = build_accel(scene, cfg)
+    return cfg, accel
 
 
 def render_resolved(scene: Scene, camera: Camera, cfg: RenderConfig, accel=None,
@@ -612,11 +621,110 @@ def render_resolved(scene: Scene, camera: Camera, cfg: RenderConfig, accel=None,
     ``jit`` one replay of the frame's cached CUDA graph
     (``utils/graphs.py``), else ``render_image`` eagerly."""
     if jit and scene.device.type == "cuda":
-        from ..utils import graphs
-
-        return graphs.render(scene, camera, cfg, accel, generator)
+        with span("graph.inputs"):
+            key = _frame_key(scene, generator)
+            roots = [] if key is None else [key]
+            graph = graphs.render_graph(_graph_frame(cfg, accel), scene, camera, cfg, accel,
+                                        roots)[1]
+        return graph.replay(roots)
     return render_image(scene, camera, cfg, backend=make_backend(scene, cfg, accel=accel),
                         generator=generator)
+
+
+class FramePlan(NamedTuple):
+    """What one graphed ``render()`` resolved (``resolved``, the config;
+    ``tree``; ``walks``: it resolved a tree, span ``cgrt.render.accel``;
+    its ``graph`` under ``key``) for the ``scene`` object, ``cfg`` and
+    ``accel`` it was given, with the scene's leaves then (``leaves``) and
+    their ``_version``s, and the camera's type and its leaves' shapes and
+    dtypes (``camera``)."""
+    scene: Scene
+    cfg: RenderConfig
+    accel: object
+    leaves: list
+    versions: list
+    camera: tuple
+    resolved: RenderConfig
+    tree: object
+    walks: bool
+    graph: object
+    key: tuple
+
+    def inputs(self, scene: Scene, camera: Camera, cfg: RenderConfig, accel) -> Optional[list]:
+        """The call's input leaves (the scene's, then the camera's) where it
+        can replay this plan's graph as resolved; else None."""
+        if (scene is not self.scene or accel is not self.accel or not self.graph.live
+                or (cfg is not self.cfg and cfg != self.cfg)):
+            return None
+        tensors = graphs.leaves(scene)
+        if (len(tensors) != len(self.leaves) or not all(map(operator.is_, tensors, self.leaves))
+                or graphs._versions(tensors) != self.versions):
+            return None
+        cam = graphs.leaves(camera)
+        if _camera_meta(camera, cam) != self.camera:
+            return None
+        tensors += cam
+        if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
+            return None  # the full path raises
+        return tensors
+
+
+def _camera_meta(camera: Camera, leaves: list) -> tuple:
+    return type(camera), tuple((x.shape, x.dtype) for x in leaves)
+
+
+_PLAN_COUNTS = counters.Group("render_graphed", "render_plan_hit")
+
+
+def plan_counts() -> dict:
+    """{"calls": graphed ``render()`` calls, "hits": those that replayed
+    their frame plan}, over the process; kept after ``graphs.clear()``."""
+    counts = _PLAN_COUNTS.launch_counts()
+    return {"calls": counts["render_graphed"], "hits": counts["render_plan_hit"]}
+
+
+def _graph_frame(cfg: RenderConfig, accel):
+    """The frame a render graph captures (``graphs.render_graph``):
+    ``(scene, camera, keys) -> render_image``, its sample key ``keys[0]``."""
+    def frame(s, c, keys):
+        return render_image(s, c, cfg, backend=make_backend(s, cfg, accel=accel),
+                            generator=keys[0] if keys else None)
+
+    return frame
+
+
+def _render_graphed(scene: Scene, camera: Camera, cfg: RenderConfig, accel, generator):
+    """``render()`` on the card's graphed route: [H, W, 3].  Where the
+    frame plan of the last such call holds (``FramePlan.inputs``), its graph
+    replays at once; else ``resolve_render``'s resolution and
+    ``graphs.render_graph`` (a cache look-up or a capture), which make a
+    new plan."""
+    with span("render.resolve"):  # the plan's check, and on a miss the resolution
+        counters.count("render_graphed")
+        plan = graphs.CACHE.plan
+        inputs = None if plan is None else plan.inputs(scene, camera, cfg, accel)
+        if inputs is None:
+            resolved, tree = _resolve(scene, cfg, accel)
+        elif plan.walks:
+            with span("render.accel"):
+                tree = plan.tree
+    with span("graph.inputs"):
+        key = _frame_key(scene, generator)
+        roots = [] if key is None else [key]
+        if inputs is None:
+            k, graph = graphs.render_graph(_graph_frame(resolved, tree), scene, camera,
+                                           resolved, tree, roots)
+            walks = accel is None and needs_bvh(resolved, scene.num_triangles, scene.device)
+            src = graphs.leaves(scene)
+            versions = graphs._versions(src)
+            graphs.CACHE.plan = None if versions is None else FramePlan(
+                scene, cfg, accel, src, versions, _camera_meta(camera, graphs.leaves(camera)),
+                resolved, tree, walks, graph, k)
+        else:
+            counters.count("render_plan_hit")
+            graph = graphs.CACHE.get(plan.key)  # the most recently used
+            graph.load_changed(inputs)
+    return graph.replay(roots)
 
 
 def render(scene: Scene, camera: Camera, cfg: RenderConfig,
@@ -639,7 +747,21 @@ def render(scene: Scene, camera: Camera, cfg: RenderConfig,
     requires one raises under ``jit``.  ``jit=False``, and every CPU scene,
     renders eagerly.  The call is the span ``cgrt.render``
     (``utils/profiling.py::span``).
+
+    A graphed call remembers its frame plan (``FramePlan``): the next call
+    with the same scene object, ``accel`` and an equal ``cfg``, whose scene
+    leaves are the same tensors at the same ``_version``, while the plan's
+    graph is cached, skips the resolution (no host read of ``ks``, no tree
+    look-up) and the cache key, and copies into the graph only the leaves
+    that changed (``utils/graphs.py::Graph.load_changed``).  So edit a scene
+    or camera between frames through PyTorch's in-place ops or new tensors:
+    a write PyTorch does not see (through ``.data``, or a raw pointer) is
+    not seen by the next frame either.
     """
     with span("render"):
+        # ``is_cuda``: ``scene.device`` builds a device object, some µs cold
+        # on the card's host, outside every part of ``cgrt.render``.
+        if jit and scene.vertices.is_cuda:
+            return _render_graphed(scene, camera, cfg, accel, generator)
         cfg, accel = resolve_render(scene, cfg, accel)
         return render_resolved(scene, camera, cfg, accel, generator, jit)

@@ -268,6 +268,7 @@ class KeyTable:
             if self.words.is_cuda:
                 host = host.pin_memory()
             self.words[:len(self.paths)].copy_(host, non_blocking=True)
+            del host  # the pinned block's release records an event: part of the fill
 
     def __enter__(self):
         if _TABLE[0] is not None:

@@ -1,6 +1,7 @@
 """The host's launch counters: one registry for the kernel wrappers of
 ``ops/`` (``cuda_kernels``, ``shade``, ``bvh4``, ``soft``, ``effects``,
-``level``).
+``level``), and for ``models/whitted.py``'s graphed ``render()`` calls and
+their frame plan's hits (``plan_counts``).
 
 A wrapper counts each launch of its kernel with ``count``, by its name and,
 for a walk of a tree, the tree's node width and the rays it was handed.

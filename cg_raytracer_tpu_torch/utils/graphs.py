@@ -18,11 +18,26 @@ step more; replayed, it is one ``torch.cuda.CUDAGraph.replay()``.
   graph's inputs; before each replay the call's tensors are copied into
   them (one ``torch._foreach_copy_``), so another scene of the same
   structure replays the same graph, as a jitted JAX function takes new
-  arrays of the same shapes.  A replay returns clones of the graph's
-  outputs.
+  arrays of the same shapes.  A render's graph records, for each input
+  slot, the tensor and the ``_version`` it last copied in, and copies only
+  the slots whose tensor or version differs (``Graph.load_changed``: an
+  orbit's frame copies the camera's moved leaf alone); a training chunk
+  and ``fwd_bwd`` copy every input (``Graph.load``).  A replay returns
+  clones of the graph's outputs.
+- **The contract of the record**: a scene or camera changes between
+  calls through PyTorch's in-place ops (which bump the tensor's
+  ``_version``) or new tensors.  A write PyTorch does not see (through
+  ``.data``, or a raw pointer handed to a kernel) is not seen here either;
+  the port's kernels write only their outputs, and a training chunk's
+  replay, which moves its parameters in place, bumps their versions.
+  ``models/whitted.py::render``'s frame plan rests on the same contract.
+- **The caller's plan** (``GraphCache.plan``): one object the caller keeps
+  beside its graphs (``models/whitted.py::FramePlan``), dropped with them by
+  ``clear()``.
 - **Spans** (``utils/profiling.py::span``, recorded only under a profiler):
-  ``cgrt.graph.inputs`` from the call's key to the input copy (with
-  ``cgrt.graph.capture`` inside it on a miss), ``cgrt.graph.key_fill``,
+  ``cgrt.graph.inputs`` (opened by the caller, ``models/whitted.py``,
+  around the frame's key, ``render_graph``'s look-up and the input copy,
+  with ``cgrt.graph.capture`` inside it on a miss), ``cgrt.graph.key_fill``,
   ``cgrt.graph.replay``, ``cgrt.graph.outputs``.
 - **Sample keys**: a graph freezes every kernel scalar, so the spherical
   lights' keys reach the samplers through the device buffer of an
@@ -42,7 +57,9 @@ step more; replayed, it is one ``torch.cuda.CUDAGraph.replay()``.
   intermediates and outputs (hundreds of MB for a 1024^2 frame or a step's
   saved tensors).  The cache keeps at most ``MAX_GRAPHS`` = 8 graphs; the
   least recently used goes first, and its pool is released to PyTorch's
-  allocator (``clear()`` releases every one).
+  allocator (``clear()`` releases every one).  A render's graph also holds
+  the tensors it last copied in (its record), and the cache its caller's
+  plan, until the next call or ``clear()``.
 - **No fallback**: on the card a capture that fails raises.  CPU tensors
   never reach this module: a caller on the CPU asked for the CPU and runs
   eagerly.
@@ -122,6 +139,15 @@ def render_key(scene, camera, cfg, accel=None) -> tuple:
                      scene.spherical_lights.position.shape[0] > 0, accel)
 
 
+def _versions(tensors) -> Optional[list]:
+    """Each tensor's ``_version``; None where one keeps none (a tensor made
+    under ``torch.inference_mode``), so that it is copied every time."""
+    try:
+        return [x._version for x in tensors]
+    except RuntimeError:
+        return None
+
+
 def replay_rays() -> dict:
     """The rays one replay of the last graph replayed hands each tree walk
     ({wrapper name: {node width: rays}}, the walks it launches; {} before
@@ -149,7 +175,9 @@ class Graph:
         with span("graph.capture"):
             device = torch.device(device)
             self.hold = hold
-            self.static = [x.detach().clone() for x in leaves(inputs)]
+            src = leaves(inputs)
+            self.static = [x.detach().clone() for x in src]
+            self.sources, self.versions = src, _versions(src)  # what each slot holds
             static = rebuild(inputs, iter(self.static))
             t0 = time.perf_counter()
             side = torch.cuda.Stream(device)
@@ -172,13 +200,42 @@ class Graph:
                 self.out = fn(*static, [self.keys.root(j, k) for j, k in enumerate(roots)])
             self.capture_s = time.perf_counter() - t0  # capture and instantiation
             self.pool_mb = (torch.cuda.memory_reserved(device) - reserved) / 2 ** 20
+            # A function that wrote its own inputs (in place, so their versions
+            # moved) leaves them unlike their sources: copy every slot then.
+            written = _versions(self.static)
+            self.writes_inputs = written is None or any(written)
+
+    @property
+    def live(self) -> bool:
+        """Not yet released."""
+        return self.graph is not None
 
     def load(self, inputs) -> None:
-        """Copy ``inputs`` into the graph's."""
+        """Copy every leaf of ``inputs`` into the graph's."""
         src = [x.detach() for x in leaves(inputs)]
         if len(src) != len(self.static):
             raise ValueError("graph inputs of another structure")
         torch._foreach_copy_(self.static, src)
+        self.sources = None  # unrecorded: the next load_changed copies every slot
+
+    def load_changed(self, src: list) -> list:
+        """Copy into the graph's inputs each of ``src`` (the inputs' leaves,
+        in ``leaves`` order) that is not the tensor, at the same
+        ``_version``, that the last load copied into its slot -> the slots
+        copied."""
+        if len(src) != len(self.static):
+            raise ValueError("graph inputs of another structure")
+        versions = _versions(src)
+        if self.sources is None or versions is None or self.writes_inputs:
+            stale = list(range(len(src)))
+        else:
+            stale = [i for i, (x, v, y, w) in enumerate(zip(src, versions, self.sources,
+                                                            self.versions))
+                     if x is not y or v != w]
+        for i in stale:  # a copy each, as the full load's mixed dtypes take: no kernel
+            self.static[i].copy_(src[i].detach())
+        self.sources, self.versions = (src, versions) if versions is not None else (None, None)
+        return stale
 
     def replay(self, roots: Sequence):
         """Write the keys of ``roots``, replay -> clones of the outputs."""
@@ -192,15 +249,17 @@ class Graph:
     def release(self) -> None:
         """Free the graph and its pool (outputs and inputs included)."""
         self.graph.reset()
-        self.graph = self.out = self.static = self.hold = None
+        self.graph = self.out = self.static = self.hold = self.sources = None
 
 
 class GraphCache:
-    """Graphs by key, at most ``capacity``, least recently used out first."""
+    """Graphs by key, at most ``capacity``, least recently used out first;
+    and the plan its caller keeps beside them (``plan``)."""
 
     def __init__(self, capacity: int = MAX_GRAPHS):
         self.capacity = capacity
         self.entries: collections.OrderedDict = collections.OrderedDict()
+        self.plan = None
 
     def get(self, key) -> Optional[Graph]:
         graph = self.entries.get(key)
@@ -215,6 +274,7 @@ class GraphCache:
         return graph
 
     def clear(self) -> None:
+        self.plan = None
         while self.entries:
             self.entries.popitem(last=False)[1].release()
 
@@ -237,8 +297,8 @@ def forget(owner) -> None:
         CACHE.entries.pop(key).release()
 
 
-def _no_grad_inputs(inputs, what: str) -> None:
-    if torch.is_grad_enabled() and any(x.requires_grad for x in leaves(inputs)):
+def _no_grad_inputs(tensors, what: str) -> None:
+    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
         raise ValueError(f"{what} replays a CUDA graph, which autograd does not differentiate; "
                          f"pass jit=False to differentiate the render")
 
@@ -247,28 +307,20 @@ def _no_grad_inputs(inputs, what: str) -> None:
 # The graphed calls.
 # --------------------------------------------------------------------------
 
-def render(scene, camera, cfg, accel, generator) -> torch.Tensor:
-    """``models/whitted.py::render_image`` of a resolved ``cfg`` through the
-    cache: [H, W, 3].  ``generator``: as ``render()``'s, whose one sample
-    key the frame draws where the scene has spherical lights."""
-    from ..models import whitted
-
-    with span("graph.inputs"):
-        key = whitted._frame_key(scene, generator)
-        roots = [] if key is None else [key]
-        _no_grad_inputs((scene, camera), "render(jit=True)")
-        k = render_key(scene, camera, cfg, accel)
-        graph = CACHE.get(k)
-        if graph is None:
-            def frame(s, c, keys):
-                backend = whitted.make_backend(s, cfg, accel=accel)
-                return whitted.render_image(s, c, cfg, backend=backend,
-                                            generator=keys[0] if keys else None)
-
-            graph = CACHE.put(k, Graph(frame, (scene, camera), roots, scene.device,
-                                       hold=(accel,)))
-        graph.load((scene, camera))
-    return graph.replay(roots)
+def render_graph(frame: Callable, scene, camera, cfg, accel, roots) -> tuple:
+    """The cached graph of ``frame(scene, camera, keys)``, a render of the
+    resolved ``cfg`` with the tree ``accel`` (``models/whitted.py``),
+    captured on a miss, with the call's inputs copied into it
+    (``Graph.load_changed``) -> (its key, the graph)."""
+    src = leaves((scene, camera))
+    _no_grad_inputs(src, "render(jit=True)")
+    k = render_key(scene, camera, cfg, accel)
+    graph = CACHE.get(k)
+    if graph is None:
+        graph = CACHE.put(k, Graph(frame, (scene, camera), roots, scene.device,
+                                   hold=(accel,)))
+    graph.load_changed(src)
+    return k, graph
 
 
 def check_capturable(optimizer) -> None:
@@ -344,7 +396,11 @@ def train_chunk(step: Callable, params: dict, optimizer, inputs: tuple, keys: Se
             graph = CACHE.put(k, Graph(chunk, inputs, roots, device, warmup=warmup,
                                        hold=(owner, params, optimizer, *hold)))
         graph.load(inputs)
-    return graph.replay(roots)
+    losses = graph.replay(roots)
+    # The replay moved the parameters in place, which their versions do not
+    # show: bump them, so that a frame plan or a graph holding one copies it.
+    torch.autograd.graph.increment_version(list(params.values()))
+    return losses
 
 
 def fwd_bwd(fn: Callable, inputs: tuple, key, cfg, accel, owner) -> tuple:

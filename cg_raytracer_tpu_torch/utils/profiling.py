@@ -11,11 +11,14 @@ package's API, kept for parity; it is not the program's tracing.
 - ``cgrt.render`` (``models/whitted.py::render``, the whole call) holds
   ``cgrt.render.resolve`` (``resolve_render``: the host reads of ``ks``,
   ``fwd_shade_kernel``'s resolution, and on a scene that walks a tree
-  ``cgrt.render.accel``: ``build_accel``'s routing and memo look-up) and,
-  on the card's graphed route
-  (``utils/graphs.py``), ``cgrt.graph.inputs`` (the frame's key, the
-  no-grad check, the cache key, the cache look-up, the copy of the inputs
-  into the graph's), ``cgrt.graph.key_fill`` (``ops/soft.py::KeyTable.fill``:
+  ``cgrt.render.accel``: ``build_accel``'s routing and memo look-up; on the
+  graphed route the frame plan's check first, and where the plan holds
+  that check alone, with ``cgrt.render.accel`` around taking the plan's
+  tree) and, on the card's graphed route
+  (``utils/graphs.py``), ``cgrt.graph.inputs`` (the frame's key; on a
+  plan's miss the no-grad check and the cache key; the cache look-up; the
+  copy of the changed inputs into the graph's), ``cgrt.graph.key_fill``
+  (``ops/soft.py::KeyTable.fill``:
   the keys derived on the host and copied from pinned memory; only where
   the graph samples), ``cgrt.graph.replay`` (``CUDAGraph.replay``, one
   ``cudaGraphLaunch``) and ``cgrt.graph.outputs`` (the launch counts and
@@ -44,8 +47,10 @@ span).  Off, ``span`` returns a shared null context: no
 ``record_function``, no clock, no log.  On, a span enters
 ``torch.profiler.record_function("cgrt.<name>")``, so the profiler's
 Chrome trace nests it with the kernels it launches, and on its exit
-appends ``SpanRecord(name, t0_ns, t1_ns, parent, call)`` to a ring of the
-last ``SPAN_LOG_SIZE`` spans (``span_log``, ``clear_span_log``): ``parent``
+appends ``(name, t0_ns, t1_ns, parent, call)`` to a ring of the last
+``SPAN_LOG_SIZE`` spans, read as ``SpanRecord``s (``span_log``,
+``clear_span_log``; a plain tuple, so that little of a span's own
+bookkeeping falls after its end and outside it): ``parent``
 is the name of the span it opened in (None for a root), ``call`` the id
 each root takes anew and its spans share.  One host thread's spans nest;
 each thread keeps its own stack.
@@ -115,7 +120,7 @@ class _Span:
     def __exit__(self, *exc):
         self.fn.__exit__(*exc)
         _STACKS.stack.pop()
-        _SPAN_LOG.append(SpanRecord(self.name, self.t0, time.time_ns(), self.parent, self.call))
+        _SPAN_LOG.append((self.name, self.t0, time.time_ns(), self.parent, self.call))
         return False
 
 
@@ -130,7 +135,7 @@ def span(name: str):
 
 def span_log() -> list:
     """The ring's ``SpanRecord``s, oldest first (in the order they ended)."""
-    return list(_SPAN_LOG)
+    return [SpanRecord(*r) for r in _SPAN_LOG]
 
 
 def clear_span_log() -> None:

@@ -5,7 +5,8 @@ package's on-chip tier; widths 4 and 2),
 the soft-shadow samplers and the spherical-light shade on the spherical
 stand-ins (``presets.load_standin``), the donut's render and training step,
 ``optimize()`` with the refit, and compiled dispatch (``render()``'s graph
-replaying new inputs, ``optimize()``'s graphed chunks against the eager
+replaying new inputs, its frame plan against fresh captures and in-place
+edits, ``optimize()``'s graphed chunks against the eager
 loop, ``csrc/bloom.cu`` against its twins), and the default route's level
 kernels (``csrc/level.cu``) bit-equal to the chain.  Skipped where there is
 no CUDA device.
@@ -560,6 +561,102 @@ def test_graphed_render_replays_new_inputs_on_card(name, cuda_device):
         assert torch.equal(got, want)
         frames.append(got)
     assert len(graphs.CACHE) == 1 and not torch.equal(*frames)
+    graphs.clear()
+
+
+def _orbit(base, n):
+    # n poses of a trackball drag, each camera a view of one pose tensor,
+    # as benchmark/rtbench/orbit.py builds them.
+    step = torch.tensor([0.03, -0.02, 0.0], device=base.euler.device)
+    poses = base.euler + step * torch.arange(n, device=base.euler.device)[:, None]
+    return [dataclasses.replace(base, euler=poses[k]) for k in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mirror_box", "teacup"])
+def test_frame_plan_replays_as_a_fresh_capture_on_card(name, cuda_device):
+    # An orbit through the frame plan (one resolution, then the moved camera
+    # leaf copied a frame) against each pose after graphs.clear(): the same
+    # images bit for bit, and every frame after the first a hit.
+    from cg_raytracer_tpu_torch.models import whitted
+    from cg_raytracer_tpu_torch.utils import graphs
+
+    render = whitted.render
+    scene = (load_standin(name, device=cuda_device) if name == "mirror_box"
+             else load_scene(name, device=cuda_device))
+    cfg = RenderConfig(width=160, height=128)
+    cams = _orbit(Camera.default(aspect=160 / 128, device=cuda_device), 6)
+    graphs.clear()
+    before = whitted.plan_counts()
+    planned = [render(scene, cam, cfg) for cam in cams]
+    after = whitted.plan_counts()
+    assert after["calls"] - before["calls"] == 6 and after["hits"] - before["hits"] == 5
+    graph = graphs.CACHE.plan.graph
+    assert len(graphs.CACHE) == 1 and not graph.writes_inputs
+    for cam, img in zip(cams, planned):
+        graphs.clear()
+        assert torch.equal(render(scene, cam, cfg), img)
+    assert not torch.equal(planned[0], planned[-1])
+    graphs.clear()
+
+
+@pytest.mark.cuda
+def test_frame_plan_sees_in_place_edits_and_other_scenes_on_card(cuda_device):
+    # An in-place edit between two frames re-resolves (ks to zero cuts the
+    # depth to 1) and renders the edited scene; scenes A, B, A through one
+    # graph each render their own image.
+    from cg_raytracer_tpu_torch.models.whitted import render
+    from cg_raytracer_tpu_torch.utils import graphs
+
+    cfg = RenderConfig(width=96, height=96)
+    cam = Camera.default(device=cuda_device)
+    a, b = (load_standin("mirror_box", device=cuda_device) for _ in range(2))
+    b.materials.kd.mul_(0.5)
+    b.point_lights.position.add_(0.05)
+    graphs.clear()
+    imgs = [render(s, cam, cfg) for s in (a, b, a)]
+    assert len(graphs.CACHE) == 1
+    assert torch.equal(imgs[0], render(a, cam, cfg, jit=False)) and torch.equal(imgs[0], imgs[2])
+    assert torch.equal(imgs[1], render(b, cam, cfg, jit=False))
+    assert not torch.equal(imgs[0], imgs[1])
+    a.materials.kd.mul_(0.7)  # the same depth: the same graph, the leaf copied
+    got = render(a, cam, cfg)
+    assert torch.equal(got, render(a, cam, cfg, jit=False)) and len(graphs.CACHE) == 1
+    a.materials.ks.zero_()
+    got = render(a, cam, cfg)
+    assert graphs.CACHE.plan.resolved.max_depth == 1 and len(graphs.CACHE) == 2
+    assert torch.equal(got, render(a, cam, cfg, jit=False))
+    graphs.clear()
+
+
+@pytest.mark.cuda
+def test_frame_plan_sees_a_training_chunk_between_frames_on_card(cuda_device):
+    # A training chunk's replay moves its parameters in place; a scene that
+    # holds them renders the moved values in the next frame.
+    from cg_raytracer_tpu_torch.models.whitted import render
+    from cg_raytracer_tpu_torch.optim import inverse
+    from cg_raytracer_tpu_torch.parallel.sharding import make_train_loop
+    from cg_raytracer_tpu_torch.utils import graphs
+
+    box = load_standin("mirror_box", device=cuda_device)
+    cam = Camera.default(device=cuda_device)
+    cfg = RenderConfig(width=64, height=64)
+    target = render(box, cam, cfg) * 0.8
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in inverse.material_params(box).items()}
+    fitted = inverse.apply_material_params(box, params)  # its leaves are the parameters
+    with torch.no_grad():
+        first = render(fitted, cam, cfg)
+        assert render(fitted, cam, cfg) is not None and graphs.CACHE.plan.scene is fitted
+    opt = torch.optim.Adam(list(params.values()), lr=0.05, capturable=True)
+    loop = make_train_loop(inverse.training_config(cfg, False), opt,
+                           inverse.apply_material_params, 2)
+    loop(params, box, cam, target, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        moved = render(fitted, cam, cfg)
+        assert torch.equal(moved, render(fitted, cam, cfg, jit=False))
+    assert not torch.equal(moved, first)
+    graphs.forget(loop)
     graphs.clear()
 
 
