@@ -144,15 +144,25 @@ __device__ __forceinline__ void leaf_rows(const Tree& tr, int ref, int& first, i
   end = first + __float_as_int(__ldg(m + W));
 }
 
+// What any-hit walks did: internal nodes expanded and triangles tested, as
+// ops/bvh4.py _traverse_plain's stats count them ('visits', 'tests').
+struct WalkCount {
+  unsigned visits = 0u, tests = 0u;
+};
+
 // Whether a triangle lies at t in [0, t_max) on the ray: the any-hit walk.
-template <int W>
-__device__ __forceinline__ bool occluded(const Tree& tr, const Ray& r, float t_max) {
+// kCount: also add the walk's work to *count (the tree samplers' tally;
+// bvh4.cu's kernels instantiate the walk without it).
+template <int W, bool kCount = false>
+__device__ __forceinline__ bool occluded(const Tree& tr, const Ray& r, float t_max,
+                                         WalkCount* count = nullptr) {
   const float ix = 1.0f / r.dx, iy = 1.0f / r.dy, iz = 1.0f / r.dz;
   const float bound = padded(t_max);
   int stack[kStack];
   int sp = 0, ref = 0;
   for (;;) {
     if (ref >= 0) {
+      if constexpr (kCount) ++count->visits;
       float ts[W];
       int es[W];
       expand<W>(tr, ref, r, ix, iy, iz, bound, ts, es);
@@ -172,6 +182,7 @@ __device__ __forceinline__ bool occluded(const Tree& tr, const Ray& r, float t_m
       int first, end;
       leaf_rows<W>(tr, ref, first, end);
       for (int k = first; k < end; ++k) {
+        if constexpr (kCount) ++count->tests;
         const float4* row = tr.rows + 3 * k;
         if (mt_blocks(__ldg(row), __ldg(row + 1), __ldg(row + 2), r, t_max)) return true;
       }

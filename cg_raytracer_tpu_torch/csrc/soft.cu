@@ -82,6 +82,16 @@
 // adds its two sums once to the wrapper's int64 pair (ops/soft.py
 // cull_counts).
 //
+// The tree samplers' tally (soft_kernel<kTable, W> for W > 0; the walk's
+// counting compiled into these instantiations alone, bvh4.cuh occluded<W,
+// true>): each thread counts its live samples (every sample of a marked
+// point) and its walks' internal nodes expanded and triangles tested, as
+// ops/bvh4.py _traverse_plain's stats count them; after the grid-stride loop
+// a warp sums each count (__reduce_add_sync), its four warps' sums meet in
+// the block's shared memory, and one thread adds the block's to the
+// wrapper's int64 triple (ops/soft.py tree_sampler_counts): one global add
+// per count and block.
+//
 // Why the cull changes no count.  u = 2^-24 (kUlp); a triangle is the rows
 // MT reads, v0, e1, e2 (floats), N = e1 x e2, n = |N|, a = |e1|, b = |e2|,
 // g = ab / n.  Every sample ray the kernel forms from p (sample_ray) has
@@ -170,7 +180,9 @@ struct SoftScene {
   const float* __restrict__ tris;  // brute: [T, 9] v0, v1, v2
   int num_tris;                    // brute
   Tree tree;                       // tree: its records (bvh4.cuh)
-  unsigned long long* tally;       // brute: [2] += (tests kept, tests of full sweeps), or null
+  // brute: [2] += (tests kept, tests of full sweeps); tree: [3] += (live
+  // samples, internal nodes expanded, triangle tests); or null
+  unsigned long long* tally;
 };
 
 // Philox4x32-10 (Salmon et al., SC'11), as curand_Philox4x32_10; each
@@ -239,16 +251,18 @@ __device__ __forceinline__ Ray sample_of(const SoftArgs& a, int i, int s, float 
 }
 
 // Whether sample s of point i (at p) reaches the light l: an any-hit sweep
-// of the staged triangles or an any-hit walk of the tree.
+// of the staged triangles or an any-hit walk of the tree, whose work is
+// added to *walks.
 template <bool kTable, int W>
 __device__ __forceinline__ bool sample_visible(const SoftArgs& a, const SoftScene& sc,
                                                const float4* s_tri, int i, int s, float px,
-                                               float py, float pz, unsigned k0, unsigned k1) {
+                                               float py, float pz, unsigned k0, unsigned k1,
+                                               WalkCount* walks) {
   float tm;
   const Ray r = sample_of<kTable>(a, i, s, px, py, pz, k0, k1, tm);
   if (!(tm > 0.0f)) return true;
   if constexpr (W > 0) {
-    return !occluded<W>(sc.tree, r, tm);
+    return !occluded<W, true>(sc.tree, r, tm, walks);
   } else {
     return !any_hit_sweep(s_tri, sc.num_tris, r, tm);
   }
@@ -466,11 +480,44 @@ __device__ __forceinline__ void tally_full_sweeps(const SoftScene& sc, long long
   }
 }
 
+// The warp's sum of x, exact for any 32-bit x: its two 16-bit halves
+// summed apart (every lane takes part).
+__device__ __forceinline__ unsigned long long warp_sum(unsigned x) {
+  const unsigned lo = __reduce_add_sync(0xFFFFFFFFu, x & 0xFFFFu);
+  const unsigned hi = __reduce_add_sync(0xFFFFFFFFu, x >> 16);
+  return static_cast<unsigned long long>(lo) + (static_cast<unsigned long long>(hi) << 16);
+}
+
+// The tree samplers' tally, by every thread of the block after its loop:
+// the block's (live samples, nodes expanded, triangles tested), each warp's
+// sums staged in s_warps ([warps][3]: the launch's dynamic shared memory),
+// one global add each by thread 0.
+__device__ __forceinline__ void tally_walks(const SoftScene& sc, unsigned live,
+                                            const WalkCount& walks,
+                                            unsigned long long* s_warps) {
+  if (sc.tally == nullptr) return;
+  const unsigned long long sums[3] = {warp_sum(live), warp_sum(walks.visits),
+                                      warp_sum(walks.tests)};
+  if (threadIdx.x % kWarp == 0) {
+    for (int c = 0; c < 3; ++c) s_warps[3 * (threadIdx.x / kWarp) + c] = sums[c];
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  unsigned long long block[3] = {0ull, 0ull, 0ull};
+  for (int w = 0; w < kSoftThreads / kWarp; ++w) {
+    for (int c = 0; c < 3; ++c) block[c] += s_warps[3 * w + c];
+  }
+  if (block[0] != 0ull) {
+    for (int c = 0; c < 3; ++c) atomicAdd(&sc.tally[c], block[c]);
+  }
+}
+
 // The port's layout: one thread per (point, sample), point-major.  A warp
 // adds its visible count per point (__match_any_sync groups its lanes by
 // point, at most two points for S >= 32) into counts, which start at 0.
-// W: the tree's node width, 0 for the brute sweep of the staged table
-// (dynamic shared memory: its triangles, three float4 rows each).  With
+// W: the tree's node width (dynamic shared memory: the tally's warp sums),
+// 0 for the brute sweep of the staged table (dynamic shared memory: its
+// triangles, three float4 rows each).  With
 // order, the grid strides over the count points it lists first (the count
 // is read here, so the wrapper never waits for the card), and no thread is
 // spent on a point that missed.
@@ -488,6 +535,8 @@ __device__ __forceinline__ void sample_body(const SoftArgs& a, const SoftScene& 
   }
   const long long points = a.order != nullptr ? *a.count : a.n;
   const long long total = points * a.num_samples;
+  unsigned live = 0u;  // the tree samplers' tally: live samples and their walks' work
+  WalkCount walks;
   // t0 is the same for the whole block, so every lane reaches the warp votes.
   for (long long t0 = static_cast<long long>(blockIdx.x) * blockDim.x; t0 < total;
        t0 += static_cast<long long>(gridDim.x) * blockDim.x) {
@@ -499,9 +548,10 @@ __device__ __forceinline__ void sample_body(const SoftArgs& a, const SoftScene& 
     }
     bool visible = false;
     if (i >= 0) {
+      if constexpr (W > 0) ++live;
       visible = sample_visible<kTable, W>(a, sc, s_mem, i, static_cast<int>(t % a.num_samples),
                                           a.pos[3 * i], a.pos[3 * i + 1], a.pos[3 * i + 2], k0,
-                                          k1);
+                                          k1, &walks);
     }
     const unsigned same = __match_any_sync(0xFFFFFFFFu, i);
     const int count = __popc(__ballot_sync(0xFFFFFFFFu, visible) & same);
@@ -509,7 +559,11 @@ __device__ __forceinline__ void sample_body(const SoftArgs& a, const SoftScene& 
       atomicAdd(&a.counts[i], count);
     }
   }
-  if constexpr (W == 0) tally_full_sweeps(sc, total);
+  if constexpr (W == 0) {
+    tally_full_sweeps(sc, total);
+  } else {
+    tally_walks(sc, live, walks, reinterpret_cast<unsigned long long*>(s_mem));
+  }
 }
 
 // kCull: the brute sweep culled per point (cull_body), its own
@@ -529,7 +583,8 @@ template <bool kTable, int W>
 int launch(const SoftArgs& a, const SoftScene& sc, cudaStream_t stream) {
   if (a.n <= 0 || a.num_samples <= 0) return static_cast<int>(cudaGetLastError());
   void (*kernel)(SoftArgs, SoftScene) = soft_kernel<kTable, W>;
-  size_t smem = W > 0 ? 0 : sizeof(float4) * 3 * sc.num_tris;
+  size_t smem = W > 0 ? sizeof(unsigned long long) * 3 * (kSoftThreads / kWarp)
+                      : sizeof(float4) * 3 * sc.num_tris;
   if constexpr (W == 0) {
     if (a.num_samples >= kCullMinSamples) {
       kernel = soft_kernel<kTable, 0, true>;
@@ -569,16 +624,17 @@ int cgrt_soft_brute(const float* pos, const int* order, const int* count, int n,
 // The same over a width-wide tree (2, 4 or 8) of at most 64 stack entries
 // ((width - 1) x levels + 1, ops/bvh4.py collapse_bvhw): nodes [Nw, 8 width]
 // and rows [T, 12], the tree's records (ops/bvh4.py pack_nodes, pack_tris),
-// both 16-byte aligned.
+// both 16-byte aligned.  tally (device, may be null) += (live samples,
+// internal nodes expanded, triangle tests) of the launch's walks.
 int cgrt_soft_bvh4(const float* pos, const int* order, const int* count, int n,
                    const float* light, int width, const float* nodes, const float* rows,
                    int num_samples, const unsigned* key, unsigned offset, const float* gauss,
-                   int* counts, cudaStream_t stream) {
+                   int* counts, unsigned long long* tally, cudaStream_t stream) {
   const cgrt::SoftArgs a{pos, order, count, n, light, num_samples, key, offset, gauss, counts};
   const cgrt::SoftScene sc{nullptr, 0,
                            cgrt::Tree{reinterpret_cast<const float4*>(nodes),
                                       reinterpret_cast<const float4*>(rows)},
-                           nullptr};
+                           tally};
   const bool table = gauss != nullptr;
   switch (width) {
     case 2: return table ? cgrt::launch<true, 2>(a, sc, stream)

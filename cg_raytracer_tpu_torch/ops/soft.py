@@ -46,7 +46,10 @@ tests full sweeps would make to a tally on the card (``cull_counts``,
 
 On the card the tree samplers read the tree's records (``BVH4.nodes``,
 ``BVH4.rows``, built once per tree by ``ops/bvh4.py``) through the any-hit
-walk that ``bvh4.cu`` runs too.  Every kernel launch gets the marked points
+walk that ``bvh4.cu`` runs too; their launches add their live samples and
+their walks' node visits and triangle tests, as the plain walk's ``stats=``
+counts them, to a tally on the card (``tree_sampler_counts``,
+``reset_tree_sampler_counts``).  Every kernel launch gets the marked points
 compacted on the card (``_compact``), so a frame's misses cost it no
 threads.
 
@@ -406,17 +409,35 @@ def _key_args(key, num_samples, device):
 
 
 _TALLY = {}  # device -> int64 [2]: the brute sampler's (tests kept, tests of full sweeps)
+_TREE_TALLY = {}  # device -> int64 [3]: the tree samplers' (live samples, nodes expanded, tests)
+
+
+def _made(tallies: dict, size: int, device):
+    """The tally of ``tallies`` on ``device``, made on its first launch there
+    outside a CUDA graph capture (a capture's warm-up runs eagerly first);
+    None inside a capture before that, and that launch counts nothing."""
+    t = tallies.get(device)
+    if t is None and not (device.type == "cuda" and torch.cuda.is_current_stream_capturing()):
+        t = tallies[device] = torch.zeros((size,), dtype=torch.int64, device=device)
+    return t
 
 
 def _tally(device):
-    """The brute sampler's tally on ``device``, made on its first launch
-    there outside a CUDA graph capture (a capture's warm-up runs eagerly
-    first); None inside a capture before that, and that launch counts
-    nothing."""
-    t = _TALLY.get(device)
-    if t is None and not (device.type == "cuda" and torch.cuda.is_current_stream_capturing()):
-        t = _TALLY[device] = torch.zeros((2,), dtype=torch.int64, device=device)
-    return t
+    """The brute sampler's tally on ``device`` (``_made``)."""
+    return _made(_TALLY, 2, device)
+
+
+def _tree_tally(device):
+    """The tree samplers' tally on ``device`` (``_made``)."""
+    return _made(_TREE_TALLY, 3, device)
+
+
+def _totals(tallies: dict, size: int) -> list:
+    """Every device's tally summed (waits for the card)."""
+    out = [0] * size
+    for t in tallies.values():
+        out = [a + b for a, b in zip(out, t.tolist())]
+    return out
 
 
 def cull_counts() -> tuple:
@@ -425,15 +446,25 @@ def cull_counts() -> tuple:
     since the last ``reset_cull_counts``, its graphs' replays included;
     below ``csrc/soft.cu``'s ``kCullMinSamples`` a sample keeps all.  Waits
     for the card."""
-    kept = swept = 0
-    for t in _TALLY.values():
-        k, s = t.tolist()
-        kept, swept = kept + k, swept + s
-    return kept, swept
+    return tuple(_totals(_TALLY, 2))
 
 
 def reset_cull_counts() -> None:
     for t in _TALLY.values():
+        t.zero_()
+
+
+def tree_sampler_counts() -> dict:
+    """The tree samplers' cumulative work since the last
+    ``reset_tree_sampler_counts``, their graphs' replays included:
+    'samples', the live sample rays (every sample of a marked point);
+    'visits' and 'tests', their any-hit walks' internal nodes expanded and
+    triangles tested (the plain walk's ``stats=``).  Waits for the card."""
+    return dict(zip(("samples", "visits", "tests"), _totals(_TREE_TALLY, 3)))
+
+
+def reset_tree_sampler_counts() -> None:
+    for t in _TREE_TALLY.values():
         t.zero_()
 
 
@@ -456,7 +487,8 @@ def _tree_kernel(tree, pos, light, num_samples, valid, key=None, gauss_nsc=None)
     head, _keep = _head("cgrt_soft_bvh4", pos, light, valid, gauss_nsc)
     key_args, _words = _key_args(key, num_samples, pos.device)
     ck._launch("cgrt_soft_bvh4", pos.device, *head, width, nodes, rows, *key_args,
-               ck._ptr(gauss_nsc), ck._ptr(counts))
+               ck._ptr(gauss_nsc), ck._ptr(counts), ck._ptr(_tree_tally(pos.device)))
+    # No rays: the registry's walk rays are the tree walks' (bvh4.py) alone.
     counters.count("soft4_prng_cuda" if gauss_nsc is None else "soft4_table_cuda", width)
     return counts
 

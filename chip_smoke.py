@@ -2473,16 +2473,18 @@ def build_variants(source, ablations, signatures, parent=None, parent_signatures
     return libs
 
 
-def soft_signatures(key_by_value: bool = False, tally: bool = True):
+def soft_signatures(key_by_value: bool = False, tally: bool = True, tree_tally: bool = True):
     """The samplers' argtypes; ``key_by_value``: an earlier tree's, whose
     kernels took the key's words (k0, k1) as scalars; ``tally``: whether the
-    brute sampler takes its tally's pointer (trees since its culling)."""
+    brute sampler takes its tally's pointer (trees since its culling);
+    ``tree_tally``: whether the tree samplers take theirs."""
     import ctypes
 
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     key = [u, u, u] if key_by_value else [p, u]
     return {"cgrt_soft_brute": [p, p, p, i, p, p, i, i, *key, p, p, *([p] if tally else []), p],
-            "cgrt_soft_bvh4": [p, p, p, i, p, i, p, p, i, *key, p, p, p]}
+            "cgrt_soft_bvh4": [p, p, p, i, p, i, p, p, i, *key, p, p,
+                               *([p] if tree_tally else []), p]}
 
 
 def parent_keys_by_value(parent) -> bool:
@@ -2502,8 +2504,18 @@ def parent_tally(parent) -> bool:
         return "unsigned long long* tally" in f.read()
 
 
+def parent_tree_tally(parent) -> bool:
+    """Whether the checkout ``parent``'s tree samplers take a tally."""
+    if parent is None:
+        return True
+    with open(os.path.join(parent, CSRC, "soft.cu")) as f:
+        params = f.read().split("int cgrt_soft_bvh4(")[1].split(") {")[0]
+    return "unsigned long long* tally" in params
+
+
 def parent_soft_signatures(parent):
-    return soft_signatures(key_by_value=parent_keys_by_value(parent), tally=parent_tally(parent))
+    return soft_signatures(key_by_value=parent_keys_by_value(parent), tally=parent_tally(parent),
+                           tree_tally=parent_tree_tally(parent))
 
 
 def mark_parent(variants, parent) -> None:
@@ -2511,6 +2523,7 @@ def mark_parent(variants, parent) -> None:
     if "parent" in variants:
         variants["parent"][0].key_by_value = parent_keys_by_value(parent)
         variants["parent"][0].tally = parent_tally(parent)
+        variants["parent"][0].tree_tally = parent_tree_tally(parent)
 
 
 def soft_launch(lib, target, pos, light, num, valid, key, gauss_nsc):
@@ -2534,8 +2547,9 @@ def soft_launch(lib, target, pos, light, num, valid, key, gauss_nsc):
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     tail = (*key_args, ck._ptr(gauss_nsc), ck._ptr(counts))
     if isinstance(target, b4.BVH4):
+        tally = (ctypes.c_void_p(0),) if getattr(lib, "tree_tally", True) else ()
         err = lib.cgrt_soft_bvh4(*head, target.width, ck._ptr(target.nodes),
-                                 ck._ptr(target.rows), *tail, stream)
+                                 ck._ptr(target.rows), *tail, *tally, stream)
     else:
         tally = (ctypes.c_void_p(0),) if getattr(lib, "tally", True) else ()
         err = lib.cgrt_soft_brute(*head, ck._ptr(target), target.shape[0], *tail, *tally, stream)

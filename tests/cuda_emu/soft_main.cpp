@@ -2,11 +2,11 @@
 // header (tests/test_torch_soft_memcheck.py, tests/test_torch_soft_cull.py).
 // Reads one launch's inputs from argv[1], each array into a heap buffer of
 // exactly its size, calls cgrt_soft_brute or cgrt_soft_bvh4 twice (the
-// second on zeroed counts: the tree samplers run under emu_launch, see
-// cuda_runtime.h) and writes the counts [n] int32 to argv[2], then the
-// brute sampler's tally of the second call (two uint64: tests kept, tests
-// of full sweeps).  argv[3], where given, caps the grid of the brute
-// sampler's emu_launch_threads (emu_max_grid), so that its blocks stride.
+// second on zeroed counts and tally) and writes the counts [n] int32 to
+// argv[2], then the second call's tally: the brute sampler's two uint64
+// (tests kept, tests of full sweeps), a tree sampler's three (live samples,
+// nodes expanded, triangles tested).  argv[3], where given, caps the grid
+// of emu_launch_threads (emu_max_grid), so that the blocks stride.
 //
 // Input: int64 kind (0 brute, else the tree's node width), n, num_samples,
 // num_tris, num_nodes, has_order, has_gauss, k0, k1, offset; then float32
@@ -29,7 +29,7 @@ int cgrt_soft_brute(const float* pos, const int* order, const int* count, int n,
 int cgrt_soft_bvh4(const float* pos, const int* order, const int* count, int n,
                    const float* light, int width, const float* nodes, const float* rows,
                    int num_samples, const unsigned* key, unsigned offset, const float* gauss,
-                   int* counts, cudaStream_t stream);
+                   int* counts, unsigned long long* tally, cudaStream_t stream);
 }
 
 template <class T>
@@ -62,11 +62,12 @@ int main(int argc, char** argv) {
   const float* gauss = read_array<float>(f, h[6] ? 3 * n * s : 0);
   fclose(f);
   int* counts = new int[n];
-  // The tally in a heap buffer of exactly two, as the wrapper's.
-  unsigned long long* tally = new unsigned long long[2];
+  // The tally in a heap buffer of exactly its size, as the wrapper's.
+  const int tally_size = kind ? 3 : 2;
+  unsigned long long* tally = new unsigned long long[tally_size];
   for (int pass = 0; pass < 2; ++pass) {
     memset(counts, 0, sizeof(int) * n);
-    tally[0] = tally[1] = 0;
+    memset(tally, 0, sizeof(unsigned long long) * tally_size);
     // The key words in a heap buffer of exactly two, as the wrapper's
     // device copy (none for a table launch).
     unsigned* key = h[6] ? nullptr : new unsigned[2]{static_cast<unsigned>(h[7]),
@@ -76,7 +77,7 @@ int main(int argc, char** argv) {
         kind ? cgrt_soft_bvh4(pos, order, count, n, light, static_cast<int>(kind),
                               reinterpret_cast<const float*>(records),
                               reinterpret_cast<const float*>(rows), s, key, offset, gauss,
-                              counts, nullptr)
+                              counts, tally, nullptr)
              : cgrt_soft_brute(pos, order, count, n, light, tris, num_tris, s, key, offset,
                                gauss, counts, tally, nullptr);
     delete[] key;
@@ -84,7 +85,8 @@ int main(int argc, char** argv) {
   }
   FILE* out = fopen(argv[2], "wb");
   if (out == nullptr || fwrite(counts, sizeof(int), n, out) != static_cast<size_t>(n) ||
-      fwrite(tally, sizeof(unsigned long long), 2, out) != 2)
+      fwrite(tally, sizeof(unsigned long long), tally_size, out) !=
+          static_cast<size_t>(tally_size))
     return 2;
   fclose(out);
   return 0;

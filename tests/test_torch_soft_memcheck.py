@@ -4,17 +4,18 @@ The CUDA source ``csrc/soft.cu`` (with ``bvh4.cuh``, whose any-hit walk
 the tree samplers run, and ``sweep.cuh``) is
 compiled as host C++ against the stand-in CUDA header of ``tests/cuda_emu``
 with AddressSanitizer and UBSan, and ``soft_kernel`` runs on small frames of
-the spherical box (brute sampler: a block's threads at once, so that the
-per-point masks' ``__syncthreads`` is a barrier and ``atomicOr`` an atomic,
-on a grid cut to ``BRUTE_GRID`` blocks, so that each block strides) and of
-the 1,154-triangle cup lit by ``monkey_spherical_light``'s light (cone
-sampler over the port's tree at widths 4, and 2 and 8: one thread at a
-time), every array in a heap buffer of exactly its size.  The kernel's
-dynamic shared memory (the brute sampler's triangle rows, cull rows, tally
-and masks) is a heap buffer of exactly the launch's bytes too
-(``tests/cuda_emu/cuda_runtime.h``).  Any stray load or store, in the
-kernel's index arithmetic or the tree walk's stack, aborts the run.  Its counts are then held to the plain twins: exactly for
-the table variant; for the Philox variant the host's ``logf``/``cosf``
+the spherical box (brute sampler) and of the 1,154-triangle cup lit by
+``monkey_spherical_light``'s light (cone sampler over the port's tree at
+widths 4, and 2 and 8), a block's threads at once, so that ``__syncthreads``
+(the per-point masks', the tallies') is a barrier, ``atomicOr`` an atomic
+and ``__reduce_add_sync`` a warp's sum, on a grid cut to ``EMU_GRID``
+blocks, so that each block strides, every array in a heap buffer of exactly
+its size.  The kernel's dynamic shared memory (the brute sampler's triangle
+rows, cull rows, tally and masks; the tree samplers' warp sums) is a heap
+buffer of exactly the launch's bytes too (``tests/cuda_emu/cuda_runtime.h``).
+Any stray load or store, in the kernel's index arithmetic or the tree
+walk's stack, aborts the run.  Its counts are then held to the plain twins:
+exactly for the table variant; for the Philox variant the host's ``logf``/``cosf``
 differ from PyTorch's in the last bit now and then, so on >= 99% of points
 and within 2 samples elsewhere.  Every launch has unmarked points, a stream
 that does not start at point 0, and a tail of threads past the last sample.
@@ -22,7 +23,9 @@ that does not start at point 0, and a tail of threads past the last sample.
 The kernel takes the marked points compacted (``ops/soft.py::_compact``)
 and the tree's records (``BVH4.nodes``, ``BVH4.rows``), as the wrappers
 pass them.  A planted fault proves the harness sees the walk's stack: the
-same build with the walk's stack cut from 64 entries to 4 must abort.
+same build with the walk's stack cut from 64 entries to 4 must abort.  The
+tree samplers' tally (live samples, node visits, triangle tests) is held to
+the plain walk's ``stats=`` on the same rays.
 """
 import functools
 import dataclasses
@@ -52,40 +55,22 @@ S = 200  # the reference's count: a point's samples straddle warps and blocks
 SIZE = 23  # 529 points x 200 samples: the last block has a tail of idle threads
 KEY = soft.SampleKey(2026, 4, 777_777)
 BOX_TRIS = 32
-BRUTE_GRID = 16  # the brute sampler's emulated grid: each block strides over many samples
-
-
-# The brute sampler's blocks run their threads at once (its per-point masks
-# need __syncthreads as a barrier and atomicOr as an atomic); the tree
-# samplers' run one thread at a time.
-LAUNCH_HELPER = """
-template <bool kThreads, class F, class... A>
-void emu_launch_soft(unsigned grid, unsigned block, size_t smem, cudaStream_t stream, F kernel,
-                     A... args) {
-  if constexpr (kThreads) {
-    emu_launch_threads(grid, block, smem, stream, kernel, args...);
-  } else {
-    emu_launch(grid, block, smem, stream, kernel, args...);
-  }
-}
-"""
+EMU_GRID = 16  # the emulated grid: each block strides over many samples
 
 
 def build(out, csrc, subs=(), name="soft_memcheck"):
     """The sanitized host build of ``csrc``'s soft.cu, its launch rewritten
-    to ``emu_launch_threads`` (the brute sampler) or ``emu_launch`` (the
-    tree samplers) and its dynamic shared memory to the emulator's; each of
-    ``subs`` (pattern, replacement, count) a regex substitution made first."""
+    to ``emu_launch_threads`` and its dynamic shared memory to the
+    emulator's; each of ``subs`` (pattern, replacement, count) a regex
+    substitution made first."""
     with open(os.path.join(csrc, "soft.cu")) as f:
         src = f.read()
     for pattern, repl, count in subs:
         src, made = re.subn(pattern, repl, src)
         assert made == count, f"{pattern!r} matched {made} times, not {count}"
     src, launches = re.subn(r"([\w:]+(?:<[^<>;]*>)?)<<<([^<>;]*)>>>\(",
-                            r"emu_launch_soft<W == 0>(\2, \1, ", src)
+                            r"emu_launch_threads(\2, \1, ", src)
     assert launches == 1, "soft.cu's kernel launch was not found"
-    src, helper = re.subn(r'(#include "bvh4.cuh"\n)', lambda m: m.group(1) + LAUNCH_HELPER, src)
-    assert helper == 1
     src, shared = re.subn(r"extern __shared__ (\w+) (\w+)\[\];",
                           r"\1* const \2 = emu_dynamic_shared<\1>();", src)
     assert shared == 1, "soft.cu's dynamic shared memory was not found"
@@ -141,11 +126,13 @@ def cup_tree():
 
 
 def emulate(exe, out, tag, pos, marked, light, target, gauss_nsc, num_samples=S, key=KEY,
-            max_grid=BRUTE_GRID):
+            max_grid=EMU_GRID):
     """One emulated launch, the marked points compacted as the wrappers pass
     them: ``target`` is the brute sampler's triangle table [T, 9] or a BVH4.
     (completed process, counts [N] float32 or None where it failed, the
-    brute sampler's tally (tests kept, tests of full sweeps) or None)."""
+    tally or None where it failed: the brute sampler's (tests kept, tests of
+    full sweeps), a tree sampler's (live samples, nodes expanded, triangles
+    tested))."""
     n = pos.shape[0]
     arrays = [pos, *soft._compact(marked.to(torch.uint8)), light]
     if isinstance(target, b4.BVH4):
@@ -172,7 +159,7 @@ def emulate(exe, out, tag, pos, marked, light, target, gauss_nsc, num_samples=S,
     raw = (out / f"{tag}.out").read_bytes()
     counts = torch.from_numpy(np.frombuffer(raw[:4 * n], dtype=np.int32).copy())
     tally = tuple(int(x) for x in np.frombuffer(raw[4 * n:], dtype=np.uint64))
-    return r, counts.to(torch.float32), (tally if width == 0 else None)
+    return r, counts.to(torch.float32), tally
 
 
 def run_emulated(emulator, scene, tree, pos, marked, gauss_nsc, tag, check=True):
@@ -250,3 +237,25 @@ def test_planted_stack_overflow_is_caught(tmp_path):
     # cannot type the array.
     caught = "index 4 out of bounds" in r.stderr or "stack-buffer-overflow" in r.stderr
     assert r.returncode != 0 and caught, r.stderr[-2000:]
+
+
+@pytest.mark.parametrize("width", [2, 4, 8])
+def test_tree_tally_matches_the_plain_walk(emulator, width):
+    """The tree sampler's tally of a table launch on the cup: its live
+    samples are the marked points' samples, and its walks' node visits and
+    triangle tests those the plain walk's ``stats=`` counts on the same
+    rays, exactly."""
+    scene, tree, pos, marked = frame("cup", width)
+    n = pos.shape[0]
+    g = torch.randn((S, n, 3), generator=torch.Generator().manual_seed(11 + width))
+    g_nsc = g.permute(1, 0, 2).contiguous()
+    exe, out = emulator
+    light = soft.light_row(scene.spherical_lights.position[0], scene.spherical_lights.radius[0])
+    r, got, tally = emulate(exe, out, f"tally_w{width}", pos, marked, light, tree, g_nsc)
+    assert r.returncode == 0, r.stderr[:4000]
+    stats = {}
+    want = soft._counts_plain(soft._tree_anyhit(tree, stats), pos, light, S, marked.to(torch.uint8),
+                              gauss_nsc=g_nsc)
+    assert torch.equal(got, want.to(torch.float32))
+    assert tally == (int(marked.sum()) * S, stats["visits"], stats["tests"]), (tally, stats)
+    assert stats["visits"] > tally[0] and stats["tests"] > 0
