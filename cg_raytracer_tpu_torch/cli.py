@@ -12,7 +12,9 @@ the program's ``cgrt.*`` spans (``utils/profiling.py``) above its kernels,
 and prints the shape of the scene's tree and the rays a frame hands the
 tree walks, where the scene walks one, and the share of triangle tests the
 brute soft-shadow sampler's per-point culling kept in the timed render
-(``ops/soft.py::cull_counts``), where it ran.
+(``ops/soft.py::cull_counts``), and the share of marked points the tree
+sampler's point pass listed (``ops/soft.py::tree_list_counts``), where each
+ran.
 ``optimize`` fits the scene's materials and point lights to a target image
 (``optim/inverse.py::optimize``, npz checkpoint and resume with
 ``--checkpoint``) and prints the final loss; ``--output`` renders the
@@ -128,6 +130,7 @@ def cmd_render(args) -> int:
         from .ops import soft
 
         soft.reset_cull_counts()
+        soft.reset_tree_list_counts()
     with profiler_trace(args.profile):
         t0 = time.perf_counter()
         img = render(scene, camera, cfg, generator=generator)
@@ -148,6 +151,11 @@ def cmd_render(args) -> int:
         if swept:
             print(f"brute sampler triangle tests kept: {kept} of {swept} "
                   f"({100.0 * kept / swept:.3f}%)")
+        lists = soft.tree_list_counts()
+        if lists["points"]:
+            print(f"tree sampler points listed: {lists['listed']} of {lists['points']} "
+                  f"({100.0 * lists['listed'] / lists['points']:.3f}%), led walks "
+                  f"{lists['led']}")
     if args.output.lower().endswith(".bmp"):
         write_bmp(args.output, img)
     else:

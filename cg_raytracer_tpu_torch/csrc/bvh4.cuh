@@ -151,21 +151,49 @@ struct WalkCount {
 };
 
 // Whether a triangle lies at t in [0, t_max) on the ray: the any-hit walk.
-// kCount: also add the walk's work to *count (the tree samplers' tally;
-// bvh4.cu's kernels instantiate the walk without it).
+// kCount: the tree samplers' walk (bvh4.cu's kernels instantiate the walk
+// without it), which also adds its work to *count, and whose first descent
+// the entries path[0..len) lead: at each node of that descent whose next
+// entry the ray enters, it pushes the node's other entered children and
+// takes that entry; from the first node where the ray does not enter it, or
+// past the path's end, it walks nearest first.  The walk's answer is
+// whether any leaf it may enter holds a triangle that blocks, which no
+// order changes: a path changes only how soon a blocker is met.
 template <int W, bool kCount = false>
 __device__ __forceinline__ bool occluded(const Tree& tr, const Ray& r, float t_max,
-                                         WalkCount* count = nullptr) {
+                                         WalkCount* count = nullptr,
+                                         const int* path = nullptr, int len = 0) {
   const float ix = 1.0f / r.dx, iy = 1.0f / r.dy, iz = 1.0f / r.dz;
   const float bound = padded(t_max);
   int stack[kStack];
-  int sp = 0, ref = 0;
+  int sp = 0, ref = 0, step = 0;
   for (;;) {
     if (ref >= 0) {
       if constexpr (kCount) ++count->visits;
       float ts[W];
       int es[W];
       expand<W>(tr, ref, r, ix, iy, iz, bound, ts, es);
+      if constexpr (kCount) {
+        if (step < len) {
+          const int next = __ldg(path + step);
+          bool on = false;
+#pragma unroll
+          for (int c = 0; c < W; ++c) on = on || (ts[c] < kBig && es[c] == next);
+          if (on) {
+#pragma unroll
+            for (int c = 0; c < W; ++c) {
+              if (ts[c] < kBig && es[c] != next) {
+                stack[sp] = es[c];
+                ++sp;
+              }
+            }
+            ref = next;
+            ++step;
+            continue;
+          }
+          step = len;
+        }
+      }
       // Push the others and walk the nearest now.
 #pragma unroll
       for (int c = 0; c < W - 1; ++c) {

@@ -123,7 +123,9 @@ SIGNATURES = {
     "cgrt_bvh4_anyhit": [_P, _P, _P, _I, _I] + [_P] * 3 + [_P] + [_P],
     "cgrt_bvh4_bounce": [_P, _P, _P, _I, _I] + [_P] * 3 + [_P, _I] + [_P] * 5 + [_P],
     "cgrt_soft_brute": [_P, _P, _P, _I, _P, _P, _I, _I, _P, _U, _P, _P, _P] + [_P],
-    "cgrt_soft_bvh4": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _U, _P, _P, _P] + [_P],
+    "cgrt_soft_bvh4": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _U, _P, _P, _P, _P, _P, _P,
+                       _P] + [_P],
+    "cgrt_soft_list_max": [],
     "cgrt_bloom_quirk": [_P, _I, _I] + [_P],
     "cgrt_bloom_quirk_adjoint": [_P, _P, _I, _I] + [_P],
     # csrc/level.cu: a pointer to its LevelArgs (ops/level.py::_Args), the stream.

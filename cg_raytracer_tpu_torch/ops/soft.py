@@ -46,10 +46,17 @@ tests full sweeps would make to a tally on the card (``cull_counts``,
 
 On the card the tree samplers read the tree's records (``BVH4.nodes``,
 ``BVH4.rows``, built once per tree by ``ops/bvh4.py``) through the any-hit
-walk that ``bvh4.cu`` runs too; their launches add their live samples and
-their walks' node visits and triangle tests, as the plain walk's ``stats=``
-counts them, to a tally on the card (``tree_sampler_counts``,
-``reset_tree_sampler_counts``).  Every kernel launch gets the marked points
+walk that ``bvh4.cu`` runs too, after a point pass: each marked point walks
+the tree once against the hull of its sample rays and lists the triangles
+that may block one of them; a point with at most ``list_max()`` has its
+samples test that list alone, the rest walk, led by the path of a probe
+toward the light's centre (exact: the counts are the walk's; the plain
+model of both passes is ``list_counts_plain``).  Their launches add their
+live samples, the nodes the point pass and the walks expanded and the
+triangles the sample rays tested to a tally on the card
+(``tree_sampler_counts``, ``reset_tree_sampler_counts``), and the point
+pass's own counts to another (``tree_list_counts``,
+``reset_tree_list_counts``).  Every kernel launch gets the marked points
 compacted on the card (``_compact``), so a frame's misses cost it no
 threads.
 
@@ -82,8 +89,10 @@ triangle at t in [0, t_max).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..scene.types import Scene
@@ -91,6 +100,7 @@ from ..utils import counters
 from ..utils.profiling import span
 from . import bvh4 as b4
 from . import cuda_kernels as ck
+from .intersect import moller_trumbore_edges
 
 SHADOW_EPS = 1e-3
 RAYS_PER_STEP = 1 << 21  # sample rays per step of the plain twins
@@ -365,6 +375,369 @@ def _brute_anyhit(tri):
     return lambda o, d, tm: ck._anyhit_plain(tri, o, d, tm)
 
 
+# --------------------------------------------------------------------------
+# The tree samplers' point pass (csrc/soft.cu list_body), op for op in
+# float32: its lists, and the tallies of a launch over them.
+# --------------------------------------------------------------------------
+
+_F = np.float32
+_ULP64 = _F(64.0) * _F(5.9604645e-8)  # 64 u
+
+
+def _hull(p, light):
+    """make_hull's fields for points ``p`` [m, 3] (tensors [m] each)."""
+    px, py, pz = p[:, 0], p[:, 1], p[:, 2]
+    cx, cy, cz, r = (light[k].expand_as(px) for k in range(4))
+    lam = _ULP64 * (px.abs() + py.abs() + pz.abs() + cx.abs() + cy.abs() + cz.abs() + r + 1.0)
+    eo = _F(SHADOW_EPS) * _F(1.00001) + lam
+    big_r = (r + _F(2.0) * _F(SHADOW_EPS)) * _F(1.00001) + lam
+    wx, wy, wz = cx - px, cy - py, cz - pz
+    h = torch.sqrt(wx * wx + wy * wy + wz * wz)
+    b = (eo - big_r) / h
+    return dict(px=px, py=py, pz=pz, cx=cx, cy=cy, cz=cz, r=r, lam=lam, eo=eo, big_r=big_r,
+                wx=wx / h, wy=wy / h, wz=wz / h, h=h, b=b, a=torch.sqrt(1.0 - b * b))
+
+
+def _hull_dist(hl, x, y, z):
+    """hull_dist."""
+    vx, vy, vz = x - hl["px"], y - hl["py"], z - hl["pz"]
+    ax = vx * hl["wx"] + vy * hl["wy"] + vz * hl["wz"]
+    qx, qy, qz = vx - ax * hl["wx"], vy - ax * hl["wy"], vz - ax * hl["wz"]
+    rad = torch.sqrt(qx * qx + qy * qy + qz * qz)
+    k = hl["a"] * ax - hl["b"] * rad
+    z1 = ax - hl["h"]
+    return torch.where(k < 0.0, torch.sqrt(rad * rad + ax * ax) - hl["eo"],
+                       torch.where(k > hl["a"] * hl["h"],
+                                   torch.sqrt(rad * rad + z1 * z1) - hl["big_r"],
+                                   hl["a"] * rad + hl["b"] * ax - hl["eo"]))
+
+
+def _box_near(hl, reach, lo, hi):
+    """box_near for boxes ``lo``, ``hi`` [m, 3] against their points' hulls."""
+    g = reach + hl["lam"]
+    near = lo[:, 0] <= hi[:, 0]
+    for k, (pk, ck_) in enumerate((("px", "cx"), ("py", "cy"), ("pz", "cz"))):
+        near &= ~(hi[:, k] < torch.fmin(hl[pk] - hl["eo"], hl[ck_] - hl["big_r"]) - g)
+        near &= ~(lo[:, k] > torch.fmax(hl[pk] + hl["eo"], hl[ck_] + hl["big_r"]) + g)
+    e = hi - lo
+    q = lo + _F(0.5) * e
+    rho = _F(0.5) * torch.sqrt(e[:, 0] * e[:, 0] + e[:, 1] * e[:, 1] + e[:, 2] * e[:, 2])
+    slack = _ULP64 * (q[:, 0].abs() + q[:, 1].abs() + q[:, 2].abs() + rho + 1.0)
+    far = _hull_dist(hl, q[:, 0], q[:, 1], q[:, 2]) > rho + reach + hl["lam"] + slack
+    return near & ~far
+
+
+def _may_block_tree(hl, v0, e1, e2):
+    """may_block_tree for triangles (rows [m, 3] each) against their points'
+    hulls."""
+    nx = e1[:, 1] * e2[:, 2] - e1[:, 2] * e2[:, 1]
+    ny = e1[:, 2] * e2[:, 0] - e1[:, 0] * e2[:, 2]
+    nz = e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]
+    n = torch.sqrt(nx * nx + ny * ny + nz * nz)
+    ea = torch.sqrt(e1[:, 0] * e1[:, 0] + e1[:, 1] * e1[:, 1] + e1[:, 2] * e1[:, 2])
+    eb = torch.sqrt(e2[:, 0] * e2[:, 0] + e2[:, 1] * e2[:, 1] + e2[:, 2] * e2[:, 2])
+    ab = ea * eb
+    dx, dy, dz = hl["px"] - v0[:, 0], hl["py"] - v0[:, 1], hl["pz"] - v0[:, 2]
+    cx, cy, cz = hl["cx"] - v0[:, 0], hl["cy"] - v0[:, 1], hl["cz"] - v0[:, 2]
+    length = (torch.sqrt(dx * dx + dy * dy + dz * dz) + torch.sqrt(cx * cx + cy * cy + cz * cz)
+              + hl["big_r"] + 1.0)
+    h_mt = _ULP64 * length * ab
+    hp = nx * dx + ny * dy + nz * dz
+    hc = nx * cx + ny * cy + nz * cz
+    mp = n * hl["eo"] + h_mt
+    far_c = n * hl["r"] + (n * (hl["big_r"] - hl["r"]) + h_mt)
+    culled = ((hp > mp) & (hc > far_c)) | ((hp < -mp) & (hc < -far_c))
+    den = hl["h"] + hl["big_r"]
+    off = n * (hl["eo"] - _F(SHADOW_EPS)) + h_mt
+    gap_hi, gap_lo = hc - far_c - hp, hp - far_c - hc
+    step = _F(0.99999) * _F(SHADOW_EPS)
+    culled |= (hc > far_c) & (gap_hi > 0.0) & (hp + step * gap_hi / den > off)
+    culled |= (hc < -far_c) & (gap_lo > 0.0) & (step * gap_lo / den - hp > off)
+    sigma = torch.sqrt(_ULP64 * (ab / n))
+    graze = n * length * sigma
+    guarded = (hp.abs() > mp + graze) | (hc.abs() > far_c + graze)
+    g = (e1 + e2) / _F(3.0)
+    r0 = torch.sqrt(g[:, 0] * g[:, 0] + g[:, 1] * g[:, 1] + g[:, 2] * g[:, 2])
+    f1, f2 = g - e1, g - e2
+    r1 = torch.sqrt(f1[:, 0] * f1[:, 0] + f1[:, 1] * f1[:, 1] + f1[:, 2] * f1[:, 2])
+    r2 = torch.sqrt(f2[:, 0] * f2[:, 0] + f2[:, 1] * f2[:, 1] + f2[:, 2] * f2[:, 2])
+    rho = torch.fmax(r0, torch.fmax(r1, r2))
+    m = v0 + g
+    grow = _F(4.04) * _F(1e-6) + _F(0.140625) * sigma + _F(4.0) * _F(5.9604645e-8)
+    rho_plus = (rho + grow * (ea + eb)
+                + _ULP64 * (m[:, 0].abs() + m[:, 1].abs() + m[:, 2].abs() + rho + 1.0))
+    far = (_hull_dist(hl, m[:, 0], m[:, 1], m[:, 2])
+           > rho_plus + hl["lam"] + length * (_F(0.5625) * sigma + _F(4.0) * _F(5.9604645e-8)))
+    return ~culled & ~(guarded & far)
+
+
+@torch.no_grad()
+def point_lists_plain(tree, p, light, list_max: int):
+    """The point pass on points ``p`` [m, 3] (the marked points in order)
+    against the light row ``light`` [4]: (kept [m] int32, the triangles each
+    hull kept, or past ``list_max`` -1 - L, L the length of its probe's
+    path; lists [m, 2 list_max] int32, the first ``list_max`` kept in the
+    order the pass met them, each as its row and its leaf's entry, or the
+    probe's path, -1 past them;
+    visits and tests, the nodes the pass expanded and the triangles it
+    tested, its probes' included), stepped as the kernel walks: each node's
+    entered children pushed in slot order, the last pushed walked first."""
+    m, w, dev = p.shape[0], tree.width, p.device
+    rec = tree.nodes.view(torch.int32).reshape(-1, 8 * w).long()
+    boxes = tree.nodes.reshape(-1, 8 * w)[:, :6 * w]
+    rows = tree.tris
+    hl_all = _hull(p, light)
+    reach_all = _F(3.0) * _F(1e-5) * (1.0 + hl_all["h"] + hl_all["big_r"] + hl_all["eo"])
+    stack = torch.zeros((m, b4.MAX_STACK), dtype=torch.long, device=dev)
+    sp = torch.zeros((m,), dtype=torch.long, device=dev)
+    ref = torch.zeros((m,), dtype=torch.long, device=dev)
+    live = torch.ones((m,), dtype=torch.bool, device=dev)
+    kept = torch.zeros((m,), dtype=torch.long, device=dev)
+    lists = torch.full((m, list_max + 1, 2), -1, dtype=torch.long, device=dev)
+    visits = torch.zeros((m,), dtype=torch.long, device=dev)
+    tests = torch.zeros((m,), dtype=torch.long, device=dev)
+    while bool(live.any()):
+        idx = torch.nonzero(live).squeeze(1)
+        hl = {k: v[idx] for k, v in hl_all.items()}
+        reach = reach_all[idx]
+        r_i, sp_i, st = ref[idx], sp[idx], stack[idx]
+        internal = r_i >= 0
+        visits[idx] += internal.long()
+        node = torch.where(internal, r_i, 0)
+        bx = boxes[node].reshape(-1, 6, w)
+        meta = rec[node]
+        rows_i = torch.arange(idx.numel(), device=dev)
+        for c in range(w):
+            push = internal & _box_near(hl, reach, bx[:, 0:3, c], bx[:, 3:6, c])
+            entry = torch.where(meta[:, 7 * w + c] > 0, ~(w * node + c), meta[:, 6 * w + c])
+            at = sp_i.clamp(max=b4.MAX_STACK - 1)
+            st[rows_i, at] = torch.where(push, entry, st[rows_i, at])
+            sp_i = sp_i + push.long()
+        # A leaf entry: test its triangles until the list overflows.
+        s_ = torch.where(internal, 0, ~r_i)
+        lnode, lc = s_ // w, s_ % w
+        first = rec[lnode, 6 * w + lc]
+        count = torch.where(internal, 0, rec[lnode, 7 * w + lc])
+        k_i = kept[idx]
+        for k in range(int(count.max().item()) if count.numel() else 0):
+            go = (k < count) & (k_i <= list_max)
+            tri = torch.where(go, first + k, 0)
+            tests[idx] += go.long()
+            keep = go & _may_block_tree(hl, rows[tri, 0:3], rows[tri, 3:6], rows[tri, 6:9])
+            slot = k_i.clamp(max=list_max)
+            lists[idx[keep], slot[keep], 0] = tri[keep]
+            lists[idx[keep], slot[keep], 1] = r_i[keep]
+            k_i = k_i + keep.long()
+        kept[idx] = k_i
+        done = (k_i > list_max) | (sp_i == 0)
+        sp_i = torch.where(done, sp_i, sp_i - 1)
+        ref[idx] = torch.where(done, r_i, st[rows_i, sp_i.clamp(min=0)])
+        stack[idx], sp[idx] = st, sp_i
+        live[idx[done]] = False
+    listed = kept <= list_max
+    lists = lists[:, :list_max].reshape(m, 2 * list_max)
+    kept = torch.where(listed, kept, -1)
+    # The probes of the rest: the ray toward the light's centre.
+    probe = torch.nonzero(~listed).squeeze(1)
+    stats = {"visits": int(visits.sum()), "tests": int(tests.sum())}
+    if probe.numel():
+        o, d, tm = sample_rays(p[probe], torch.zeros_like(p[probe]), light)
+        _, trail, length = led_walk_plain(tree, o, d, tm, keep=list_max, stats=stats)
+        lists[probe] = -1
+        lists[probe, :list_max] = torch.where(
+            torch.arange(list_max, device=dev) < length[:, None], trail, -1)
+        kept[probe] = -1 - length
+    return kept.to(torch.int32), lists.to(torch.int32), stats["visits"], stats["tests"]
+
+
+
+def _up(tree):
+    """up [Nw] long: W * parent + slot of each node but the root (-1)."""
+    w = tree.width
+    meta, nchild = tree.meta.long(), tree.nchild.long()
+    slots = torch.arange(w, device=meta.device)
+    inner = (slots[None, :] < nchild[:, None]) & (meta[:, w:2 * w] == 0)
+    parent = torch.arange(meta.shape[0], device=meta.device)[:, None] * w + slots[None, :]
+    up = torch.full((meta.shape[0],), -1, dtype=torch.long, device=meta.device)
+    up[meta[:, 0:w][inner]] = parent[inner]
+    return up
+
+
+def reaches_plain(tree, up, entry, o, d, tm):
+    """csrc/soft.cu reaches: whether each ray's any-hit walk enters its leaf
+    entry ``entry`` [n] (every box from the leaf's up to the root's child)."""
+    w = tree.width
+    inv = 1.0 / d
+    bound = b4._padded(tm)
+    s_ = ~entry.long()
+    ok = torch.ones(entry.shape, dtype=torch.bool, device=o.device)
+    going = ok.clone()
+    while bool(going.any()):
+        node, c = s_ // w, s_ % w
+        tin, hit = b4._slab(o[:, 0], o[:, 1], o[:, 2], inv[:, 0], inv[:, 1], inv[:, 2],
+                            tree.boxes[node], w)
+        rows_ = torch.arange(node.shape[0], device=o.device)
+        passed = hit[rows_, c] & (tin[rows_, c] <= bound)
+        ok &= ~going | passed
+        going &= passed & (node != 0)
+        s_ = torch.where(going, up[node], s_)
+    return ok
+
+
+@torch.no_grad()
+def led_walk_plain(tree, o, d, tm, path=None, length=None, keep: int = 0, stats=None):
+    """The tree samplers' any-hit walk (``csrc/bvh4.cuh`` occluded<W, true>)
+    of rays ``o``, ``d``, ``tm`` [n], stepped as the kernel walks it: each
+    ray's first descent led by its entries ``path`` [n, L] (``length`` [n]
+    of them), nearest first from where its ray does not enter the next one.
+    -> (blocked [n] bool, trail [n, keep] long, trail_len [n] long): with
+    ``keep``, the first ``keep`` entries of the path from the root to the
+    leaf of each blocked ray's blocker (the point pass's probe).  ``stats``
+    as ``bvh4._traverse_plain``'s."""
+    n, dev, w = o.shape[0], o.device, tree.width
+    if path is None:
+        path = torch.zeros((n, 1), dtype=torch.long, device=dev)
+        length = torch.zeros((n,), dtype=torch.long, device=dev)
+    path, length = path.long(), length.long()
+    stack = torch.zeros((n, b4.MAX_STACK), dtype=torch.long, device=dev)
+    depth_st = torch.zeros((n, b4.MAX_STACK if keep else 1), dtype=torch.long, device=dev)
+    sp = (tm > 0.0).long()
+    step = torch.zeros((n,), dtype=torch.long, device=dev)
+    blocked = torch.zeros((n,), dtype=torch.bool, device=dev)
+    trail = torch.full((n, max(keep, 1)), -1, dtype=torch.long, device=dev)
+    trail_len = torch.zeros((n,), dtype=torch.long, device=dev)
+    inv = 1.0 / d
+    bound = b4._padded(tm)
+    meta, nchild = tree.meta.long(), tree.nchild.long()
+    lanes = torch.arange(w, device=dev)
+    top = b4.MAX_STACK - 1
+    visits = tests = 0
+    while True:
+        idx = torch.nonzero(sp > 0).squeeze(1)
+        if idx.numel() == 0:
+            break
+        rows = torch.arange(idx.numel(), device=dev)
+        st, dst = stack[idx], depth_st[idx]
+        sp_i = sp[idx] - 1
+        ref = st[rows, sp_i]
+        dep = dst[rows, sp_i] if keep else None  # depths only where a trail is kept
+        if keep:
+            at = (dep >= 1) & (dep <= keep)
+            trail[idx[at], dep[at] - 1] = ref[at]
+        internal = ref >= 0
+        node = torch.where(internal, ref, 0)
+        oi, di = o[idx], d[idx]
+        tin, hit = b4._slab(oi[:, 0], oi[:, 1], oi[:, 2], inv[idx, 0], inv[idx, 1], inv[idx, 2],
+                            tree.boxes[node], w)
+        hit = hit & (lanes < nchild[node][:, None]) & (tin <= bound[idx, None]) & internal[:, None]
+        m = meta[node]
+        tv = list(torch.where(hit, tin, b4._BIG).unbind(1))
+        ev = list(torch.where(m[:, w:2 * w] > 0, ~(w * node[:, None] + lanes),
+                              m[:, 0:w]).unbind(1))
+        for a_, b_ in b4.SORT_NET[w]:
+            sw = tv[a_] <= tv[b_] if w == 2 else tv[a_] < tv[b_]
+            tv[a_], tv[b_] = torch.where(sw, tv[b_], tv[a_]), torch.where(sw, tv[a_], tv[b_])
+            ev[a_], ev[b_] = torch.where(sw, ev[b_], ev[a_]), torch.where(sw, ev[a_], ev[b_])
+        step_i, len_i = step[idx], length[idx]
+        lead = internal & (step_i < len_i)
+        nxt = path[idx, step_i.clamp(max=path.shape[1] - 1)]
+        on = torch.zeros_like(lead)
+        for tc, ec in zip(tv, ev):
+            on |= lead & (tc < b4._BIG) & (ec == nxt)
+        step[idx] = torch.where(on, step_i + 1, torch.where(lead, len_i, step_i))
+        # The kernel takes the nearest (or the path's entry) without a push:
+        # here it is pushed last and popped next.
+        for tc, ec in zip(tv, ev):
+            push = (tc < b4._BIG) & ~(on & (ec == nxt))
+            at = sp_i.clamp(max=top)
+            st[rows, at] = torch.where(push, ec, st[rows, at])
+            if keep:
+                dst[rows, at] = torch.where(push, dep + 1, dst[rows, at])
+            sp_i = sp_i + push.long()
+        at = sp_i.clamp(max=top)
+        st[rows, at] = torch.where(on, nxt, st[rows, at])
+        if keep:
+            dst[rows, at] = torch.where(on, dep + 1, dst[rows, at])
+        sp_i = sp_i + on.long()
+        visits += int(internal.sum())
+        # A leaf entry: its triangles up to the first that blocks.
+        s_ = torch.where(internal, 0, ~ref)
+        lnode, lc = s_ // w, s_ % w
+        first = meta[lnode, lc]
+        cnt = torch.where(internal, 0, meta[lnode, w + lc])
+        found = torch.zeros_like(internal)
+        for k in range(int(cnt.max().item()) if cnt.numel() else 0):
+            go = (k < cnt) & ~found
+            tri = tree.tris[torch.where(go, first + k, 0)]
+            t, _, _, ok = moller_trumbore_edges(oi, di, tri[:, 0:3], tri[:, 3:6], tri[:, 6:9])
+            tests += int(go.sum())
+            found |= go & ok & (t < tm[idx])
+        blocked[idx[found]] = True
+        if keep:
+            trail_len[idx[found]] = dep[found].clamp(max=keep)
+        stack[idx], depth_st[idx] = st, dst
+        sp[idx] = torch.where(found, 0, sp_i)
+    if stats is not None:
+        stats["visits"] = stats.get("visits", 0) + visits
+        stats["tests"] = stats.get("tests", 0) + tests
+    return blocked, trail[:, :keep], trail_len
+
+
+@torch.no_grad()
+def list_counts_plain(tree, pos, light, num_samples, valid, list_max: int, key=None,
+                      gauss_nsc=None):
+    """The plain model of a tree sampler's launch with its point pass: the
+    counts [N] int32 (those of the walk alone), the tree tally (live
+    samples; the pass's nodes and the walks' nodes expanded; the sample
+    rays' list tests and walk tests) and the list tally (``LIST_KEYS``).  A
+    listed point's sample tests its list in order up to its first blocker
+    whose leaf its walk reaches (``reaches_plain``); the rest walk, led by
+    their points' probe paths (``led_walk_plain``)."""
+    n, dev = pos.shape[0], pos.device
+    counts = torch.zeros((n,), dtype=torch.int32, device=dev)
+    rows = (torch.arange(n, device=dev) if valid is None
+            else torch.nonzero(valid.to(dev)).squeeze(1))
+    m = rows.numel()
+    kept, lists, p_visits, p_tests = point_lists_plain(tree, pos[rows], light, list_max)
+    listed = kept >= 0
+    length = kept.clamp_min(0).long()
+    stats = {"visits": 0, "tests": 0}
+    samples = torch.arange(num_samples, device=dev)
+    g = (philox_gauss(key, rows, samples) if gauss_nsc is None else gauss_nsc[rows])
+    o, d, tm = sample_rays(pos[rows][:, None, :], g, light)
+    live = tm > 0.0
+    # Each listed sample's first blocker in its point's list whose leaf its
+    # walk reaches (length: none).
+    up = _up(tree)
+    first = length[:, None].expand(m, num_samples).clone()
+    for q in range(int(length.max().item()) - 1 if m else -1, -1, -1):
+        tri = tree.tris[lists[:, 2 * q].long().clamp_min(0)]
+        t, _, _, ok = moller_trumbore_edges(o, d, tri[:, None, 0:3], tri[:, None, 3:6],
+                                            tri[:, None, 6:9])
+        ok = (q < length)[:, None] & ok & (t < tm)
+        if bool(ok.any()):
+            leaf = lists[:, 2 * q + 1].long()[:, None].expand(m, num_samples)
+            ok[ok.clone()] = reaches_plain(tree, up, leaf[ok], o[ok], d[ok], tm[ok])
+        first = torch.where(ok, q, first)
+    on_list = live & listed[:, None]
+    hit = on_list & (first < length[:, None])
+    list_tests = int(torch.where(hit, first + 1, length[:, None])[on_list].sum())
+    blocked = hit.clone()
+    walk = live & ~listed[:, None]
+    sel = walk.reshape(-1)
+    if bool(sel.any()):
+        led = torch.where(listed, 0, -1 - kept.long())[:, None].expand(m, num_samples)
+        path = lists.long()[:, None, :list_max].expand(m, num_samples, list_max)
+        blocked.reshape(-1)[sel] = led_walk_plain(
+            tree, o.reshape(-1, 3)[sel], d.reshape(-1, 3)[sel], tm.reshape(-1)[sel],
+            path.reshape(-1, list_max)[sel], led.reshape(-1)[sel], stats=stats)[0]
+    counts[rows] = (~blocked).sum(dim=1, dtype=torch.int32)
+    tree_tally = (m * num_samples, p_visits + stats["visits"], list_tests + stats["tests"])
+    list_tally = (m, int(listed.sum()), int(kept[listed].sum()), p_visits, p_tests,
+                  int((kept < -1).sum()))
+    return counts, tree_tally, list_tally
+
+
 def _tree_anyhit(tree, stats=None):
     """The twin walk; ``stats`` (a dict) gathers its node visits and tests."""
     return lambda o, d, tm: b4._anyhit_plain(tree, o, d, tm, stats=stats)
@@ -410,6 +783,8 @@ def _key_args(key, num_samples, device):
 
 _TALLY = {}  # device -> int64 [2]: the brute sampler's (tests kept, tests of full sweeps)
 _TREE_TALLY = {}  # device -> int64 [3]: the tree samplers' (live samples, nodes expanded, tests)
+_LIST_TALLY = {}  # device -> int64 [6]: the tree samplers' point pass (LIST_KEYS)
+LIST_KEYS = ("points", "listed", "kept", "visits", "tests", "led")
 
 
 def _made(tallies: dict, size: int, device):
@@ -430,6 +805,11 @@ def _tally(device):
 def _tree_tally(device):
     """The tree samplers' tally on ``device`` (``_made``)."""
     return _made(_TREE_TALLY, 3, device)
+
+
+def _list_tally(device):
+    """The tree samplers' point-pass tally on ``device`` (``_made``)."""
+    return _made(_LIST_TALLY, len(LIST_KEYS), device)
 
 
 def _totals(tallies: dict, size: int) -> list:
@@ -458,14 +838,40 @@ def tree_sampler_counts() -> dict:
     """The tree samplers' cumulative work since the last
     ``reset_tree_sampler_counts``, their graphs' replays included:
     'samples', the live sample rays (every sample of a marked point);
-    'visits' and 'tests', their any-hit walks' internal nodes expanded and
-    triangles tested (the plain walk's ``stats=``).  Waits for the card."""
+    'visits', the internal nodes expanded by the point pass and by the sample
+    rays' walks; 'tests', the triangles the sample rays tested, in their
+    points' lists and in their walks (the plain model ``list_counts_plain``).
+    Waits for the card."""
     return dict(zip(("samples", "visits", "tests"), _totals(_TREE_TALLY, 3)))
 
 
 def reset_tree_sampler_counts() -> None:
     for t in _TREE_TALLY.values():
         t.zero_()
+
+
+def tree_list_counts() -> dict:
+    """The tree samplers' point pass since the last ``reset_tree_list_counts``,
+    their graphs' replays included: 'points', the marked points; 'listed',
+    those whose hull kept at most ``list_max()`` triangles (their samples test
+    the list, the rest walk the tree); 'kept', the triangles kept on listed
+    points; 'visits' and 'tests', the pass's internal nodes expanded and
+    triangles tested.  Waits for the card."""
+    return dict(zip(LIST_KEYS, _totals(_LIST_TALLY, len(LIST_KEYS))))
+
+
+def reset_tree_list_counts() -> None:
+    for t in _LIST_TALLY.values():
+        t.zero_()
+
+
+@functools.lru_cache(maxsize=None)
+def list_max() -> int:
+    """K: the longest list a point keeps (``csrc/soft.cu``'s ``kListMax``,
+    read from the kernel library once)."""
+    from . import _build
+
+    return int(_build.load().cgrt_soft_list_max())
 
 
 def _brute_kernel(tri, pos, light, num_samples, valid, key=None, gauss_nsc=None):
@@ -482,12 +888,18 @@ def _brute_kernel(tri, pos, light, num_samples, valid, key=None, gauss_nsc=None)
 
 def _tree_kernel(tree, pos, light, num_samples, valid, key=None, gauss_nsc=None):
     """A tree sampler's launch."""
-    counts = torch.zeros((pos.shape[0],), dtype=torch.int32, device=pos.device)
+    n = pos.shape[0]
+    counts = torch.zeros((n,), dtype=torch.int32, device=pos.device)
     width, nodes, rows, _ = b4._tree_args("cgrt_soft_bvh4", tree, pos.device)
     head, _keep = _head("cgrt_soft_bvh4", pos, light, valid, gauss_nsc)
     key_args, _words = _key_args(key, num_samples, pos.device)
-    ck._launch("cgrt_soft_bvh4", pos.device, *head, width, nodes, rows, *key_args,
-               ck._ptr(gauss_nsc), ck._ptr(counts), ck._ptr(_tree_tally(pos.device)))
+    # The point pass's lists: scratch the kernels write before they read it.
+    lists = torch.empty((n, 2 * list_max()), dtype=torch.int32, device=pos.device)
+    kept = torch.empty((n,), dtype=torch.int32, device=pos.device)
+    up = torch.empty((tree.num_nodes,), dtype=torch.int32, device=pos.device)
+    ck._launch("cgrt_soft_bvh4", pos.device, *head, width, nodes, rows, tree.num_nodes,
+               *key_args, ck._ptr(gauss_nsc), ck._ptr(counts), ck._ptr(_tree_tally(pos.device)),
+               ck._ptr(lists), ck._ptr(kept), ck._ptr(up), ck._ptr(_list_tally(pos.device)))
     # No rays: the registry's walk rays are the tree walks' (bvh4.py) alone.
     counters.count("soft4_prng_cuda" if gauss_nsc is None else "soft4_table_cuda", width)
     return counts

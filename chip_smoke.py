@@ -2473,18 +2473,21 @@ def build_variants(source, ablations, signatures, parent=None, parent_signatures
     return libs
 
 
-def soft_signatures(key_by_value: bool = False, tally: bool = True, tree_tally: bool = True):
+def soft_signatures(key_by_value: bool = False, tally: bool = True, tree_tally: bool = True,
+                    lists: bool = True):
     """The samplers' argtypes; ``key_by_value``: an earlier tree's, whose
     kernels took the key's words (k0, k1) as scalars; ``tally``: whether the
     brute sampler takes its tally's pointer (trees since its culling);
-    ``tree_tally``: whether the tree samplers take theirs."""
+    ``tree_tally``: whether the tree samplers take theirs; ``lists``: whether
+    they take the tree's node count and the point pass's scratch and tally
+    (trees since the per-point lists)."""
     import ctypes
 
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     key = [u, u, u] if key_by_value else [p, u]
     return {"cgrt_soft_brute": [p, p, p, i, p, p, i, i, *key, p, p, *([p] if tally else []), p],
-            "cgrt_soft_bvh4": [p, p, p, i, p, i, p, p, i, *key, p, p,
-                               *([p] if tree_tally else []), p]}
+            "cgrt_soft_bvh4": [p, p, p, i, p, i, p, p, *([i] if lists else []), i, *key, p, p,
+                               *([p] if tree_tally else []), *([p] * 4 if lists else []), p]}
 
 
 def parent_keys_by_value(parent) -> bool:
@@ -2513,9 +2516,18 @@ def parent_tree_tally(parent) -> bool:
     return "unsigned long long* tally" in params
 
 
+def parent_lists(parent) -> bool:
+    """Whether the checkout ``parent``'s tree samplers run the point pass."""
+    if parent is None:
+        return True
+    with open(os.path.join(parent, CSRC, "soft.cu")) as f:
+        params = f.read().split("int cgrt_soft_bvh4(")[1].split(") {")[0]
+    return "int* lists" in params
+
+
 def parent_soft_signatures(parent):
     return soft_signatures(key_by_value=parent_keys_by_value(parent), tally=parent_tally(parent),
-                           tree_tally=parent_tree_tally(parent))
+                           tree_tally=parent_tree_tally(parent), lists=parent_lists(parent))
 
 
 def mark_parent(variants, parent) -> None:
@@ -2524,6 +2536,7 @@ def mark_parent(variants, parent) -> None:
         variants["parent"][0].key_by_value = parent_keys_by_value(parent)
         variants["parent"][0].tally = parent_tally(parent)
         variants["parent"][0].tree_tally = parent_tree_tally(parent)
+        variants["parent"][0].lists = parent_lists(parent)
 
 
 def soft_launch(lib, target, pos, light, num, valid, key, gauss_nsc):
@@ -2548,8 +2561,16 @@ def soft_launch(lib, target, pos, light, num, valid, key, gauss_nsc):
     tail = (*key_args, ck._ptr(gauss_nsc), ck._ptr(counts))
     if isinstance(target, b4.BVH4):
         tally = (ctypes.c_void_p(0),) if getattr(lib, "tree_tally", True) else ()
+        nodes, scratch = (), ()
+        if getattr(lib, "lists", True):
+            n, dev = pos.shape[0], pos.device
+            nodes = (target.num_nodes,)
+            keep = (torch.empty((n, 2 * lib.cgrt_soft_list_max()), dtype=torch.int32, device=dev),
+                    torch.empty((n,), dtype=torch.int32, device=dev),
+                    torch.empty((target.num_nodes,), dtype=torch.int32, device=dev))
+            scratch = (*(ck._ptr(x) for x in keep), ctypes.c_void_p(0))
         err = lib.cgrt_soft_bvh4(*head, target.width, ck._ptr(target.nodes),
-                                 ck._ptr(target.rows), *tail, *tally, stream)
+                                 ck._ptr(target.rows), *nodes, *tail, *tally, *scratch, stream)
     else:
         tally = (ctypes.c_void_p(0),) if getattr(lib, "tally", True) else ()
         err = lib.cgrt_soft_brute(*head, ck._ptr(target), target.shape[0], *tail, *tally, stream)

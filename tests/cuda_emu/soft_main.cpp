@@ -2,11 +2,16 @@
 // header (tests/test_torch_soft_memcheck.py, tests/test_torch_soft_cull.py).
 // Reads one launch's inputs from argv[1], each array into a heap buffer of
 // exactly its size, calls cgrt_soft_brute or cgrt_soft_bvh4 twice (the
-// second on zeroed counts and tally) and writes the counts [n] int32 to
-// argv[2], then the second call's tally: the brute sampler's two uint64
-// (tests kept, tests of full sweeps), a tree sampler's three (live samples,
-// nodes expanded, triangles tested).  argv[3], where given, caps the grid
-// of emu_launch_threads (emu_max_grid), so that the blocks stride.
+// second on zeroed counts and tallies, the lists' scratch left as the first
+// call wrote it) and writes the counts [n] int32 to argv[2], then the second
+// call's tally: the brute sampler's two uint64 (tests kept, tests of full
+// sweeps), a tree sampler's three (live samples, nodes expanded, triangles
+// tested), then its list tally's six uint64 (marked points, listed points,
+// triangles kept, the point pass's nodes expanded and triangles tested,
+// points whose walks a path leads), its kept [n] int32 and its lists [n, K]
+// int32 (K = cgrt_soft_list_max()).
+// argv[3], where given, caps the grid of emu_launch_threads (emu_max_grid),
+// so that the blocks stride.
 //
 // Input: int64 kind (0 brute, else the tree's node width), n, num_samples,
 // num_tris, num_nodes, has_order, has_gauss, k0, k1, offset; then float32
@@ -28,8 +33,10 @@ int cgrt_soft_brute(const float* pos, const int* order, const int* count, int n,
                     unsigned long long* tally, cudaStream_t stream);
 int cgrt_soft_bvh4(const float* pos, const int* order, const int* count, int n,
                    const float* light, int width, const float* nodes, const float* rows,
-                   int num_samples, const unsigned* key, unsigned offset, const float* gauss,
-                   int* counts, unsigned long long* tally, cudaStream_t stream);
+                   int num_nodes, int num_samples, const unsigned* key, unsigned offset,
+                   const float* gauss, int* counts, unsigned long long* tally, int* lists,
+                   int* kept, int* up, unsigned long long* list_tally, cudaStream_t stream);
+int cgrt_soft_list_max();
 }
 
 template <class T>
@@ -65,9 +72,18 @@ int main(int argc, char** argv) {
   // The tally in a heap buffer of exactly its size, as the wrapper's.
   const int tally_size = kind ? 3 : 2;
   unsigned long long* tally = new unsigned long long[tally_size];
+  // The point pass's scratch and tally, each of exactly its size.
+  const long long list_size = kind ? 2 * n * cgrt_soft_list_max() : 0;
+  int* lists = kind ? new int[list_size] : nullptr;
+  int* kept = kind ? new int[n] : nullptr;
+  int* up = kind ? new int[nodes] : nullptr;
+  unsigned long long* list_tally = kind ? new unsigned long long[6] : nullptr;
+  for (long long q = 0; kind && q < n; ++q) kept[q] = -2;  // never written: -2
+  for (long long q = 0; q < list_size; ++q) lists[q] = -2;
   for (int pass = 0; pass < 2; ++pass) {
     memset(counts, 0, sizeof(int) * n);
     memset(tally, 0, sizeof(unsigned long long) * tally_size);
+    if (kind) memset(list_tally, 0, sizeof(unsigned long long) * 6);
     // The key words in a heap buffer of exactly two, as the wrapper's
     // device copy (none for a table launch).
     unsigned* key = h[6] ? nullptr : new unsigned[2]{static_cast<unsigned>(h[7]),
@@ -76,8 +92,9 @@ int main(int argc, char** argv) {
     const int err =
         kind ? cgrt_soft_bvh4(pos, order, count, n, light, static_cast<int>(kind),
                               reinterpret_cast<const float*>(records),
-                              reinterpret_cast<const float*>(rows), s, key, offset, gauss,
-                              counts, tally, nullptr)
+                              reinterpret_cast<const float*>(rows), static_cast<int>(nodes), s,
+                              key, offset, gauss, counts, tally, lists, kept, up, list_tally,
+                              nullptr)
              : cgrt_soft_brute(pos, order, count, n, light, tris, num_tris, s, key, offset,
                                gauss, counts, tally, nullptr);
     delete[] key;
@@ -87,6 +104,10 @@ int main(int argc, char** argv) {
   if (out == nullptr || fwrite(counts, sizeof(int), n, out) != static_cast<size_t>(n) ||
       fwrite(tally, sizeof(unsigned long long), tally_size, out) !=
           static_cast<size_t>(tally_size))
+    return 2;
+  if (kind && (fwrite(list_tally, sizeof(unsigned long long), 6, out) != 6 ||
+               fwrite(kept, sizeof(int), n, out) != static_cast<size_t>(n) ||
+               fwrite(lists, sizeof(int), list_size, out) != static_cast<size_t>(list_size)))
     return 2;
   fclose(out);
   return 0;

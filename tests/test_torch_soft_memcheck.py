@@ -24,8 +24,10 @@ The kernel takes the marked points compacted (``ops/soft.py::_compact``)
 and the tree's records (``BVH4.nodes``, ``BVH4.rows``), as the wrappers
 pass them.  A planted fault proves the harness sees the walk's stack: the
 same build with the walk's stack cut from 64 entries to 4 must abort.  The
-tree samplers' tally (live samples, node visits, triangle tests) is held to
-the plain walk's ``stats=`` on the same rays.
+tree samplers' tallies (live samples, node visits, triangle tests; the point
+pass's own) are held to the plain model of the point pass and the sample
+rays' lists and led walks (``soft.list_counts_plain``) on the same rays, and
+their counts to the plain walk's.
 """
 import functools
 import dataclasses
@@ -126,13 +128,16 @@ def cup_tree():
 
 
 def emulate(exe, out, tag, pos, marked, light, target, gauss_nsc, num_samples=S, key=KEY,
-            max_grid=EMU_GRID):
+            max_grid=EMU_GRID, lists=False):
     """One emulated launch, the marked points compacted as the wrappers pass
     them: ``target`` is the brute sampler's triangle table [T, 9] or a BVH4.
     (completed process, counts [N] float32 or None where it failed, the
     tally or None where it failed: the brute sampler's (tests kept, tests of
     full sweeps), a tree sampler's (live samples, nodes expanded, triangles
-    tested))."""
+    tested)); with ``lists``, a tree sampler's point pass too: its list
+    tally (marked, listed, kept, its nodes expanded, its triangles tested),
+    kept [N] int32 (per marked point in order; -1 walks, -2 never written)
+    and lists [N, K] int32."""
     n = pos.shape[0]
     arrays = [pos, *soft._compact(marked.to(torch.uint8)), light]
     if isinstance(target, b4.BVH4):
@@ -158,8 +163,14 @@ def emulate(exe, out, tag, pos, marked, light, target, gauss_nsc, num_samples=S,
         return r, None, None
     raw = (out / f"{tag}.out").read_bytes()
     counts = torch.from_numpy(np.frombuffer(raw[:4 * n], dtype=np.int32).copy())
-    tally = tuple(int(x) for x in np.frombuffer(raw[4 * n:], dtype=np.uint64))
-    return r, counts.to(torch.float32), tally
+    size = 3 if width else 2
+    tally = tuple(int(x) for x in np.frombuffer(raw[4 * n:4 * n + 8 * size], dtype=np.uint64))
+    if not lists:
+        return r, counts.to(torch.float32), tally
+    rest = raw[4 * n + 8 * size:]
+    list_tally = tuple(int(x) for x in np.frombuffer(rest[:48], dtype=np.uint64))
+    ints = torch.from_numpy(np.frombuffer(rest[48:], dtype=np.int32).copy())
+    return r, counts.to(torch.float32), tally, (list_tally, ints[:n], ints[n:].reshape(n, -1))
 
 
 def run_emulated(emulator, scene, tree, pos, marked, gauss_nsc, tag, check=True):
@@ -241,21 +252,34 @@ def test_planted_stack_overflow_is_caught(tmp_path):
 
 @pytest.mark.parametrize("width", [2, 4, 8])
 def test_tree_tally_matches_the_plain_walk(emulator, width):
-    """The tree sampler's tally of a table launch on the cup: its live
-    samples are the marked points' samples, and its walks' node visits and
-    triangle tests those the plain walk's ``stats=`` counts on the same
-    rays, exactly."""
+    """The tree sampler's tallies of a table launch on the cup: its counts
+    are the plain walk's; its live samples are the marked points' samples,
+    and its node visits and triangle tests, and its point pass's tally
+    (marked, listed, kept, the pass's visits and tests, led), those the plain
+    model of the point pass and the sample rays' lists and led walks
+    (``soft.list_counts_plain``) counts on the same rays, exactly."""
     scene, tree, pos, marked = frame("cup", width)
     n = pos.shape[0]
     g = torch.randn((S, n, 3), generator=torch.Generator().manual_seed(11 + width))
     g_nsc = g.permute(1, 0, 2).contiguous()
     exe, out = emulator
     light = soft.light_row(scene.spherical_lights.position[0], scene.spherical_lights.radius[0])
-    r, got, tally = emulate(exe, out, f"tally_w{width}", pos, marked, light, tree, g_nsc)
+    r, got, tally, (list_tally, _, _) = emulate(exe, out, f"tally_w{width}", pos, marked, light,
+                                                tree, g_nsc, lists=True)
     assert r.returncode == 0, r.stderr[:4000]
     stats = {}
     want = soft._counts_plain(soft._tree_anyhit(tree, stats), pos, light, S, marked.to(torch.uint8),
                               gauss_nsc=g_nsc)
     assert torch.equal(got, want.to(torch.float32))
-    assert tally == (int(marked.sum()) * S, stats["visits"], stats["tests"]), (tally, stats)
-    assert stats["visits"] > tally[0] and stats["tests"] > 0
+    with open(os.path.join(CSRC, "soft.cu")) as f:
+        k = int(re.search(r"constexpr int kListMax = (\d+);", f.read()).group(1))
+    counts, tree_tally, model_lists = soft.list_counts_plain(
+        tree, pos, light, S, marked.to(torch.uint8), k, gauss_nsc=g_nsc)
+    assert torch.equal(counts, want)
+    m = int(marked.sum())
+    assert tally == tree_tally and tally[0] == m * S, (tally, tree_tally)
+    assert list_tally == model_lists, (list_tally, model_lists)
+    assert dict(zip(soft.LIST_KEYS, list_tally))["points"] == m
+    # Listed points and led walks both occur; the lists spare node visits.
+    assert 0 < list_tally[1] < m and list_tally[5] > 0
+    assert tally[1] < stats["visits"] and tally[2] > 0
